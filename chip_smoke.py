@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
+
+    python3 chip_smoke.py [--seed S]
+
+Phases, each of which ends the run with a non-zero exit at its first
+failure:
+
+1. environment: the card's name and power limit (``nvidia-smi``), the
+   torch and CUDA versions;
+2. build: the ``policy_scan`` kernels from ``csrc/``, with the build time;
+3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
+   validity row, generated on the card from a seed with f32-exact values;
+   ``policy_scan_batch`` and ``policy_scan`` are held to their plain
+   PyTorch versions (masks and rule indices identical, aggregates within
+   ``rtol=1e-5, atol=1``: f32 sums of more than 2^24 units round in any
+   order) and timed with CUDA events (median after a warm-up) beside the
+   least time the card could take;
+4. engine: a 2^20-entry catalog, one policy (scope, two rules, LRU sort,
+   a recording batch action) run through ``PolicyEngine.run`` with
+   ``evaluator="policy_scan"`` on the card and with ``evaluator="numpy"``:
+   the actioned (fid, rule params) sequences must be identical, with and
+   without budgets, and the run must have launched the batch kernel once;
+   the batch kernel is held to its plain version on the policy's programs
+   and this catalog's column stack; then ``scan_catalog`` must launch the
+   single-program kernel once and ``match_programs(single_launch=False)``
+   once per program, each path counted on its own, and both must agree
+   with the batch path.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
+the repository beside this file, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+NOW = 16_000_000.0              # f32-exact "now" for every phase
+TOL = dict(rtol=1e-5, atol=1.0)
+ROWS = 1 << 27                  # kernel phase: rows on the card
+ENTRIES = 1 << 20               # engine phase: catalog entries
+REPS = 10                       # timed calls per kernel and plain version
+BATCH_CRITERIA = ["(size > 1GB or owner == 'u1') and type == file",
+                  "size > 1GB", "owner == 'u1'",
+                  "not (type == file and size <= 32M)"]
+TPU_KERNELS = {
+    "policy_scan_batch": "src/repro/kernels/policy_scan/kernel.py:237",
+    "policy_scan": "src/repro/kernels/policy_scan/kernel.py:131",
+}
+KERNEL_SOURCE = "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_times_ms(fn, reps: int, warmup: int = 2):
+    """Median and all per-call times (ms) of ``fn()`` by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), times
+
+
+def bound_ms(n: int, ops, colidx, size_col: int, blocks_col: int,
+             valid_col: int, with_rule: bool):
+    """Least time for one scan: each input read once, each output written
+    once, over the memory rate; or the f32 work over its peak rate."""
+    live = ops >= 0
+    is_cmp = live & (ops < 6)
+    read_cols = set(colidx[is_cmp].tolist()) | {size_col, blocks_col,
+                                                valid_col}
+    n_progs = ops.shape[0]
+    bytes_moved = 4 * n * (len(read_cols) + n_progs + (1 if with_rule
+                                                        else 0))
+    # per row and program: its live instructions, 2 multiplies and 14
+    # additions / maxima for the aggregates
+    operations = n * (int(live.sum()) + 16 * n_progs)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = operations / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved, operations)
+
+
+def make_columns(torch, n: int, seed: int, device):
+    """(17, n) f32 on the card: the 16 KERNEL_COLUMNS plus validity, every
+    value exact in f32 (sizes/blocks multiples of 4 KiB below 2^36, times
+    integers below 2^24)."""
+    from repro_torch.core.policy import KERNEL_COLUMNS
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    ranges = {"size": (0, 1 << 24, 4096), "blocks": (0, 1 << 24, 4096),
+              "nlink": (1, 4, 1), "ost_idx": (0, 16, 1),
+              "archive_id": (0, 4, 1), "mode": (0, 512, 1),
+              "dirty": (0, 2, 1), "atime": (0, 1 << 24, 1),
+              "mtime": (0, 1 << 24, 1), "ctime": (0, 1 << 24, 1),
+              "type": (0, 2, 1), "hsm_state": (0, 7, 1),
+              "owner": (0, 8, 1), "group": (0, 4, 1), "pool": (0, 3, 1),
+              "status": (0, 3, 1)}
+    cols = torch.empty((len(KERNEL_COLUMNS) + 1, n), dtype=torch.float32,
+                       device=device)
+    for i, name in enumerate(KERNEL_COLUMNS):
+        lo, hi, unit = ranges[name]
+        cols[i] = torch.randint(lo, hi, (n,), generator=g, device=device)
+        if unit != 1:
+            cols[i] *= unit
+    cols[-1] = torch.randint(0, 64, (n,), generator=g, device=device) > 0
+    return cols
+
+
+def kernel_phase(torch, seed, device, results):
+    from repro_torch.core.catalog import StringTable
+    from repro_torch.core.policy import (KERNEL_COLUMNS, compile_programs,
+                                         parse_expr)
+    from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.policy_scan import ref as R
+    n = ROWS
+    t0 = time.perf_counter()
+    cols = make_columns(torch, n, seed, device)
+    torch.cuda.synchronize()
+    log(f"[kernels] columns {tuple(cols.shape)} f32 = "
+        f"{cols.numel() * 4 / 1e9:.2f} GB generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    st = StringTable()
+    for s in ("u0", "u1", "u2"):
+        st.intern(s)
+    ops, colidx, operands = compile_programs(
+        [parse_expr(e) for e in BATCH_CRITERIA], st, NOW)
+    prog = [torch.from_numpy(a).to(device) for a in (ops, colidx, operands)]
+    kw = dict(size_col=KERNEL_COLUMNS.index("size"),
+              blocks_col=KERNEL_COLUMNS.index("blocks"),
+              valid_col=len(KERNEL_COLUMNS))
+
+    # policy_scan_batch against its plain version
+    masks_k, rule_k, agg_k = K.policy_scan_batch_cuda(cols, *prog, **kw)
+    torch.cuda.synchronize()
+    masks_r, rule_r, agg_r = R.policy_scan_batch_ref(cols, *prog, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(masks_k, masks_r), "policy_scan_batch masks differ "
+          "from the plain version")
+    check(torch.equal(rule_k, rule_r), "policy_scan_batch rule index "
+          "differs from the plain version")
+    check(torch.allclose(agg_k, agg_r, **TOL),
+          f"policy_scan_batch aggregates differ:\n{agg_k}\n{agg_r}")
+    batch_err = (agg_k.double() - agg_r.double()).abs().max().item()
+    batch_rel = ((agg_k.double() - agg_r.double()).abs()
+                 / agg_r.double().abs().clamp_min(1)).max().item()
+    log(f"[kernels] policy_scan_batch R={ops.shape[0]} N={n}: masks and "
+        f"rule identical; agg max abs err {batch_err!r}, max rel err "
+        f"{batch_rel!r}; matched per program "
+        f"{agg_k[:, 0].tolist()}")
+    del masks_r, rule_r
+
+    # policy_scan (program 0) against its plain version and the batch row
+    m1_k, a1_k = K.policy_scan_cuda(cols, *(p[0] for p in prog), **kw)
+    torch.cuda.synchronize()
+    m1_r, a1_r = R.policy_scan_ref(cols, *(p[0] for p in prog), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(m1_k, m1_r), "policy_scan mask differs from the "
+          "plain version")
+    check(torch.equal(m1_k, masks_k[0]), "policy_scan mask differs from "
+          "the batch kernel's program 0")
+    check(torch.allclose(a1_k, a1_r, **TOL),
+          f"policy_scan aggregates differ:\n{a1_k}\n{a1_r}")
+    single_err = (a1_k.double() - a1_r.double()).abs().max().item()
+    single_rel = ((a1_k.double() - a1_r.double()).abs()
+                  / a1_r.double().abs().clamp_min(1)).max().item()
+    log(f"[kernels] policy_scan N={n}: mask identical; agg max abs err "
+        f"{single_err!r}, max rel err {single_rel!r}")
+    del m1_r, masks_k, rule_k, m1_k
+
+    # times: CUDA events, median of REPS after a warm-up
+    p0 = [p[0] for p in prog]
+    timings = {
+        "policy_scan_batch": (
+            cuda_times_ms(lambda: K.policy_scan_batch_cuda(cols, *prog, **kw),
+                          REPS),
+            cuda_times_ms(lambda: R.policy_scan_batch_ref(cols, *prog, **kw),
+                          REPS),
+            bound_ms(n, ops, colidx, with_rule=True, **kw), batch_err,
+            batch_rel),
+        "policy_scan": (
+            cuda_times_ms(lambda: K.policy_scan_cuda(cols, *p0, **kw),
+                          REPS),
+            cuda_times_ms(lambda: R.policy_scan_ref(cols, *p0, **kw),
+                          REPS),
+            bound_ms(n, ops[:1], colidx[:1], with_rule=False, **kw),
+            single_err, single_rel),
+    }
+    for name, ((ms, times), (plain_ms, _), (bms, by, nbytes, nops), err,
+               rel) in timings.items():
+        log(f"[kernels] {name}: {ms!r} ms (median of {len(times)}, min "
+            f"{min(times)!r}, max {max(times)!r}); plain {plain_ms!r} ms; "
+            f"bound {bms!r} ms by {by} ({nbytes} B, {nops} f32 ops); "
+            f"{bms / ms:.3f} of the bound")
+        results[name] = {
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": TPU_KERNELS[name], "launches": None,
+            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "rows": n, "programs": int(
+                ops.shape[0] if name == "policy_scan_batch" else 1)}
+    del cols
+    torch.cuda.empty_cache()
+
+
+class Recorder:
+    """Recording action: (fid, rule tier) in the order the engine sent them.
+
+    The tier comes from the params of the rule the engine attributed the
+    fid to, so a wrong first-match-wins rule index shows as a difference."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.calls = []
+
+        def action_batch(batch, params):
+            tier = params.get("tier")
+            with self.lock:
+                self.calls.extend((f, tier) for f in batch.fids.tolist())
+            return [True] * len(batch)
+
+        self.action_batch = action_batch
+
+    def __call__(self, entry, params):
+        with self.lock:
+            self.calls.append((entry.fid, params.get("tier")))
+        return True
+
+
+def launch_window(K, fn):
+    """``fn()`` with every launch count set to 0 just before it; returns
+    its result and the counts it left, read just after."""
+    K.reset_counters()
+    out = fn()
+    return out, {"policy_scan": K.policy_scan_launches,
+                 "policy_scan_batch": K.policy_scan_batch_launches}
+
+
+def agg_close(got: dict, want: dict) -> bool:
+    """Two match_programs aggregate dicts agree key for key within TOL."""
+    import numpy as np
+    return got.keys() == want.keys() and all(
+        np.allclose(np.asarray(got[k], np.float64),
+                    np.asarray(want[k], np.float64), **TOL) for k in got)
+
+
+def flat_spans(node, depth: int = 0):
+    """(indented name, elapsed seconds) of a RunReport span tree."""
+    if not node:
+        return []
+    out = [("." * depth + node["name"], node["elapsed_s"])]
+    for child in node.get("children", []):
+        out += flat_spans(child, depth + 1)
+    return out
+
+
+def build_catalog(n: int, seed: int):
+    """n entries, f32-exact, built in chunks through upsert_batch."""
+    import numpy as np
+    from repro_torch.core import Catalog, Entry, FsType
+    rng = np.random.default_rng(seed)
+    cat = Catalog(n_shards=4)
+    chunk = 1 << 17
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        is_file = (rng.random(m) < 0.9).tolist()
+        size = (rng.integers(0, 1 << 24, m) * 4096).tolist()
+        blocks = (rng.integers(0, 1 << 24, m) * 4096).tolist()
+        owner = rng.integers(0, 8, m).tolist()
+        atime = rng.integers(0, 1 << 24, m).astype(float).tolist()
+        mtime = rng.integers(0, 1 << 24, m).astype(float).tolist()
+        cat.upsert_batch([Entry(
+            fid=lo + i + 1, name=f"f{lo + i}", path=f"/fs/d{(lo + i) % 97}"
+            f"/f{lo + i}", type=FsType.FILE if is_file[i] else FsType.DIR,
+            size=size[i], blocks=blocks[i], owner=f"u{owner[i]}",
+            atime=atime[i], mtime=mtime[i], ctime=mtime[i])
+            for i in range(m)])
+    return cat
+
+
+def engine_phase(torch, seed, device, results):
+    import numpy as np
+    from repro_torch.core import PolicyDefinition, PolicyEngine
+    from repro_torch.core.policy import KERNEL_COLUMNS, compile_programs
+    from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.policy_scan import ref as R
+    from repro_torch.kernels.policy_scan.ops import (_agg_dict, column_stack,
+                                                     match_programs,
+                                                     scan_catalog)
+    t0 = time.perf_counter()
+    cat = build_catalog(ENTRIES, seed)
+    log(f"[engine] catalog of {len(cat)} entries built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cat.arrays()     # both evaluators then find the column snapshot cached
+    eng = PolicyEngine(cat, clock=lambda: NOW, device=device)
+    rules = [("archive_big", "size > 16G", {"tier": "archive"}),
+             ("purge_old", "last_access > 90d", {"tier": "purge"})]
+    windows = {}     # path -> launch counts of its own window
+    for budget in ({}, {"max_actions_per_run": 10_000},
+                   {"target": 1 << 44}):
+        tag = ",".join(f"{k}={v}" for k, v in budget.items()) or "none"
+        seqs = {}
+        for evaluator in ("policy_scan", "numpy"):
+            rec = Recorder()
+            eng.register(PolicyDefinition.from_config(
+                name="lru", action=rec, scope="type == file", rules=rules,
+                sort_by="atime", mutates=False, batch_size=4096,
+                max_actions_per_run=budget.get("max_actions_per_run", 0)))
+            t1 = time.perf_counter()
+            rep, counts = launch_window(K, lambda: eng.run(
+                "lru", evaluator=evaluator,
+                target_volume=budget.get("target", 0)))
+            wall = time.perf_counter() - t1
+            want = {"policy_scan": 0, "policy_scan_batch":
+                    1 if evaluator == "policy_scan" else 0}
+            check(counts == want, f"PolicyEngine.run(evaluator="
+                  f"{evaluator!r}) (budget {tag}) launched {counts}, "
+                  f"expected {want}")
+            if evaluator == "policy_scan" and not budget:
+                windows["PolicyEngine.run"] = counts
+            seqs[evaluator] = (rep, list(rec.calls))
+            log(f"[engine] budget {tag} evaluator {evaluator}: matched "
+                f"{rep.matched} succeeded {rep.succeeded} volume "
+                f"{rep.volume} evaluator_used {rep.evaluator!r} "
+                f"fallback {rep.fallback_reason!r} launches {counts} "
+                f"wall {wall!r} s")
+            if not budget:
+                log(f"[engine] spans ({evaluator}): "
+                    + "; ".join(f"{name} {s!r}" for name, s in
+                                flat_spans(rep.telemetry.get("spans"))))
+        k_rep, k_calls = seqs["policy_scan"]
+        n_rep, n_calls = seqs["numpy"]
+        check(k_rep.evaluator == "policy_scan",
+              f"engine ran {k_rep.evaluator!r}, not policy_scan")
+        check(k_rep.fallback_reason == "",
+              f"engine fell back: {k_rep.fallback_reason!r}")
+        check(n_rep.evaluator == "numpy", "numpy evaluator did not run")
+        check(k_calls == n_calls, f"actioned (fid, tier) sequences differ "
+              f"(budget {tag}): {len(k_calls)} vs {len(n_calls)}")
+        check((k_rep.matched, k_rep.succeeded, k_rep.volume) ==
+              (n_rep.matched, n_rep.succeeded, n_rep.volume),
+              f"run reports differ (budget {tag})")
+        check(len(k_calls) > 0, "the policy actioned nothing")
+        tiers = {t: sum(1 for _f, u in k_calls if u == t)
+                 for t in ("archive", "purge", None)}
+        check(tiers["archive"] > 0 and tiers["purge"] > 0,
+              f"a rule actioned nothing (budget {tag}): {tiers}")
+        log(f"[engine] budget {tag}: {len(k_calls)} actioned (fid, tier) "
+            f"pairs identical across policy_scan and numpy; per tier "
+            f"{tiers}")
+
+    # the batch kernel at this path's shapes against its plain version:
+    # the policy's compiled programs over this catalog's column stack
+    policy = eng.policies["lru"]
+    programs = PolicyEngine._programs(policy, None)
+    arrays = cat.arrays()
+    kcols = column_stack(arrays, device)
+    prog = [torch.from_numpy(a).to(device)
+            for a in compile_programs(programs, cat.strings, NOW)]
+    kw = dict(size_col=KERNEL_COLUMNS.index("size"),
+              blocks_col=KERNEL_COLUMNS.index("blocks"))
+    masks_k, rule_k, agg_k = K.policy_scan_batch_cuda(kcols, *prog, **kw)
+    masks_r, rule_r, agg_r = R.policy_scan_batch_ref(kcols, *prog, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(masks_k, masks_r), "engine-shape policy_scan_batch "
+          "masks differ from the plain version")
+    check(torch.equal(rule_k, rule_r), "engine-shape policy_scan_batch rule "
+          "index differs from the plain version")
+    check(torch.allclose(agg_k, agg_r, **TOL), "engine-shape "
+          f"policy_scan_batch aggregates differ:\n{agg_k}\n{agg_r}")
+    ref_masks = [m for m in (masks_r > 0.5).cpu().numpy()]
+    ref_rule = rule_r.cpu().numpy()
+    ref_agg_np = agg_r.cpu().numpy()
+    ref_agg = _agg_dict(ref_agg_np[0], ref_agg_np)
+    log(f"[engine] policy_scan_batch R={len(programs)} N={kcols.shape[1]}: "
+        "masks and rule identical to the plain version; agg max abs err "
+        f"{(agg_k.double() - agg_r.double()).abs().max().item()!r}")
+    del kcols, masks_k, rule_k, masks_r, rule_r
+
+    # the path the engine runs, held to the plain version's output
+    batch = match_programs(arrays, programs, cat.strings, NOW, device=device)
+    check(len(batch[0]) == len(ref_masks) and all(
+        np.array_equal(m_b, m_r) for m_b, m_r in zip(batch[0], ref_masks)),
+        "match_programs masks differ from the plain version")
+    check(np.array_equal(batch[2], ref_rule), "match_programs rule index "
+          "differs from the plain version")
+    check(agg_close(batch[1], ref_agg), "match_programs aggregates differ "
+          f"from the plain version: {batch[1]} vs {ref_agg}")
+
+    # scan_catalog: the single-program kernel, once
+    (fids_s, agg_s), counts = launch_window(
+        K, lambda: scan_catalog(cat, programs[0], NOW, device=device))
+    check(counts == {"policy_scan": 1, "policy_scan_batch": 0},
+          f"scan_catalog launched {counts}, expected one policy_scan")
+    windows["scan_catalog"] = counts
+    check(np.array_equal(fids_s, arrays["fid"][ref_masks[0]]),
+          "scan_catalog fids differ from the plain version's")
+    check(agg_close(agg_s, _agg_dict(ref_agg_np[0])), "scan_catalog "
+          f"aggregates differ from the plain version's: {agg_s}")
+
+    # match_programs(single_launch=False): the single-program kernel, once
+    # per program, attribution on the host
+    per_prog, counts = launch_window(K, lambda: match_programs(
+        arrays, programs, cat.strings, NOW, single_launch=False,
+        device=device))
+    want = {"policy_scan": len(programs), "policy_scan_batch": 0}
+    check(counts == want, "match_programs(single_launch=False) launched "
+          f"{counts}, expected {want}")
+    windows["match_programs(single_launch=False)"] = counts
+    for m_s, m_b in zip(per_prog[0], batch[0]):
+        check(np.array_equal(m_s, m_b), "per-program masks differ from "
+              "the batch path's")
+    check(np.array_equal(per_prog[2], batch[2]), "host attribution differs "
+          "from the kernel's")
+    check(per_prog[1] == batch[1], "per-program aggregates differ from the "
+          "batch path's")
+    log(f"[engine] scan_catalog: {len(fids_s)} fids, count "
+        f"{agg_s['count']!r}; per-program masks, rule index and aggregates "
+        "identical to the batch path; launches per path "
+        f"{json.dumps(windows)}")
+    for name in results:
+        results[name]["launches_by_path"] = {
+            path: c[name] for path, c in windows.items()}
+    results["policy_scan_batch"]["launches"] = \
+        windows["PolicyEngine.run"]["policy_scan_batch"]
+    results["policy_scan"]["launches"] = \
+        windows["scan_catalog"]["policy_scan"]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        fail(f"no src/repro_torch beside {os.path.basename(__file__)}: run "
+             "it from a checkout of the repository")
+    sys.path.insert(0, SRC)
+    from repro_torch import resolve_device
+    from repro_torch.kernels.policy_scan import kernel as K
+
+    # 1. environment
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    device = resolve_device("cuda")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = K.build()
+    log(f"[build] {os.path.relpath(lib, ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 3. kernels at device scale, 4. the engine's main path
+    results: dict = {}
+    kernel_phase(torch, args.seed, device, results)
+    engine_phase(torch, args.seed, device, results)
+    for r in results.values():
+        check(r["launches"] is not None and r["launches"] > 0,
+              f"{r['name']} was not launched on the main path")
+    log(json.dumps({"card": card, "kernels": list(results.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

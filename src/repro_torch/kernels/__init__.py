@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels for the port's hot spots.
+
+Each kernel directory ships:
+
+* ``ref.py``    — the plain PyTorch version (any device; the CPU tests and
+  the on-card comparisons use it);
+* ``csrc/``     — the CUDA C++ sources, compiled for ``sm_90a`` at first use;
+* ``kernel.py`` — the build, the ctypes bindings and the launch counters;
+* ``ops.py``    — the public ops: the kernel for CUDA tensors, the plain
+  version for CPU tensors, nothing else.
+
+Kernels:
+
+* ``policy_scan`` — columnar predicate-program evaluation with fused
+  first-match-wins attribution and aggregation (the paper's DB table scan,
+  C1+C6).
+"""

@@ -1,0 +1,120 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
+
+``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
+module of the JAX package; a policy must run with both blocked; the
+default device must raise when CUDA is absent; and the kernel path must
+refuse CPU tensors instead of quietly running the plain version.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_BLOCKED_RUN = r'''
+import sys
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocker())
+for mod in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]:
+    del sys.modules[mod]
+
+from repro_torch.core import (Catalog, Entry, FsType, PolicyDefinition,
+                              PolicyEngine)
+from repro_torch.convert import catalog_from_columns
+from repro_torch.kernels.policy_scan import kernel, ops, ref
+
+cat = Catalog()
+cat.upsert_batch([Entry(fid=i + 1, name=f"f{i}", path=f"/f{i}",
+                        type=FsType.FILE, size=i * 4096, atime=float(i))
+                  for i in range(200)])
+acted = []
+def act(e, params):
+    acted.append(e.fid)
+    return True
+eng = PolicyEngine(cat, clock=lambda: 1e6, device="cpu")
+eng.register(PolicyDefinition.from_config(
+    "p", act, scope="type == file", rules=[("big", "size > 400K", {})],
+    sort_by="atime", mutates=False))
+r = eng.run("p", evaluator="policy_scan")
+assert r.evaluator == "policy_scan" and r.fallback_reason == "", r
+assert acted == list(range(102, 201)), acted[:5]
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+assert not loaded, loaded
+print("OK", r.matched)
+'''
+
+
+def test_policy_runs_with_jax_and_repro_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
+                         capture_output=True, text=True, timeout=240,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "OK 99"
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.core import Catalog, PolicyEngine
+    from repro_torch.kernels.policy_scan import ops
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        PolicyEngine(Catalog())
+    from repro_torch.core.policy import KERNEL_COLUMNS
+    with pytest.raises(RuntimeError):
+        ops.column_stack({c: np.zeros(3) for c in KERNEL_COLUMNS})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_path_refuses_cpu_tensors():
+    from repro_torch.kernels.policy_scan import kernel, ops
+    cols = torch.zeros((17, 8))
+    prog = (torch.zeros((2, 3), dtype=torch.int32),
+            torch.zeros((2, 3), dtype=torch.int32),
+            torch.zeros((2, 3), dtype=torch.float32))
+    before = (kernel.policy_scan_launches, kernel.policy_scan_batch_launches)
+    with pytest.raises(ValueError):
+        ops.policy_scan_batch(cols, *prog, use_kernel=True)
+    with pytest.raises(ValueError):
+        ops.policy_scan(cols, *(p[0] for p in prog), use_kernel=True)
+    with pytest.raises(ValueError):
+        kernel.policy_scan_batch_cuda(cols, *prog)
+    with pytest.raises(ValueError):
+        kernel.policy_scan_cuda(cols, *(p[0] for p in prog))
+    assert (kernel.policy_scan_launches,
+            kernel.policy_scan_batch_launches) == before
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                        re.MULTILINE)
+
+
+def test_no_file_of_the_port_imports_jax_or_repro():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10 and all(f.exists() for f in files)
+    for f in files:
+        text = f.read_text()
+        hit = _FORBIDDEN.search(text)
+        assert hit is None, f"{f.relative_to(ROOT)}: {hit.group(0).strip()}"
+        assert "import jax" not in text, f

@@ -8,7 +8,8 @@ failure:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
-2. build: the ``policy_scan`` kernels from ``csrc/``, with the build time;
+2. build: the ``policy_scan`` and ``profile_cube`` libraries from their
+   ``csrc/``, one ``nvcc`` each, started together, with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
@@ -16,7 +17,18 @@ failure:
    ``rtol=1e-5, atol=1``: f32 sums of more than 2^24 units round in any
    order) and timed with CUDA events (median after a warm-up) beside the
    least time the card could take;
-4. engine: a 2^20-entry catalog, one policy (scope, two rules, LRU sort,
+4. profile cube at device scale, columns generated on the card from a
+   seed: (a) 2^27 rows, 4096 groups, the prebucketed layout
+   ``ProfileCube`` passes; (b) 2^27 rows, 64 groups, the raw layout
+   (bucketized on the card); (c) 2^20 rows, 64 groups, every per-cell
+   sum below 2^24. Counts must equal the plain version's; volume and
+   spc_used must equal the plain version run on f64 columns and cast to
+   f32 (in (c) also the f32 plain version itself); (a) must repeat
+   bit for bit; the edge shapes (no rows, no groups, a ragged N, too many
+   groups) must behave as the op says. (a) and (b) are timed beside the
+   bound, the plain version and one ``index_add_`` (which excludes the
+   bucketizing);
+5. engine: a 2^20-entry catalog, one policy (scope, two rules, LRU sort,
    a recording batch action) run through ``PolicyEngine.run`` with
    ``evaluator="policy_scan"`` on the card and with ``evaluator="numpy"``:
    the actioned (fid, rule params) sequences must be identical, with and
@@ -25,7 +37,15 @@ failure:
    and this catalog's column stack; then ``scan_catalog`` must launch the
    single-program kernel once and ``match_programs(single_launch=False)``
    once per program, each path counted on its own, and both must agree
-   with the batch path.
+   with the batch path;
+6. reports on the same catalog: ``ProfileCube(use_kernel=True).attach()``
+   on the card must launch ``profile_cube`` once per shard (4) and give
+   the cube of the exact int64 host groupby (counts equal, volume and
+   spc_used within ``rtol=1e-5``), and ``Reports`` over the two cubes must
+   answer every ``rbh-report`` query alike; the kernel is held to its
+   plain version on each shard's columns; after a few thousand changed
+   entries go through the catalog's delta hooks, the kernel-built cube's
+   counts must equal a fresh host rebuild's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -41,25 +61,34 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+F64_OPS_PER_S = 34e12           # H100 SXM f64 outside the tensor cores
 NOW = 16_000_000.0              # f32-exact "now" for every phase
+CARD = ""                       # nvidia-smi's name and power limit
 TOL = dict(rtol=1e-5, atol=1.0)
 ROWS = 1 << 27                  # kernel phase: rows on the card
 ENTRIES = 1 << 20               # engine phase: catalog entries
 REPS = 10                       # timed calls per kernel and plain version
+CUBE_GROUPS = 4096              # cell (a): profile_cube's MAX_GROUPS
+CUBE_GROUPS_SMALL = 64          # cells (b) and (c)
+EXACT_ROWS = 1 << 20            # cell (c)
+F32_EXACT = 1 << 24             # f32 holds every integer below this
 BATCH_CRITERIA = ["(size > 1GB or owner == 'u1') and type == file",
                   "size > 1GB", "owner == 'u1'",
                   "not (type == file and size <= 32M)"]
 TPU_KERNELS = {
     "policy_scan_batch": "src/repro/kernels/policy_scan/kernel.py:237",
     "policy_scan": "src/repro/kernels/policy_scan/kernel.py:131",
+    "profile_cube": "src/repro/kernels/profile_cube/kernel.py:88",
 }
 KERNEL_SOURCE = "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu"
+CUBE_SOURCE = "src/repro_torch/kernels/profile_cube/csrc/profile_cube.cu"
 
 
 def fail(msg: str) -> None:
@@ -236,6 +265,347 @@ def kernel_phase(torch, seed, device, results):
     torch.cuda.empty_cache()
 
 
+def cube_columns(torch, n: int, n_groups: int, seed: int, device,
+                 small: bool = False):
+    """(7, n) f32 on the card in the prebucketed layout ``ProfileCube``
+    passes: [gid, size, blocks, age, sb, ab, valid]. gid uniform in
+    [0, n_groups); sizes and blocks multiples of 4 KiB below 2^36 (below
+    2^11 when ``small``); ages integers in [-100, 400 days] (f32 rounds the
+    odd ones above 2^24); about 1/64 of rows invalid. sb/ab are the plain
+    version's buckets of these f32 values."""
+    from repro_torch.kernels.profile_cube import ref as PR
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    hi, unit = (1 << 11, 1) if small else (1 << 24, 4096)
+    cols = torch.empty((7, n), dtype=torch.float32, device=device)
+    cols[0] = torch.randint(0, n_groups, (n,), generator=g, device=device)
+    for r in (1, 2):
+        cols[r] = torch.randint(0, hi, (n,), generator=g, device=device)
+        cols[r] *= unit
+    cols[3] = torch.randint(-100, 400 * 86400 + 1, (n,), generator=g,
+                            device=device)
+    cols[4] = PR.size_buckets(cols[1])
+    cols[5] = PR.age_buckets(cols[3])
+    cols[6] = torch.randint(0, 64, (n,), generator=g, device=device) > 0
+    return cols
+
+
+def raw_layout(torch, cols, n_groups=None):
+    """[gid, size, blocks, age, valid] of a prebucketed stack, gid taken
+    modulo ``n_groups`` when given (still uniform)."""
+    out = torch.empty((5, cols.shape[1]), dtype=torch.float32,
+                      device=cols.device)
+    out[0] = cols[0] if n_groups is None else cols[0].remainder(n_groups)
+    out[1:4] = cols[1:4]
+    out[4] = cols[6]
+    return out
+
+
+PREBUCKETED = dict(gid_col=0, size_col=1, blocks_col=2, age_col=3,
+                   sb_col=4, ab_col=5, valid_col=6)
+RAW = dict(gid_col=0, size_col=1, blocks_col=2, age_col=3, sb_col=-1,
+           ab_col=-1, valid_col=4)
+
+
+def cube_bound_ms(torch, cols, n_groups: int, prebucketed: bool):
+    """Least time for one cube build: each row's validity read once and,
+    for a valid row, the four or five other rows the function needs
+    (gid, size, blocks and sb/ab, or age), plus the f32 cube written once,
+    over the memory rate; or the work (f32 compares of the raw layout's
+    17 bucket edges, 2 f64 products and 3 f64 sums a valid row) over the
+    peak rates. Returns (ms, by, bytes, f32 ops, f64 ops)."""
+    valid_col = 6 if prebucketed else 4
+    n = cols.shape[1]
+    n_valid = int((cols[valid_col] != 0).sum().item())
+    rows_read = 5 if prebucketed else 4
+    out_bytes = 4 * 3 * n_groups * 70
+    bytes_moved = 4 * n + 4 * rows_read * n_valid + out_bytes
+    f32_ops = 0 if prebucketed else 17 * n_valid
+    f64_ops = 5 * n_valid
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved, f32_ops, f64_ops)
+
+
+def rel_err(torch, got, want) -> float:
+    d = (got.double() - want.double()).abs()
+    return (d / want.double().abs().clamp_min(1)).max().item()
+
+
+def cube_phase(torch, seed, device, results):
+    from repro_torch.kernels.profile_cube import kernel as PK
+    from repro_torch.kernels.profile_cube import ops as PO
+    from repro_torch.kernels.profile_cube import ref as PR
+    n = ROWS
+    t0 = time.perf_counter()
+    cols_a = cube_columns(torch, n, CUBE_GROUPS, seed + 1, device)
+    cols_b = raw_layout(torch, cols_a, CUBE_GROUPS_SMALL)
+    torch.cuda.synchronize()
+    log(f"[cube] columns (a) {tuple(cols_a.shape)} and (b) "
+        f"{tuple(cols_b.shape)} f32 = "
+        f"{(cols_a.numel() + cols_b.numel()) * 4 / 1e9:.2f} GB generated "
+        f"in {time.perf_counter() - t0:.2f} s")
+    cells = {"a": (cols_a, CUBE_GROUPS, True),
+             "b": (cols_b, CUBE_GROUPS_SMALL, False)}
+    stats = {}
+    for name, (cols, b, pre) in cells.items():
+        kw = dict(PREBUCKETED if pre else RAW, n_groups=b)
+        got = PK.profile_cube_cuda(cols, **kw)
+        again = PK.profile_cube_cuda(cols, **kw)
+        f32 = PR.profile_cube_ref(cols, **kw)
+        f64 = PR.profile_cube_ref(cols.double(), **kw).float()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"profile_cube cell ({name}) differs "
+              "from run to run")
+        check(torch.equal(got[0], f32[0]), f"profile_cube cell ({name}) "
+              "counts differ from the plain version")
+        check(torch.equal(got, f64), f"profile_cube cell ({name}) differs "
+              "from the f64 plain version cast to f32")
+        abs_err = (got.double() - f64.double()).abs().max().item()
+        rel32 = rel_err(torch, got, f32)
+        stats[name] = dict(abs_err=abs_err, rel_err_f32=rel32,
+                           design=PK.design(b, device))
+        log(f"[cube] cell ({name}) N={n} B={b} "
+            f"{'prebucketed' if pre else 'raw'} design "
+            f"{stats[name]['design']}: identical to the f64 plain version "
+            f"and to itself run to run; counts equal to the f32 plain "
+            f"version; max rel err vs the f32 plain version {rel32!r}; "
+            f"rows counted {int(got[0].sum().item())}")
+        del got, again, f32, f64
+
+    # (c): every per-cell sum below 2^24, so the f32 plain version is exact
+    cols_c = cube_columns(torch, EXACT_ROWS, CUBE_GROUPS_SMALL, seed + 2,
+                          device, small=True)
+    for layout, cols, kw in (("prebucketed", cols_c, PREBUCKETED),
+                             ("raw", raw_layout(torch, cols_c), RAW)):
+        kw = dict(kw, n_groups=CUBE_GROUPS_SMALL)
+        got = PK.profile_cube_cuda(cols, **kw)
+        f32 = PR.profile_cube_ref(cols, **kw)
+        f64 = PR.profile_cube_ref(cols.double(), **kw)
+        torch.cuda.synchronize()
+        top = f64.max().item()
+        check(top < F32_EXACT, f"cell (c) has a cell sum {top} >= 2^24")
+        check(torch.equal(got, f32), f"profile_cube cell (c) {layout} "
+              "differs from the f32 plain version")
+        log(f"[cube] cell (c) N={EXACT_ROWS} B={CUBE_GROUPS_SMALL} {layout}: "
+            f"identical to the f32 plain version (largest cell {top!r})")
+
+    # edges: no rows / no groups, a ragged N, too many groups
+    for n_rows, b in ((0, 0), (0, 3), (5, 0)):
+        z = torch.zeros(n_rows).numpy()
+        cube = PO.profile_cube(z, z, z, z, n_groups=b, device=device)
+        check(cube.shape == (3, b, 10, 7) and not cube.any(),
+              f"profile_cube with {n_rows} rows, {b} groups gave "
+              f"{cube.shape}")
+    ragged = torch.cat([cols_c, cols_c[:, :3]], dim=1)
+    kw = dict(PREBUCKETED, n_groups=CUBE_GROUPS_SMALL)
+    got = PK.profile_cube_cuda(ragged, **kw)
+    check(torch.equal(got, PR.profile_cube_ref(ragged.double(), **kw)
+                      .float()), "profile_cube differs on a ragged N")
+    for fn in (lambda: PO.profile_cube(
+                   *(torch.zeros(4).numpy(),) * 4,
+                   n_groups=PK.MAX_GROUPS + 1, device=device),
+               lambda: PK.profile_cube_cuda(
+                   cols_c, **dict(PREBUCKETED,
+                                  n_groups=PK.MAX_GROUPS + 1))):
+        try:
+            fn()
+        except ValueError:
+            continue
+        fail("n_groups = MAX_GROUPS + 1 did not raise")
+    log(f"[cube] edges: empty shapes as the reference's, ragged N="
+        f"{ragged.shape[1]} identical to the f64 plain version, n_groups="
+        f"{PK.MAX_GROUPS + 1} raises")
+    del cols_c, ragged
+
+    # times: CUDA events, median of REPS after a warm-up, beside the bound,
+    # the plain version and one index_add_ on the precomputed cell index
+    timings = {}
+    for name, (cols, b, pre) in cells.items():
+        kw = dict(PREBUCKETED if pre else RAW, n_groups=b)
+        ms, times = cuda_times_ms(lambda: PK.profile_cube_cuda(cols, **kw),
+                                  REPS)
+        plain_ms, _ = cuda_times_ms(lambda: PR.profile_cube_ref(cols, **kw),
+                                    REPS)
+        valid = cols[kw["valid_col"]]
+        gid = cols[0].to(torch.int64)
+        sb = cols[4].to(torch.int64) if pre else PR.size_buckets(cols[1])
+        ab = cols[5].to(torch.int64) if pre else PR.age_buckets(cols[3])
+        flat = (gid * 10 + sb) * 7 + ab
+        vals = torch.stack([valid, valid * cols[1], valid * cols[2]], dim=1)
+        del gid, sb, ab
+
+        def library():
+            torch.zeros((b * 70, 3), dtype=torch.float32,
+                        device=device).index_add_(0, flat, vals)
+        lib_ms, _ = cuda_times_ms(library, REPS)
+        del flat, vals
+        bms, by, nbytes, f32_ops, f64_ops = cube_bound_ms(torch, cols, b,
+                                                          pre)
+        log(f"[cube] cell ({name}) {CARD}: kernel {ms!r} ms (median of "
+            f"{len(times)}, min {min(times)!r}, max {max(times)!r}); plain "
+            f"{plain_ms!r} ms; index_add_ {lib_ms!r} ms (excludes "
+            f"bucketize); bound {bms!r} ms by {by} ({nbytes} B, {f32_ops} "
+            f"f32 ops, {f64_ops} f64 ops); {bms / ms:.3f} of the bound")
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bms, bound_by=by, bytes=nbytes,
+                             rows=n, groups=b,
+                             layout="prebucketed" if pre else "raw",
+                             **stats[name])
+    a = timings["a"]
+    results["profile_cube"] = {
+        "name": "profile_cube", "route": "cuda", "source": CUBE_SOURCE,
+        "replaces": TPU_KERNELS["profile_cube"], "launches": None,
+        "max_abs_err": a["abs_err"], "max_rel_err": a["rel_err_f32"],
+        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+        "library": "index_add_ of (N, 3) valid-weighted values on the "
+                   "precomputed cell index (excludes bucketize)",
+        "error_against": "max_abs_err: the f64 plain version cast to f32; "
+                         "max_rel_err: the f32 plain version",
+        "cells": timings}
+    del cols_a, cols_b, cells
+    torch.cuda.empty_cache()
+
+
+def close_reports(got, want, key=None) -> bool:
+    """Two report answers agree: the same keys, lengths and order, counts
+    and labels equal, byte measures within rtol=1e-5."""
+    import numpy as np
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(close_reports(got[k], want[k], k) for k in want))
+    if isinstance(want, (list, tuple)):
+        return (len(got) == len(want)
+                and all(close_reports(g, w, key) for g, w in zip(got, want)))
+    if key in ("volume", "spc_used", "avg_size"):
+        return bool(np.isclose(got, want, rtol=1e-5, atol=0))
+    return got == want
+
+
+def reports_phase(torch, cat, device, results):
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import ProfileCube, Reports
+    from repro_torch.kernels.profile_cube import kernel as PK
+    from repro_torch.kernels.profile_cube import ref as PR
+    from repro_torch.core.profiles import age_buckets_np, size_buckets_np
+    clock = lambda: NOW  # noqa: E731
+
+    t0 = time.perf_counter()
+    kcube, counts = launch_window(lambda: ProfileCube(
+        cat, clock=clock, use_kernel=True, device=device).attach())
+    k_wall = time.perf_counter() - t0
+    want = {"policy_scan": 0, "policy_scan_batch": 0,
+            "profile_cube": cat.n_shards}
+    check(counts == want, f"ProfileCube(use_kernel=True).attach() launched "
+          f"{counts}, expected {want}")
+    results["profile_cube"]["launches"] = counts["profile_cube"]
+    results["profile_cube"]["launches_by_path"] = {
+        "ProfileCube.rebuild": counts["profile_cube"]}
+    t0 = time.perf_counter()
+    host = ProfileCube(cat, clock=clock, device=device)
+    host.rebuild()
+    h_wall = time.perf_counter() - t0
+    kc, hc = kcube.cube(), host.cube()
+    check(kc.shape == hc.shape, f"cube shapes differ: {kc.shape} vs "
+          f"{hc.shape}")
+    check(np.array_equal(kc[0], hc[0]), "kernel-built cube counts differ "
+          "from the host groupby's")
+    check(np.allclose(kc[1:], hc[1:], rtol=1e-5, atol=0), "kernel-built "
+          "cube volume/spc_used differ from the host groupby's")
+    rel = float((np.abs(kc - hc) / np.maximum(np.abs(hc), 1)).max())
+    log(f"[reports] {CARD}: ProfileCube rebuild over {len(cat)} entries, "
+        f"{kc.shape[1]} groups: kernel {k_wall!r} s (launches "
+        f"{json.dumps(counts)}), host int64 groupby {h_wall!r} s; counts "
+        f"identical, volume/spc_used max rel err {rel!r}")
+
+    # the kernel at this path's shapes: each shard's prebucketed columns
+    needed = ("owner", "group", "type", "hsm_state", "size", "blocks",
+              "atime")
+    b = len(kcube.groups)
+    path_ms = path_plain_ms = 0.0
+    for sid, shard in enumerate(cat.shards):
+        snap, _ = shard.snapshot(names=needed, with_strings=False)
+        gids = kcube.groups.get_or_add_many(snap["owner"], snap["group"],
+                                            snap["type"], snap["hsm_state"])
+        age = NOW - snap["atime"]
+        rows = (gids, snap["size"], snap["blocks"], age,
+                size_buckets_np(snap["size"]), age_buckets_np(age),
+                np.ones(len(gids)))
+        cols = torch.from_numpy(np.stack([np.asarray(r, np.float32)
+                                          for r in rows])).to(device)
+        kw = dict(PREBUCKETED, n_groups=b)
+        got = PK.profile_cube_cuda(cols, **kw)
+        check(torch.equal(got, PR.profile_cube_ref(cols.double(), **kw)
+                          .float()), f"shard {sid}: profile_cube differs "
+              "from the f64 plain version")
+        check(torch.equal(got[0], PR.profile_cube_ref(cols, **kw)[0]),
+              f"shard {sid}: profile_cube counts differ from the plain "
+              "version")
+        path_ms += cuda_times_ms(lambda: PK.profile_cube_cuda(cols, **kw),
+                                 REPS)[0]
+        path_plain_ms += cuda_times_ms(
+            lambda: PR.profile_cube_ref(cols, **kw), REPS)[0]
+    results["profile_cube"]["path"] = dict(
+        ms=path_ms, plain_ms=path_plain_ms, rows=len(cat), groups=b,
+        shards=cat.n_shards)
+    log(f"[reports] {CARD}: profile_cube held to its plain version on each "
+        f"of the {cat.n_shards} shards' (7, N) columns, B={b}: identical "
+        f"to the f64 plain version; kernel {path_ms!r} ms, plain "
+        f"{path_plain_ms!r} ms over the {cat.n_shards} shards (sums of "
+        f"medians of {REPS})")
+
+    kr = Reports(cat, profiles=kcube, clock=clock)
+    hr = Reports(cat, profiles=host, clock=clock)
+    owners = sorted({cat.strings.lookup(int(c))
+                     for c in np.unique(cat.arrays()["owner"])})
+    queries = {f"report_user({u})": (lambda r, u=u: r.report_user(u))
+               for u in owners}
+    queries.update({f"user_size_profile({u})":
+                    (lambda r, u=u: r.user_size_profile(u)) for u in owners})
+    queries.update({
+        "report_types": lambda r: r.report_types(),
+        "report_hsm": lambda r: r.report_hsm(),
+        "age_profile": lambda r: r.age_profile(),
+        "top_users(count)": lambda r: r.top_users(by="count", k=10)})
+    for name, q in queries.items():
+        got, want = q(kr), q(hr)
+        check(close_reports(got, want), f"Reports.{name} differs between "
+              f"the kernel-built and host cubes:\n{got}\n{want}")
+    top = kr.top_users(by="count", k=3)
+    log(f"[reports] {len(queries)} rbh-report answers from the kernel-built "
+        f"cube match the host cube's (counts, keys, order exact; volumes "
+        f"rtol 1e-5); top users by count "
+        f"{[(d['user'], d['count']) for d in top]}")
+
+    # deltas through the catalog's hooks, then a fresh host rebuild
+    rng = np.random.default_rng(7)
+    fids = rng.choice(cat.arrays()["fid"], 4096, replace=False).tolist()
+    changed = []
+    for f in fids:
+        e = cat.get(int(f))
+        changed.append(dataclasses.replace(
+            e, size=int(rng.integers(0, 1 << 24)) * 4096,
+            atime=float(rng.integers(0, 1 << 24)),
+            owner=f"u{int(rng.integers(0, 8))}"))
+    cat.upsert_batch(changed)
+    after = kcube.cube()
+    fresh = ProfileCube(cat, clock=clock, device=device)
+    fresh.rebuild()
+    fc = fresh.cube()
+    check(after.shape == fc.shape and np.array_equal(after[0], fc[0]),
+          "after the deltas the kernel-built cube's counts differ from a "
+          "fresh host rebuild's")
+    check(np.allclose(after[1:], fc[1:], rtol=1e-5, atol=0), "after the "
+          "deltas the kernel-built cube's volumes differ from a fresh "
+          "host rebuild's")
+    log(f"[reports] {len(changed)} changed entries through upsert_batch: "
+        "the kernel-built cube's counts equal a fresh host rebuild's")
+
+
 class Recorder:
     """Recording action: (fid, rule tier) in the order the engine sent them.
 
@@ -260,13 +630,17 @@ class Recorder:
         return True
 
 
-def launch_window(K, fn):
+def launch_window(fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts it left, read just after."""
+    from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.profile_cube import kernel as PK
     K.reset_counters()
+    PK.reset_counters()
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
-                 "policy_scan_batch": K.policy_scan_batch_launches}
+                 "policy_scan_batch": K.policy_scan_batch_launches,
+                 "profile_cube": PK.profile_cube_launches}
 
 
 def agg_close(got: dict, want: dict) -> bool:
@@ -311,7 +685,7 @@ def build_catalog(n: int, seed: int):
     return cat
 
 
-def engine_phase(torch, seed, device, results):
+def engine_phase(torch, cat, device, results):
     import numpy as np
     from repro_torch.core import PolicyDefinition, PolicyEngine
     from repro_torch.core.policy import KERNEL_COLUMNS, compile_programs
@@ -320,10 +694,6 @@ def engine_phase(torch, seed, device, results):
     from repro_torch.kernels.policy_scan.ops import (_agg_dict, column_stack,
                                                      match_programs,
                                                      scan_catalog)
-    t0 = time.perf_counter()
-    cat = build_catalog(ENTRIES, seed)
-    log(f"[engine] catalog of {len(cat)} entries built in "
-        f"{time.perf_counter() - t0:.2f} s")
     cat.arrays()     # both evaluators then find the column snapshot cached
     eng = PolicyEngine(cat, clock=lambda: NOW, device=device)
     rules = [("archive_big", "size > 16G", {"tier": "archive"}),
@@ -340,12 +710,13 @@ def engine_phase(torch, seed, device, results):
                 sort_by="atime", mutates=False, batch_size=4096,
                 max_actions_per_run=budget.get("max_actions_per_run", 0)))
             t1 = time.perf_counter()
-            rep, counts = launch_window(K, lambda: eng.run(
+            rep, counts = launch_window(lambda: eng.run(
                 "lru", evaluator=evaluator,
                 target_volume=budget.get("target", 0)))
             wall = time.perf_counter() - t1
             want = {"policy_scan": 0, "policy_scan_batch":
-                    1 if evaluator == "policy_scan" else 0}
+                    1 if evaluator == "policy_scan" else 0,
+                    "profile_cube": 0}
             check(counts == want, f"PolicyEngine.run(evaluator="
                   f"{evaluator!r}) (budget {tag}) launched {counts}, "
                   f"expected {want}")
@@ -422,8 +793,9 @@ def engine_phase(torch, seed, device, results):
 
     # scan_catalog: the single-program kernel, once
     (fids_s, agg_s), counts = launch_window(
-        K, lambda: scan_catalog(cat, programs[0], NOW, device=device))
-    check(counts == {"policy_scan": 1, "policy_scan_batch": 0},
+        lambda: scan_catalog(cat, programs[0], NOW, device=device))
+    check(counts == {"policy_scan": 1, "policy_scan_batch": 0,
+                     "profile_cube": 0},
           f"scan_catalog launched {counts}, expected one policy_scan")
     windows["scan_catalog"] = counts
     check(np.array_equal(fids_s, arrays["fid"][ref_masks[0]]),
@@ -433,10 +805,11 @@ def engine_phase(torch, seed, device, results):
 
     # match_programs(single_launch=False): the single-program kernel, once
     # per program, attribution on the host
-    per_prog, counts = launch_window(K, lambda: match_programs(
+    per_prog, counts = launch_window(lambda: match_programs(
         arrays, programs, cat.strings, NOW, single_launch=False,
         device=device))
-    want = {"policy_scan": len(programs), "policy_scan_batch": 0}
+    want = {"policy_scan": len(programs), "policy_scan_batch": 0,
+            "profile_cube": 0}
     check(counts == want, "match_programs(single_launch=False) launched "
           f"{counts}, expected {want}")
     windows["match_programs(single_launch=False)"] = counts
@@ -451,7 +824,7 @@ def engine_phase(torch, seed, device, results):
         f"{agg_s['count']!r}; per-program masks, rule index and aggregates "
         "identical to the batch path; launches per path "
         f"{json.dumps(windows)}")
-    for name in results:
+    for name in ("policy_scan_batch", "policy_scan"):
         results[name]["launches_by_path"] = {
             path: c[name] for path, c in windows.items()}
     results["policy_scan_batch"]["launches"] = \
@@ -474,29 +847,40 @@ def main() -> None:
     sys.path.insert(0, SRC)
     from repro_torch import resolve_device
     from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.profile_cube import kernel as PK
+    global CARD
 
     # 1. environment
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = CARD = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     device = resolve_device("cuda")
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib = K.build()
-    log(f"[build] {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    # 2. build: one nvcc per library, started together
+    def timed_build(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(timed_build, (K.build, PK.build)))
+    for lib, secs in builds:
+        log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
 
-    # 3. kernels at device scale, 4. the engine's main path
+    # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports
     results: dict = {}
     kernel_phase(torch, args.seed, device, results)
-    engine_phase(torch, args.seed, device, results)
+    cube_phase(torch, args.seed, device, results)
+    t0 = time.perf_counter()
+    cat = build_catalog(ENTRIES, args.seed)
+    log(f"[engine] catalog of {len(cat)} entries built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    engine_phase(torch, cat, device, results)
+    reports_phase(torch, cat, device, results)
     for r in results.values():
         check(r["launches"] is not None and r["launches"] > 0,
               f"{r['name']} was not launched on the main path")

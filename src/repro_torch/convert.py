@@ -8,6 +8,12 @@ reference ``Catalog.arrays()`` returns (as numpy arrays, ``_names`` and
 order. Entries go in through the port's own ``Entry`` and ``upsert_batch``,
 so the result has the same entries, the same row order and the same
 string codes.
+
+The profile cube's state needs no function here: ``ProfileCube.save`` and
+``ProfileCube.load`` write and read the same ``np.savez_compressed`` file
+in both packages (per-shard cube, fids and entry tables plus the
+``GroupIndex`` export), so a cube saved by either loads into the other
+over catalogs with the same string codes.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """Robinhood Policy Engine core, ported slice by slice.
 
-This slice carries the policy run: catalog -> compiled predicate programs
--> match (``policy_scan`` kernels) -> plan -> act.
+Slice 1 carries the policy run: catalog -> compiled predicate programs ->
+match (``policy_scan`` kernels) -> plan -> act. Slice 2 carries the
+``rbh-report`` analytics: the profile cube (built by the ``profile_cube``
+kernel when opted in), the scalar stats oracle, grants and reports.
 """
 from .types import (AGE_PROFILE_EDGES, AGE_PROFILE_LABELS, ChangelogRecord,
                     ChangelogType, Entry, FsType, HsmState,
@@ -11,13 +13,17 @@ from .types import (AGE_PROFILE_EDGES, AGE_PROFILE_LABELS, ChangelogRecord,
 from .catalog import Catalog, CatalogShard, ColumnBatch, StringTable
 from .changelog import ChangelogHub, ChangelogStream, ColumnarRecords
 from .fidtable import FidTable
+from .grants import GrantTable, Subject
 from .policy import (ALWAYS, And, Cmp, Const, Expr, Not, Or, PolicyError,
                      compile_program, compile_programs, parse_expr,
                      KERNEL_COLUMNS)
 from .policy_engine import (EVALUATORS, PolicyDefinition, PolicyEngine, Rule,
                             RunReport, UsageWatermarkTrigger)
+from .profiles import GroupIndex, ProfileCube
+from .stats import ChangelogCounters, DirUsage, StatsAggregator
 from .telemetry import (Counter, Gauge, Histogram, MetricRegistry, Span,
                         parse_prometheus)
+from .reports import Reports
 
 __all__ = [
     "AGE_PROFILE_EDGES", "AGE_PROFILE_LABELS", "ChangelogRecord",
@@ -28,10 +34,14 @@ __all__ = [
     "Catalog", "CatalogShard", "ColumnBatch", "StringTable",
     "ChangelogHub", "ChangelogStream", "ColumnarRecords",
     "FidTable",
+    "GrantTable", "Subject",
+    "GroupIndex", "ProfileCube",
     "ALWAYS", "And", "Cmp", "Const", "Expr", "Not", "Or", "PolicyError",
     "compile_program", "compile_programs", "parse_expr", "KERNEL_COLUMNS",
     "EVALUATORS", "PolicyDefinition", "PolicyEngine", "Rule", "RunReport",
     "UsageWatermarkTrigger",
+    "ChangelogCounters", "DirUsage", "StatsAggregator",
     "Counter", "Gauge", "Histogram", "MetricRegistry", "Span",
     "parse_prometheus",
+    "Reports",
 ]

@@ -9,9 +9,14 @@ Each kernel directory ships:
 * ``ops.py``    — the public ops: the kernel for CUDA tensors, the plain
   version for CPU tensors, nothing else.
 
+``_build.py`` compiles every package's ``csrc/`` with ``nvcc``.
+
 Kernels:
 
 * ``policy_scan`` — columnar predicate-program evaluation with fused
   first-match-wins attribution and aggregation (the paper's DB table scan,
-  C1+C6).
+  C1+C6);
+* ``profile_cube`` — fused bucketize + segment-reduce of the catalog
+  columns into the (measure, group, size bucket, age bucket) cube behind
+  every ``rbh-report`` query (C6).
 """

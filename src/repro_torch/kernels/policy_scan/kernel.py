@@ -2,10 +2,7 @@
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (seconds to build; nothing here includes PyTorch's headers).
-The library lands in ``build/repro_torch/`` at the repository root (or in
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of the sources and flags, so a
-changed source is rebuilt and never confused with an old build.
+``ctypes`` (see :mod:`repro_torch.kernels._build`).
 
 Two wrappers, each counting its launches in a plain integer:
 
@@ -20,24 +17,19 @@ fallback here. The plain version lives in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from .. import _build
+from .._build import build_dir  # noqa: F401  (re-exported)
 from .ref import N_AGG
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("policy_scan.cu",)
 HEADERS = ("policy_scan.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 # resident blocks per SM for the grid-stride scan (256 threads each)
 BLOCKS_PER_SM = 8
 
@@ -55,57 +47,14 @@ def reset_counters() -> None:
     policy_scan_batch_launches = 0
 
 
-def build_dir() -> Path:
-    """``$REPRO_TORCH_BUILD_DIR``; else ``build/repro_torch/`` of the
-    checkout this file lies in; else, for an installed package, a cache
-    under ``$HOME``."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    # src/repro_torch/kernels/policy_scan/kernel.py -> repository root
-    root = Path(__file__).resolve().parents[4]
-    if (root / "pyproject.toml").is_file() and (root / "src").is_dir():
-        return root / "build" / "repro_torch"
-    return Path.home() / ".cache" / "repro_torch"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    default = Path(cuda_home) / "bin" / "nvcc"
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the policy_scan kernels are built "
-                       "from csrc/ with the CUDA toolkit")
-
-
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
-    return build_dir() / f"libpolicy_scan_{h.hexdigest()[:16]}.so"
+    return _build.library_path("policy_scan", CSRC, SOURCES + HEADERS)
 
 
 def build() -> Path:
     """Compile ``csrc/`` into the shared library unless it already exists.
     Returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)             # atomic: concurrent builds race safely
-    return out
+    return _build.build("policy_scan", CSRC, SOURCES, HEADERS)
 
 
 def _lib() -> ctypes.CDLL:

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
 ``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
-module of the JAX package; a policy must run with both blocked; the
-default device must raise when CUDA is absent; and the kernel path must
-refuse CPU tensors instead of quietly running the plain version.
+module of the JAX package; a policy must run, and a profile cube and its
+reports must build, with both blocked; the default device must raise when
+CUDA is absent; and the kernel path must refuse CPU tensors instead of
+quietly running the plain version.
 """
 import os
 import re
@@ -53,6 +54,18 @@ eng.register(PolicyDefinition.from_config(
 r = eng.run("p", evaluator="policy_scan")
 assert r.evaluator == "policy_scan" and r.fallback_reason == "", r
 assert acted == list(range(102, 201)), acted[:5]
+
+from repro_torch.core import ProfileCube, Reports
+from repro_torch.kernels.profile_cube import kernel as pc_kernel
+cube = ProfileCube(cat, clock=lambda: 1e6, use_kernel=True,
+                   device="cpu").attach()
+host = ProfileCube(cat, clock=lambda: 1e6, device="cpu")
+host.rebuild()
+assert (cube.cube() == host.cube()).all()
+rep = Reports(cat, profiles=cube, clock=lambda: 1e6)
+assert rep.report_user("root")[0]["count"] == 200, rep.report_user("root")
+assert rep.du("/")["files"] == 200
+assert pc_kernel.profile_cube_launches == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("OK", r.matched)
@@ -60,6 +73,7 @@ print("OK", r.matched)
 
 
 def test_policy_runs_with_jax_and_repro_blocked():
+    """Also builds a ``ProfileCube(use_kernel=True)`` and ``Reports``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
@@ -83,6 +97,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from repro_torch.core.policy import KERNEL_COLUMNS
     with pytest.raises(RuntimeError):
         ops.column_stack({c: np.zeros(3) for c in KERNEL_COLUMNS})
+    from repro_torch.kernels.profile_cube.ops import profile_cube
+    with pytest.raises(RuntimeError):
+        profile_cube(*(np.zeros(3),) * 4, n_groups=2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

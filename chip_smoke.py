@@ -8,8 +8,9 @@ failure:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
-2. build: the ``policy_scan`` and ``profile_cube`` libraries from their
-   ``csrc/``, one ``nvcc`` each, started together, with each build time;
+2. build: the ``policy_scan``, ``profile_cube`` and ``paged_attention``
+   libraries from their ``csrc/``, one ``nvcc`` each, started together,
+   with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
@@ -45,7 +46,31 @@ failure:
    answer every ``rbh-report`` query alike; the kernel is held to its
    plain version on each shard's columns; after a few thousand changed
    entries go through the catalog's delta hooks, the kernel-built cube's
-   counts must equal a fresh host rebuild's.
+   counts must equal a fresh host rebuild's;
+7. paged attention at device scale (after the cube phase): 64 sequences
+   with lengths uniform in [1, 8192] (one of length 0, one with a -1 hole
+   in its table, one a multiple of the 64-token page), tables drawn from a
+   seeded permutation of an 8192-page pool, in four configurations:
+   chatglm3-6b's widths (32 query heads, 2 KV heads, head_dim 128) in f32
+   and in bf16, deepseek-coder-33b's (56, 8) and codeqwen1.5-7b's (32, 32)
+   in f32. The kernel is held to its plain version (f32 ``rtol=1e-4`` with
+   atol ``1e-4 * max|v|``; bf16 ``5e-2``), the empty sequence must give
+   exact zeros and the hole sequence must equal, bit for bit, the kernel
+   over the same table with the hole taken out; each is timed beside its
+   bound, the plain version and one ``scaled_dot_product_attention`` over
+   K/V gathered beforehand;
+8. serving (last): ``ServingEngine`` at chatglm3-6b's full width and depth
+   (28 layers, weights drawn on the card from the seed), 4 requests of 256
+   seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
+   so the watermark releases and restores pages in every layer. Each run
+   must launch ``paged_attention`` 28 * 4 * (256 + 31) = 32,144 times and
+   nothing else; a checker around the op the engine calls holds the
+   kernel to its plain version on the run's own tensors (the first call of
+   every layer, every call right after a restore, every 29th call) within
+   bounds that follow the f32 error of the scores, which grow with depth
+   (see ``attn_agrees``); a
+   second run with the same seed must give the same tokens, and is timed
+   with the host seconds of each cache and op call kind.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -86,9 +111,32 @@ TPU_KERNELS = {
     "policy_scan_batch": "src/repro/kernels/policy_scan/kernel.py:237",
     "policy_scan": "src/repro/kernels/policy_scan/kernel.py:131",
     "profile_cube": "src/repro/kernels/profile_cube/kernel.py:88",
+    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:75",
 }
 KERNEL_SOURCE = "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu"
 CUBE_SOURCE = "src/repro_torch/kernels/profile_cube/csrc/profile_cube.cu"
+ATTN_SOURCE = ("src/repro_torch/kernels/paged_attention/csrc/"
+               "paged_attention.cu")
+ATTN_SEQS = 64                  # attention phase: sequences
+ATTN_CONTEXT = 8192             # chatglm3-6b's context length
+ATTN_PAGE = 64                  # tokens a page
+ATTN_MAX_PAGES = ATTN_CONTEXT // ATTN_PAGE
+ATTN_POOL = ATTN_SEQS * ATTN_MAX_PAGES     # pages in the pool
+# name, query heads, KV heads, head_dim, dtype (widths from
+# src/repro/configs/{chatglm3_6b,deepseek_coder_33b,codeqwen1p5_7b}.py)
+ATTN_CONFIGS = (("chatglm3-6b f32", 32, 2, 128, "float32"),
+                ("chatglm3-6b bf16", 32, 2, 128, "bfloat16"),
+                ("deepseek-coder-33b f32", 56, 8, 128, "float32"),
+                ("codeqwen1.5-7b f32", 32, 32, 128, "float32"))
+# serving phase: chatglm3-6b (src/repro/configs/chatglm3_6b.py) at full
+# width and depth, a 16-page hot pool a layer
+SERVE_MODEL = dict(vocab=65024, d_model=4096, n_layers=28, n_heads=32,
+                   n_kv=2, head_dim=128, d_ff=13696)
+SERVE_POOL = dict(page_size=64, n_pages=16, high_wm=80.0, low_wm=50.0)
+SERVE_REQUESTS = 4
+SERVE_PROMPT = 256
+SERVE_NEW = 32
+SERVE_CHECK_EVERY = 29          # the checker's sampling stride
 
 
 def fail(msg: str) -> None:
@@ -499,7 +547,7 @@ def reports_phase(torch, cat, device, results):
         cat, clock=clock, use_kernel=True, device=device).attach())
     k_wall = time.perf_counter() - t0
     want = {"policy_scan": 0, "policy_scan_batch": 0,
-            "profile_cube": cat.n_shards}
+            "profile_cube": cat.n_shards, "paged_attention": 0}
     check(counts == want, f"ProfileCube(use_kernel=True).attach() launched "
           f"{counts}, expected {want}")
     results["profile_cube"]["launches"] = counts["profile_cube"]
@@ -633,14 +681,17 @@ class Recorder:
 def launch_window(fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts it left, read just after."""
+    from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.policy_scan import kernel as K
     from repro_torch.kernels.profile_cube import kernel as PK
     K.reset_counters()
     PK.reset_counters()
+    AK.reset_counters()
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
                  "policy_scan_batch": K.policy_scan_batch_launches,
-                 "profile_cube": PK.profile_cube_launches}
+                 "profile_cube": PK.profile_cube_launches,
+                 "paged_attention": AK.paged_attention_launches}
 
 
 def agg_close(got: dict, want: dict) -> bool:
@@ -716,7 +767,7 @@ def engine_phase(torch, cat, device, results):
             wall = time.perf_counter() - t1
             want = {"policy_scan": 0, "policy_scan_batch":
                     1 if evaluator == "policy_scan" else 0,
-                    "profile_cube": 0}
+                    "profile_cube": 0, "paged_attention": 0}
             check(counts == want, f"PolicyEngine.run(evaluator="
                   f"{evaluator!r}) (budget {tag}) launched {counts}, "
                   f"expected {want}")
@@ -795,7 +846,7 @@ def engine_phase(torch, cat, device, results):
     (fids_s, agg_s), counts = launch_window(
         lambda: scan_catalog(cat, programs[0], NOW, device=device))
     check(counts == {"policy_scan": 1, "policy_scan_batch": 0,
-                     "profile_cube": 0},
+                     "profile_cube": 0, "paged_attention": 0},
           f"scan_catalog launched {counts}, expected one policy_scan")
     windows["scan_catalog"] = counts
     check(np.array_equal(fids_s, arrays["fid"][ref_masks[0]]),
@@ -809,7 +860,7 @@ def engine_phase(torch, cat, device, results):
         arrays, programs, cat.strings, NOW, single_launch=False,
         device=device))
     want = {"policy_scan": len(programs), "policy_scan_batch": 0,
-            "profile_cube": 0}
+            "profile_cube": 0, "paged_attention": 0}
     check(counts == want, "match_programs(single_launch=False) launched "
           f"{counts}, expected {want}")
     windows["match_programs(single_launch=False)"] = counts
@@ -833,6 +884,407 @@ def engine_phase(torch, cat, device, results):
         windows["scan_catalog"]["policy_scan"]
 
 
+def attn_tables(torch, seed: int, device):
+    """Lengths (B,) i32 uniform in [1, ATTN_CONTEXT] and page tables (B,
+    ATTN_MAX_PAGES) i32 from a seeded permutation of the pool, -1 past each
+    sequence's pages. Sequence 0 is empty, sequence 1 ends mid-page near
+    the context and has a -1 hole at its page 1, sequence 2 ends on a page
+    boundary."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    lengths = torch.randint(1, ATTN_CONTEXT + 1, (ATTN_SEQS,), generator=g,
+                            device=device, dtype=torch.int32)
+    lengths[0] = 0
+    lengths[1] = ATTN_CONTEXT - 37
+    lengths[2] = (lengths[2] // ATTN_PAGE).clamp(min=1) * ATTN_PAGE
+    table = torch.randperm(ATTN_POOL, generator=g, device=device).to(
+        torch.int32).view(ATTN_SEQS, ATTN_MAX_PAGES)
+    n_used = (lengths + ATTN_PAGE - 1) // ATTN_PAGE
+    page = torch.arange(ATTN_MAX_PAGES, device=device)
+    table[page[None, :] >= n_used[:, None]] = -1
+    table[1, 1] = -1
+    return lengths, table
+
+
+def attn_valid(torch, lengths, table):
+    """(B, max_pages * P) bool: positions under the length in pages that
+    are not -1, the rows the function must read."""
+    pos = torch.arange(table.shape[1] * ATTN_PAGE, device=table.device)
+    page_ok = (table >= 0).repeat_interleave(ATTN_PAGE, dim=1)
+    return (pos[None, :] < lengths[:, None].long()) & page_ok
+
+
+def attn_bound_ms(torch, valid, n_heads: int, n_kv: int, hd: int,
+                  elt: int):
+    """Least time for one call: the K and V rows ``valid`` covers read
+    once, q, the tables and lengths read once and out written once, over
+    the memory rate; or the 4 * hd f32 operations (two products, two sums)
+    per position and query head over the f32 peak. Returns (ms, by, bytes,
+    ops)."""
+    rows = int(valid.sum().item())
+    b = valid.shape[0]
+    nbytes = (2 * rows * n_kv * hd * elt + 2 * b * n_heads * hd * elt
+              + 4 * b * (valid.shape[1] // ATTN_PAGE) + 4 * b)
+    ops = 4 * rows * n_heads * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def attn_phase(torch, seed, device, results):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import kernel as AK
+    from repro_torch.kernels.paged_attention import ref as AR
+    lengths, table = attn_tables(torch, seed + 3, device)
+    valid = attn_valid(torch, lengths, table)
+    B, P = ATTN_SEQS, ATTN_PAGE
+    # sequence 1 with its hole taken out: the same pages in the same order
+    row = table[1][table[1] >= 0]
+    packed = torch.full((1, ATTN_MAX_PAGES), -1, dtype=torch.int32,
+                        device=device)
+    packed[0, :row.numel()] = row
+    packed_len = lengths[1:2] - P
+    log(f"[attn] {B} sequences, lengths {lengths[:4].tolist()}... (sum "
+        f"{int(lengths.sum().item())}, max {int(lengths.max().item())}), "
+        f"page size {P}, table ({B}, {ATTN_MAX_PAGES}) from a permutation "
+        f"of {ATTN_POOL} pages; rows to read {int(valid.sum().item())}")
+    configs = {}
+    for name, H, K, hd, dtype_name in ATTN_CONFIGS:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=device)
+        g.manual_seed(seed + H + K)
+        shape = (ATTN_POOL, P, K, hd)
+        kp = torch.randn(shape, generator=g, device=device).to(dtype)
+        vp = torch.randn(shape, generator=g, device=device).to(dtype)
+        q = torch.randn((B, H, hd), generator=g, device=device).to(dtype)
+        args = (q, kp, vp, table, lengths)
+        got = AK.paged_attention_cuda(*args)
+        again = AK.paged_attention_cuda(*args)
+        hole = AK.paged_attention_cuda(q[1:2].contiguous(), kp, vp, packed,
+                                       packed_len)
+        want = AR.paged_attention_ref(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name}: the kernel gave a non-finite output")
+        check(torch.equal(got, again), f"{name}: the kernel differs from "
+              "run to run")
+        check(bool((got[0] == 0).all()) and bool((want[0] == 0).all()),
+              f"{name}: the empty sequence is not exactly zero")
+        check(torch.equal(got[1:2], hole), f"{name}: the hole sequence "
+              "differs from the same table with the hole taken out")
+        vmax = float(vp.float().abs().max().item())
+        if dtype == torch.float32:
+            rtol, atol = 1e-4, 1e-4 * vmax
+        else:
+            rtol = atol = 5e-2
+        err = (got.float() - want.float()).abs()
+        abs_err = float(err.max().item())
+        check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+              f"{name}: the kernel differs from the plain version: max abs "
+              f"err {abs_err!r} (rtol {rtol}, atol {atol})")
+        del again, hole, want, err
+
+        ms, times = cuda_times_ms(lambda: AK.paged_attention_cuda(*args),
+                                  REPS)
+        plain_ms, _ = cuda_times_ms(lambda: AR.paged_attention_ref(*args),
+                                    REPS)
+        # the library call: K/V gathered contiguous (B, K, L, hd) first
+        ids = table.clamp(min=0).long()
+        kseq = kp[ids].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
+        vseq = vp[ids].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
+        mask = valid[:, None, None, :]
+        qs = q[:, :, None, :]
+        lib_ms, _ = cuda_times_ms(lambda: F.scaled_dot_product_attention(
+            qs, kseq, vseq, attn_mask=mask, enable_gqa=True), REPS)
+        del kseq, vseq, ids
+        bms, by, nbytes, ops = attn_bound_ms(torch, valid, H, K, hd,
+                                             kp.element_size())
+        occ = AK.occupancy(dtype, H, K, hd, P, device)
+        blocks = B * K * -(-(H // K) // 16)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        log(f"[attn] {name} (H {H}, K {K}, hd {hd}) {CARD}: kernel {ms!r} ms "
+            f"(median of {len(times)}, min {min(times)!r}, max "
+            f"{max(times)!r}); plain {plain_ms!r} ms; sdpa {lib_ms!r} ms "
+            f"(K/V gathered beforehand); bound {bms!r} ms by {by} ({nbytes} "
+            f"B, {ops} f32 ops); {bms / ms:.3f} of the bound; max abs err "
+            f"{abs_err!r} (max|v| {vmax!r}); grid {blocks} blocks of "
+            f"{occ['threads']} threads, {occ['shared_bytes']} B shared, "
+            f"{occ['blocks_per_sm']} blocks an SM on {sms} SMs; zeros, "
+            "hole and run-to-run checks held")
+        configs[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bms, bound_by=by, bytes=nbytes,
+                             ops=ops, max_abs_err=abs_err, max_abs_v=vmax,
+                             heads=H, kv_heads=K, head_dim=hd,
+                             dtype=dtype_name, grid_blocks=blocks, **occ)
+        del q, kp, vp, args, got
+        torch.cuda.empty_cache()
+    main = configs[ATTN_CONFIGS[0][0]]
+    results["paged_attention"] = {
+        "name": "paged_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": TPU_KERNELS["paged_attention"], "launches": None,
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "library": "scaled_dot_product_attention(enable_gqa=True) with a "
+                   "boolean mask over K/V gathered contiguous beforehand",
+        "error_against": "the plain version on the same tensors",
+        "configs": configs}
+
+
+def attn_agrees(torch, out, want, q, k_pages, v_pages, page_table,
+                lengths):
+    """Whether the kernel's ``out`` agrees with the plain version's
+    ``want`` on the serving path's inputs, whose scores grow with depth
+    (the reference model has no normalization): deep layers' softmax is
+    near one-hot, and f32 rounding of a score can move weight between
+    near-tied positions. Each version's f32 score lies within
+    delta = (hd + 2) 2^-24 max_t sum_d |q_d k_td| / sqrt(hd) of the exact
+    one, so two bounds must hold for every head:
+
+    1. |out - want| <= 1e-4 |want| + max|v| (1e-4 + expm1(4 delta)): two
+       score sets 2 delta apart move each softmax weight by a factor
+       within e^(+-4 delta);
+    2. out lies within the range of the V rows whose exact (f64) score is
+       within 4 delta of the largest, give or take
+       max|v| (1e-4 + 2 n e^(-2 delta)): every other row weighs at most
+       e^(-2 delta) of the largest.
+
+    The first is tight where delta is small (shallow layers), the second
+    where one position wins (deep layers). Returns (ok, largest |score|,
+    largest delta, heads with 4 delta below 1e-3)."""
+    import math
+    _, H, hd = q.shape
+    _, P, K, _ = k_pages.shape
+    G = H // K
+    vmax = float(v_pages.abs().max().item())
+    ok, top, worst, tight = True, 0.0, 0.0, 0
+    for b in range(q.shape[0]):
+        n_len = int(lengths[b].item())
+        pages = page_table[b][:-(-n_len // P)].long()
+        valid = (pages >= 0).repeat_interleave(P)[:n_len]
+        k = k_pages[pages.clamp(min=0)].reshape(-1, K, hd)[:n_len][valid]
+        v = v_pages[pages.clamp(min=0)].reshape(-1, K, hd)[:n_len][valid]
+        o = out[b].double().reshape(K, G, hd)
+        w = want[b].double().reshape(K, G, hd)
+        if k.shape[0] == 0:
+            ok &= bool((o == 0).all()) and bool((w == 0).all())
+            continue
+        qg = q[b].double().reshape(K, G, hd) / math.sqrt(hd)
+        kd, vd = k.double(), v.double().permute(1, 0, 2)   # (K, n, hd)
+        sc = torch.einsum("kgd,nkd->kgn", qg, kd)
+        mag = torch.einsum("kgd,nkd->kgn", qg.abs(), kd.abs())
+        delta = (hd + 2) * 2.0 ** -24 * mag.amax(-1)            # (K, G)
+        live = sc > -0.5e30
+        smax = torch.where(live, sc, -math.inf).amax(-1)
+        near = live & (sc >= (smax - 4 * delta)[..., None])
+        pick = near[..., None]                                  # K,G,n,1
+        lo = torch.where(pick, vd[:, None], math.inf).amin(2)
+        hi = torch.where(pick, vd[:, None], -math.inf).amax(2)
+        d = delta[..., None]
+        tol1 = 1e-4 * w.abs() + vmax * (1e-4 + torch.expm1(
+            (4 * d).clamp(max=60)))
+        tol2 = vmax * (1e-4 + 2 * k.shape[0] * torch.exp(-2 * d))
+        dead = ~live.any(-1)[..., None]          # every score cut: zeros
+        fine = torch.isfinite(w)
+        good = ((o - w).abs() <= tol1) & (o >= lo - tol2) & (o <= hi + tol2)
+        good = torch.where(dead, o == 0, good)
+        ok &= bool(torch.where(fine, good & torch.isfinite(o),
+                               ~torch.isfinite(o)).all())
+        top = max(top, float(sc.abs().max().item()))
+        worst = max(worst, float(delta.max().item()))
+        tight += int((4 * delta < 1e-3).sum().item())
+    return ok, top, worst, tight
+
+
+class AttnChecker:
+    """Stands in for the op the serving engine calls. It always returns the
+    kernel's result; for the first call of every layer, every call right
+    after that layer's cache restored a page and every ``every``-th call it
+    also runs the plain version on the same device tensors and fails the
+    run on any mismatch (``attn_agrees``)."""
+
+    def __init__(self, op, caches, every: int):
+        self.op, self.caches, self.every = op, caches, every
+        self.layer_of = {c.pool.k.data_ptr(): i for i, c in enumerate(caches)}
+        self.restores = [0] * len(caches)
+        self.layers = {}            # layer -> [checks, max |score|, delta]
+        self.calls = self.checked = self.after_restore = self.tight = 0
+        self.max_err = 0.0
+        self.last = None
+
+    def __call__(self, q, k_pages, v_pages, page_table, lengths,
+                 use_kernel=None):
+        import torch
+        from repro_torch.kernels.paged_attention import ref as AR
+        out = self.op(q, k_pages, v_pages, page_table, lengths, use_kernel)
+        li = self.layer_of[k_pages.data_ptr()]
+        restores = self.caches[li].restores
+        restored = restores != self.restores[li]
+        self.restores[li] = restores
+        if restored or li not in self.layers or self.calls % self.every == 0:
+            pt = torch.as_tensor(page_table).to(q.device, torch.int32)
+            ln = torch.as_tensor(lengths).to(q.device, torch.int32)
+            want = AR.paged_attention_ref(q, k_pages, v_pages, pt, ln)
+            ok, top, delta, tight = attn_agrees(torch, out, want, q, k_pages,
+                                                v_pages, pt, ln)
+            err = float((out - want).abs().max().item())
+            check(ok, f"serving: the kernel differs from the plain version "
+                  f"at layer {li}, call {self.calls}: max abs err {err!r}, "
+                  f"largest |score| {top!r}, delta {delta!r}")
+            self.max_err = max(self.max_err, err)
+            self.checked += 1
+            self.after_restore += restored
+            self.tight += tight
+            st = self.layers.setdefault(li, [0, 0.0, 0.0])
+            st[0] += 1
+            st[1] = max(st[1], top)
+            st[2] = max(st[2], delta)
+            self.last = (q, k_pages, v_pages, pt, ln)
+        self.calls += 1
+        return out
+
+
+class HostTimer:
+    """Host seconds inside each of the engine's cache calls and attention
+    op calls (two ``perf_counter`` reads a call, about a microsecond)."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            return out
+        return timed
+
+
+def serve_phase(torch, seed, device, results):
+    import numpy as np
+    import repro_torch.serve.engine as SE
+    from repro_torch.kernels.paged_attention import kernel as AK
+    from repro_torch.kernels.paged_attention import ref as AR
+    from repro_torch.serve import PagedLMConfig, Request, ServingEngine
+    cfg = PagedLMConfig(**SERVE_MODEL, **SERVE_POOL)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, SERVE_PROMPT).tolist()
+               for _ in range(SERVE_REQUESTS)]
+    steps = SERVE_REQUESTS * (SERVE_PROMPT + SERVE_NEW - 1)
+    want_launches = cfg.n_layers * steps
+    op = SE.paged_attention
+
+    def serve(instrument: str):
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, seed=seed, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in eng.model.parameters())
+        if instrument == "checker":
+            hook = AttnChecker(op, eng.caches, SERVE_CHECK_EVERY)
+            SE.paged_attention = hook
+        else:
+            hook = HostTimer()
+            SE.paged_attention = hook.wrap("paged_attention", op)
+            for c in eng.caches:
+                for m in ("append_token", "page_table", "maybe_run_policies",
+                          "finish"):
+                    setattr(c, m, hook.wrap(m, getattr(c, m)))
+        reqs = [Request(req_id=i, prompt=list(p), max_new=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        try:
+            t1 = time.perf_counter()
+            done, counts = launch_window(lambda: eng.run(reqs,
+                                                         policy_interval=4))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            SE.paged_attention = op
+        report = eng.tier_report()
+        tokens = [list(r.generated) for r in done]
+        check(all(r.done and len(r.generated) == SERVE_NEW for r in done),
+              f"serving: a request did not finish with {SERVE_NEW} tokens")
+        check(all(0 <= t < cfg.vocab for ts in tokens for t in ts),
+              "serving: a token outside [0, vocab)")
+        check(counts == {"policy_scan": 0, "policy_scan_batch": 0,
+                         "profile_cube": 0,
+                         "paged_attention": want_launches},
+              f"ServingEngine.run launched {counts}, expected "
+              f"{want_launches} paged_attention")
+        check(all(r["restores"] > 0 for r in report),
+              f"serving: a layer restored no page: {report}")
+        check(all(r["hot_pages"] == 0 for r in report),
+              f"serving: hot pages left after finish: {report}")
+        del eng, done
+        torch.cuda.empty_cache()
+        return dict(tokens=tokens, report=report, counts=counts, wall=wall,
+                    init_s=init_s, params=n_params, hook=hook)
+
+    a, b = serve("checker"), serve("timer")
+    check(a["tokens"] == b["tokens"], "serving: a second run with the same "
+          "seed gave other tokens")
+    chk = a["hook"]
+    check(set(chk.layers) == set(range(cfg.n_layers)), "serving: the "
+          f"checker missed layers: {sorted(chk.layers)}")
+    check(chk.after_restore > 0, "serving: no call right after a restore "
+          "was checked")
+    timer = b["hook"]
+    weight_bytes = 4 * b["params"]
+    weights_bound_s = steps * weight_bytes / HBM_BYTES_PER_S
+    restores = [r["restores"] for r in b["report"]]
+    per_layer = [chk.layers[i] for i in sorted(chk.layers)]
+    for tag, r in (("checked run", a), ("timed run", b)):
+        log(f"[serve] {tag} {CARD}: chatglm3-6b widths, {cfg.n_layers} "
+            f"layers, {r['params']} f32 parameters drawn on the card in "
+            f"{r['init_s']!r} s; {SERVE_REQUESTS} requests x "
+            f"({SERVE_PROMPT} prompt + {SERVE_NEW} new) tokens: wall "
+            f"{r['wall']!r} s, {steps / r['wall']!r} token-steps/s, "
+            f"{SERVE_REQUESTS * SERVE_NEW / r['wall']!r} generated tokens/s, "
+            f"{r['wall'] / want_launches * 1e3!r} ms a layer-step; launches "
+            f"{json.dumps(r['counts'])}")
+    log(f"[serve] checker: {chk.checked} of {chk.calls} calls held to the "
+        f"plain version ({chk.after_restore} right after a restore, every "
+        f"layer at least once; {chk.tight} query heads with 4 delta < 1e-3), "
+        f"max abs err {chk.max_err!r}; per layer [checks, largest |score|, "
+        f"largest delta] {json.dumps(per_layer)}; "
+        f"tokens equal across the two runs; restores per layer {restores}; "
+        f"first request's tokens {a['tokens'][0][:8]}...")
+    # the kernel at this path's shapes (the last checked call's tensors)
+    q, kp, vp, pt, ln = chk.last
+    path_ms, _ = cuda_times_ms(lambda: AK.paged_attention_cuda(
+        q, kp, vp, pt, ln), REPS)
+    path_plain_ms, _ = cuda_times_ms(lambda: AR.paged_attention_ref(
+        q, kp, vp, pt, ln), REPS)
+    log(f"[serve] paged_attention at the path's shapes (q {tuple(q.shape)}, "
+        f"pool {tuple(kp.shape)}, table {tuple(pt.shape)}, length "
+        f"{int(ln[0].item())}): kernel {path_ms!r} ms, plain "
+        f"{path_plain_ms!r} ms")
+    host = {k: v for k, v in sorted(timer.seconds.items())}
+    attn_dev_s = want_launches * path_ms / 1e3
+    log(f"[serve] timed run, where the {b['wall']!r} s go: host seconds in "
+        f"{json.dumps(host)}; paged_attention on the card about "
+        f"{attn_dev_s!r} s ({want_launches} launches x {path_ms!r} ms at the "
+        f"path's shapes); reading the weights once per token-step needs "
+        f"{weights_bound_s!r} s at {HBM_BYTES_PER_S / 1e12} TB/s "
+        f"({weight_bytes} B x {steps} steps)")
+    entry = results["paged_attention"]
+    entry["launches"] = a["counts"]["paged_attention"]
+    entry["launches_by_path"] = {"ServingEngine.run": entry["launches"]}
+    entry["path"] = dict(ms=path_ms, plain_ms=path_plain_ms,
+                         checked_calls=chk.checked,
+                         checked_after_restore=chk.after_restore,
+                         tight_heads=chk.tight, max_abs_err=chk.max_err,
+                         per_layer=per_layer)
+    entry["serve"] = dict(wall_s=b["wall"], checked_wall_s=a["wall"],
+                          token_steps=steps, layer_steps=want_launches,
+                          host_s=host, attn_device_s=attn_dev_s,
+                          weights_bound_s=weights_bound_s,
+                          restores=restores)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -847,6 +1299,7 @@ def main() -> None:
     sys.path.insert(0, SRC)
     from repro_torch import resolve_device
     from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.profile_cube import kernel as PK
     global CARD
 
@@ -866,21 +1319,25 @@ def main() -> None:
     def timed_build(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(timed_build, (K.build, PK.build)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(timed_build, (K.build, PK.build, AK.build)))
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
 
-    # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports
+    # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports,
+    # 7. paged attention at device scale, 8. serving
     results: dict = {}
     kernel_phase(torch, args.seed, device, results)
     cube_phase(torch, args.seed, device, results)
+    attn_phase(torch, args.seed, device, results)
     t0 = time.perf_counter()
     cat = build_catalog(ENTRIES, args.seed)
     log(f"[engine] catalog of {len(cat)} entries built in "
         f"{time.perf_counter() - t0:.2f} s")
     engine_phase(torch, cat, device, results)
     reports_phase(torch, cat, device, results)
+    del cat
+    serve_phase(torch, args.seed, device, results)
     for r in results.values():
         check(r["launches"] is not None and r["launches"] > 0,
               f"{r['name']} was not launched on the main path")

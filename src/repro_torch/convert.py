@@ -14,12 +14,17 @@ The profile cube's state needs no function here: ``ProfileCube.save`` and
 in both packages (per-shard cube, fids and entry tables plus the
 ``GroupIndex`` export), so a cube saved by either loads into the other
 over catalogs with the same string codes.
+
+The serving engine's weights come from ``jax.random`` in the reference,
+which torch cannot reproduce: :func:`paged_lm_state_dict` carries them over
+(as numpy arrays) into a ``state_dict`` for the port's ``PagedLM``.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from .core.catalog import Catalog
 from .core.types import Entry, FsType, HsmState
@@ -66,3 +71,27 @@ def catalog_from_columns(arrays: Mapping[str, np.ndarray],
                   dirty=bool(rows["dirty"][i]))
             for i in range(len(rows["fid"]))])
     return cat
+
+
+LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+
+def paged_lm_state_dict(embed, head, layers: Sequence[Mapping]
+                        ) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for :class:`~repro_torch.serve.engine.PagedLM` from
+    the reference ``ServingEngine``'s ``embed``, ``head`` and ``layers``
+    (a list of dicts of ``wq, wk, wv, wo, w1, w2``), each as a numpy array
+    (``np.asarray(ref.embed)``, ...). Keys mirror the reference's names:
+    ``embed``, ``head``, ``layers.<i>.<name>``; values are f32 CPU tensors
+    in the same (in, out) layout."""
+    def f32(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    out = {"embed": f32(embed), "head": f32(head)}
+    for i, layer in enumerate(layers):
+        if set(layer) != set(LAYER_WEIGHTS):
+            raise ValueError(f"layer {i} has {sorted(layer)}, expected "
+                             f"{sorted(LAYER_WEIGHTS)}")
+        for name in LAYER_WEIGHTS:
+            out[f"layers.{i}.{name}"] = f32(layer[name])
+    return out

@@ -18,5 +18,8 @@ Kernels:
   C1+C6);
 * ``profile_cube`` — fused bucketize + segment-reduce of the catalog
   columns into the (measure, group, size bucket, age bucket) cube behind
-  every ``rbh-report`` query (C6).
+  every ``rbh-report`` query (C6);
+* ``paged_attention`` — decode attention over the policy-tiered KV cache's
+  pages through a page table, grouped query heads, online softmax (the
+  serving engine's hot spot).
 """

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
 ``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
-module of the JAX package; a policy must run, and a profile cube and its
-reports must build, with both blocked; the default device must raise when
+module of the JAX package; a policy must run, a profile cube and its
+reports must build, and the paged serving engine must serve requests over
+its tiered KV cache, with both blocked; the default device must raise when
 CUDA is absent; and the kernel path must refuse CPU tensors instead of
 quietly running the plain version.
 """
@@ -66,6 +67,18 @@ rep = Reports(cat, profiles=cube, clock=lambda: 1e6)
 assert rep.report_user("root")[0]["count"] == 200, rep.report_user("root")
 assert rep.du("/")["files"] == 200
 assert pc_kernel.profile_cube_launches == 0
+
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.serve import PagedLMConfig, Request, ServingEngine
+cfg = PagedLMConfig(n_pages=4, page_size=4, n_layers=2, high_wm=70.0,
+                    low_wm=40.0)
+srv = ServingEngine(cfg, seed=2, device="cpu")
+done = srv.run([Request(req_id=i, prompt=[3 * i + j for j in range(5)],
+                        max_new=4) for i in range(3)])
+assert all(r.done and len(r.generated) == 4 for r in done)
+assert all(t["hot_pages"] == 0 for t in srv.tier_report())
+assert sum(t["restores"] for t in srv.tier_report()) > 0
+assert pa_kernel.paged_attention_launches == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("OK", r.matched)
@@ -73,7 +86,8 @@ print("OK", r.matched)
 
 
 def test_policy_runs_with_jax_and_repro_blocked():
-    """Also builds a ``ProfileCube(use_kernel=True)`` and ``Reports``."""
+    """Also builds a ``ProfileCube(use_kernel=True)`` and ``Reports``, and
+    serves requests through ``ServingEngine(device="cpu").run``."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
@@ -100,6 +114,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from repro_torch.kernels.profile_cube.ops import profile_cube
     with pytest.raises(RuntimeError):
         profile_cube(*(np.zeros(3),) * 4, n_groups=2)
+    from repro_torch.kvcache import PagePool
+    from repro_torch.serve import PagedLMConfig, ServingEngine
+    with pytest.raises(RuntimeError):
+        ServingEngine(PagedLMConfig())
+    with pytest.raises(RuntimeError):
+        PagePool(4, 4, 2, 8)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -120,6 +140,18 @@ def test_kernel_path_refuses_cpu_tensors():
         kernel.policy_scan_cuda(cols, *(p[0] for p in prog))
     assert (kernel.policy_scan_launches,
             kernel.policy_scan_batch_launches) == before
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    q, pages = torch.zeros((1, 4, 8)), torch.zeros((2, 4, 2, 8))
+    table = torch.zeros((1, 1), dtype=torch.int32)
+    length = torch.ones(1, dtype=torch.int32)
+    before = pa_kernel.paged_attention_launches
+    with pytest.raises(ValueError):
+        pa_kernel.paged_attention_cuda(q, pages, pages, table, length)
+    with pytest.raises(ValueError):
+        pa_ops.paged_attention(q, pages, pages, table, length,
+                               use_kernel=True)
+    assert pa_kernel.paged_attention_launches == before
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",

@@ -8,9 +8,9 @@ failure:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
-2. build: the ``policy_scan``, ``profile_cube`` and ``paged_attention``
-   libraries from their ``csrc/``, one ``nvcc`` each, started together,
-   with each build time;
+2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
+   ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, one
+   ``nvcc`` each, started together, with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
@@ -59,7 +59,17 @@ failure:
    over the same table with the hole taken out; each is timed beside its
    bound, the plain version and one ``scaled_dot_product_attention`` over
    K/V gathered beforehand;
-8. serving (last): ``ServingEngine`` at chatglm3-6b's full width and depth
+8. recurrent kernels at device scale (after the attention phase), seeded
+   inputs drawn on the card with the models' decay distributions:
+   ``rglru_scan`` at recurrentgemma-9b's width (B 8, S 4096, R 4096, f32,
+   1.6 GB) and at S 1, S 2016 and R 100, each with and without ``h0``,
+   within ``rtol=1e-5, atol=1e-6`` of its plain version; ``rwkv6_step`` at
+   rwkv6-1.6b's heads (B 256, H 32, hd 64: a 134 MB state), at hd 16 and
+   at B 1, y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| +
+   |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
+   bit for bit and are timed beside their bound and plain version (no
+   single PyTorch call computes either);
+9. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
    (28 layers, weights drawn on the card from the seed), 4 requests of 256
    seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
    so the watermark releases and restores pages in every layer. Each run
@@ -70,7 +80,24 @@ failure:
    bounds that follow the f32 error of the scores, which grow with depth
    (see ``attn_agrees``); a
    second run with the same seed must give the same tokens, and is timed
-   with the host seconds of each cache and op call kind.
+   with the host seconds of each cache and op call kind;
+10. recurrent-model serving (last), one model after the other, each at
+    full width and depth with parameters drawn on the card from the seed,
+    through ``make_prefill`` and ``make_serve_step``: rwkv6-1.6b, 8
+    prompts of 512 seeded tokens and 64 new (exactly 24 x 63 = 1,512
+    ``rwkv6_step`` launches: prefill runs the plain chunked form), and
+    recurrentgemma-9b, 4 prompts of 2016 tokens and 64 new with
+    ``cache_len`` 2080, so the 2048-slot local-attention ring wraps
+    (exactly 26 x 64 = 1,664 ``rglru_scan`` launches: prefill and every
+    step). A checker around the op holds the kernel to its plain version
+    on the first call of every layer and every 29th call; the served
+    logits must lie within the reference's decode-consistency bound
+    ``0.05 * scale + 0.05`` of one forward over prompt and generated
+    tokens (beside the same forward for one prompt alone, the rounding
+    floor); a second run with the same seed must give the same tokens and
+    is timed (prefill seconds, decode ms a step, tokens/s, each kernel's
+    device time against reading the weights once), then four more decode
+    steps run under ``torch.profiler`` for the card's busy share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -80,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -112,6 +140,8 @@ TPU_KERNELS = {
     "policy_scan": "src/repro/kernels/policy_scan/kernel.py:131",
     "profile_cube": "src/repro/kernels/profile_cube/kernel.py:88",
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:75",
+    "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:43",
+    "rwkv6_step": "src/repro/kernels/rwkv6_step/kernel.py:35",
 }
 KERNEL_SOURCE = "src/repro_torch/kernels/policy_scan/csrc/policy_scan.cu"
 CUBE_SOURCE = "src/repro_torch/kernels/profile_cube/csrc/profile_cube.cu"
@@ -137,6 +167,21 @@ SERVE_REQUESTS = 4
 SERVE_PROMPT = 256
 SERVE_NEW = 32
 SERVE_CHECK_EVERY = 29          # the checker's sampling stride
+RG_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
+RW_SOURCE = "src/repro_torch/kernels/rwkv6_step/csrc/rwkv6_step.cu"
+RG_TOL = dict(rtol=1e-5, atol=1e-6)
+# recurrent kernels: rglru_scan (B, S, R) at recurrentgemma-9b's d_rnn and
+# the ragged shapes (a decode step, its prefill length, an odd width);
+# rwkv6_step (B, H, hd) at rwkv6-1.6b's heads, hd 16 and B = 1
+RG_SHAPE = (8, 4096, 4096)
+RG_RAGGED = ((8, 1, 4096), (4, 2016, 4096), (8, 4096, 100))
+RW_SHAPE = (256, 32, 64)
+RW_RAGGED = ((256, 32, 16), (1, 32, 64))
+# recurrent serving (src/repro/configs/): arch, prompts, prompt tokens, new
+# tokens, cache_len (recurrentgemma-9b's 2048-slot ring wraps in decode)
+RECURRENT_SERVE = (("rwkv6_1p6b", 8, 512, 64, 576),
+                   ("recurrentgemma_9b", 4, 2016, 64, 2080))
+PROFILED_STEPS = 4              # decode steps under the profiler
 
 
 def fail(msg: str) -> None:
@@ -546,8 +591,7 @@ def reports_phase(torch, cat, device, results):
     kcube, counts = launch_window(lambda: ProfileCube(
         cat, clock=clock, use_kernel=True, device=device).attach())
     k_wall = time.perf_counter() - t0
-    want = {"policy_scan": 0, "policy_scan_batch": 0,
-            "profile_cube": cat.n_shards, "paged_attention": 0}
+    want = only(profile_cube=cat.n_shards)
     check(counts == want, f"ProfileCube(use_kernel=True).attach() launched "
           f"{counts}, expected {want}")
     results["profile_cube"]["launches"] = counts["profile_cube"]
@@ -684,14 +728,25 @@ def launch_window(fn):
     from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.policy_scan import kernel as K
     from repro_torch.kernels.profile_cube import kernel as PK
-    K.reset_counters()
-    PK.reset_counters()
-    AK.reset_counters()
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rwkv6_step import kernel as RWK
+    for mod in (K, PK, AK, RGK, RWK):
+        mod.reset_counters()
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
                  "policy_scan_batch": K.policy_scan_batch_launches,
                  "profile_cube": PK.profile_cube_launches,
-                 "paged_attention": AK.paged_attention_launches}
+                 "paged_attention": AK.paged_attention_launches,
+                 "rglru_scan": RGK.rglru_scan_launches,
+                 "rwkv6_step": RWK.rwkv6_step_launches}
+
+
+def only(**launches) -> dict:
+    """The counts a window must show: these kernels so many times, every
+    other kernel never."""
+    want = dict.fromkeys(TPU_KERNELS, 0)
+    want.update(launches)
+    return want
 
 
 def agg_close(got: dict, want: dict) -> bool:
@@ -765,9 +820,8 @@ def engine_phase(torch, cat, device, results):
                 "lru", evaluator=evaluator,
                 target_volume=budget.get("target", 0)))
             wall = time.perf_counter() - t1
-            want = {"policy_scan": 0, "policy_scan_batch":
-                    1 if evaluator == "policy_scan" else 0,
-                    "profile_cube": 0, "paged_attention": 0}
+            want = only(policy_scan_batch=1 if evaluator == "policy_scan"
+                        else 0)
             check(counts == want, f"PolicyEngine.run(evaluator="
                   f"{evaluator!r}) (budget {tag}) launched {counts}, "
                   f"expected {want}")
@@ -845,8 +899,7 @@ def engine_phase(torch, cat, device, results):
     # scan_catalog: the single-program kernel, once
     (fids_s, agg_s), counts = launch_window(
         lambda: scan_catalog(cat, programs[0], NOW, device=device))
-    check(counts == {"policy_scan": 1, "policy_scan_batch": 0,
-                     "profile_cube": 0, "paged_attention": 0},
+    check(counts == only(policy_scan=1),
           f"scan_catalog launched {counts}, expected one policy_scan")
     windows["scan_catalog"] = counts
     check(np.array_equal(fids_s, arrays["fid"][ref_masks[0]]),
@@ -859,8 +912,7 @@ def engine_phase(torch, cat, device, results):
     per_prog, counts = launch_window(lambda: match_programs(
         arrays, programs, cat.strings, NOW, single_launch=False,
         device=device))
-    want = {"policy_scan": len(programs), "policy_scan_batch": 0,
-            "profile_cube": 0, "paged_attention": 0}
+    want = only(policy_scan=len(programs))
     check(counts == want, "match_programs(single_launch=False) launched "
           f"{counts}, expected {want}")
     windows["match_programs(single_launch=False)"] = counts
@@ -1209,9 +1261,7 @@ def serve_phase(torch, seed, device, results):
               f"serving: a request did not finish with {SERVE_NEW} tokens")
         check(all(0 <= t < cfg.vocab for ts in tokens for t in ts),
               "serving: a token outside [0, vocab)")
-        check(counts == {"policy_scan": 0, "policy_scan_batch": 0,
-                         "profile_cube": 0,
-                         "paged_attention": want_launches},
+        check(counts == only(paged_attention=want_launches),
               f"ServingEngine.run launched {counts}, expected "
               f"{want_launches} paged_attention")
         check(all(r["restores"] > 0 for r in report),
@@ -1285,6 +1335,497 @@ def serve_phase(torch, seed, device, results):
                           restores=restores)
 
 
+def rglru_inputs(torch, shape, seed: int, device):
+    """log_a, b (B, S, R) and h0 (B, R) f32 on the card: decays as the
+    model draws them (log_a = -8 sigmoid(x) softplus(-4.35), so exp(log_a)
+    lies in (0.90, 1)), b and h0 standard normal."""
+    B, S, R = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    la = torch.randn(shape, generator=g, device=device).sigmoid_().mul_(
+        -8.0 * math.log1p(math.exp(-4.35)))
+    b = torch.randn(shape, generator=g, device=device)
+    h0 = torch.randn((B, R), generator=g, device=device)
+    return la, b, h0
+
+
+def rglru_agrees(torch, args, out):
+    """The kernel's ``out`` against the plain version on the same tensors
+    (``RG_TOL``). Returns (ok, max abs err, bit-identical)."""
+    from repro_torch.kernels.rglru_scan import ref as RGR
+    la, b, h0 = args
+    if h0 is None:
+        h0 = torch.zeros((la.shape[0], la.shape[2]), device=la.device)
+    want = RGR.rglru_ref(la, b, h0)
+    if want.numel() == 0:
+        return out.shape == want.shape, 0.0, True
+    err = float((out - want).abs().max().item())
+    return (bool(torch.allclose(out, want, **RG_TOL)), err,
+            bool(torch.equal(out, want)))
+
+
+def rglru_bound_ms(shape, with_h0: bool):
+    """log_a and b read once, h written once (h0 read once) over the memory
+    rate; or 3 f32 operations (exp, multiply, add) an element over the f32
+    peak. Returns (ms, by, bytes, ops)."""
+    B, S, R = shape
+    nbytes = 4 * (3 * B * S * R + (B * R if with_h0 else 0))
+    ops = 3 * B * S * R
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def rwkv_inputs(torch, shape, seed: int, device):
+    """r, k, v, w (B, H, hd), u (H, hd) and the state (B, H, hd, hd) f32 on
+    the card: decays as the model draws them (w = exp(-exp(-3.9 + x/2)),
+    about 0.98), u as its init (0.02 N(0, 1)), the rest standard normal."""
+    B, H, hd = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r, k, v = (torch.randn(shape, generator=g, device=device)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-3.9 + 0.5 * torch.randn(
+        shape, generator=g, device=device)))
+    u = 0.02 * torch.randn((H, hd), generator=g, device=device)
+    state = torch.randn((B, H, hd, hd), generator=g, device=device)
+    return r, k, v, w, u, state
+
+
+def rwkv_agrees(torch, args, out):
+    """The kernel's (y, state) against the plain version on the same
+    tensors: y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| + |u_i k_i
+    v_j|) (one f32 sum of hd products, in another order), the state within
+    ``rtol=atol=1e-6``. Returns (ok, max abs err of y, of the state, state
+    bit-identical)."""
+    from repro_torch.kernels.rwkv6_step import ref as RWR
+    r, k, v, w, u, s = args
+    y, s_new = out
+    yw, sw = RWR.rwkv6_step_ref(r, k, v, w, u, s)
+    kv = k.float()[..., :, None].abs() * v.float()[..., None, :].abs()
+    scale = torch.einsum("bhi,bhij->bhj", r.float().abs(),
+                         s.abs() + u.float().abs()[None, :, :, None] * kv)
+    dy = (y.float() - yw.float()).abs()
+    ok_y = bool((dy <= 1e-5 * scale + 1e-5 * yw.float().abs()).all())
+    ok_s = bool(torch.allclose(s_new, sw, rtol=1e-6, atol=1e-6))
+    return (ok_y and ok_s, float(dy.max().item()),
+            float((s_new - sw).abs().max().item()), bool(torch.equal(s_new,
+                                                                      sw)))
+
+
+def rwkv_bound_ms(shape, elt: int = 4):
+    """r, k, v, w, u and the state read once, y and the new state written
+    once, over the memory rate; or 7 f32 operations per state entry (three
+    products, two adds, a fused multiply-add) over the f32 peak."""
+    B, H, hd = shape
+    nbytes = elt * (5 * B * H * hd + H * hd) + 4 * 2 * B * H * hd * hd
+    ops = 7 * B * H * hd * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def recurrent_kernel_phase(torch, seed, device, results):
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rglru_scan import ref as RGR
+    from repro_torch.kernels.rwkv6_step import kernel as RWK
+    from repro_torch.kernels.rwkv6_step import ref as RWR
+
+    # rglru_scan at recurrentgemma-9b's width, then the ragged shapes
+    configs = {}
+    for i, shape in enumerate((RG_SHAPE,) + RG_RAGGED):
+        la, b, h0 = rglru_inputs(torch, shape, seed + 20 + i, device)
+        for with_h0 in (True, False):
+            args = (la, b, h0 if with_h0 else None)
+            got = RGK.rglru_scan_cuda(*args)
+            again = RGK.rglru_scan_cuda(*args)
+            torch.cuda.synchronize()
+            name = f"B{shape[0]} S{shape[1]} R{shape[2]} " + (
+                "h0" if with_h0 else "no h0")
+            check(bool(torch.isfinite(got).all()), f"rglru_scan {name}: a "
+                  "non-finite output")
+            check(torch.equal(got, again), f"rglru_scan {name}: the kernel "
+                  "differs from run to run")
+            ok, err, same = rglru_agrees(torch, args, got)
+            check(ok, f"rglru_scan {name}: the kernel differs from the plain "
+                  f"version: max abs err {err!r} ({RG_TOL})")
+            entry = dict(max_abs_err=err, bit_identical=same)
+            if shape == RG_SHAPE and with_h0:
+                entry["ms"], times = cuda_times_ms(
+                    lambda: RGK.rglru_scan_cuda(*args), REPS)
+                entry["plain_ms"], _ = cuda_times_ms(
+                    lambda: RGR.rglru_ref(la, b, h0 if with_h0 else
+                                          torch.zeros_like(h0)), REPS)
+                (entry["bound_ms"], entry["bound_by"], entry["bytes"],
+                 entry["ops"]) = rglru_bound_ms(shape, with_h0)
+                log(f"[recurrent] rglru_scan {name} {CARD}: kernel "
+                    f"{entry['ms']!r} ms (median of {len(times)}, min "
+                    f"{min(times)!r}, max {max(times)!r}); plain "
+                    f"{entry['plain_ms']!r} ms; bound {entry['bound_ms']!r} "
+                    f"ms by {entry['bound_by']} ({entry['bytes']} B, "
+                    f"{entry['ops']} f32 ops); "
+                    f"{entry['bound_ms'] / entry['ms']:.3f} of the bound; "
+                    f"max abs err {err!r}, bit-identical {same}; grid "
+                    f"{-(-shape[2] // RGK.threads()) * shape[0]} blocks of "
+                    f"{RGK.threads()} threads")
+            else:
+                log(f"[recurrent] rglru_scan {name}: max abs err {err!r}, "
+                    f"bit-identical {same}")
+            configs[name] = entry
+            del got, again
+        del la, b, h0
+        torch.cuda.empty_cache()
+    main = configs[f"B{RG_SHAPE[0]} S{RG_SHAPE[1]} R{RG_SHAPE[2]} h0"]
+    results["rglru_scan"] = {
+        "name": "rglru_scan", "route": "cuda", "source": RG_SOURCE,
+        "replaces": TPU_KERNELS["rglru_scan"], "launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in configs.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "error_against": "the plain version on the same tensors",
+        "configs": configs}
+
+    # rwkv6_step at rwkv6-1.6b's heads, then hd 16 and B = 1
+    configs = {}
+    for i, shape in enumerate((RW_SHAPE,) + RW_RAGGED):
+        args = rwkv_inputs(torch, shape, seed + 30 + i, device)
+        y, s = RWK.rwkv6_step_cuda(*args)
+        y2, s2 = RWK.rwkv6_step_cuda(*args)
+        torch.cuda.synchronize()
+        name = f"B{shape[0]} H{shape[1]} hd{shape[2]}"
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all()),
+              f"rwkv6_step {name}: a non-finite output")
+        check(torch.equal(y, y2) and torch.equal(s, s2), f"rwkv6_step "
+              f"{name}: the kernel differs from run to run")
+        ok, err_y, err_s, same = rwkv_agrees(torch, args, (y, s))
+        check(ok, f"rwkv6_step {name}: the kernel differs from the plain "
+              f"version: max abs err y {err_y!r}, state {err_s!r}")
+        entry = dict(max_abs_err=err_y, max_abs_err_state=err_s,
+                     state_bit_identical=same)
+        if shape == RW_SHAPE:
+            entry["ms"], times = cuda_times_ms(
+                lambda: RWK.rwkv6_step_cuda(*args), REPS)
+            entry["plain_ms"], _ = cuda_times_ms(
+                lambda: RWR.rwkv6_step_ref(*args), REPS)
+            (entry["bound_ms"], entry["bound_by"], entry["bytes"],
+             entry["ops"]) = rwkv_bound_ms(shape)
+            log(f"[recurrent] rwkv6_step {name} f32 {CARD}: kernel "
+                f"{entry['ms']!r} ms (median of {len(times)}, min "
+                f"{min(times)!r}, max {max(times)!r}); plain "
+                f"{entry['plain_ms']!r} ms; bound {entry['bound_ms']!r} ms by "
+                f"{entry['bound_by']} ({entry['bytes']} B, {entry['ops']} f32 "
+                f"ops); {entry['bound_ms'] / entry['ms']:.3f} of the bound; "
+                f"max abs err y {err_y!r}, state {err_s!r} (bit-identical "
+                f"{same}); grid {shape[0] * shape[1]} blocks of {shape[2]} "
+                "threads")
+        else:
+            log(f"[recurrent] rwkv6_step {name}: max abs err y {err_y!r}, "
+                f"state {err_s!r} (bit-identical {same})")
+        configs[name] = entry
+        del args, y, s, y2, s2
+        torch.cuda.empty_cache()
+    main = configs[f"B{RW_SHAPE[0]} H{RW_SHAPE[1]} hd{RW_SHAPE[2]}"]
+    results["rwkv6_step"] = {
+        "name": "rwkv6_step", "route": "cuda", "source": RW_SOURCE,
+        "replaces": TPU_KERNELS["rwkv6_step"], "launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in configs.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "error_against": "the plain version on the same tensors (y; the "
+                         "state's error is in configs)",
+        "configs": configs}
+
+
+def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
+    """``n`` decode steps from ``cache`` under ``torch.profiler``: the wall
+    seconds, the device seconds of every CUDA operation, their count and
+    the five largest by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            nxt, cache = step(cache, nxt, pos + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0), e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return dict(wall_s=wall, device_s=sum(r[1] for r in rows) / 1e6,
+                kernels=sum(r[2] for r in rows),
+                top=[[k[:60], us, c] for k, us, c in rows[:5]])
+
+
+class OpChecker:
+    """Stands in for a kernel op the model calls. It always returns the
+    kernel's result; for the first ``first`` calls (the layers call the op
+    in order, so one a layer) and every ``every``-th call after, it also
+    runs the plain version on the same device tensors and fails the run on
+    a mismatch (``agrees``)."""
+
+    def __init__(self, op, agrees, first: int, every: int):
+        self.op, self.agrees = op, agrees
+        self.first, self.every = first, every
+        self.calls = self.checked = self.bit_identical = 0
+        self.max_err = 0.0
+        self.shapes = {}            # call shape -> the last args seen
+
+    def __call__(self, *args, **kw):
+        import torch
+        out = self.op(*args, **kw)
+        if self.calls < self.first or self.calls % self.every == 0:
+            ok, err, *rest = self.agrees(torch, args, out)
+            check(ok, f"{self.op.__name__}: the kernel differs from the "
+                  f"plain version at call {self.calls}: max abs err "
+                  f"{err!r} {rest}")
+            self.max_err = max(self.max_err, err)
+            self.bit_identical += bool(rest[-1])
+            self.checked += 1
+        self.shapes[tuple(args[0].shape)] = args
+        self.calls += 1
+        return out
+
+
+class LogitRecorder:
+    """Wraps a model's ``prefill`` and ``decode_step`` and keeps the last
+    position's logits of each call (B, V), f32 on the card."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+        self.prefill, self.decode = model.prefill, model.decode_step
+
+    def __enter__(self):
+        def prefill(*a, **kw):
+            logits, cache = self.prefill(*a, **kw)
+            self.logits.append(logits[:, -1].clone())
+            return logits, cache
+
+        def decode_step(*a, **kw):
+            logits, cache = self.decode(*a, **kw)
+            self.logits.append(logits[:, -1].clone())
+            return logits, cache
+        self.model.prefill, self.model.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill, self.model.decode_step
+
+
+def recurrent_serve_phase(torch, seed, device, results, arch: str,
+                          batch: int, prompt_len: int, new: int,
+                          cache_len: int):
+    """Serve ``arch`` at full width and depth through ``make_prefill`` and
+    ``make_serve_step``: two runs with the same seed (the first checked
+    and recorded, the second timed), then one forward over prompt plus
+    generated tokens for decode consistency."""
+    import repro_torch.kernels.rglru_scan.ops as RGO
+    import repro_torch.kernels.rwkv6_step.ops as RWO
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rwkv6_step import kernel as RWK
+    from repro_torch.models import Model
+    from repro_torch.models.config import MIX_RGLRU, MIX_RWKV6
+    from repro_torch.serve import make_prefill, make_serve_step
+    cfg = get_config(arch)
+    if any(s.mix == MIX_RWKV6 for s in cfg.layers):
+        name, mod, cuda_op, agrees = ("rwkv6_step", RWO, RWK.rwkv6_step_cuda,
+                                      rwkv_agrees)
+        n_kind = sum(s.mix == MIX_RWKV6 for s in cfg.layers)
+        want_launches = n_kind * (new - 1)     # decode steps only
+    else:
+        name, mod, cuda_op, agrees = ("rglru_scan", RGO, RGK.rglru_scan_cuda,
+                                      rglru_agrees)
+        n_kind = sum(s.mix == MIX_RGLRU for s in cfg.layers)
+        want_launches = n_kind * new           # prefill and decode steps
+    op = getattr(mod, name)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 40)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                           device=device)
+
+    def serve(instrument: bool):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        model = Model(cfg).init(gen, device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        prefill = make_prefill(model, cache_len)
+        step = make_serve_step(model)
+        hook = OpChecker(op, agrees, n_kind, SERVE_CHECK_EVERY)
+        rec = LogitRecorder(model)
+        times = {}
+
+        def run():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            last, cache = prefill(prompt)
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = [nxt]
+            for i in range(new - 1):
+                nxt, cache = step(cache, nxt, prompt_len + i)
+                out.append(nxt)
+            toks = torch.cat(out, dim=1)
+            torch.cuda.synchronize()
+            times["prefill_s"] = t2 - t1
+            times["decode_s"] = time.perf_counter() - t2
+            times["cache"], times["next"] = cache, nxt
+            return toks
+
+        if instrument:
+            setattr(mod, name, hook)
+            try:
+                with rec:
+                    toks, counts = launch_window(run)
+            finally:
+                setattr(mod, name, op)
+        else:
+            toks, counts = launch_window(run)
+        check(counts == only(**{name: want_launches}),
+              f"{arch} serving launched {counts}, expected {want_launches} "
+              f"{name}")
+        check(toks.shape == (batch, new) and bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"{arch} serving: tokens outside [0, vocab) or of shape "
+              f"{tuple(toks.shape)}")
+        peak = torch.cuda.max_memory_allocated(device)
+        # a few more decode steps under the profiler: the card's busy time
+        prof = None if instrument else profile_steps(
+            torch, step, times.pop("cache"), times.pop("next"),
+            prompt_len + new - 1, PROFILED_STEPS)
+        times.pop("cache", None)
+        times.pop("next", None)
+        return dict(model=model, tokens=toks, counts=counts, hook=hook,
+                    logits=rec.logits, init_s=init_s, params=n_params,
+                    param_bytes=param_bytes, peak_bytes=peak, prof=prof,
+                    **times)
+
+    a = serve(instrument=True)
+    model = a.pop("model")
+    # decode consistency: one forward over the prompt and the generated
+    # tokens, against the served logits (the last token's are not served;
+    # it keeps rwkv6's prefill chunks at 64 for 512 + 64 tokens)
+    seq = torch.cat([prompt, a["tokens"].long()], dim=1)
+    n_seq = seq.shape[1]
+    full, _, _ = model(seq)
+    scale = float(torch.maximum(full.amax(), -full.amin()).item()) + 1e-6
+    errs = [float((lg - full[:, prompt_len - 1 + i]).abs().max().item())
+            for i, lg in enumerate(a["logits"])]
+    # the rounding floor: the same forward for the first prompt alone (other
+    # matrix shapes, so other bf16 roundings), at the served positions
+    one, _, _ = model(seq[:1])
+    served = slice(prompt_len - 1, prompt_len - 1 + new)
+    floor = float((one[0, served] - full[0, served]).abs().max().item())
+    del one
+    check(len(errs) == new, f"{arch}: recorded {len(errs)} logits, "
+          f"expected {new}")
+    bound = 0.05 * scale + 0.05
+    check(max(errs) < bound, f"{arch}: decode consistency failed: max err "
+          f"{max(errs)!r} >= {bound!r} (scale {scale!r}); per position "
+          f"{errs}")
+    del full, model, seq
+    a["logits"] = None
+    torch.cuda.empty_cache()
+    b = serve(instrument=False)
+    model = b.pop("model")
+    check(torch.equal(a["tokens"], b["tokens"]), f"{arch}: a second run with "
+          "the same seed gave other tokens")
+    chk = a["hook"]
+    check(chk.checked >= n_kind, f"{arch}: the checker held only "
+          f"{chk.checked} calls, fewer than the {n_kind} layers")
+    # the kernel at this path's shapes
+    path_ms = {}
+    for shape, args in sorted(chk.shapes.items()):
+        path_ms[str(shape)], _ = cuda_times_ms(lambda: cuda_op(*(
+            x.contiguous() if x is not None else None for x in args)), REPS)
+    if name == "rglru_scan":
+        step_ms = path_ms[str((batch, 1, cfg.rnn_width))]
+        prefill_ms = path_ms[str((batch, prompt_len, cfg.rnn_width))]
+        dev_s = (n_kind * prefill_ms + n_kind * (new - 1) * step_ms) / 1e3
+    else:
+        step_ms = path_ms[str((batch, cfg.n_heads, cfg.head_dim))]
+        dev_s = want_launches * step_ms / 1e3
+    weights_ms = b["param_bytes"] / HBM_BYTES_PER_S * 1e3
+    decode_ms = b["decode_s"] / (new - 1) * 1e3
+    for tag, r in (("checked run", a), ("timed run", b)):
+        wall = r["prefill_s"] + r["decode_s"]
+        log(f"[{arch}] {tag} {CARD}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{r['params']} parameters ({r['param_bytes']} B) drawn on the "
+            f"card in {r['init_s']!r} s; {batch} prompts x ({prompt_len} + "
+            f"{new} new) tokens: prefill {r['prefill_s']!r} s, decode "
+            f"{r['decode_s'] / (new - 1) * 1e3!r} ms a step "
+            f"({new - 1} steps), {batch * new / wall!r} generated tokens/s, "
+            f"{batch * (new - 1) / r['decode_s']!r} decode tokens/s; peak "
+            f"memory {r['peak_bytes']} B; launches {json.dumps(r['counts'])}")
+    log(f"[{arch}] checker: {chk.checked} of {chk.calls} {name} calls held to "
+        f"the plain version (the first of every layer, then every "
+        f"{SERVE_CHECK_EVERY}th), {chk.bit_identical} bit-identical, max abs "
+        f"err {chk.max_err!r}; decode consistency against one forward over "
+        f"{n_seq} tokens: max err {max(errs)!r} < "
+        f"{bound!r} (scale {scale!r}; prefill {errs[0]!r}, last step "
+        f"{errs[-1]!r}, largest at step {errs.index(max(errs))}); the same "
+        f"forward for the first prompt alone differs from the batched one "
+        f"by {floor!r} at the served positions (the bf16 rounding floor); "
+        f"tokens equal across the two runs; first prompt's tokens "
+        f"{b['tokens'][0, :8].tolist()}...")
+    prof = b["prof"]
+    if prof["device_s"] > 0:
+        busy = prof["device_s"] / PROFILED_STEPS / (decode_ms / 1e3)
+        log(f"[{arch}] profiled {PROFILED_STEPS} decode steps "
+            f"(torch.profiler): {prof['kernels']} device operations, "
+            f"{prof['device_s'] / PROFILED_STEPS * 1e3!r} ms of device time "
+            f"a step against the timed run's {decode_ms!r} ms a step: the "
+            f"card is busy {busy:.3f} of a step (profiled wall "
+            f"{prof['wall_s'] / PROFILED_STEPS * 1e3!r} ms a step); top by "
+            f"device time (us) {json.dumps(prof['top'])}")
+    else:
+        busy = None
+        log(f"[{arch}] profiled {PROFILED_STEPS} decode steps: the profiler "
+            "saw no device time; the busy share is not measured")
+    log(f"[{arch}] {name} at the path's shapes {json.dumps(path_ms)} ms; on "
+        f"the card about {dev_s!r} s of the timed run's "
+        f"{b['prefill_s'] + b['decode_s']!r} s; a decode step {decode_ms!r} "
+        f"ms against reading the weights once, {weights_ms!r} ms at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s; {name} {step_ms!r} ms a layer-step "
+        f"x {n_kind} layers = {n_kind * step_ms!r} ms a step")
+    entry = results[name]
+    entry["launches"] = a["counts"][name]
+    entry["launches_by_path"] = {f"{arch} serving (make_prefill + "
+                                 f"{new - 1} make_serve_step)":
+                                 entry["launches"]}
+    entry["path"] = dict(ms=path_ms, checked_calls=chk.checked,
+                         calls=chk.calls, max_abs_err=chk.max_err,
+                         bit_identical=chk.bit_identical)
+    entry["serve"] = dict(arch=arch, batch=batch, prompt=prompt_len,
+                          new=new, prefill_s=b["prefill_s"],
+                          decode_ms_a_step=decode_ms,
+                          tokens_per_s=batch * new / (b["prefill_s"]
+                                                      + b["decode_s"]),
+                          kernel_device_s=dev_s,
+                          weights_read_ms=weights_ms,
+                          decode_consistency_err=max(errs),
+                          decode_consistency_bound=bound,
+                          rounding_floor=floor, device_busy_share=busy,
+                          peak_bytes=b["peak_bytes"])
+    del model, a, b
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1301,6 +1842,8 @@ def main() -> None:
     from repro_torch.kernels.policy_scan import kernel as K
     from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.profile_cube import kernel as PK
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rwkv6_step import kernel as RWK
     global CARD
 
     # 1. environment
@@ -1314,22 +1857,28 @@ def main() -> None:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     device = resolve_device("cuda")
+    # full f32 in every f32 product (the models' gates and readouts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 2. build: one nvcc per library, started together
     def timed_build(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        builds = list(pool.map(timed_build, (K.build, PK.build, AK.build)))
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
+                                             RGK.build, RWK.build)))
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
 
     # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports,
-    # 7. paged attention at device scale, 8. serving
+    # 7. paged attention and 8. the recurrent kernels at device scale,
+    # 9. paged serving, 10. recurrent-model serving
     results: dict = {}
     kernel_phase(torch, args.seed, device, results)
     cube_phase(torch, args.seed, device, results)
     attn_phase(torch, args.seed, device, results)
+    recurrent_kernel_phase(torch, args.seed, device, results)
     t0 = time.perf_counter()
     cat = build_catalog(ENTRIES, args.seed)
     log(f"[engine] catalog of {len(cat)} entries built in "
@@ -1338,6 +1887,11 @@ def main() -> None:
     reports_phase(torch, cat, device, results)
     del cat
     serve_phase(torch, args.seed, device, results)
+    for arch, batch, prompt_len, new, cache_len in RECURRENT_SERVE:
+        recurrent_serve_phase(torch, args.seed, device, results, arch, batch,
+                              prompt_len, new, cache_len)
+    check(sorted(results) == sorted(TPU_KERNELS), f"kernels {sorted(results)}"
+          f" are not those of {sorted(TPU_KERNELS)}")
     for r in results.values():
         check(r["launches"] is not None and r["launches"] > 0,
               f"{r['name']} was not launched on the main path")

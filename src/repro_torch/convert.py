@@ -17,11 +17,15 @@ over catalogs with the same string codes.
 
 The serving engine's weights come from ``jax.random`` in the reference,
 which torch cannot reproduce: :func:`paged_lm_state_dict` carries them over
-(as numpy arrays) into a ``state_dict`` for the port's ``PagedLM``.
+(as numpy arrays) into a ``state_dict`` for the port's ``PagedLM``, and
+:func:`model_state_dict` carries the model zoo's ``Model.init`` parameters
+into a ``state_dict`` for the port's ``models.Model``; :func:`model_cache`
+maps the reference's decode caches the same way, so the two can be compared
+layer by layer.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -95,3 +99,69 @@ def paged_lm_state_dict(embed, head, layers: Sequence[Mapping]
         for name in LAYER_WEIGHTS:
             out[f"layers.{i}.{name}"] = f32(layer[name])
     return out
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype; bf16 arrays (numpy
+    has no bf16 of its own: the reference's come as ``ml_dtypes``) cross
+    bit for bit through an int16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree: Mapping, prefix: str, out: Dict[str, Any]) -> None:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            _flatten(val, f"{prefix}{key}.", out)
+        else:
+            out[f"{prefix}{key}"] = val
+
+
+def _per_layer(tree: Mapping, cfg) -> List[Mapping]:
+    """The reference's ``scan``/``tail`` grouping as one entry a layer:
+    ``tree["scan"][j]`` row ``i`` is layer ``i * period + j`` and
+    ``tree[f"tail{t}"]`` is layer ``n_super * period + t``."""
+    period = len(cfg.pattern)
+    layers: List[Mapping] = []
+    for n in range(cfg.n_layers):
+        i, j = divmod(n, period)
+        if i < cfg.n_super:
+            flat: Dict[str, Any] = {}
+            _flatten(tree["scan"][j], "", flat)
+            layer: Dict[str, Any] = {}
+            for key, val in flat.items():
+                node = layer
+                *path, leaf = key.split(".")
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = np.asarray(val)[i]
+            layers.append(layer)
+        else:
+            layers.append(tree[f"tail{n - cfg.n_super * period}"])
+    return layers
+
+
+def model_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for the port's :class:`~repro_torch.models.Model`
+    from the reference ``Model(cfg).init(key)`` pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``). Keys: ``embed``, ``final.<n>``,
+    ``lm_head``, ``pos_embed`` where the reference has them, and
+    ``layers.<l>.<group>.<name>`` for every layer in ``cfg.layers`` order;
+    values keep the reference's dtypes (bf16 or f32) on the CPU."""
+    flat: Dict[str, Any] = {}
+    _flatten({k: v for k, v in params.items()
+              if k != "scan" and not k.startswith("tail")}, "", flat)
+    for n, layer in enumerate(_per_layer(params, cfg)):
+        _flatten(layer, f"layers.{n}.", flat)
+    return {k: _tensor(v) for k, v in flat.items()}
+
+
+def model_cache(cache: Mapping, cfg) -> List[Dict[str, torch.Tensor]]:
+    """The port's cache layout (one dict a layer, in ``cfg.layers`` order)
+    from a reference ``init_cache``/``prefill``/``decode_step`` cache with
+    numpy leaves, as CPU tensors of the reference's dtypes."""
+    return [{k: _tensor(v) for k, v in layer.items()}
+            for layer in _per_layer(cache, cfg)]

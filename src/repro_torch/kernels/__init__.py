@@ -21,5 +21,8 @@ Kernels:
   every ``rbh-report`` query (C6);
 * ``paged_attention`` — decode attention over the policy-tiered KV cache's
   pages through a page table, grouped query heads, online softmax (the
-  serving engine's hot spot).
+  serving engine's hot spot);
+* ``rglru_scan`` — the RG-LRU diagonal linear recurrence of
+  recurrentgemma's recurrent layers (prefill and every decode step);
+* ``rwkv6_step`` — RWKV6's decode-step state update and readout.
 """

@@ -1,0 +1,118 @@
+"""Build, bind and launch the hand-written ``rglru_scan`` CUDA kernel.
+
+The source in ``csrc/`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes`` (see :mod:`repro_torch.kernels._build`).
+
+:func:`rglru_scan_cuda` replaces the Pallas ``rglru_pallas``: the RG-LRU
+recurrence ``h_t = exp(log_a_t) h_{t-1} + b_t`` over (B, S, R) f32, one
+thread per (batch, channel) walking time in order. It takes any B, S and
+R (S = 1 is a decode step), counts its launches in a plain integer, takes
+CUDA tensors only and raises on anything else: there is no fallback here.
+The plain version lives in ``ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from .. import _build
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("rglru_scan.cu",)
+MAX_BATCH = 65535                   # the grid's y extent
+
+# launch counter: +1 per kernel launch, nowhere else
+rglru_scan_launches = 0
+
+_LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
+
+
+def reset_counters() -> None:
+    global rglru_scan_launches
+    rglru_scan_launches = 0
+
+
+def library_path() -> Path:
+    return _build.library_path("rglru_scan", CSRC, SOURCES)
+
+
+def build() -> Path:
+    """Compile ``csrc/`` into the shared library unless it already exists.
+    Returns its path."""
+    return _build.build("rglru_scan", CSRC, SOURCES)
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, p]
+            lib.rglru_scan_launch.restype = i
+            lib.rglru_scan_threads.argtypes = []
+            lib.rglru_scan_threads.restype = i
+            lib.rglru_scan_error_string.argtypes = [i]
+            lib.rglru_scan_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def threads() -> int:
+    """Threads a block (one thread per channel of one batch row)."""
+    return _lib().rglru_scan_threads()
+
+
+def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """log_a, b: (B, S, R) f32; h0: (B, R) f32 or None (zeros); all
+    contiguous on one CUDA device. Returns h: (B, S, R) f32."""
+    global rglru_scan_launches
+    named = [("log_a", log_a, 3), ("b", b, 3)]
+    if h0 is not None:
+        named.append(("h0", h0, 2))
+    for name, t, dim in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}: the rglru_scan "
+                             "kernel takes CUDA tensors only")
+        if t.device != log_a.device:
+            raise ValueError(f"{name} is on {t.device}, log_a on "
+                             f"{log_a.device}")
+        if t.dim() != dim:
+            raise ValueError(f"{name} must have {dim} dimensions, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, S, R = log_a.shape
+    if b.shape != log_a.shape:
+        raise ValueError(f"b {tuple(b.shape)} differs from log_a "
+                         f"{tuple(log_a.shape)}")
+    if h0 is not None and h0.shape != (B, R):
+        raise ValueError(f"h0 must be ({B}, {R}), got {tuple(h0.shape)}")
+    if B > MAX_BATCH:
+        raise ValueError(f"B={B} exceeds {MAX_BATCH}")
+    out = torch.empty_like(b)
+    if B == 0 or S == 0 or R == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(log_a.device):
+        stream = torch.cuda.current_stream(log_a.device).cuda_stream
+        err = lib.rglru_scan_launch(
+            log_a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), out.data_ptr(), B, S, R,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan launch failed: "
+                           f"{lib.rglru_scan_error_string(err).decode()}")
+    rglru_scan_launches += 1
+    return out

@@ -1,0 +1,556 @@
+"""The model zoo's single backbone in PyTorch (the reference's
+``models/transformer.py``).
+
+One implementation covers the dense and recurrent architectures of
+:class:`~repro_torch.models.config.ModelConfig`: full, local (sliding
+window, ring-buffer decode cache) and bidirectional attention, RG-LRU and
+RWKV6 sequence mixing, swiglu and gelu FFNs, with the reference's dtypes
+(bf16 weights and activations, f32 norms and recurrences). The reference
+scans complete pattern repetitions over stacked parameters and unrolls a
+tail; PyTorch runs eagerly, so :class:`Model` holds one submodule per layer
+in ``cfg.layers`` order and a decode cache is a list of per-layer dicts.
+``repro_torch.convert.model_state_dict`` maps the reference's stacked
+parameters (and ``model_cache`` its caches) onto that order.
+
+Not ported yet (ROADMAP.md queue 1 item 11): MoE FFNs, cross-attention,
+the whisper encoder with its layer norms and learned positions, the int8
+KV cache and ``loss``; each raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from . import rwkv6 as rk
+from .components import (_rglru_gates, attention, causal_conv1d, gelu_mlp,
+                         rglru_scan, rglru_step, rms_norm, rope, softcap,
+                         swiglu)
+from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL, FFN_MOE,
+                     MIX_RGLRU, MIX_RWKV6, LayerSpec, ModelConfig)
+
+Cache = List[Dict[str, torch.Tensor]]
+_TODO = "not ported yet (ROADMAP.md queue 1 item 11)"
+
+
+def _unsupported(cfg: ModelConfig) -> Optional[str]:
+    if cfg.moe is not None or any(s.ffn == FFN_MOE for s in cfg.layers):
+        return "MoE FFNs"
+    if any(s.cross_attn for s in cfg.layers) or cfg.n_img_tokens:
+        return "cross-attention"
+    if cfg.encoder is not None or cfg.norm == "ln":
+        return "the whisper encoder and its learned positions"
+    return None
+
+
+# ===========================================================================
+# Parameter initialization
+# ===========================================================================
+
+class _Init:
+    """Draws parameters on one device from one generator, with the
+    reference's shapes, dtypes and scale rules."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device):
+        self.gen, self.device = gen, device
+
+    def param(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t, requires_grad=False)
+
+    def normal(self, shape, scale: float, dtype=torch.bfloat16):
+        w = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32).mul_(scale)
+        return self.param(w.to(dtype))
+
+    def dense(self, shape, scale: Optional[float] = None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        return self.normal(shape, scale)
+
+    def full(self, shape, value: float, dtype=torch.bfloat16):
+        return self.param(torch.full(shape, value, dtype=dtype,
+                                     device=self.device))
+
+
+def _norm_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    return nn.ParameterDict({"w": ini.full((cfg.d_model,), 0.0)})
+
+
+def _attn_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    D = cfg.d_model
+    qk = cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv * cfg.head_dim
+    p = {"wq": ini.dense((D, qk)), "wk": ini.dense((D, kv)),
+         "wv": ini.dense((D, kv)),
+         "wo": ini.dense((qk, D), scale=1.0 / math.sqrt(qk))}
+    if cfg.qkv_bias:
+        p["bq"] = ini.full((qk,), 0.0)
+        p["bk"] = ini.full((kv,), 0.0)
+        p["bv"] = ini.full((kv,), 0.0)
+    return nn.ParameterDict(p)
+
+
+def _ffn_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
+                ) -> nn.ParameterDict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    if spec.mix == MIX_RWKV6:
+        # rwkv channel-mix
+        return nn.ParameterDict({"mu_r": ini.full((D,), 0.0),
+                                 "mu_k": ini.full((D,), 0.0),
+                                 "wr": ini.dense((D, D)),
+                                 "wk": ini.dense((D, F_)),
+                                 "wv": ini.dense((F_, D))})
+    if cfg.ffn_act == "gelu":
+        return nn.ParameterDict({"w1": ini.dense((D, F_)),
+                                 "b1": ini.full((F_,), 0.0),
+                                 "w2": ini.dense((F_, D)),
+                                 "b2": ini.full((D,), 0.0)})
+    return nn.ParameterDict({"w1": ini.dense((D, F_)),
+                             "w3": ini.dense((D, F_)),
+                             "w2": ini.dense((F_, D))})
+
+
+def _rglru_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    D, R = cfg.d_model, cfg.rnn_width
+    f32 = torch.float32
+    return nn.ParameterDict({
+        "w_gate": ini.dense((D, R)),
+        "w_in": ini.dense((D, R)),
+        "conv_w": ini.dense((cfg.conv_width, R), scale=0.3),
+        "w_a": ini.dense((R, R)),
+        "b_a": ini.full((R,), 0.0, f32),
+        "w_x": ini.dense((R, R)),
+        "b_x": ini.full((R,), 0.0, f32),
+        "lam": ini.full((R,), -4.35, f32),   # a ~ 0.95 at r=0.5
+        "w_out": ini.dense((R, D)),
+    })
+
+
+def _rwkv_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    D = cfg.d_model
+    H, hd = cfg.n_heads, cfg.head_dim
+    L, L2 = cfg.rwkv_lora_mix, cfg.rwkv_lora_decay
+    f32 = torch.float32
+    return nn.ParameterDict({
+        "mu": ini.full((5, D), 0.0),              # r,k,v,g,w lerp base
+        "maa_a": ini.dense((D, 5 * L), scale=0.01),
+        "maa_b": ini.normal((5, L, D), 0.01),
+        "wr": ini.dense((D, D)),
+        "wk": ini.dense((D, D)),
+        "wv": ini.dense((D, D)),
+        "wg": ini.dense((D, D)),
+        "w0": ini.full((D,), -3.9, f32),          # base decay ~0.98
+        "wd_a": ini.dense((D, L2), scale=0.01),
+        "wd_b": ini.normal((L2, D), 0.01),
+        "u": ini.normal((H, hd), 0.02, f32),
+        "gn_w": ini.full((D,), 1.0),
+        "wo": ini.dense((D, D)),
+    })
+
+
+def _layer_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
+                  ) -> nn.ModuleDict:
+    p: Dict[str, nn.Module] = {"ln1": _norm_params(cfg, ini),
+                               "ln2": _norm_params(cfg, ini)}
+    if cfg.post_norms:
+        p["ln1p"] = _norm_params(cfg, ini)
+        p["ln2p"] = _norm_params(cfg, ini)
+    if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
+        p["attn"] = _attn_params(cfg, ini)
+    elif spec.mix == MIX_RGLRU:
+        p["rglru"] = _rglru_params(cfg, ini)
+    elif spec.mix == MIX_RWKV6:
+        p["rwkv"] = _rwkv_params(cfg, ini)
+    p["ffn"] = _ffn_params(cfg, spec, ini)
+    return nn.ModuleDict(p)
+
+
+# ===========================================================================
+# Layer application (sequence mode and step mode share sublayer helpers)
+# ===========================================================================
+
+def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, p["w"], cfg.norm_eps)
+
+
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor, n_q: int, n_kv: int
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, S, n_q, hd), k.reshape(B, S, n_kv, hd),
+            v.reshape(B, S, n_kv, hd))
+
+
+def _self_attn_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
+                   positions: torch.Tensor, kv_chunk: int
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Full-sequence self attention; returns (out, kv-for-cache)."""
+    q, k, v = _qkv(cfg, p, x, cfg.n_heads, cfg.n_kv)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    causal = spec.mix != ATTN_NONCAUSAL
+    window = cfg.window if spec.mix == ATTN_LOCAL else 0
+    out = attention(q, k, v, q_pos=positions, kv_pos=positions,
+                    causal=causal, window=window,
+                    logit_softcap=cfg.attn_softcap, kv_chunk=kv_chunk)
+    B, S, _, _ = out.shape
+    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def _rwkv_channel_mix(p, x: torch.Tensor, xprev: torch.Tensor
+                      ) -> torch.Tensor:
+    mr = x + p["mu_r"] * (xprev - x)
+    mk = x + p["mu_k"] * (xprev - x)
+    kk = torch.square(F.relu(mk @ p["wk"]))
+    return torch.sigmoid(mr @ p["wr"]) * (kk @ p["wv"])
+
+
+def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, moe_aux_loss)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.mix == MIX_RWKV6:
+        return _rwkv_channel_mix(p, x, rk.token_shift(x)), zero
+    if spec.ffn == FFN_MOE:
+        raise NotImplementedError(f"MoE FFNs are {_TODO}")
+    if cfg.ffn_act == "gelu":
+        return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"]), zero
+    return swiglu(x, p["w1"], p["w3"], p["w2"]), zero
+
+
+def _rwkv_timemix_prep(cfg: ModelConfig, p, x: torch.Tensor,
+                       xprev: torch.Tensor):
+    """Shared r,k,v,g,lw computation for seq and step modes (f32 outputs)."""
+    B, S = x.shape[0], x.shape[1]
+    H, hd = cfg.n_heads, cfg.head_dim
+    L = cfg.rwkv_lora_mix
+    dx = xprev - x
+    dyn = torch.tanh(dx @ p["maa_a"])                    # (B,S,5L)
+    dyn = dyn.reshape(B, S, 5, L)
+    mixes = [x + (p["mu"][i] + dyn[:, :, i] @ p["maa_b"][i]) * dx
+             for i in range(5)]
+    mr, mk, mv, mg, mw = mixes
+    r = (mr @ p["wr"]).float().reshape(B, S, H, hd)
+    k = (mk @ p["wk"]).float().reshape(B, S, H, hd)
+    v = (mv @ p["wv"]).float().reshape(B, S, H, hd)
+    g = mg @ p["wg"]
+    dd = torch.tanh(mw @ p["wd_a"]) @ p["wd_b"]         # (B,S,D)
+    lw = -torch.exp(p["w0"] + dd.float())                # log decay <= 0
+    lw = lw.reshape(B, S, H, hd)
+    return r, k, v, g, lw
+
+
+def _rwkv_out(cfg: ModelConfig, p, y: torch.Tensor, g: torch.Tensor,
+              B: int, S: int) -> torch.Tensor:
+    """Per-head group-norm + silu gate + output proj."""
+    D = cfg.d_model
+    yf = y.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    mu = torch.mean(yf, dim=-1, keepdim=True)
+    var = torch.var(yf, dim=-1, keepdim=True, correction=0)
+    yf = (yf - mu) * torch.rsqrt(var + 1e-5)
+    yf = yf.reshape(B, S, D) * p["gn_w"].float()
+    return (yf.to(g.dtype) * F.silu(g)) @ p["wo"]
+
+
+def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
+                    positions: torch.Tensor, kv_chunk: int = 1024,
+                    want_cache: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor,
+                               Dict[str, torch.Tensor]]:
+    """One layer over a full sequence. Returns (x, aux_loss, cache_blob)."""
+    B, S, D = x.shape
+    blob: Dict[str, torch.Tensor] = {}
+    h = _norm(cfg, p["ln1"], x)
+
+    if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
+        out, (k, v) = _self_attn_seq(cfg, spec, p["attn"], h, positions,
+                                     kv_chunk)
+        if want_cache:
+            blob["k"], blob["v"] = k, v
+    elif spec.mix == MIX_RGLRU:
+        rp = p["rglru"]
+        gate = F.gelu(h @ rp["w_gate"], approximate="tanh")
+        vin = h @ rp["w_in"]
+        vin, conv_state = causal_conv1d(vin, rp["conv_w"])
+        log_a, b = _rglru_gates(vin, rp)
+        hseq = rglru_scan(log_a, b)                      # (B,S,R) f32
+        out = (gate * hseq.to(gate.dtype)) @ rp["w_out"]
+        if want_cache:
+            blob["h"] = hseq[:, -1, :]
+            blob["conv"] = conv_state
+    elif spec.mix == MIX_RWKV6:
+        rp = p["rwkv"]
+        xprev = rk.token_shift(h)
+        r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev)
+        chunk = 64 if S % 64 == 0 else (math.gcd(S, 64) or S)
+        y, st = rk.wkv_chunked(r, k, v, lw, rp["u"], chunk=chunk)
+        out = _rwkv_out(cfg, rp, y, g, B, S)
+        if want_cache:
+            blob["s"] = st
+            blob["shift_t"] = h[:, -1, :]
+    else:
+        raise ValueError(spec.mix)
+
+    if cfg.post_norms:
+        out = _norm(cfg, p["ln1p"], out)
+    x = x + out
+
+    h2 = _norm(cfg, p["ln2"], x)
+    if spec.mix == MIX_RWKV6 and want_cache:
+        blob["shift_c"] = h2[:, -1, :]
+    out2, aux = _ffn_apply(cfg, spec, p["ffn"], h2)
+    if cfg.post_norms:
+        out2 = _norm(cfg, p["ln2p"], out2)
+    x = x + out2
+    return x, aux, blob
+
+
+# ---------------------------------------------------------------------------
+# Decode step (x: (B, 1, D))
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     cache_len: int, device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    """Cache blob for one layer. cache_len caps local windows."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(f"the int8 KV cache is {_TODO}")
+
+    def mk(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    hd = cfg.head_dim
+    blob: Dict[str, torch.Tensor] = {}
+    if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
+        blob["k"] = mk((batch, cache_len, cfg.n_kv, hd), torch.bfloat16)
+        blob["v"] = mk((batch, cache_len, cfg.n_kv, hd), torch.bfloat16)
+    elif spec.mix == ATTN_LOCAL:
+        L = min(cache_len, cfg.window)
+        blob["k"] = mk((batch, L, cfg.n_kv, hd), torch.bfloat16)
+        blob["v"] = mk((batch, L, cfg.n_kv, hd), torch.bfloat16)
+    elif spec.mix == MIX_RGLRU:
+        blob["h"] = mk((batch, cfg.rnn_width), torch.float32)
+        blob["conv"] = mk((batch, cfg.conv_width - 1, cfg.rnn_width),
+                          torch.bfloat16)
+    elif spec.mix == MIX_RWKV6:
+        blob["s"] = mk((batch, cfg.n_heads, hd, hd), torch.float32)
+        blob["shift_t"] = mk((batch, cfg.d_model), torch.bfloat16)
+        blob["shift_c"] = mk((batch, cfg.d_model), torch.bfloat16)
+    return blob
+
+
+def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
+                     cache: Dict[str, torch.Tensor], x: torch.Tensor,
+                     pos: int) -> Tuple[torch.Tensor,
+                                        Dict[str, torch.Tensor]]:
+    """One decode token. x: (B,1,D); pos: the current position (an int).
+    Returns the new x and a new cache dict; ``cache`` is left as it was."""
+    B = x.shape[0]
+    new_cache = dict(cache)
+    h = _norm(cfg, p["ln1"], x)
+
+    if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
+        ap = p["attn"]
+        q, k, v = _qkv(cfg, ap, h, cfg.n_heads, cfg.n_kv)
+        posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        q = rope(q, posv, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, posv, cfg.rope_theta, cfg.rope_fraction)
+        L = cache["k"].shape[1]
+        slot = pos % L if spec.mix == ATTN_LOCAL else min(pos, L - 1)
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        new_cache["k"], new_cache["v"] = ck, cv
+        idx = torch.arange(L, device=x.device)
+        if spec.mix == ATTN_LOCAL:
+            kv_pos = posv - torch.remainder(posv - idx, L)
+            kv_pos = torch.where(kv_pos >= 0, kv_pos, -1)
+        else:
+            kv_pos = torch.where(idx <= pos, idx, -1)
+        window = cfg.window if spec.mix == ATTN_LOCAL else 0
+        out = attention(q, ck, cv, q_pos=posv, kv_pos=kv_pos, causal=True,
+                        window=window, logit_softcap=cfg.attn_softcap,
+                        kv_chunk=1024 if L % 1024 == 0 else L)
+        out = out.reshape(B, 1, -1) @ ap["wo"]
+    elif spec.mix == MIX_RGLRU:
+        rp = p["rglru"]
+        gate = F.gelu(h @ rp["w_gate"], approximate="tanh")
+        vin = h @ rp["w_in"]
+        vin2, conv_state = causal_conv1d(vin, rp["conv_w"],
+                                         state=cache["conv"])
+        log_a, b = _rglru_gates(vin2[:, 0, :], rp)
+        h_new = rglru_step(log_a, b, cache["h"])
+        new_cache["h"], new_cache["conv"] = h_new, conv_state
+        out = (gate[:, 0] * h_new.to(gate.dtype)) @ rp["w_out"]
+        out = out[:, None, :]
+    elif spec.mix == MIX_RWKV6:
+        rp = p["rwkv"]
+        xprev = cache["shift_t"][:, None, :].to(h.dtype)
+        r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev)
+        y, s_new = rk.wkv_step(r[:, 0], k[:, 0], v[:, 0],
+                               torch.exp(lw[:, 0]), rp["u"], cache["s"])
+        new_cache["s"] = s_new
+        new_cache["shift_t"] = h[:, 0, :]
+        out = _rwkv_out(cfg, rp, y[:, None], g, B, 1)
+    else:
+        raise ValueError(spec.mix)
+
+    if cfg.post_norms:
+        out = _norm(cfg, p["ln1p"], out)
+    x = x + out
+
+    h2 = _norm(cfg, p["ln2"], x)
+    if spec.mix == MIX_RWKV6:
+        xprev_c = cache["shift_c"][:, None, :].to(h2.dtype)
+        out2 = _rwkv_channel_mix(p["ffn"], h2, xprev_c)
+        new_cache["shift_c"] = h2[:, 0, :]
+    else:
+        out2, _ = _ffn_apply(cfg, spec, p["ffn"], h2)
+    if cfg.post_norms:
+        out2 = _norm(cfg, p["ln2p"], out2)
+    return x + out2, new_cache
+
+
+# ===========================================================================
+# Model facade
+# ===========================================================================
+
+class Model(nn.Module):
+    """The backbone for ``cfg``. It holds no parameters until :meth:`init`
+    draws them (the reference's ``Model`` holds only the config and
+    ``init`` returns the parameters); ``load_state_dict`` then takes the
+    reference's through ``repro_torch.convert.model_state_dict``."""
+
+    def __init__(self, cfg: ModelConfig, kv_chunk: int = 1024) -> None:
+        super().__init__()
+        missing = _unsupported(cfg)
+        if missing is not None:
+            raise NotImplementedError(f"{cfg.name}: {missing} are {_TODO}")
+        self.cfg = cfg
+        self.kv_chunk = kv_chunk
+        self.device: Optional[torch.device] = None
+
+    # -- params ---------------------------------------------------------------
+    def init(self, generator: torch.Generator, device=None) -> "Model":
+        """Draw every parameter on ``device`` (the card unless the caller
+        passes ``"cpu"``) from ``generator`` (a ``torch.Generator`` on that
+        device), with the reference's shapes, dtypes and scale rules.
+        Returns self."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        if generator.device.type != dev.type:
+            raise ValueError(f"the generator is on {generator.device}, the "
+                             f"parameters go to {dev}")
+        ini = _Init(generator, dev)
+        self.device = dev
+        self.embed = ini.normal((cfg.vocab, cfg.d_model), 0.02)
+        self.final = _norm_params(cfg, ini)
+        if not cfg.tie_embeddings:
+            self.lm_head = ini.dense((cfg.d_model, cfg.vocab), scale=0.02)
+        self.layers = nn.ModuleList(_layer_params(cfg, spec, ini)
+                                    for spec in cfg.layers)
+        return self
+
+    def _params(self) -> None:
+        if self.device is None:
+            raise RuntimeError("call init() first: the model holds no "
+                               "parameters yet")
+
+    # -- forward ----------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.embed[tokens.long()]
+        if cfg.embed_scale:
+            x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = _norm(cfg, self.final, x)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        logits = (x @ head).float()
+        return softcap(logits, cfg.final_softcap)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, want_cache: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+        """Full-sequence forward. Returns (logits, aux_loss, caches), the
+        caches one dict a layer. The reference's ``extras`` (encoder
+        frames, image tokens) and ``positions`` are for the archs not
+        ported yet."""
+        self._params()
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = torch.arange(S, device=x.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches: Cache = []
+        for spec, lp in zip(cfg.layers, self.layers):
+            x, aux, blob = apply_layer_seq(cfg, spec, lp, x, positions,
+                                           self.kv_chunk, want_cache)
+            aux_total = aux_total + aux
+            caches.append(blob)
+        return self._logits(x), aux_total, caches
+
+    def loss(self, batch: dict):
+        raise NotImplementedError(f"the training loss is {_TODO}")
+
+    # -- decode ----------------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int) -> Cache:
+        self._params()
+        return [init_layer_cache(self.cfg, spec, batch, cache_len,
+                                 self.device) for spec in self.cfg.layers]
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One token for every sequence. tokens: (B, 1); pos: the position
+        of that token (an int). Returns (logits (B, 1, V), new cache);
+        ``cache`` is left as it was."""
+        self._params()
+        cfg = self.cfg
+        pos = int(pos)
+        x = self._embed(tokens)
+        new_cache: Cache = []
+        for spec, lp, cb in zip(cfg.layers, self.layers, cache):
+            x, nb = apply_layer_step(cfg, spec, lp, cb, x, pos)
+            new_cache.append(nb)
+        return self._logits(x), new_cache
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, cache_len: int
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Process a prompt, building a decode cache. Returns (logits, cache).
+
+        Attention K/V computed for the prompt are written into the cache
+        (ring-placed for local windows).
+        """
+        cfg = self.cfg
+        B, S = tokens.shape
+        logits, _, blobs = self.forward(tokens, want_cache=True)
+        cache = self.init_cache(B, cache_len)
+        for spec, blob, slot in zip(cfg.layers, blobs, cache):
+            if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
+                take = min(S, slot["k"].shape[1])
+                for key in ("k", "v"):
+                    slot[key][:, :take] = blob[key][:, S - take:]
+            elif spec.mix == ATTN_LOCAL:
+                L = slot["k"].shape[1]
+                take = min(S, L)
+                slots = torch.remainder(
+                    torch.arange(S - take, S, device=self.device), L)
+                for key in ("k", "v"):
+                    slot[key][:, slots] = blob[key][:, S - take:].to(
+                        slot[key].dtype)
+            for key in ("h", "conv", "s", "shift_t", "shift_c"):
+                if key in blob:
+                    slot[key].copy_(blob[key])
+        return logits, cache

@@ -79,6 +79,26 @@ assert all(r.done and len(r.generated) == 4 for r in done)
 assert all(t["hot_pages"] == 0 for t in srv.tier_report())
 assert sum(t["restores"] for t in srv.tier_report()) > 0
 assert pa_kernel.paged_attention_launches == 0
+
+import torch
+from repro_torch.configs import get_config
+from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+from repro_torch.kernels.rwkv6_step import kernel as rw_kernel
+from repro_torch.models import Model
+from repro_torch.serve import make_prefill, make_serve_step
+for arch in ("rwkv6_1p6b", "recurrentgemma_9b"):
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg).init(torch.Generator().manual_seed(1), device="cpu")
+    prompt = torch.arange(12).reshape(2, 6) % cfg.vocab
+    last, cache = make_prefill(model, cache_len=9)(prompt)
+    nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    step = make_serve_step(model)
+    for pos in range(6, 9):
+        nxt, cache = step(cache, nxt, pos)
+        assert nxt.shape == (2, 1) and bool(((nxt >= 0) & (nxt < cfg.vocab)).all())
+    assert len(cache) == cfg.n_layers
+assert rg_kernel.rglru_scan_launches == 0
+assert rw_kernel.rwkv6_step_launches == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("OK", r.matched)
@@ -86,8 +106,9 @@ print("OK", r.matched)
 
 
 def test_policy_runs_with_jax_and_repro_blocked():
-    """Also builds a ``ProfileCube(use_kernel=True)`` and ``Reports``, and
-    serves requests through ``ServingEngine(device="cpu").run``."""
+    """Also builds a ``ProfileCube(use_kernel=True)`` and ``Reports``,
+    serves requests through ``ServingEngine(device="cpu").run``, and runs a
+    prefill and three decode steps of both recurrent smoke models."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
@@ -120,6 +141,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
         ServingEngine(PagedLMConfig())
     with pytest.raises(RuntimeError):
         PagePool(4, 4, 2, 8)
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    with pytest.raises(RuntimeError):
+        Model(get_config("rwkv6_1p6b", smoke=True)).init(torch.Generator())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -152,6 +177,24 @@ def test_kernel_path_refuses_cpu_tensors():
         pa_ops.paged_attention(q, pages, pages, table, length,
                                use_kernel=True)
     assert pa_kernel.paged_attention_launches == before
+    from repro_torch.kernels.rglru_scan import kernel as rg_kernel
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rwkv6_step import kernel as rw_kernel
+    from repro_torch.kernels.rwkv6_step import ops as rw_ops
+    la = torch.zeros((1, 3, 8))
+    vec, u, s = torch.zeros((1, 2, 4)), torch.zeros((2, 4)), \
+        torch.zeros((1, 2, 4, 4))
+    before = (rg_kernel.rglru_scan_launches, rw_kernel.rwkv6_step_launches)
+    with pytest.raises(ValueError):
+        rg_ops.rglru_scan(la, la, use_kernel=True)
+    with pytest.raises(ValueError):
+        rg_kernel.rglru_scan_cuda(la, la)
+    with pytest.raises(ValueError):
+        rw_ops.rwkv6_step(vec, vec, vec, vec, u, s, use_kernel=True)
+    with pytest.raises(ValueError):
+        rw_kernel.rwkv6_step_cuda(vec, vec, vec, vec, u, s)
+    assert (rg_kernel.rglru_scan_launches,
+            rw_kernel.rwkv6_step_launches) == before
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",

@@ -53,12 +53,20 @@ failure:
    seeded permutation of an 8192-page pool, in four configurations:
    chatglm3-6b's widths (32 query heads, 2 KV heads, head_dim 128) in f32
    and in bf16, deepseek-coder-33b's (56, 8) and codeqwen1.5-7b's (32, 32)
-   in f32. The kernel is held to its plain version (f32 ``rtol=1e-4`` with
-   atol ``1e-4 * max|v|``; bf16 ``5e-2``), the empty sequence must give
-   exact zeros and the hole sequence must equal, bit for bit, the kernel
-   over the same table with the hole taken out; each is timed beside its
+   in f32; then one sequence of 8192 tokens (B = 1) at chatglm3-6b's
+   widths in f32 and bf16. The op (split kernel, and the combine when a
+   table is wider than one split; f32 on CUDA cores, bf16 on tensor cores)
+   is held to its plain version (f32 ``rtol=1e-4`` with atol
+   ``1e-4 * max|v|``; bf16 ``5e-2``; and each output row's relative L2
+   error within 1e-4 in f32, 1e-2 in bf16) and must repeat bit for bit; in
+   the batch the empty sequence must give exact zeros, and the hole
+   sequence must equal, bit for bit, the op over the same table with the
+   hole taken out and the op over that sequence alone. Each is timed from
+   an idle card with the L2 cache flushed before each call, beside its
    bound, the plain version and one ``scaled_dot_product_attention`` over
-   K/V gathered beforehand;
+   K/V gathered beforehand; the split kernel's and the combine's own
+   device times come from a ``torch.profiler`` trace of the call, and the
+   grid (blocks, splits, live blocks, waves) is reported;
 8. recurrent kernels at device scale (after the attention phase), seeded
    inputs drawn on the card with the models' decay distributions:
    ``rglru_scan`` at recurrentgemma-9b's width (B 8, S 4096, R 4096, f32,
@@ -74,7 +82,8 @@ failure:
    seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
    so the watermark releases and restores pages in every layer. Each run
    must launch ``paged_attention`` 28 * 4 * (256 + 31) = 32,144 times and
-   nothing else; a checker around the op the engine calls holds the
+   nothing else, with no combine (the tables are one split wide); a
+   checker around the op the engine calls holds the
    kernel to its plain version on the run's own tensors (the first call of
    every layer, every call right after a restore, every 29th call) within
    bounds that follow the f32 error of the scores, which grow with depth
@@ -128,6 +137,7 @@ TOL = dict(rtol=1e-5, atol=1.0)
 ROWS = 1 << 27                  # kernel phase: rows on the card
 ENTRIES = 1 << 20               # engine phase: catalog entries
 REPS = 10                       # timed calls per kernel and plain version
+L2_FLUSH_BYTES = 256 << 20      # written before each timed attention call
 CUBE_GROUPS = 4096              # cell (a): profile_cube's MAX_GROUPS
 CUBE_GROUPS_SMALL = 64          # cells (b) and (c)
 EXACT_ROWS = 1 << 20            # cell (c)
@@ -158,6 +168,9 @@ ATTN_CONFIGS = (("chatglm3-6b f32", 32, 2, 128, "float32"),
                 ("chatglm3-6b bf16", 32, 2, 128, "bfloat16"),
                 ("deepseek-coder-33b f32", 56, 8, 128, "float32"),
                 ("codeqwen1.5-7b f32", 32, 32, 128, "float32"))
+# the long-context decode case: one sequence of ATTN_CONTEXT tokens
+ATTN_LONG = (("chatglm3-6b f32 B=1", 32, 2, 128, "float32"),
+             ("chatglm3-6b bf16 B=1", 32, 2, 128, "bfloat16"))
 # serving phase: chatglm3-6b (src/repro/configs/chatglm3_6b.py) at full
 # width and depth, a 16-page hot pool a layer
 SERVE_MODEL = dict(vocab=65024, d_model=4096, n_layers=28, n_heads=32,
@@ -198,14 +211,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_times_ms(fn, reps: int, warmup: int = 2):
-    """Median and all per-call times (ms) of ``fn()`` by CUDA events."""
+def cuda_times_ms(fn, reps: int, warmup: int = 2, flush=None):
+    """Median and all per-call times (ms) of ``fn()`` by CUDA events, each
+    from an idle card, so the host's work to launch ``fn``'s kernels is
+    included. With ``flush`` (a tensor larger than the L2 cache) it is
+    zeroed, and the card drained, before each call, so ``fn`` reads its
+    inputs from device memory."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+            torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -214,6 +234,47 @@ def cuda_times_ms(fn, reps: int, warmup: int = 2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), times
+
+
+def device_rows(prof) -> list:
+    """(name, device microseconds, count) of every CUDA operation in a
+    ``torch.profiler`` profile, the largest first."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0), e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def kernel_device_ms(torch, fn, reps: int, flush=None) -> dict:
+    """The card's own time of each kernel ``fn()`` launches, by name from a
+    ``torch.profiler`` trace of ``reps`` calls, each waited for (after a
+    warm-up call; with ``flush`` zeroed before each call, as in
+    :func:`cuda_times_ms`): kernel name -> (mean device ms a launch,
+    launches a call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+            torch.cuda.synchronize()
+    return {k: (us / count / 1e3, count / reps)
+            for k, us, count in device_rows(prof) if count}
+
+
+def one_kernel_ms(kern: dict, part: str, what: str) -> float:
+    """The device ms of the one kernel in ``kern`` whose name holds
+    ``part``; it must have launched once a call."""
+    hits = [v for k, v in kern.items() if part in k]
+    check(len(hits) == 1 and hits[0][1] == 1, f"{what}: the profile shows "
+          f"{len(hits)} kernels named *{part}* ({hits}), not one launched "
+          f"once a call, among {sorted(kern)}")
+    return hits[0][0]
 
 
 def bound_ms(n: int, ops, colidx, size_col: int, blocks_col: int,
@@ -958,6 +1019,18 @@ def attn_tables(torch, seed: int, device):
     return lengths, table
 
 
+def attn_long_table(torch, seed: int, device):
+    """The long-context decode case: one sequence of ATTN_CONTEXT tokens
+    over every page of an ATTN_MAX_PAGES-page pool, in a seeded order."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    table = torch.randperm(ATTN_MAX_PAGES, generator=g, device=device).to(
+        torch.int32).view(1, ATTN_MAX_PAGES)
+    lengths = torch.full((1,), ATTN_CONTEXT, dtype=torch.int32,
+                         device=device)
+    return lengths, table
+
+
 def attn_valid(torch, lengths, table):
     """(B, max_pages * P) bool: positions under the length in pages that
     are not -1, the rows the function must read."""
@@ -984,94 +1057,185 @@ def attn_bound_ms(torch, valid, n_heads: int, n_kv: int, hd: int,
             else "operations", nbytes, ops)
 
 
-def attn_phase(torch, seed, device, results):
+def attn_grid(torch, AK, lengths, table, n_heads: int, n_kv: int, occ,
+              sms: int) -> dict:
+    """The split kernel's grid for this batch: (B, K * ceil(G / 16),
+    S_max) blocks, the live ones (a sequence's splits that hold a readable
+    page) and the waves they take at the occupancy ``occ``."""
+    per_kv = -(-(n_heads // n_kv) // 16)
+    s_max = AK.n_splits(table.shape[1])
+    start = torch.arange(table.shape[1], device=table.device) * ATTN_PAGE
+    readable = ((table >= 0) & (start[None, :] < lengths[:, None].long())
+                ).sum(1)
+    live = int((-(-readable // AK.pages_per_split())).sum().item()) \
+        * n_kv * per_kv
+    return dict(grid_blocks=table.shape[0] * n_kv * per_kv * s_max,
+                s_max=s_max, live_blocks=live,
+                waves=live / (occ["blocks_per_sm"] * sms))
+
+
+ATTN_ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def attn_close(torch, got, want, vmax: float, dtype_name: str) -> dict:
+    """The kernel tolerances against the plain version: elementwise (f32
+    ``rtol=1e-4`` with atol ``1e-4 * max|v|``; bf16 ``rtol=atol=5e-2``),
+    and each output row (a query head of a sequence) within ATTN_ROW_TOL of
+    its own size in relative L2 error. The row limit is what holds bf16:
+    a long sequence's outputs (std about sqrt(e / L), 0.018 at 8,192
+    tokens) are smaller than 5e-2, so a dropped split or tile would pass
+    the elementwise one."""
+    g, w = got.float(), want.float()
+    if dtype_name == "float32":
+        rtol, atol = 1e-4, 1e-4 * vmax
+    else:
+        rtol = atol = 5e-2
+    elementwise = bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+    diff, size = (g - w).norm(dim=-1), w.norm(dim=-1)
+    rows = bool((diff <= ATTN_ROW_TOL[dtype_name] * size).all())
+    return dict(ok=elementwise and rows, elementwise=elementwise, rows=rows,
+                max_abs_err=float((g - w).abs().max().item()),
+                row_err=float((diff / size.clamp(min=1e-30)).max().item()),
+                rtol=rtol, atol=atol, row_tol=ATTN_ROW_TOL[dtype_name])
+
+
+def attn_inputs(torch, H: int, K: int, hd: int, dtype, B: int, n_pool: int,
+                seed: int, device):
+    """q (B, H, hd) and K/V pages (n_pool, ATTN_PAGE, K, hd), standard
+    normal in ``dtype``, from ``seed`` and the widths."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + H + K)
+    shape = (n_pool, ATTN_PAGE, K, hd)
+    kp = torch.randn(shape, generator=g, device=device).to(dtype)
+    vp = torch.randn(shape, generator=g, device=device).to(dtype)
+    q = torch.randn((B, H, hd), generator=g, device=device).to(dtype)
+    return q, kp, vp
+
+
+def attn_case(torch, name, H, K, hd, dtype_name, lengths, table,
+              n_pool: int, seed: int, device, batch: bool, flush) -> dict:
+    """One attention configuration: the op held to its plain version (and,
+    for the batch, the zeros, hole and B = 1 checks), then timed from an
+    idle card with the L2 cache flushed before each call (``flush``): the
+    call, the plain version and SDPA over K/V gathered beforehand, beside
+    the bound; and the split kernel's and the combine's own device times
+    from a ``torch.profiler`` trace of the call."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.paged_attention import ref as AR
-    lengths, table = attn_tables(torch, seed + 3, device)
+    B, P = table.shape[0], ATTN_PAGE
+    dtype = getattr(torch, dtype_name)
     valid = attn_valid(torch, lengths, table)
-    B, P = ATTN_SEQS, ATTN_PAGE
-    # sequence 1 with its hole taken out: the same pages in the same order
-    row = table[1][table[1] >= 0]
-    packed = torch.full((1, ATTN_MAX_PAGES), -1, dtype=torch.int32,
-                        device=device)
-    packed[0, :row.numel()] = row
-    packed_len = lengths[1:2] - P
-    log(f"[attn] {B} sequences, lengths {lengths[:4].tolist()}... (sum "
-        f"{int(lengths.sum().item())}, max {int(lengths.max().item())}), "
-        f"page size {P}, table ({B}, {ATTN_MAX_PAGES}) from a permutation "
-        f"of {ATTN_POOL} pages; rows to read {int(valid.sum().item())}")
-    configs = {}
-    for name, H, K, hd, dtype_name in ATTN_CONFIGS:
-        dtype = getattr(torch, dtype_name)
-        g = torch.Generator(device=device)
-        g.manual_seed(seed + H + K)
-        shape = (ATTN_POOL, P, K, hd)
-        kp = torch.randn(shape, generator=g, device=device).to(dtype)
-        vp = torch.randn(shape, generator=g, device=device).to(dtype)
-        q = torch.randn((B, H, hd), generator=g, device=device).to(dtype)
-        args = (q, kp, vp, table, lengths)
-        got = AK.paged_attention_cuda(*args)
-        again = AK.paged_attention_cuda(*args)
+    q, kp, vp = attn_inputs(torch, H, K, hd, dtype, B, n_pool, seed, device)
+    args = (q, kp, vp, table, lengths)
+    got = AK.paged_attention_cuda(*args)
+    again = AK.paged_attention_cuda(*args)
+    want = AR.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()),
+          f"{name}: the kernel gave a non-finite output")
+    check(torch.equal(got, again), f"{name}: the kernel differs from "
+          "run to run")
+    if batch:
+        # sequence 1 with its hole taken out: the same pages in the same
+        # order; and sequence 1 alone
+        row = table[1][table[1] >= 0]
+        packed = torch.full((1, table.shape[1]), -1, dtype=torch.int32,
+                            device=device)
+        packed[0, :row.numel()] = row
         hole = AK.paged_attention_cuda(q[1:2].contiguous(), kp, vp, packed,
-                                       packed_len)
-        want = AR.paged_attention_ref(*args)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got.float()).all()),
-              f"{name}: the kernel gave a non-finite output")
-        check(torch.equal(got, again), f"{name}: the kernel differs from "
-              "run to run")
+                                       lengths[1:2] - P)
+        alone = AK.paged_attention_cuda(q[1:2].contiguous(), kp, vp,
+                                        table[1:2].contiguous(),
+                                        lengths[1:2].contiguous())
         check(bool((got[0] == 0).all()) and bool((want[0] == 0).all()),
               f"{name}: the empty sequence is not exactly zero")
         check(torch.equal(got[1:2], hole), f"{name}: the hole sequence "
               "differs from the same table with the hole taken out")
-        vmax = float(vp.float().abs().max().item())
-        if dtype == torch.float32:
-            rtol, atol = 1e-4, 1e-4 * vmax
-        else:
-            rtol = atol = 5e-2
-        err = (got.float() - want.float()).abs()
-        abs_err = float(err.max().item())
-        check(torch.allclose(got.float(), want.float(), rtol=rtol,
-                             atol=atol),
-              f"{name}: the kernel differs from the plain version: max abs "
-              f"err {abs_err!r} (rtol {rtol}, atol {atol})")
-        del again, hole, want, err
+        check(torch.equal(got[1:2], alone), f"{name}: sequence 1 alone "
+              "differs from its row in the batch")
+        del hole, alone
+    vmax = float(vp.float().abs().max().item())
+    close = attn_close(torch, got, want, vmax, dtype_name)
+    check(close["ok"], f"{name}: the kernel differs from the plain version: "
+          f"{json.dumps(close)}")
+    del again, want
 
-        ms, times = cuda_times_ms(lambda: AK.paged_attention_cuda(*args),
-                                  REPS)
-        plain_ms, _ = cuda_times_ms(lambda: AR.paged_attention_ref(*args),
-                                    REPS)
-        # the library call: K/V gathered contiguous (B, K, L, hd) first
-        ids = table.clamp(min=0).long()
-        kseq = kp[ids].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
-        vseq = vp[ids].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
-        mask = valid[:, None, None, :]
-        qs = q[:, :, None, :]
-        lib_ms, _ = cuda_times_ms(lambda: F.scaled_dot_product_attention(
-            qs, kseq, vseq, attn_mask=mask, enable_gqa=True), REPS)
-        del kseq, vseq, ids
-        bms, by, nbytes, ops = attn_bound_ms(torch, valid, H, K, hd,
-                                             kp.element_size())
-        occ = AK.occupancy(dtype, H, K, hd, P, device)
-        blocks = B * K * -(-(H // K) // 16)
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        log(f"[attn] {name} (H {H}, K {K}, hd {hd}) {CARD}: kernel {ms!r} ms "
-            f"(median of {len(times)}, min {min(times)!r}, max "
-            f"{max(times)!r}); plain {plain_ms!r} ms; sdpa {lib_ms!r} ms "
-            f"(K/V gathered beforehand); bound {bms!r} ms by {by} ({nbytes} "
-            f"B, {ops} f32 ops); {bms / ms:.3f} of the bound; max abs err "
-            f"{abs_err!r} (max|v| {vmax!r}); grid {blocks} blocks of "
-            f"{occ['threads']} threads, {occ['shared_bytes']} B shared, "
-            f"{occ['blocks_per_sm']} blocks an SM on {sms} SMs; zeros, "
-            "hole and run-to-run checks held")
-        configs[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bms, bound_by=by, bytes=nbytes,
-                             ops=ops, max_abs_err=abs_err, max_abs_v=vmax,
-                             heads=H, kv_heads=K, head_dim=hd,
-                             dtype=dtype_name, grid_blocks=blocks, **occ)
-        del q, kp, vp, args, got
-        torch.cuda.empty_cache()
+    call = lambda: AK.paged_attention_cuda(*args)    # noqa: E731
+    ms, times = cuda_times_ms(call, REPS, flush=flush)
+    kern = kernel_device_ms(torch, call, REPS, flush)
+    split_ms = one_kernel_ms(kern, "split_kernel", name)
+    combine_ms = None
+    if AK.n_splits(table.shape[1]) > 1:
+        combine_ms = one_kernel_ms(kern, "combine_kernel", name)
+    else:
+        check(not any("combine_kernel" in k for k in kern),
+              f"{name}: a one-split table launched the combine")
+    kernels_ms = split_ms + (combine_ms or 0.0)
+    plain_ms, _ = cuda_times_ms(lambda: AR.paged_attention_ref(*args), REPS,
+                                flush=flush)
+    # the library call: K/V gathered contiguous (B, K, L, hd) first
+    ids = table.clamp(min=0).long()
+    kseq = kp[ids].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
+    vseq = vp[ids].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    qs = q[:, :, None, :]
+    lib_ms, _ = cuda_times_ms(lambda: F.scaled_dot_product_attention(
+        qs, kseq, vseq, attn_mask=mask, enable_gqa=True), REPS, flush=flush)
+    del kseq, vseq, ids
+    bms, by, nbytes, ops = attn_bound_ms(torch, valid, H, K, hd,
+                                         kp.element_size())
+    occ = AK.occupancy(dtype, H, K, hd, P, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid = attn_grid(torch, AK, lengths, table, H, K, occ, sms)
+    held = ("zeros, hole, B = 1 and run-to-run checks held" if batch
+            else "run-to-run check held")
+    log(f"[attn] {name} (B {B}, H {H}, K {K}, hd {hd}) {CARD}: "
+        f"{occ['design']}; L2 flushed before each timed call; call "
+        f"{ms!r} ms from an idle card (CUDA events, median of {len(times)}, "
+        f"min {min(times)!r}, max {max(times)!r}); the card's own time "
+        f"(torch.profiler, mean of {REPS}): split kernel {split_ms!r} ms, "
+        f"combine {combine_ms!r} ms; plain {plain_ms!r} ms; sdpa {lib_ms!r} "
+        f"ms (K/V gathered beforehand; both from an idle card); bound "
+        f"{bms!r} ms by {by} ({nbytes} B, {ops} f32 ops); {bms / ms:.3f} of "
+        f"the bound ({bms / kernels_ms:.3f} by the kernels' own time); max "
+        f"abs err {close['max_abs_err']!r} (max|v| {vmax!r}), largest row "
+        f"relative L2 error {close['row_err']!r} (limit "
+        f"{close['row_tol']}); grid {grid['grid_blocks']} blocks (S_max "
+        f"{grid['s_max']}), {grid['live_blocks']} live, {occ['threads']} "
+        f"threads, {occ['shared_bytes']} B shared, {occ['blocks_per_sm']} "
+        f"blocks an SM on {sms} SMs ({grid['waves']:.2f} waves of live "
+        f"blocks); {held}")
+    del q, kp, vp, args, got
+    torch.cuda.empty_cache()
+    return dict(ms=ms, split_ms=split_ms, combine_ms=combine_ms,
+                kernels_ms=kernels_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
+                max_abs_err=close["max_abs_err"], row_err=close["row_err"],
+                max_abs_v=vmax, batch=B, heads=H, kv_heads=K, head_dim=hd,
+                dtype=dtype_name, **grid, **occ)
+
+
+def attn_phase(torch, seed, device, results):
+    lengths, table = attn_tables(torch, seed + 3, device)
+    valid = attn_valid(torch, lengths, table)
+    log(f"[attn] {ATTN_SEQS} sequences, lengths {lengths[:4].tolist()}... "
+        f"(sum {int(lengths.sum().item())}, max "
+        f"{int(lengths.max().item())}), page size {ATTN_PAGE}, table "
+        f"({ATTN_SEQS}, {ATTN_MAX_PAGES}) from a permutation of {ATTN_POOL} "
+        f"pages; rows to read {int(valid.sum().item())}")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    configs = {}
+    for name, H, K, hd, dtype_name in ATTN_CONFIGS:
+        configs[name] = attn_case(torch, name, H, K, hd, dtype_name, lengths,
+                                  table, ATTN_POOL, seed, device, batch=True,
+                                  flush=flush)
+    long_len, long_table = attn_long_table(torch, seed + 5, device)
+    for name, H, K, hd, dtype_name in ATTN_LONG:
+        configs[name] = attn_case(torch, name, H, K, hd, dtype_name,
+                                  long_len, long_table, ATTN_MAX_PAGES, seed,
+                                  device, batch=False, flush=flush)
+    del flush
     main = configs[ATTN_CONFIGS[0][0]]
     results["paged_attention"] = {
         "name": "paged_attention", "route": "cuda", "source": ATTN_SOURCE,
@@ -1253,6 +1417,7 @@ def serve_phase(torch, seed, device, results):
                                                          policy_interval=4))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
+            combines = AK.paged_attention_combine_launches
         finally:
             SE.paged_attention = op
         report = eng.tier_report()
@@ -1264,6 +1429,8 @@ def serve_phase(torch, seed, device, results):
         check(counts == only(paged_attention=want_launches),
               f"ServingEngine.run launched {counts}, expected "
               f"{want_launches} paged_attention")
+        check(combines == 0, f"serving: {combines} combine launches; the "
+              "path's tables are one split wide")
         check(all(r["restores"] > 0 for r in report),
               f"serving: a layer restored no page: {report}")
         check(all(r["hot_pages"] == 0 for r in report),
@@ -1294,7 +1461,7 @@ def serve_phase(torch, seed, device, results):
             f"{r['wall']!r} s, {steps / r['wall']!r} token-steps/s, "
             f"{SERVE_REQUESTS * SERVE_NEW / r['wall']!r} generated tokens/s, "
             f"{r['wall'] / want_launches * 1e3!r} ms a layer-step; launches "
-            f"{json.dumps(r['counts'])}")
+            f"{json.dumps(r['counts'])}, no combine (one split a table)")
     log(f"[serve] checker: {chk.checked} of {chk.calls} calls held to the "
         f"plain version ({chk.after_restore} right after a restore, every "
         f"layer at least once; {chk.tight} query heads with 4 delta < 1e-3), "
@@ -1304,26 +1471,41 @@ def serve_phase(torch, seed, device, results):
         f"first request's tokens {a['tokens'][0][:8]}...")
     # the kernel at this path's shapes (the last checked call's tensors)
     q, kp, vp, pt, ln = chk.last
-    path_ms, _ = cuda_times_ms(lambda: AK.paged_attention_cuda(
-        q, kp, vp, pt, ln), REPS)
+    # from an idle card, the L2 cache warm, as earlier slices timed it; and
+    # the kernel's own device time (torch.profiler, the L2 cache flushed
+    # before each call, as the layers' weights flush it between calls)
+    call = lambda: AK.paged_attention_cuda(q, kp, vp, pt, ln)  # noqa: E731
+    path_ms, _ = cuda_times_ms(call, REPS)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    kern = kernel_device_ms(torch, call, REPS, flush)
+    del flush
+    seen = [v for k, v in kern.items() if "split_kernel" in k]
+    path_kernel_ms = seen[0][0] if len(seen) == 1 and seen[0][1] == 1 \
+        else None
     path_plain_ms, _ = cuda_times_ms(lambda: AR.paged_attention_ref(
         q, kp, vp, pt, ln), REPS)
     log(f"[serve] paged_attention at the path's shapes (q {tuple(q.shape)}, "
         f"pool {tuple(kp.shape)}, table {tuple(pt.shape)}, length "
-        f"{int(ln[0].item())}): kernel {path_ms!r} ms, plain "
-        f"{path_plain_ms!r} ms")
+        f"{int(ln[0].item())}): kernel {path_ms!r} ms from an idle card "
+        f"(CUDA events); its own device time {path_kernel_ms!r} ms "
+        f"(torch.profiler, L2 flushed; None when the trace did not show "
+        f"one launch a call: {json.dumps(kern)}); plain {path_plain_ms!r} "
+        f"ms from an idle card")
     host = {k: v for k, v in sorted(timer.seconds.items())}
-    attn_dev_s = want_launches * path_ms / 1e3
+    attn_dev_s = None if path_kernel_ms is None \
+        else want_launches * path_kernel_ms / 1e3
     log(f"[serve] timed run, where the {b['wall']!r} s go: host seconds in "
-        f"{json.dumps(host)}; paged_attention on the card about "
-        f"{attn_dev_s!r} s ({want_launches} launches x {path_ms!r} ms at the "
-        f"path's shapes); reading the weights once per token-step needs "
+        f"{json.dumps(host)}; paged_attention {want_launches} launches x "
+        f"{path_ms!r} ms = {want_launches * path_ms / 1e3!r} s by the "
+        f"idle-card time (host launch included), {attn_dev_s!r} s by its "
+        f"own device time; reading the weights once per token-step needs "
         f"{weights_bound_s!r} s at {HBM_BYTES_PER_S / 1e12} TB/s "
         f"({weight_bytes} B x {steps} steps)")
     entry = results["paged_attention"]
     entry["launches"] = a["counts"]["paged_attention"]
     entry["launches_by_path"] = {"ServingEngine.run": entry["launches"]}
-    entry["path"] = dict(ms=path_ms, plain_ms=path_plain_ms,
+    entry["path"] = dict(ms=path_ms, kernel_ms=path_kernel_ms,
+                         plain_ms=path_plain_ms,
                          checked_calls=chk.checked,
                          checked_after_restore=chk.after_restore,
                          tight_heads=chk.tight, max_abs_err=chk.max_err,
@@ -1546,7 +1728,6 @@ def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
     """``n`` decode steps from ``cache`` under ``torch.profiler``: the wall
     seconds, the device seconds of every CUDA operation, their count and
     the five largest by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1556,10 +1737,7 @@ def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
             nxt, cache = step(cache, nxt, pos + i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(e.key, getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0), e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof)
     return dict(wall_s=wall, device_s=sum(r[1] for r in rows) / 1e6,
                 kernels=sum(r[2] for r in rows),
                 top=[[k[:60], us, c] for k, us, c in rows[:5]])

@@ -1,4 +1,4 @@
-"""Build, bind and launch the hand-written ``paged_attention`` CUDA kernel.
+"""Build, bind and launch the hand-written ``paged_attention`` CUDA kernels.
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
@@ -6,9 +6,14 @@ The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 
 :func:`paged_attention_cuda` replaces the Pallas ``paged_attention``: one
 query token per sequence attends over its K/V pages through the page
-table, with grouped query heads and an online softmax in f32. It counts
-its launches in a plain integer, takes CUDA tensors only and raises on
-anything else: there is no fallback here. The plain version lives in
+table, with grouped query heads and an online softmax in f32. The page
+axis is split over blocks (flash-decoding): a split kernel covers
+:func:`pages_per_split` readable pages of a sequence a block and, when a
+table has more than one split's width, a combine kernel merges the splits
+in order. It counts its calls in ``paged_attention_launches`` (one a call,
+whatever it launches) and its combine launches in
+``paged_attention_combine_launches``, takes CUDA tensors only and raises
+on anything else: there is no fallback here. The plain version lives in
 ``ref.py``.
 """
 from __future__ import annotations
@@ -25,18 +30,36 @@ from .. import _build
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu",)
 MAX_HEAD_DIM = 256
+MAX_SPLITS = 4096               # the combine's weights in shared memory
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = {torch.float32: "split f32 CUDA cores",
+           torch.bfloat16: "split bf16 mma"}
 
-# launch counter: +1 per kernel launch, nowhere else
+# launch counters: +1 per op call (split kernel, and the combine when the
+# table is wider than one split); +1 per combine launch
 paged_attention_launches = 0
+paged_attention_combine_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
 def reset_counters() -> None:
-    global paged_attention_launches
+    global paged_attention_launches, paged_attention_combine_launches
     paged_attention_launches = 0
+    paged_attention_combine_launches = 0
+
+
+def pages_per_split() -> int:
+    """Readable pages a block of the split kernel covers: the kernel's
+    compile-time constant, read from the library."""
+    return _lib().paged_attention_pages_per_split()
+
+
+def n_splits(max_pages: int) -> int:
+    """Splits of a table ``max_pages`` wide (at least 1): the split
+    kernel's third grid axis, from the table's width alone."""
+    return max(1, -(-max_pages // pages_per_split()))
 
 
 def library_path() -> Path:
@@ -55,14 +78,18 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.paged_attention_launch.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-            lib.paged_attention_launch.restype = i
+            lib.paged_attention_split_launch.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+            lib.paged_attention_split_launch.restype = i
+            lib.paged_attention_combine_launch.argtypes = [
+                p, p, i, i, i, i, i, p]
+            lib.paged_attention_combine_launch.restype = i
+            lib.paged_attention_pages_per_split.restype = i
             lib.paged_attention_blocks_per_sm.argtypes = [i, i, i, i, i]
             lib.paged_attention_blocks_per_sm.restype = i
-            lib.paged_attention_threads.argtypes = [i, i]
+            lib.paged_attention_threads.argtypes = [i, i, i]
             lib.paged_attention_threads.restype = i
-            lib.paged_attention_shared_bytes.argtypes = [i, i, i, i]
+            lib.paged_attention_shared_bytes.argtypes = [i, i, i, i, i]
             lib.paged_attention_shared_bytes.restype = ctypes.c_longlong
             lib.paged_attention_error_string.argtypes = [i]
             lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -74,21 +101,29 @@ def _error(lib: ctypes.CDLL, code: int) -> str:
     return lib.paged_attention_error_string(code).decode()
 
 
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"paged_attention {what} launch failed: "
+                           f"{_error(lib, err)}")
+
+
 def occupancy(dtype: torch.dtype, n_heads: int, n_kv: int, head_dim: int,
               page_size: int, device=None) -> dict:
-    """The launch shape for these widths on ``device`` (the current CUDA
-    device by default): threads a block, dynamic shared bytes a block and
-    blocks an SM holds at once."""
+    """The split kernel's launch shape for these widths on ``device`` (the
+    current CUDA device by default): its design, threads a block, dynamic
+    shared bytes a block and blocks an SM holds at once."""
     lib = _lib()
+    code = DTYPES[dtype]
     with torch.cuda.device(device):
         per_sm = lib.paged_attention_blocks_per_sm(
-            DTYPES[dtype], n_heads, n_kv, head_dim, page_size)
+            code, n_heads, n_kv, head_dim, page_size)
     if per_sm < 0:
         raise RuntimeError(f"paged_attention occupancy query failed: "
                            f"{_error(lib, -per_sm)}")
-    return {"threads": lib.paged_attention_threads(n_heads, n_kv),
+    return {"design": DESIGNS[dtype],
+            "threads": lib.paged_attention_threads(code, n_heads, n_kv),
             "shared_bytes": lib.paged_attention_shared_bytes(
-                n_heads, n_kv, head_dim, page_size),
+                code, n_heads, n_kv, head_dim, page_size),
             "blocks_per_sm": per_sm}
 
 
@@ -102,7 +137,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     Page ids of -1 are masked; the kernel skips ids outside
     ``[0, n_pages)`` too, so it never reads out of bounds (the op raises on
     them before the launch)."""
-    global paged_attention_launches
+    global paged_attention_launches, paged_attention_combine_launches
     named = (("q", q, 3), ("k_pages", k_pages, 4), ("v_pages", v_pages, 4),
              ("page_table", page_table, 2), ("lengths", lengths, 1))
     for name, t, dim in named:
@@ -140,19 +175,30 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if page_table.shape[0] != B or lengths.shape != (B,):
         raise ValueError(f"page_table {tuple(page_table.shape)} and lengths "
                          f"{tuple(lengths.shape)} must have B={B} rows")
+    splits = n_splits(page_table.shape[1])
+    if splits > MAX_SPLITS:
+        raise ValueError(f"page_table is {page_table.shape[1]} pages wide: "
+                         f"at most {MAX_SPLITS * pages_per_split()}")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    work = None
+    if splits > 1:
+        work = torch.empty((B, H, splits, hd + 2), dtype=torch.float32,
+                           device=q.device)
     lib = _lib()
+    code = DTYPES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_attention_launch(
+        _check(lib, lib.paged_attention_split_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, H, K, hd, P, n_pages, page_table.shape[1],
-            stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention launch failed: "
-                           f"{_error(lib, err)}")
-    paged_attention_launches += 1
+            None if work is None else work.data_ptr(), code, B, H, K, hd, P,
+            n_pages, page_table.shape[1], stream), "split")
+        paged_attention_launches += 1
+        if work is not None:
+            _check(lib, lib.paged_attention_combine_launch(
+                work.data_ptr(), out.data_ptr(), code, B, H, hd, splits,
+                stream), "combine")
+            paged_attention_combine_launches += 1
     return out

@@ -33,8 +33,9 @@ class PagePool:
 
     ``k``/``v`` are contiguous tensors on ``device`` (the CUDA card unless
     the caller passes ``device="cpu"``); ``write_token`` and ``free`` write
-    them in place. ``dtype`` must be one numpy holds, since released pages
-    live on the host as numpy arrays.
+    them in place. Released pages live on the host as numpy arrays; numpy
+    has no bfloat16, so a bf16 page leaves as an int16 view of its bits
+    and comes back through the same view, every bit kept.
     """
 
     def __init__(self, n_pages: int, page_size: int, n_kv: int,
@@ -44,9 +45,6 @@ class PagePool:
         self.n_kv = n_kv
         self.head_dim = head_dim
         self.device = resolve_device(device)
-        if dtype == torch.bfloat16:
-            raise TypeError("bfloat16 pages have no numpy form for the host "
-                            "tier; use float32 or float16")
         shape = (n_pages, page_size, n_kv, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -76,9 +74,22 @@ class PagePool:
         self.v[page_id, slot] = torch.as_tensor(v)
 
     def read_page(self, page_id: int) -> Tuple[np.ndarray, np.ndarray]:
-        return (self.k[page_id].to("cpu", copy=True).numpy(),
-                self.v[page_id].to("cpu", copy=True).numpy())
+        """Host copies of a page's K and V (int16 bit views for bf16)."""
+        return self._host(self.k[page_id]), self._host(self.v[page_id])
 
     def write_page(self, page_id: int, k: np.ndarray, v: np.ndarray) -> None:
-        self.k[page_id] = torch.as_tensor(k)
-        self.v[page_id] = torch.as_tensor(v)
+        """Writes back what :meth:`read_page` returned."""
+        self.k[page_id] = self._from_host(k)
+        self.v[page_id] = self._from_host(v)
+
+    def _host(self, page: torch.Tensor) -> np.ndarray:
+        page = page.to("cpu", copy=True)
+        if page.dtype == torch.bfloat16:
+            page = page.view(torch.int16)
+        return page.numpy()
+
+    def _from_host(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.as_tensor(a)
+        if self.k.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
+        return t

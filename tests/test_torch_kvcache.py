@@ -140,8 +140,56 @@ def test_page_pool_on_its_device():
     pool.write_page(pool.alloc(), hk, hv)
     assert (pool.k[page, 1] == 7).all()
     assert pool.usage_pct == 100.0 / 3
-    with pytest.raises(TypeError):
-        PagePool(2, 4, 2, 8, dtype=torch.bfloat16, device="cpu")
+    bf = PagePool(2, 4, 2, 8, dtype=torch.bfloat16, device="cpu")
+    assert bf.k.dtype == bf.v.dtype == torch.bfloat16
+
+
+def _bits(a) -> np.ndarray:
+    """A bf16 array (numpy's ml_dtypes, a torch tensor or the int16 view
+    the port's host tier holds) as its int16 bits."""
+    if isinstance(a, torch.Tensor):
+        a = a.view(torch.int16).numpy()
+    return np.asarray(a).view(np.int16)
+
+
+def test_bf16_pages_match_reference_bit_for_bit():
+    """bf16 pools in both packages: the same tokens written, pages released
+    to the host and restored through ``TieredKvCache``; every page, hot or
+    cold, has the same bits, and a page weighs 2 bytes an element."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kvcache import PagePool as RefPool
+    from repro.kvcache import TieredKvCache as RefCache
+    ops = _script(np.random.default_rng(12))
+    ref = RefCache(RefPool(10, 4, 2, 8, dtype=jnp.bfloat16), 70.0, 40.0,
+                   clock=_counter())
+    port = TieredKvCache(PagePool(10, 4, 2, 8, dtype=torch.bfloat16,
+                                  device="cpu"), 70.0, 40.0,
+                         clock=_counter())
+    assert ref.pool.k.dtype.name == "bfloat16"
+    assert port.pool.k.dtype == torch.bfloat16
+    ref_trace, ref_rel = _drive(ref, ops)
+    port_trace, port_rel = _drive(port, ops)
+    assert port_rel == ref_rel and any(ok for _, ok in ref_rel)
+    assert port_trace == ref_trace
+    assert ref.restores > 0 and port.restores == ref.restores
+    assert port.page_bytes == ref.page_bytes == 4 * 2 * 8 * 2 * 2
+    assert port.cold.keys() == ref.cold.keys() and ref.cold
+    for fid, (k, v) in ref.cold.items():
+        assert port.cold[fid][0].dtype == np.int16
+        np.testing.assert_array_equal(port.cold[fid][0], _bits(k))
+        np.testing.assert_array_equal(port.cold[fid][1], _bits(v))
+    np.testing.assert_array_equal(_bits(port.pool.k), _bits(ref.pool.k))
+    np.testing.assert_array_equal(_bits(port.pool.v), _bits(ref.pool.v))
+    assert (_bits(port.pool.k) != 0).any()
+    # any bits, out to the host and back, every bit kept
+    pool = PagePool(2, 4, 2, 8, dtype=torch.bfloat16, device="cpu")
+    page = pool.alloc()
+    bits = np.random.default_rng(3).integers(-2**15, 2**15, (4, 2, 8))
+    pool.write_page(page, bits.astype(np.int16), bits.astype(np.int16))
+    hk, hv = pool.read_page(page)
+    np.testing.assert_array_equal(hk, bits)
+    np.testing.assert_array_equal(hv, bits)
 
 
 def test_sequence_table():

@@ -22,13 +22,15 @@ failure:
    seed: (a) 2^27 rows, 4096 groups, the prebucketed layout
    ``ProfileCube`` passes; (b) 2^27 rows, 64 groups, the raw layout
    (bucketized on the card); (c) 2^20 rows, 64 groups, every per-cell
-   sum below 2^24. Counts must equal the plain version's; volume and
+   sum below 2^24; (d) cell (a) with Zipf-skewed group ids. Counts must
+   equal the plain version's and sum to the valid rows; volume and
    spc_used must equal the plain version run on f64 columns and cast to
-   f32 (in (c) also the f32 plain version itself); (a) must repeat
-   bit for bit; the edge shapes (no rows, no groups, a ragged N, too many
-   groups) must behave as the op says. (a) and (b) are timed beside the
-   bound, the plain version and one ``index_add_`` (which excludes the
-   bucketizing);
+   f32 (in (c) also the f32 plain version itself); (a), (b) and (d) must
+   repeat bit for bit; the edge shapes (no rows, no groups, a ragged N,
+   too many groups) must behave as the op says. (a), (b) and (d) are
+   timed beside the bound, the plain version and one ``index_add_``
+   (which excludes the bucketizing), with the kernels' own device times
+   from a ``torch.profiler`` trace;
 5. engine: a 2^20-entry catalog, one policy (scope, two rules, LRU sort,
    a recording batch action) run through ``PolicyEngine.run`` with
    ``evaluator="policy_scan"`` on the card and with ``evaluator="numpy"``:
@@ -76,7 +78,8 @@ failure:
    at B 1, y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| +
    |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
    bit for bit and are timed beside their bound and plain version (no
-   single PyTorch call computes either);
+   single PyTorch call computes either), and at the serving paths' decode
+   shapes beside the kernels' own device times;
 9. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
    (28 layers, weights drawn on the card from the seed), 4 requests of 256
    seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
@@ -140,6 +143,12 @@ REPS = 10                       # timed calls per kernel and plain version
 L2_FLUSH_BYTES = 256 << 20      # written before each timed attention call
 CUBE_GROUPS = 4096              # cell (a): profile_cube's MAX_GROUPS
 CUBE_GROUPS_SMALL = 64          # cells (b) and (c)
+# cell (d): cell (a) with gid drawn from p_g ~ (g + 1)^-CUBE_ZIPF_S over
+# CUBE_GROUPS groups. The exponent is a choice: it puts about 16% of rows
+# in group 0 and 70% in groups 0-127, as a catalog where a few accounts
+# own most entries gives ProfileCube's dense group codes (frequent groups
+# get low ids).
+CUBE_ZIPF_S = 1.1
 EXACT_ROWS = 1 << 20            # cell (c)
 F32_EXACT = 1 << 24             # f32 holds every integer below this
 BATCH_CRITERIA = ["(size > 1GB or owner == 'u1') and type == file",
@@ -190,6 +199,10 @@ RG_SHAPE = (8, 4096, 4096)
 RG_RAGGED = ((8, 1, 4096), (4, 2016, 4096), (8, 4096, 100))
 RW_SHAPE = (256, 32, 64)
 RW_RAGGED = ((256, 32, 16), (1, 32, 64))
+# the serving paths' shapes: a recurrentgemma-9b decode step (4 prompts)
+# and an rwkv6-1.6b one (8 prompts)
+RG_PATH = (4, 1, 4096)
+RW_PATH = (8, 32, 64)
 # recurrent serving (src/repro/configs/): arch, prompts, prompt tokens, new
 # tokens, cache_len (recurrentgemma-9b's 2048-slot ring wraps in decode)
 RECURRENT_SERVE = (("rwkv6_1p6b", 8, 512, 64, 576),
@@ -482,9 +495,56 @@ def cube_bound_ms(torch, cols, n_groups: int, prebucketed: bool):
             else "operations", bytes_moved, f32_ops, f64_ops)
 
 
+def cube_library_ms(torch, cols, n_groups: int, prebucketed: bool) -> float:
+    """Median ms of one ``index_add_`` of the (N, 3) valid-weighted values
+    into a zeroed (n_groups * 70, 3) f32 cube on the cell index, computed
+    beforehand (the bucketizing excluded)."""
+    from repro_torch.kernels.profile_cube import ref as PR
+    valid = cols[6 if prebucketed else 4]
+    gid = cols[0].to(torch.int64)
+    sb = cols[4].to(torch.int64) if prebucketed else PR.size_buckets(cols[1])
+    ab = cols[5].to(torch.int64) if prebucketed else PR.age_buckets(cols[3])
+    flat = (gid * 10 + sb) * 7 + ab
+    vals = torch.stack([valid, valid * cols[1], valid * cols[2]], dim=1)
+    del gid, sb, ab
+    return cuda_times_ms(lambda: torch.zeros(
+        (n_groups * 70, 3), dtype=torch.float32, device=cols.device)
+        .index_add_(0, flat, vals), REPS)[0]
+
+
 def rel_err(torch, got, want) -> float:
     d = (got.double() - want.double()).abs()
     return (d / want.double().abs().clamp_min(1)).max().item()
+
+
+def zipf_gid(torch, n: int, n_groups: int, seed: int, device):
+    """(n,) f32 group ids on the card with p_g ~ (g + 1)^-CUBE_ZIPF_S over
+    [0, n_groups): a uniform from a seeded generator, searchsorted on the
+    CDF."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    p = torch.arange(1, n_groups + 1, dtype=torch.float64,
+                     device=device).pow(-CUBE_ZIPF_S)
+    cdf = (p.cumsum(0) / p.sum()).float()
+    u = torch.rand(n, generator=g, device=device)
+    gid = torch.searchsorted(cdf, u, right=True, out_int32=True)
+    return gid.clamp_(max=n_groups - 1).float()
+
+
+def short_kernel_name(name: str) -> str:
+    """``profile_cube::cube_kernel<true>`` of a profiler's
+    ``void profile_cube::cube_kernel<true>(float const*, ...)``."""
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("(")[0].strip() if "::" in name else name
+
+
+def cube_device_ms(torch, fn) -> dict:
+    """The card's own ms a call of each kernel (and memset) ``fn()``
+    launches, by short name, from a ``torch.profiler`` trace of REPS
+    calls (:func:`kernel_device_ms`)."""
+    return {short_kernel_name(k): ms * per
+            for k, (ms, per) in kernel_device_ms(torch, fn, REPS).items()}
 
 
 def cube_phase(torch, seed, device, results):
@@ -495,13 +555,19 @@ def cube_phase(torch, seed, device, results):
     t0 = time.perf_counter()
     cols_a = cube_columns(torch, n, CUBE_GROUPS, seed + 1, device)
     cols_b = raw_layout(torch, cols_a, CUBE_GROUPS_SMALL)
+    cols_d = cols_a.clone()
+    cols_d[0] = zipf_gid(torch, n, CUBE_GROUPS, seed + 4, device)
     torch.cuda.synchronize()
-    log(f"[cube] columns (a) {tuple(cols_a.shape)} and (b) "
-        f"{tuple(cols_b.shape)} f32 = "
-        f"{(cols_a.numel() + cols_b.numel()) * 4 / 1e9:.2f} GB generated "
-        f"in {time.perf_counter() - t0:.2f} s")
+    log(f"[cube] columns (a) {tuple(cols_a.shape)}, (b) "
+        f"{tuple(cols_b.shape)} and (d) {tuple(cols_d.shape)} f32 = "
+        f"{(cols_a.numel() + cols_b.numel() + cols_d.numel()) * 4 / 1e9:.2f}"
+        f" GB generated in {time.perf_counter() - t0:.2f} s; (d) gid Zipf "
+        f"s={CUBE_ZIPF_S}: {(cols_d[0] == 0).float().mean().item():.4f} of "
+        f"rows in group 0, {(cols_d[0] < 128).float().mean().item():.4f} in "
+        f"groups 0-127")
     cells = {"a": (cols_a, CUBE_GROUPS, True),
-             "b": (cols_b, CUBE_GROUPS_SMALL, False)}
+             "b": (cols_b, CUBE_GROUPS_SMALL, False),
+             "d": (cols_d, CUBE_GROUPS, True)}
     stats = {}
     for name, (cols, b, pre) in cells.items():
         kw = dict(PREBUCKETED if pre else RAW, n_groups=b)
@@ -516,6 +582,10 @@ def cube_phase(torch, seed, device, results):
               "counts differ from the plain version")
         check(torch.equal(got, f64), f"profile_cube cell ({name}) differs "
               "from the f64 plain version cast to f32")
+        n_valid = int((cols[kw["valid_col"]] != 0).sum().item())
+        counted = int(got[0].double().sum().item())
+        check(counted == n_valid, f"profile_cube cell ({name}) counted "
+              f"{counted} rows, the valid rows are {n_valid}")
         abs_err = (got.double() - f64.double()).abs().max().item()
         rel32 = rel_err(torch, got, f32)
         stats[name] = dict(abs_err=abs_err, rel_err_f32=rel32,
@@ -525,7 +595,7 @@ def cube_phase(torch, seed, device, results):
             f"{stats[name]['design']}: identical to the f64 plain version "
             f"and to itself run to run; counts equal to the f32 plain "
             f"version; max rel err vs the f32 plain version {rel32!r}; "
-            f"rows counted {int(got[0].sum().item())}")
+            f"rows counted {counted}, equal to the valid rows")
         del got, again, f32, f64
 
     # (c): every per-cell sum below 2^24, so the f32 plain version is exact
@@ -542,8 +612,9 @@ def cube_phase(torch, seed, device, results):
         check(top < F32_EXACT, f"cell (c) has a cell sum {top} >= 2^24")
         check(torch.equal(got, f32), f"profile_cube cell (c) {layout} "
               "differs from the f32 plain version")
-        log(f"[cube] cell (c) N={EXACT_ROWS} B={CUBE_GROUPS_SMALL} {layout}: "
-            f"identical to the f32 plain version (largest cell {top!r})")
+        log(f"[cube] cell (c) N={EXACT_ROWS} B={CUBE_GROUPS_SMALL} {layout} "
+            f"design {PK.design(CUBE_GROUPS_SMALL, device)}: identical to "
+            f"the f32 plain version (largest cell {top!r})")
 
     # edges: no rows / no groups, a ragged N, too many groups
     for n_rows, b in ((0, 0), (0, 3), (5, 0)):
@@ -574,37 +645,30 @@ def cube_phase(torch, seed, device, results):
     del cols_c, ragged
 
     # times: CUDA events, median of REPS after a warm-up, beside the bound,
-    # the plain version and one index_add_ on the precomputed cell index
+    # the plain version and one index_add_ on the precomputed cell index;
+    # and the kernels' own device times from a torch.profiler trace
     timings = {}
     for name, (cols, b, pre) in cells.items():
         kw = dict(PREBUCKETED if pre else RAW, n_groups=b)
-        ms, times = cuda_times_ms(lambda: PK.profile_cube_cuda(cols, **kw),
-                                  REPS)
+        call = lambda: PK.profile_cube_cuda(cols, **kw)  # noqa: E731
+        ms, times = cuda_times_ms(call, REPS)
+        dev = cube_device_ms(torch, call)
         plain_ms, _ = cuda_times_ms(lambda: PR.profile_cube_ref(cols, **kw),
                                     REPS)
-        valid = cols[kw["valid_col"]]
-        gid = cols[0].to(torch.int64)
-        sb = cols[4].to(torch.int64) if pre else PR.size_buckets(cols[1])
-        ab = cols[5].to(torch.int64) if pre else PR.age_buckets(cols[3])
-        flat = (gid * 10 + sb) * 7 + ab
-        vals = torch.stack([valid, valid * cols[1], valid * cols[2]], dim=1)
-        del gid, sb, ab
-
-        def library():
-            torch.zeros((b * 70, 3), dtype=torch.float32,
-                        device=device).index_add_(0, flat, vals)
-        lib_ms, _ = cuda_times_ms(library, REPS)
-        del flat, vals
+        lib_ms = cube_library_ms(torch, cols, b, pre)
         bms, by, nbytes, f32_ops, f64_ops = cube_bound_ms(torch, cols, b,
                                                           pre)
-        log(f"[cube] cell ({name}) {CARD}: kernel {ms!r} ms (median of "
-            f"{len(times)}, min {min(times)!r}, max {max(times)!r}); plain "
-            f"{plain_ms!r} ms; index_add_ {lib_ms!r} ms (excludes "
-            f"bucketize); bound {bms!r} ms by {by} ({nbytes} B, {f32_ops} "
-            f"f32 ops, {f64_ops} f64 ops); {bms / ms:.3f} of the bound")
-        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bms, bound_by=by, bytes=nbytes,
-                             rows=n, groups=b,
+        log(f"[cube] cell ({name}) {CARD}: design {stats[name]['design']}; "
+            f"kernel {ms!r} ms (median of {len(times)}, min {min(times)!r}, "
+            f"max {max(times)!r}); the card's own time (torch.profiler, "
+            f"mean of {REPS}) {json.dumps(dev)} ms, sum "
+            f"{sum(dev.values())!r}; plain {plain_ms!r} ms; index_add_ "
+            f"{lib_ms!r} ms (excludes bucketize); bound {bms!r} ms by {by} "
+            f"({nbytes} B, {f32_ops} f32 ops, {f64_ops} f64 ops); "
+            f"{bms / ms:.3f} of the bound")
+        timings[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                             bytes=nbytes, rows=n, groups=b,
                              layout="prebucketed" if pre else "raw",
                              **stats[name])
     a = timings["a"]
@@ -619,7 +683,7 @@ def cube_phase(torch, seed, device, results):
         "error_against": "max_abs_err: the f64 plain version cast to f32; "
                          "max_rel_err: the f32 plain version",
         "cells": timings}
-    del cols_a, cols_b, cells
+    del cols_a, cols_b, cols_d, cells
     torch.cuda.empty_cache()
 
 
@@ -638,6 +702,28 @@ def close_reports(got, want, key=None) -> bool:
     return got == want
 
 
+def path_cube_columns(torch, cat, groups, device) -> list:
+    """The (7, N) f32 prebucketed columns ``ProfileCube.rebuild`` hands the
+    op for each shard of ``cat`` (group ids from ``groups``, a
+    ``ProfileCube``'s group table), on ``device``."""
+    import numpy as np
+    from repro_torch.core.profiles import age_buckets_np, size_buckets_np
+    needed = ("owner", "group", "type", "hsm_state", "size", "blocks",
+              "atime")
+    out = []
+    for shard in cat.shards:
+        snap, _ = shard.snapshot(names=needed, with_strings=False)
+        gids = groups.get_or_add_many(snap["owner"], snap["group"],
+                                      snap["type"], snap["hsm_state"])
+        age = NOW - snap["atime"]
+        rows = (gids, snap["size"], snap["blocks"], age,
+                size_buckets_np(snap["size"]), age_buckets_np(age),
+                np.ones(len(gids)))
+        out.append(torch.from_numpy(np.stack(
+            [np.asarray(r, np.float32) for r in rows])).to(device))
+    return out
+
+
 def reports_phase(torch, cat, device, results):
     import dataclasses
 
@@ -645,7 +731,6 @@ def reports_phase(torch, cat, device, results):
     from repro_torch.core import ProfileCube, Reports
     from repro_torch.kernels.profile_cube import kernel as PK
     from repro_torch.kernels.profile_cube import ref as PR
-    from repro_torch.core.profiles import age_buckets_np, size_buckets_np
     clock = lambda: NOW  # noqa: E731
 
     t0 = time.perf_counter()
@@ -676,21 +761,11 @@ def reports_phase(torch, cat, device, results):
         f"identical, volume/spc_used max rel err {rel!r}")
 
     # the kernel at this path's shapes: each shard's prebucketed columns
-    needed = ("owner", "group", "type", "hsm_state", "size", "blocks",
-              "atime")
-    b = len(kcube.groups)
     path_ms = path_plain_ms = 0.0
-    for sid, shard in enumerate(cat.shards):
-        snap, _ = shard.snapshot(names=needed, with_strings=False)
-        gids = kcube.groups.get_or_add_many(snap["owner"], snap["group"],
-                                            snap["type"], snap["hsm_state"])
-        age = NOW - snap["atime"]
-        rows = (gids, snap["size"], snap["blocks"], age,
-                size_buckets_np(snap["size"]), age_buckets_np(age),
-                np.ones(len(gids)))
-        cols = torch.from_numpy(np.stack([np.asarray(r, np.float32)
-                                          for r in rows])).to(device)
-        kw = dict(PREBUCKETED, n_groups=b)
+    path_dev: dict = {}
+    shards = path_cube_columns(torch, cat, kcube.groups, device)
+    for sid, cols in enumerate(shards):
+        kw = dict(PREBUCKETED, n_groups=len(kcube.groups))
         got = PK.profile_cube_cuda(cols, **kw)
         check(torch.equal(got, PR.profile_cube_ref(cols.double(), **kw)
                           .float()), f"shard {sid}: profile_cube differs "
@@ -698,18 +773,24 @@ def reports_phase(torch, cat, device, results):
         check(torch.equal(got[0], PR.profile_cube_ref(cols, **kw)[0]),
               f"shard {sid}: profile_cube counts differ from the plain "
               "version")
-        path_ms += cuda_times_ms(lambda: PK.profile_cube_cuda(cols, **kw),
-                                 REPS)[0]
+        call = lambda: PK.profile_cube_cuda(cols, **kw)  # noqa: E731
+        path_ms += cuda_times_ms(call, REPS)[0]
+        for k, v in cube_device_ms(torch, call).items():
+            path_dev[k] = path_dev.get(k, 0.0) + v
         path_plain_ms += cuda_times_ms(
             lambda: PR.profile_cube_ref(cols, **kw), REPS)[0]
+    b = len(kcube.groups)
     results["profile_cube"]["path"] = dict(
-        ms=path_ms, plain_ms=path_plain_ms, rows=len(cat), groups=b,
-        shards=cat.n_shards)
+        ms=path_ms, device_ms=path_dev, plain_ms=path_plain_ms,
+        rows=len(cat), groups=b, shards=cat.n_shards,
+        design=PK.design(b, device))
     log(f"[reports] {CARD}: profile_cube held to its plain version on each "
-        f"of the {cat.n_shards} shards' (7, N) columns, B={b}: identical "
-        f"to the f64 plain version; kernel {path_ms!r} ms, plain "
-        f"{path_plain_ms!r} ms over the {cat.n_shards} shards (sums of "
-        f"medians of {REPS})")
+        f"of the {cat.n_shards} shards' (7, N) columns, B={b} (design "
+        f"{PK.design(b, device)}): identical to the f64 plain version; "
+        f"kernel {path_ms!r} ms, plain {path_plain_ms!r} ms over the "
+        f"{cat.n_shards} shards (sums of medians of {REPS}); the card's own "
+        f"time over the shards (torch.profiler) {json.dumps(path_dev)} ms")
+    del shards
 
     kr = Reports(cat, profiles=kcube, clock=clock)
     hr = Reports(cat, profiles=host, clock=clock)
@@ -1609,6 +1690,21 @@ def rwkv_bound_ms(shape, elt: int = 4):
             else "operations", nbytes, ops)
 
 
+def path_shape_times(torch, name: str, shape, call) -> dict:
+    """One recurrent kernel at a serving path's shape: the call's time from
+    an idle card (CUDA events, the host's launch through ``ctypes``
+    included) beside the kernel's own device time (``torch.profiler``),
+    whose difference is the host's share."""
+    ms, times = cuda_times_ms(call, REPS)
+    kern = kernel_device_ms(torch, call, REPS)
+    dev = one_kernel_ms(kern, f"{name}_kernel", f"{name} {shape}")
+    log(f"[recurrent] {name} path shape {shape} {CARD}: call {ms!r} ms from "
+        f"an idle card (median of {len(times)}, min {min(times)!r}, max "
+        f"{max(times)!r}); the kernel's own device time {dev!r} ms "
+        f"(torch.profiler, mean of {REPS})")
+    return dict(shape=list(shape), ms=ms, device_ms=dev)
+
+
 def recurrent_kernel_phase(torch, seed, device, results):
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rglru_scan import ref as RGR
@@ -1660,6 +1756,10 @@ def recurrent_kernel_phase(torch, seed, device, results):
         del la, b, h0
         torch.cuda.empty_cache()
     main = configs[f"B{RG_SHAPE[0]} S{RG_SHAPE[1]} R{RG_SHAPE[2]} h0"]
+    la, b, h0 = rglru_inputs(torch, RG_PATH, seed + 25, device)
+    path = path_shape_times(torch, "rglru_scan", RG_PATH,
+                            lambda: RGK.rglru_scan_cuda(la, b, h0))
+    del la, b, h0
     results["rglru_scan"] = {
         "name": "rglru_scan", "route": "cuda", "source": RG_SOURCE,
         "replaces": TPU_KERNELS["rglru_scan"], "launches": None,
@@ -1669,7 +1769,7 @@ def recurrent_kernel_phase(torch, seed, device, results):
         "library_ms": None,
         "library": "none: no single PyTorch call computes it",
         "error_against": "the plain version on the same tensors",
-        "configs": configs}
+        "configs": configs, "path": path}
 
     # rwkv6_step at rwkv6-1.6b's heads, then hd 16 and B = 1
     configs = {}
@@ -1711,6 +1811,10 @@ def recurrent_kernel_phase(torch, seed, device, results):
         del args, y, s, y2, s2
         torch.cuda.empty_cache()
     main = configs[f"B{RW_SHAPE[0]} H{RW_SHAPE[1]} hd{RW_SHAPE[2]}"]
+    args = rwkv_inputs(torch, RW_PATH, seed + 35, device)
+    path = path_shape_times(torch, "rwkv6_step", RW_PATH,
+                            lambda: RWK.rwkv6_step_cuda(*args))
+    del args
     results["rwkv6_step"] = {
         "name": "rwkv6_step", "route": "cuda", "source": RW_SOURCE,
         "replaces": TPU_KERNELS["rwkv6_step"], "launches": None,
@@ -1721,7 +1825,7 @@ def recurrent_kernel_phase(torch, seed, device, results):
         "library": "none: no single PyTorch call computes it",
         "error_against": "the plain version on the same tensors (y; the "
                          "state's error is in configs)",
-        "configs": configs}
+        "configs": configs, "path": path}
 
 
 def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:

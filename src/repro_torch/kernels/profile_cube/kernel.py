@@ -6,10 +6,11 @@ The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 
 :func:`profile_cube_cuda` replaces ``profile_cube_pallas``: it bucketizes
 size and age (or takes precomputed bucket rows) and sums the valid-weighted
-count, size and blocks of every row into its ``[gid, sb, ab]`` cell, in f64,
-rounding each cell to f32 once. It counts its launches in a plain integer,
-takes CUDA tensors only and raises on anything else: there is no fallback
-here. The plain version lives in ``ref.py``.
+count, size and blocks of every row into its ``[gid, sb, ab]`` cell, as u64
+integers (f64 for a row that is not integer), rounding each cell to f32
+once. It counts its calls in a plain integer, takes CUDA tensors only and
+raises on anything else: there is no fallback here. The plain version
+lives in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -26,12 +27,15 @@ from .ref import A_BUCKETS, N_MEASURES, S_BUCKETS
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("profile_cube.cu",)
 
-# The group axis the cube takes on the card: 3 * 4096 * 70 f64 cells (6.9
-# MB) still sit in the H100's L2; catalogs with more distinct (owner, group,
-# type, hsm) combinations take the host groupby path (see core.profiles).
+# The group axis the cube takes on the card: at 4096 groups the global
+# design's u64 and f64 side cubes (2 x 9.2 MB, 32 B cells) still sit in the
+# H100's 50 MB L2; catalogs with more distinct (owner, group, type, hsm)
+# combinations take the host groupby path (see core.profiles).
 MAX_GROUPS = 4096
 
-# launch counter: +1 per kernel launch, nowhere else
+# op-call counter: +1 per profile_cube_cuda call whose launches were all
+# accepted (each call launches a memset, the cube kernel and the cast),
+# nowhere else
 profile_cube_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -64,6 +68,10 @@ def _lib() -> ctypes.CDLL:
             lib.profile_cube_launch.restype = i
             lib.profile_cube_design.argtypes = [i]
             lib.profile_cube_design.restype = i
+            lib.profile_cube_band_groups.argtypes = []
+            lib.profile_cube_band_groups.restype = i
+            lib.profile_cube_work_bytes.argtypes = [ll, i]
+            lib.profile_cube_work_bytes.restype = ll
             lib.profile_cube_error_string.argtypes = [i]
             lib.profile_cube_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -74,17 +82,28 @@ def _error(lib: ctypes.CDLL, code: int) -> str:
     return lib.profile_cube_error_string(code).decode()
 
 
+DESIGNS = ("global", "shared")
+
+
+def band_groups() -> int:
+    """The most groups one block's private cube in shared memory holds
+    (the shared design's limit): the kernel's compile-time constant, read
+    from the library."""
+    return _lib().profile_cube_band_groups()
+
+
 def design(n_groups: int, device=None) -> str:
-    """``"shared"`` when the kernel keeps a private cube per block in
-    shared memory for ``n_groups`` on ``device`` (the current CUDA device
-    by default), ``"global"`` when every row adds into the global cube."""
+    """The kernel's design for ``n_groups`` on ``device`` (the current CUDA
+    device by default): ``"shared"`` when each block keeps a private cube
+    in shared memory (up to :func:`band_groups`), ``"global"`` when every
+    row adds into the global cube."""
     lib = _lib()
     with torch.cuda.device(device):
         code = lib.profile_cube_design(int(n_groups))
     if code < 0:
         raise RuntimeError(f"profile_cube design query failed: "
                            f"{_error(lib, -code)}")
-    return "shared" if code else "global"
+    return DESIGNS[code]
 
 
 def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
@@ -124,18 +143,18 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
     if ab_col < 0 and not 0 <= age_col < n_cols:
         raise ValueError(f"age_col={age_col} outside [0, {n_cols})")
     dev = cols.device
-    cells = N_MEASURES * n_groups * S_BUCKETS * A_BUCKETS
-    scratch = torch.zeros((cells,), dtype=torch.float64, device=dev)
-    out = torch.empty((N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS),
-                      dtype=torch.float32, device=dev)
     lib = _lib()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
+        work = torch.empty((lib.profile_cube_work_bytes(n, n_groups),),
+                           dtype=torch.uint8, device=dev)
+        out = torch.empty((N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS),
+                          dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.profile_cube_launch(
             cols.data_ptr(), n, n_groups, gid_col, size_col, blocks_col,
             age_col if ab_col < 0 else -1, valid_col, sb_col, ab_col,
-            scratch.data_ptr(), out.data_ptr(), sms, stream)
+            work.data_ptr(), out.data_ptr(), sms, stream)
     if err != 0:
         raise RuntimeError(f"profile_cube launch failed: {_error(lib, err)}")
     profile_cube_launches += 1

@@ -54,9 +54,10 @@ def profile_cube(gid, size, blocks, age, n_groups: int, valid=None,
     the f32 cast could round a value across a bucket edge —
     ``core.profiles`` always does, so bucket assignment matches its int64
     tables exactly. The columns go to ``device`` (default the CUDA card;
-    ``"cpu"`` runs the plain version). The kernel sums in f64 and rounds
-    each cell to f32 once; the plain version sums in f32, exact for integer
-    measures up to 2**24 per cell. The incremental host path in
+    ``"cpu"`` runs the plain version). The kernel sums exactly (u64 for
+    integer rows, f64 for the others) and rounds each cell to f32 once; the
+    plain version sums in f32, exact for integer measures up to 2**24 per
+    cell. The incremental host path in
     ``core.profiles`` keeps int64 precision end-to-end.
     """
     if n_groups > MAX_GROUPS:

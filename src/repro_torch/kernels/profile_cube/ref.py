@@ -75,3 +75,34 @@ def profile_cube_ref(cols: torch.Tensor, n_groups: int, gid_col: int = 0,
     out[1].index_add_(0, flat, valid * size)
     out[2].index_add_(0, flat, valid * blocks)
     return out.reshape(N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS)
+
+
+def banded_cube_ref(cols: torch.Tensor, n_groups: int, gid_col: int = 0,
+                    size_col: int = 1, blocks_col: int = 2,
+                    age_col: int = 3, valid_col: int = -1,
+                    sb_col: int = -1, ab_col: int = -1, *,
+                    band: int) -> torch.Tensor:
+    """The banded order of work on the CPU, for tests: rows with a non-zero
+    weight are partitioned by the band of their clipped gid
+    (``gid // band``), each band's rows are summed on their own into a cube
+    ``band`` groups wide, and the bands are assembled, as the banded design
+    of ``tools/profile_cube_designs.cu`` does on the card. Equal to
+    :func:`profile_cube_ref` wherever its sums are exact."""
+    w = cols[valid_col] if valid_col >= 0 else torch.ones_like(cols[0])
+    gid = cols[gid_col].to(torch.int32).clamp(0, n_groups - 1)
+    kw = dict(gid_col=gid_col, size_col=size_col, blocks_col=blocks_col,
+              age_col=age_col, valid_col=valid_col, sb_col=sb_col,
+              ab_col=ab_col)
+    k = S_BUCKETS * A_BUCKETS
+    out = torch.zeros((N_MEASURES, n_groups * k), dtype=cols.dtype,
+                      device=cols.device)
+    for lo in range(0, n_groups, band):
+        width = min(band, n_groups - lo)
+        rows = (w != 0) & (gid >= lo) & (gid < lo + width)
+        if not bool(rows.any()):
+            continue
+        part = cols[:, rows].clone()
+        part[gid_col] = (gid[rows] - lo).to(cols.dtype)
+        out[:, lo * k:(lo + width) * k] = profile_cube_ref(
+            part, width, **kw).reshape(N_MEASURES, -1)
+    return out.reshape(N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS)

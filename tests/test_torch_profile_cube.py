@@ -22,6 +22,7 @@ from repro_torch.kernels.profile_cube import ops as tops
 from repro_torch.kernels.profile_cube import ref as tref
 
 CASES = [(0, 17, 3), (1, 100, 1), (2, 1024, 40), (3, 3000, 21)]
+F32_EXACT = 1 << 24                 # f32 holds every integer below this
 
 
 @pytest.fixture
@@ -189,15 +190,112 @@ def test_build_paths_share_the_build_dir(monkeypatch, tmp_path):
     assert tk.library_path().parent == tmp_path
 
 
+# -- the banded order of work, on the CPU ---------------------------------
+
+def _zipf(rng, n, b, s=1.1):
+    """gid with p_g ~ (g + 1)^-s over [0, b): searchsorted on the CDF."""
+    cdf = np.cumsum(np.arange(1, b + 1, dtype=np.float64) ** -s)
+    return np.minimum(np.searchsorted(cdf / cdf[-1], rng.random(n),
+                                      side="right"), b - 1)
+
+
+def _cpu_cols(rng, n, b, prebucketed, gid=None, valid=None):
+    gid, size, blocks, age = _inputs(int(rng.integers(1 << 30)), n, b) \
+        if gid is None else (gid, *_inputs(0, n, b)[1:])
+    rows = [gid, size, blocks, age]
+    kw = dict(n_groups=b, valid_col=4)
+    if prebucketed:
+        rows += [size_buckets_np(size), age_buckets_np(age)]
+        kw = dict(n_groups=b, valid_col=6, sb_col=4, ab_col=5)
+    if valid is None:
+        valid = rng.integers(0, 8, n) > 0
+    return torch.from_numpy(np.stack(rows + [valid]).astype(np.float64)), kw
+
+
+@pytest.mark.parametrize("prebucketed", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 7])
+def test_banded_ref_matches_plain_version_across_band_edges(b, prebucketed):
+    """band = 3: B = 1, band - 1, band, band + 1 and 2 band + 1."""
+    cols, kw = _cpu_cols(np.random.default_rng(b), 997, b, prebucketed)
+    want = tref.profile_cube_ref(cols, **kw)
+    got = tref.banded_cube_ref(cols, **kw, band=3)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["ragged", "all_invalid", "one_cell",
+                                  "zipf", "out_of_range"])
+def test_banded_ref_matches_plain_version_on_edge_inputs(case):
+    rng = np.random.default_rng(5)
+    n, b, band = 1001, 11, 3
+    gid = valid = None
+    if case == "ragged":
+        n = 3 * 64 + 5
+    elif case == "all_invalid":
+        gid = rng.integers(-50, 5000, n)            # garbage, clipped
+        valid = np.zeros(n)
+    elif case == "zipf":
+        gid = _zipf(rng, n, b)
+    elif case == "out_of_range":
+        gid = rng.integers(-3, b + 4, n)
+    cols, kw = _cpu_cols(rng, n, b, True, gid=gid, valid=valid)
+    if case == "one_cell":
+        cols[0] = b - 1
+        cols[4] = 3
+        cols[5] = 2
+    want = tref.profile_cube_ref(cols, **kw)
+    got = tref.banded_cube_ref(cols, **kw, band=band)
+    assert torch.equal(got, want)
+    if case == "all_invalid":
+        assert not got.any()
+    if case == "one_cell":
+        assert int((got[0] != 0).sum()) == 1
+
+
+@pytest.mark.parametrize("use_kernel", [True, False],
+                         ids=["jax_kernel", "jax_ref"])
+@pytest.mark.parametrize("layout", ["raw", "prebucketed"])
+@pytest.mark.parametrize("seed,n,b", CASES)
+def test_banded_ref_matches_jax(seed, n, b, layout, use_kernel):
+    """The banded mirror on f32 columns (every cell sum below 2^24) against
+    ``repro``'s ``profile_cube``, with a band narrower than B."""
+    jpc = _jax_profile_cube()
+    gid, size, blocks, age = _inputs(seed, n, b)
+    kw, rows = {}, [gid, size, blocks, age]
+    tkw = dict(n_groups=b, valid_col=-1)
+    if layout == "prebucketed":
+        kw = dict(sb=size_buckets_np(size), ab=age_buckets_np(age))
+        rows += [kw["sb"], kw["ab"]]
+        tkw.update(sb_col=4, ab_col=5)
+    want = jpc(gid, size, blocks, age, n_groups=b, use_kernel=use_kernel,
+               **kw)
+    cols = torch.from_numpy(np.stack(rows).astype(np.float32))
+    got = tref.banded_cube_ref(cols, **tkw, band=max(1, b // 3))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # -- on the card ------------------------------------------------------------
 
-def _card_cols(rng, n, b, prebucketed, small):
+def _card_cols(rng, n, b, prebucketed, small, gids="uniform"):
+    """Seeded columns: sizes/blocks below 2^11 (``small``) or multiples of
+    4 KiB below 2^36, so every f64 sum is exact. ``gids``: "uniform";
+    "zipf" (p_g ~ (g + 1)^-1.1); "hot" (every row in one cell, the last
+    group); "fractional" (1 row in 16 has a size of k + 0.5, k < 2^11, an
+    f64 side-cube row)."""
     unit = 1 if small else 4096
     hi = 1 << (11 if small else 24)
-    gid = rng.integers(0, b, n)
+    gid = _zipf(rng, n, b) if gids == "zipf" else rng.integers(0, b, n)
     size = rng.integers(0, hi, n) * unit
     blocks = rng.integers(0, hi, n) * unit
     age = rng.integers(-100, 400 * 86400, n).astype(np.float32)
+    if gids == "hot":
+        gid[:] = b - 1
+        size = ((1 << 10) + rng.integers(0, 32, n)) * unit   # one bucket
+        age[:] = 100.0
+    size = size.astype(np.float64)
+    if gids == "fractional":
+        odd = rng.integers(0, 16, n) == 0
+        size[odd] = rng.integers(0, 1 << 11, int(odd.sum())) + 0.5
     valid = (rng.integers(0, 64, n) > 0)
     rows = [gid, size, blocks, age]
     kw = dict(n_groups=b, gid_col=0, size_col=1, blocks_col=2, age_col=3,
@@ -208,15 +306,27 @@ def _card_cols(rng, n, b, prebucketed, small):
     return np.stack(rows + [valid]).astype(np.float32), kw
 
 
+# B at the edges of a block's private cube (band = tk.band_groups())
+BAND_EDGES = {"band-1": (-1, 1), "band": (0, 1), "band+1": (1, 1),
+              "2band+1": (1, 2)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("gids", ["uniform", "zipf", "hot", "fractional"])
 @pytest.mark.parametrize("prebucketed", [False, True])
 @pytest.mark.parametrize("n,b", [(1, 1), (17, 3), (2049, 64), (100_003, 64),
                                  (100_003, 138), (100_003, 139),
-                                 (300_007, 4096)])
-def test_cuda_kernel_matches_plain_version(cuda_device, n, b, prebucketed):
+                                 (300_007, 4096), (100_003, "band-1"),
+                                 (100_003, "band"), (100_003, "band+1"),
+                                 (300_007, "2band+1")])
+def test_cuda_kernel_matches_plain_version(cuda_device, n, b, prebucketed,
+                                           gids):
+    if isinstance(b, str):
+        plus, times = BAND_EDGES[b]
+        b = times * tk.band_groups() + plus
     rng = np.random.default_rng(n + b)
     for small in (True, False):
-        host, kw = _card_cols(rng, n, b, prebucketed, small)
+        host, kw = _card_cols(rng, n, b, prebucketed, small, gids)
         cols = torch.from_numpy(host).to(cuda_device)
         before = tk.profile_cube_launches
         got = tk.profile_cube_cuda(cols, **kw)
@@ -226,8 +336,10 @@ def test_cuda_kernel_matches_plain_version(cuda_device, n, b, prebucketed):
         torch.cuda.synchronize()
         assert torch.equal(got, again)            # reproducible
         assert torch.equal(got, f64.float())      # exact sums, one rounding
-        if small:                                 # per-cell sums < 2^24
+        assert int(got[0].double().sum()) == int(host[kw["valid_col"]].sum())
+        if f64.max() < F32_EXACT:                 # exact in f32 as well
             assert torch.equal(got, tref.profile_cube_ref(cols, **kw))
+    assert (tk.design(b) == "shared") == (b <= tk.band_groups())
     with pytest.raises(ValueError):
         tops.profile_cube(np.zeros(3), np.zeros(3), np.zeros(3), np.zeros(3),
                           n_groups=3, use_kernel=False, device=cuda_device)

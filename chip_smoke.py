@@ -79,7 +79,9 @@ failure:
    |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
    bit for bit and are timed beside their bound and plain version (no
    single PyTorch call computes either), and at the serving paths' decode
-   shapes beside the kernels' own device times;
+   shapes beside the kernels' own device times and the time of a call
+   launched from a CUDA graph (a graph of 64 calls, replayed from an idle
+   card, over 64);
 9. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
    (28 layers, weights drawn on the card from the seed), 4 requests of 256
    seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
@@ -95,21 +97,27 @@ failure:
    with the host seconds of each cache and op call kind;
 10. recurrent-model serving (last), one model after the other, each at
     full width and depth with parameters drawn on the card from the seed,
-    through ``make_prefill`` and ``make_serve_step``: rwkv6-1.6b, 8
-    prompts of 512 seeded tokens and 64 new (exactly 24 x 63 = 1,512
-    ``rwkv6_step`` launches: prefill runs the plain chunked form), and
-    recurrentgemma-9b, 4 prompts of 2016 tokens and 64 new with
-    ``cache_len`` 2080, so the 2048-slot local-attention ring wraps
-    (exactly 26 x 64 = 1,664 ``rglru_scan`` launches: prefill and every
-    step). A checker around the op holds the kernel to its plain version
-    on the first call of every layer and every 29th call; the served
-    logits must lie within the reference's decode-consistency bound
-    ``0.05 * scale + 0.05`` of one forward over prompt and generated
-    tokens (beside the same forward for one prompt alone, the rounding
-    floor); a second run with the same seed must give the same tokens and
-    is timed (prefill seconds, decode ms a step, tokens/s, each kernel's
-    device time against reading the weights once), then four more decode
-    steps run under ``torch.profiler`` for the card's busy share.
+    through ``make_prefill`` and a decode step: rwkv6-1.6b, 8 prompts of
+    512 seeded tokens and 64 new (exactly 24 x 63 = 1,512 ``rwkv6_step``
+    launches: prefill runs the plain chunked form), and recurrentgemma-9b,
+    4 prompts of 2016 tokens and 64 new with ``cache_len`` 2080, so the
+    2048-slot local-attention ring wraps (exactly 26 x 64 = 1,664
+    ``rglru_scan`` launches: prefill and every step). Run (a) decodes
+    eagerly (``model.decode_step`` and the argmax) with a checker around
+    the op that holds the kernel to its plain version on the first call of
+    every layer and every 29th call; its logits must lie within the
+    reference's decode-consistency bound ``0.05 * scale + 0.05`` of one
+    forward over prompt and generated tokens (beside the same forward for
+    one prompt alone, the rounding floor). Run (b), with the same seed,
+    decodes through ``make_serve_step``, one CUDA graph a step over a
+    static cache, captured before the launch window: it must give (a)'s
+    tokens, the same launch count and logits within the same bound, and
+    whether its final caches equal (a)'s bit for bit is printed. (b) is
+    timed (prefill seconds, decode ms a step, tokens/s, each kernel's
+    device time against reading the weights once), then 8 eager steps are
+    timed, and four graphed and four eager decode steps run under
+    ``torch.profiler`` for the card's busy share and device operations a
+    step, eager and graphed side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -208,6 +216,7 @@ RW_PATH = (8, 32, 64)
 RECURRENT_SERVE = (("rwkv6_1p6b", 8, 512, 64, 576),
                    ("recurrentgemma_9b", 4, 2016, 64, 2080))
 PROFILED_STEPS = 4              # decode steps under the profiler
+EAGER_STEPS = 8                 # eager decode steps timed after run (b)
 
 
 def fail(msg: str) -> None:
@@ -1690,19 +1699,44 @@ def rwkv_bound_ms(shape, elt: int = 4):
             else "operations", nbytes, ops)
 
 
+GRAPH_CALLS = 64                # kernel calls in one graph (a call's time)
+
+
+def graph_call_ms(torch, call, n: int = GRAPH_CALLS):
+    """The time of one call of ``call()`` launched from a CUDA graph: a
+    graph of ``n`` back-to-back calls on fixed inputs, each replay timed
+    from an idle card by CUDA events (median of ``REPS``), over ``n``.
+    Returns (ms a call, the replays' times in ms)."""
+    from repro_torch.kernels import _launches
+    graph = torch.cuda.CUDAGraph()
+    with _launches.capturing():
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                call()
+    ms, times = cuda_times_ms(graph.replay, REPS)
+    del graph
+    return ms / n, times
+
+
 def path_shape_times(torch, name: str, shape, call) -> dict:
     """One recurrent kernel at a serving path's shape: the call's time from
     an idle card (CUDA events, the host's launch through ``ctypes``
     included) beside the kernel's own device time (``torch.profiler``),
-    whose difference is the host's share."""
+    whose difference is the host's share, and the time of a call launched
+    from a CUDA graph (no host launch a call)."""
     ms, times = cuda_times_ms(call, REPS)
     kern = kernel_device_ms(torch, call, REPS)
     dev = one_kernel_ms(kern, f"{name}_kernel", f"{name} {shape}")
+    graph_ms, replays = graph_call_ms(torch, call)
     log(f"[recurrent] {name} path shape {shape} {CARD}: call {ms!r} ms from "
         f"an idle card (median of {len(times)}, min {min(times)!r}, max "
         f"{max(times)!r}); the kernel's own device time {dev!r} ms "
-        f"(torch.profiler, mean of {REPS})")
-    return dict(shape=list(shape), ms=ms, device_ms=dev)
+        f"(torch.profiler, mean of {REPS}); graph-launched {graph_ms!r} ms a "
+        f"call (a graph of {GRAPH_CALLS} calls, median of {len(replays)} "
+        f"replays from an idle card, min {min(replays) / GRAPH_CALLS!r}, max "
+        f"{max(replays) / GRAPH_CALLS!r} a call)")
+    return dict(shape=list(shape), ms=ms, device_ms=dev,
+                graph_call_ms=graph_ms)
 
 
 def recurrent_kernel_phase(torch, seed, device, results):
@@ -1769,7 +1803,7 @@ def recurrent_kernel_phase(torch, seed, device, results):
         "library_ms": None,
         "library": "none: no single PyTorch call computes it",
         "error_against": "the plain version on the same tensors",
-        "configs": configs, "path": path}
+        "configs": configs, "decode_shape": path}
 
     # rwkv6_step at rwkv6-1.6b's heads, then hd 16 and B = 1
     configs = {}
@@ -1825,7 +1859,7 @@ def recurrent_kernel_phase(torch, seed, device, results):
         "library": "none: no single PyTorch call computes it",
         "error_against": "the plain version on the same tensors (y; the "
                          "state's error is in configs)",
-        "configs": configs, "path": path}
+        "configs": configs, "decode_shape": path}
 
 
 def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
@@ -1906,9 +1940,13 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
                           batch: int, prompt_len: int, new: int,
                           cache_len: int):
     """Serve ``arch`` at full width and depth through ``make_prefill`` and
-    ``make_serve_step``: two runs with the same seed (the first checked
-    and recorded, the second timed), then one forward over prompt plus
-    generated tokens for decode consistency."""
+    a decode step, twice with the same seed: run (a) eagerly through
+    ``model.decode_step`` (checked: the op held to its plain version, the
+    logits recorded) and, after one forward over prompt plus generated
+    tokens for decode consistency, run (b) through the graphed
+    ``make_serve_step`` (timed: the same tokens, launches and consistency,
+    final caches compared with (a)'s); then a short eager timing and
+    profiled steps of both."""
     import repro_torch.kernels.rglru_scan.ops as RGO
     import repro_torch.kernels.rwkv6_step.ops as RWO
     from repro_torch.configs import get_config
@@ -1917,6 +1955,8 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
     from repro_torch.models import Model
     from repro_torch.models.config import MIX_RGLRU, MIX_RWKV6
     from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.serve.serve_step import (GraphedServeStep,
+                                              make_eager_serve_step)
     cfg = get_config(arch)
     if any(s.mix == MIX_RWKV6 for s in cfg.layers):
         name, mod, cuda_op, agrees = ("rwkv6_step", RWO, RWK.rwkv6_step_cuda,
@@ -1934,7 +1974,7 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
                            device=device)
 
-    def serve(instrument: bool):
+    def serve(graphed: bool):
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         gen = torch.Generator(device=device)
@@ -1946,10 +1986,25 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
         param_bytes = sum(p.numel() * p.element_size()
                           for p in model.parameters())
         prefill = make_prefill(model, cache_len)
-        step = make_serve_step(model)
+        times = {}
+        if graphed:
+            step = make_serve_step(model)
+            check(isinstance(step, GraphedServeStep), f"{arch}: "
+                  "make_serve_step on the card is not the graphed step")
+            # warm-up and capture ahead of the launch window, as the
+            # reference compiles ahead
+            t0 = time.perf_counter()
+            step.capture(batch, cache_len)
+            torch.cuda.synchronize()
+            times["capture_s"] = time.perf_counter() - t0
+        else:
+            step = make_eager_serve_step(model)
         hook = OpChecker(op, agrees, n_kind, SERVE_CHECK_EVERY)
         rec = LogitRecorder(model)
-        times = {}
+        toks = torch.empty((batch, new), dtype=torch.int32, device=device)
+        # (b)'s logits: the graph's static logits, copied out each step
+        logits = torch.empty((new, batch, cfg.vocab), dtype=torch.float32,
+                             device=device) if graphed else None
 
         def run():
             torch.cuda.synchronize()
@@ -1958,47 +2013,45 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
             nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            out = [nxt]
+            toks[:, :1].copy_(nxt)
+            if graphed:
+                logits[0].copy_(last)
             for i in range(new - 1):
                 nxt, cache = step(cache, nxt, prompt_len + i)
-                out.append(nxt)
-            toks = torch.cat(out, dim=1)
+                toks[:, i + 1:i + 2].copy_(nxt)
+                if graphed:
+                    logits[i + 1].copy_(step.logits)
             torch.cuda.synchronize()
             times["prefill_s"] = t2 - t1
             times["decode_s"] = time.perf_counter() - t2
             times["cache"], times["next"] = cache, nxt
             return toks
 
-        if instrument:
+        if graphed:
+            _, counts = launch_window(run)
+        else:
             setattr(mod, name, hook)
             try:
                 with rec:
-                    toks, counts = launch_window(run)
+                    _, counts = launch_window(run)
             finally:
                 setattr(mod, name, op)
-        else:
-            toks, counts = launch_window(run)
         check(counts == only(**{name: want_launches}),
-              f"{arch} serving launched {counts}, expected {want_launches} "
-              f"{name}")
+              f"{arch} serving ({'graphed' if graphed else 'eager'}) "
+              f"launched {counts}, expected {want_launches} {name}")
         check(toks.shape == (batch, new) and bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()),
               f"{arch} serving: tokens outside [0, vocab) or of shape "
               f"{tuple(toks.shape)}")
         peak = torch.cuda.max_memory_allocated(device)
-        # a few more decode steps under the profiler: the card's busy time
-        prof = None if instrument else profile_steps(
-            torch, step, times.pop("cache"), times.pop("next"),
-            prompt_len + new - 1, PROFILED_STEPS)
-        times.pop("cache", None)
-        times.pop("next", None)
-        return dict(model=model, tokens=toks, counts=counts, hook=hook,
-                    logits=rec.logits, init_s=init_s, params=n_params,
-                    param_bytes=param_bytes, peak_bytes=peak, prof=prof,
-                    **times)
+        return dict(model=model, step=step, tokens=toks, counts=counts,
+                    hook=hook, logits=logits if graphed else rec.logits,
+                    init_s=init_s, params=n_params, param_bytes=param_bytes,
+                    peak_bytes=peak, **times)
 
-    a = serve(instrument=True)
+    a = serve(graphed=False)
     model = a.pop("model")
+    a.pop("step")
     # decode consistency: one forward over the prompt and the generated
     # tokens, against the served logits (the last token's are not served;
     # it keeps rwkv6's prefill chunks at 64 for 512 + 64 tokens)
@@ -2006,12 +2059,13 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
     n_seq = seq.shape[1]
     full, _, _ = model(seq)
     scale = float(torch.maximum(full.amax(), -full.amin()).item()) + 1e-6
-    errs = [float((lg - full[:, prompt_len - 1 + i]).abs().max().item())
+    served = slice(prompt_len - 1, prompt_len - 1 + new)
+    want = full[:, served].clone()                 # (B, new, V)
+    errs = [float((lg - want[:, i]).abs().max().item())
             for i, lg in enumerate(a["logits"])]
     # the rounding floor: the same forward for the first prompt alone (other
     # matrix shapes, so other bf16 roundings), at the served positions
     one, _, _ = model(seq[:1])
-    served = slice(prompt_len - 1, prompt_len - 1 + new)
     floor = float((one[0, served] - full[0, served]).abs().max().item())
     del one
     check(len(errs) == new, f"{arch}: recorded {len(errs)} logits, "
@@ -2023,10 +2077,23 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
     del full, model, seq
     a["logits"] = None
     torch.cuda.empty_cache()
-    b = serve(instrument=False)
+    b = serve(graphed=True)
     model = b.pop("model")
-    check(torch.equal(a["tokens"], b["tokens"]), f"{arch}: a second run with "
-          "the same seed gave other tokens")
+    step = b.pop("step")
+    check(torch.equal(a["tokens"], b["tokens"]), f"{arch}: the graphed run "
+          "gave other tokens than the eager run with the same seed")
+    errs_b = [float((b["logits"][i] - want[:, i]).abs().max().item())
+              for i in range(new)]
+    check(max(errs_b) < bound, f"{arch}: the graphed run's decode "
+          f"consistency failed: max err {max(errs_b)!r} >= {bound!r}; per "
+          f"position {errs_b}")
+    states_equal = {}
+    for ca, cb in zip(a.pop("cache"), b["cache"]):
+        for key in ca:
+            states_equal[key] = states_equal.get(key, True) and bool(
+                torch.equal(ca[key], cb[key]))
+    del want
+    b["logits"] = None
     chk = a["hook"]
     check(chk.checked >= n_kind, f"{arch}: the checker held only "
           f"{chk.checked} calls, fewer than the {n_kind} layers")
@@ -2044,67 +2111,109 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
         dev_s = want_launches * step_ms / 1e3
     weights_ms = b["param_bytes"] / HBM_BYTES_PER_S * 1e3
     decode_ms = b["decode_s"] / (new - 1) * 1e3
-    for tag, r in (("checked run", a), ("timed run", b)):
+    # eager decode on the same model, from a copy of (b)'s final cache
+    pos = prompt_len + new - 1
+    eager = make_eager_serve_step(model)
+    cache_e = [{k: t.clone() for k, t in cb.items()} for cb in b["cache"]]
+    nxt_e, cache_e = eager(cache_e, b["next"].clone(), pos)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(EAGER_STEPS):
+        nxt_e, cache_e = eager(cache_e, nxt_e, pos + 1 + i)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / EAGER_STEPS * 1e3
+    # a few more steps of each under the profiler: the card's busy time
+    prof = {"graphed": profile_steps(torch, step, b.pop("cache"),
+                                     b.pop("next"), pos, PROFILED_STEPS),
+            "eager": profile_steps(torch, eager, cache_e, nxt_e,
+                                   pos + 1 + EAGER_STEPS, PROFILED_STEPS)}
+    del cache_e, nxt_e
+    step_time = {"graphed": decode_ms, "eager": eager_ms}
+    busy = {}
+    for kind, pr in prof.items():
+        if pr["device_s"] > 0:
+            busy[kind] = pr["device_s"] / PROFILED_STEPS / (
+                step_time[kind] / 1e3)
+            log(f"[{arch}] profiled {PROFILED_STEPS} {kind} decode steps "
+                f"(torch.profiler): {pr['kernels']} device operations, "
+                f"{pr['device_s'] / PROFILED_STEPS * 1e3!r} ms of device "
+                f"time a step against the {kind} timing's "
+                f"{step_time[kind]!r} ms a step: the card is busy "
+                f"{busy[kind]:.3f} of a step (profiled wall "
+                f"{pr['wall_s'] / PROFILED_STEPS * 1e3!r} ms a step); top by "
+                f"device time (us) {json.dumps(pr['top'])}")
+        else:
+            busy[kind] = None
+            log(f"[{arch}] profiled {PROFILED_STEPS} {kind} decode steps: "
+                "the profiler saw no device time; the busy share is not "
+                "measured")
+    for tag, r in (("checked run (a), eager", a),
+                   ("timed run (b), graphed", b)):
         wall = r["prefill_s"] + r["decode_s"]
-        log(f"[{arch}] {tag} {CARD}: {cfg.n_layers} layers, d {cfg.d_model}, "
-            f"{r['params']} parameters ({r['param_bytes']} B) drawn on the "
-            f"card in {r['init_s']!r} s; {batch} prompts x ({prompt_len} + "
-            f"{new} new) tokens: prefill {r['prefill_s']!r} s, decode "
-            f"{r['decode_s'] / (new - 1) * 1e3!r} ms a step "
+        log(f"[{arch}] {tag} {CARD}: {cfg.n_layers} layers, d "
+            f"{cfg.d_model}, {r['params']} parameters ({r['param_bytes']} B) "
+            f"drawn on the card in {r['init_s']!r} s; {batch} prompts x "
+            f"({prompt_len} + {new} new) tokens: prefill {r['prefill_s']!r} "
+            f"s, decode {r['decode_s'] / (new - 1) * 1e3!r} ms a step "
             f"({new - 1} steps), {batch * new / wall!r} generated tokens/s, "
             f"{batch * (new - 1) / r['decode_s']!r} decode tokens/s; peak "
-            f"memory {r['peak_bytes']} B; launches {json.dumps(r['counts'])}")
+            f"memory {r['peak_bytes']} B; launches {json.dumps(r['counts'])}"
+            + (f"; warm-up and capture {r['capture_s']!r} s before the run"
+               if "capture_s" in r else ""))
+    ops_a_step = {kind: pr["kernels"] / PROFILED_STEPS
+                  for kind, pr in prof.items()}
+    log(f"[{arch}] decode a step {CARD}: eager {eager_ms!r} ms "
+        f"({EAGER_STEPS} steps after the graphed run), busy "
+        f"{busy['eager']!r}, {ops_a_step['eager']!r} device operations a "
+        f"step; graphed {decode_ms!r} ms ({new - 1} steps of run (b)), busy "
+        f"{busy['graphed']!r}, {ops_a_step['graphed']!r} device operations "
+        f"a step; {eager_ms / decode_ms:.2f}x")
     log(f"[{arch}] checker: {chk.checked} of {chk.calls} {name} calls held to "
         f"the plain version (the first of every layer, then every "
         f"{SERVE_CHECK_EVERY}th), {chk.bit_identical} bit-identical, max abs "
         f"err {chk.max_err!r}; decode consistency against one forward over "
-        f"{n_seq} tokens: max err {max(errs)!r} < "
-        f"{bound!r} (scale {scale!r}; prefill {errs[0]!r}, last step "
-        f"{errs[-1]!r}, largest at step {errs.index(max(errs))}); the same "
-        f"forward for the first prompt alone differs from the batched one "
-        f"by {floor!r} at the served positions (the bf16 rounding floor); "
-        f"tokens equal across the two runs; first prompt's tokens "
+        f"{n_seq} tokens: eager max err {max(errs)!r}, graphed "
+        f"{max(errs_b)!r} < {bound!r} (scale {scale!r}; prefill "
+        f"{errs[0]!r}, last step {errs[-1]!r}, largest at step "
+        f"{errs.index(max(errs))}); the same forward for the first prompt "
+        f"alone differs from the batched one by {floor!r} at the served "
+        f"positions (the bf16 rounding floor); tokens equal across the two "
+        f"runs; final caches of (b) equal to (a)'s bit for bit: "
+        f"{json.dumps(states_equal)}; first prompt's tokens "
         f"{b['tokens'][0, :8].tolist()}...")
-    prof = b["prof"]
-    if prof["device_s"] > 0:
-        busy = prof["device_s"] / PROFILED_STEPS / (decode_ms / 1e3)
-        log(f"[{arch}] profiled {PROFILED_STEPS} decode steps "
-            f"(torch.profiler): {prof['kernels']} device operations, "
-            f"{prof['device_s'] / PROFILED_STEPS * 1e3!r} ms of device time "
-            f"a step against the timed run's {decode_ms!r} ms a step: the "
-            f"card is busy {busy:.3f} of a step (profiled wall "
-            f"{prof['wall_s'] / PROFILED_STEPS * 1e3!r} ms a step); top by "
-            f"device time (us) {json.dumps(prof['top'])}")
-    else:
-        busy = None
-        log(f"[{arch}] profiled {PROFILED_STEPS} decode steps: the profiler "
-            "saw no device time; the busy share is not measured")
     log(f"[{arch}] {name} at the path's shapes {json.dumps(path_ms)} ms; on "
         f"the card about {dev_s!r} s of the timed run's "
         f"{b['prefill_s'] + b['decode_s']!r} s; a decode step {decode_ms!r} "
         f"ms against reading the weights once, {weights_ms!r} ms at "
         f"{HBM_BYTES_PER_S / 1e12} TB/s; {name} {step_ms!r} ms a layer-step "
-        f"x {n_kind} layers = {n_kind * step_ms!r} ms a step")
+        f"x {n_kind} layers = {n_kind * step_ms!r} ms a step (eager calls)")
     entry = results[name]
-    entry["launches"] = a["counts"][name]
-    entry["launches_by_path"] = {f"{arch} serving (make_prefill + "
-                                 f"{new - 1} make_serve_step)":
-                                 entry["launches"]}
+    entry["launches"] = b["counts"][name]
+    entry["launches_by_path"] = {
+        f"{arch} serving (make_prefill + {new - 1} graphed make_serve_step)":
+            entry["launches"],
+        f"{arch} serving (make_prefill + {new - 1} eager decode_step, "
+        "checked)": a["counts"][name]}
     entry["path"] = dict(ms=path_ms, checked_calls=chk.checked,
                          calls=chk.calls, max_abs_err=chk.max_err,
                          bit_identical=chk.bit_identical)
     entry["serve"] = dict(arch=arch, batch=batch, prompt=prompt_len,
                           new=new, prefill_s=b["prefill_s"],
                           decode_ms_a_step=decode_ms,
+                          eager_decode_ms_a_step=eager_ms,
+                          capture_s=b["capture_s"],
                           tokens_per_s=batch * new / (b["prefill_s"]
                                                       + b["decode_s"]),
                           kernel_device_s=dev_s,
                           weights_read_ms=weights_ms,
                           decode_consistency_err=max(errs),
+                          graphed_decode_consistency_err=max(errs_b),
                           decode_consistency_bound=bound,
                           rounding_floor=floor, device_busy_share=busy,
+                          device_ops_a_step=ops_a_step,
+                          final_cache_bit_equal=states_equal,
                           peak_bytes=b["peak_bytes"])
-    del model, a, b
+    del model, step, a, b
     torch.cuda.empty_cache()
 
 

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, _launches
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu",)
@@ -137,7 +137,6 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     Page ids of -1 are masked; the kernel skips ids outside
     ``[0, n_pages)`` too, so it never reads out of bounds (the op raises on
     them before the launch)."""
-    global paged_attention_launches, paged_attention_combine_launches
     named = (("q", q, 3), ("k_pages", k_pages, 4), ("v_pages", v_pages, 4),
              ("page_table", page_table, 2), ("lengths", lengths, 1))
     for name, t, dim in named:
@@ -195,10 +194,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(), code, B, H, K, hd, P,
             n_pages, page_table.shape[1], stream), "split")
-        paged_attention_launches += 1
+        _launches.count(__name__, "paged_attention_launches")
         if work is not None:
             _check(lib, lib.paged_attention_combine_launch(
                 work.data_ptr(), out.data_ptr(), code, B, H, hd, splits,
                 stream), "combine")
-            paged_attention_combine_launches += 1
+            _launches.count(__name__, "paged_attention_combine_launches")
     return out

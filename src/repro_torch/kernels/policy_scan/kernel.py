@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _launches
 from .._build import build_dir  # noqa: F401  (re-exported)
 from .ref import N_AGG
 
@@ -144,10 +144,9 @@ def policy_scan_batch_cuda(cols: torch.Tensor, ops: torch.Tensor,
                                       torch.Tensor]:
     """cols: (n_cols, N) f32 CUDA; ops/colidx (R, P) i32, operands (R, P)
     f32. Returns (masks (R, N) f32, rule_idx (N,) i32, agg (R, 14) f32)."""
-    global policy_scan_batch_launches
     masks, rule, agg = _launch(cols, ops, colidx, operands, size_col,
                                blocks_col, valid_col, with_rule=True)
-    policy_scan_batch_launches += 1
+    _launches.count(__name__, "policy_scan_batch_launches")
     return masks, rule, agg
 
 
@@ -158,11 +157,10 @@ def policy_scan_cuda(cols: torch.Tensor, ops: torch.Tensor,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cols: (n_cols, N) f32 CUDA; ops/colidx (P,) i32, operands (P,) f32.
     Returns (mask (N,) f32, agg (14,) f32)."""
-    global policy_scan_launches
     if ops.dim() != 1:
         raise ValueError(f"ops must be (P,), got {tuple(ops.shape)}")
     masks, _rule, agg = _launch(cols, ops[None], colidx[None],
                                 operands[None], size_col, blocks_col,
                                 valid_col, with_rule=False)
-    policy_scan_launches += 1
+    _launches.count(__name__, "policy_scan_launches")
     return masks[0], agg[0]

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, _launches
 from .ref import A_BUCKETS, N_MEASURES, S_BUCKETS
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -114,7 +114,6 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
     (N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS) f32 cube. ``valid_col``,
     ``sb_col`` and ``ab_col`` may be -1 (all rows valid; bucketize size /
     age from the raw rows); ``age_col`` is not read when ``ab_col`` >= 0."""
-    global profile_cube_launches
     if not isinstance(cols, torch.Tensor):
         raise TypeError("cols must be a tensor")
     if cols.device.type != "cuda":
@@ -157,5 +156,5 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
             work.data_ptr(), out.data_ptr(), sms, stream)
     if err != 0:
         raise RuntimeError(f"profile_cube launch failed: {_error(lib, err)}")
-    profile_cube_launches += 1
+    _launches.count(__name__, "profile_cube_launches")
     return out

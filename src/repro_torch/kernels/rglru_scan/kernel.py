@@ -7,20 +7,22 @@ The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 :func:`rglru_scan_cuda` replaces the Pallas ``rglru_pallas``: the RG-LRU
 recurrence ``h_t = exp(log_a_t) h_{t-1} + b_t`` over (B, S, R) f32, one
 thread per (batch, channel) walking time in order. It takes any B, S and
-R (S = 1 is a decode step), counts its launches in a plain integer, takes
-CUDA tensors only and raises on anything else: there is no fallback here.
-The plain version lives in ``ref.py``.
+R (S = 1 is a decode step), counts its launches in a plain integer (a
+launch captured into a CUDA graph counts on each replay, see
+:mod:`repro_torch.kernels._launches`), takes CUDA tensors only and raises
+on anything else: there is no fallback here. The plain version lives in
+``ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _launches
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rglru_scan.cu",)
@@ -50,6 +52,8 @@ def build() -> Path:
 
 def _lib() -> ctypes.CDLL:
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
@@ -69,18 +73,17 @@ def threads() -> int:
     return _lib().rglru_scan_threads()
 
 
-def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
-                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """log_a, b: (B, S, R) f32; h0: (B, R) f32 or None (zeros); all
-    contiguous on one CUDA device. Returns h: (B, S, R) f32."""
-    global rglru_scan_launches
+def _check(log_a: torch.Tensor, b: torch.Tensor,
+           h0: Optional[torch.Tensor]) -> Tuple[int, int, int]:
+    """Raises unless the arguments are what the kernel takes; returns
+    (B, S, R)."""
     named = [("log_a", log_a, 3), ("b", b, 3)]
     if h0 is not None:
         named.append(("h0", h0, 2))
     for name, t, dim in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}: the rglru_scan "
                              "kernel takes CUDA tensors only")
         if t.device != log_a.device:
@@ -101,18 +104,24 @@ def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"h0 must be ({B}, {R}), got {tuple(h0.shape)}")
     if B > MAX_BATCH:
         raise ValueError(f"B={B} exceeds {MAX_BATCH}")
+    return B, S, R
+
+
+def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """log_a, b: (B, S, R) f32; h0: (B, R) f32 or None (zeros); all
+    contiguous on one CUDA device. Returns h: (B, S, R) f32."""
+    B, S, R = _check(log_a, b, h0)
     out = torch.empty_like(b)
     if B == 0 or S == 0 or R == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(log_a.device):
-        stream = torch.cuda.current_stream(log_a.device).cuda_stream
-        err = lib.rglru_scan_launch(
-            log_a.data_ptr(), b.data_ptr(),
-            None if h0 is None else h0.data_ptr(), out.data_ptr(), B, S, R,
-            stream)
+    err = _launches.launch(
+        lib.rglru_scan_launch, log_a.device.index, log_a.data_ptr(),
+        b.data_ptr(), None if h0 is None else h0.data_ptr(), out.data_ptr(),
+        B, S, R)
     if err != 0:
         raise RuntimeError(f"rglru_scan launch failed: "
                            f"{lib.rglru_scan_error_string(err).decode()}")
-    rglru_scan_launches += 1
+    _launches.count(__name__, "rglru_scan_launches")
     return out

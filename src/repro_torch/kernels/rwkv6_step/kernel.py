@@ -7,9 +7,12 @@ The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 :func:`rwkv6_step_cuda` replaces the Pallas ``rwkv6_step_pallas``: one
 RWKV6 decode token, ``y = r (S + u k v^T)`` and ``S' = diag(w) S + k v^T``
 per (batch, head), one block a head and one thread a value column. It
-counts its launches in a plain integer, takes CUDA tensors only and raises
-on anything else: there is no fallback here. The plain version lives in
-``ref.py``.
+counts its launches in a plain integer (a launch captured into a CUDA graph
+counts on each replay, see :mod:`repro_torch.kernels._launches`), takes
+CUDA tensors only and raises on anything else: there is no fallback here.
+It returns a new state and never writes the one it reads (the kernel's
+``state`` and ``state_out`` are ``__restrict__``). The plain version lives
+in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _launches
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rwkv6_step.cu",)
@@ -51,6 +54,8 @@ def build() -> Path:
 
 def _lib() -> ctypes.CDLL:
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
@@ -64,19 +69,17 @@ def _lib() -> ctypes.CDLL:
         return _LIB
 
 
-def rwkv6_step_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, w: (B, H, hd) and u: (H, hd), one dtype (f32 or bf16);
-    state: (B, H, hd, hd) f32; all contiguous on one CUDA device, hd at
-    most 256. Returns (y (B, H, hd) in r's dtype, new state f32)."""
-    global rwkv6_step_launches
+def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+           ) -> Tuple[int, int, int]:
+    """Raises unless the arguments are what the kernel takes; returns
+    (B, H, hd)."""
     named = (("r", r, 3), ("k", k, 3), ("v", v, 3), ("w", w, 3),
              ("u", u, 2), ("state", state, 4))
     for name, t, dim in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a tensor")
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}: the rwkv6_step "
                              "kernel takes CUDA tensors only")
         if t.device != r.device:
@@ -106,19 +109,27 @@ def rwkv6_step_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {hd} outside [1, {MAX_HEAD_DIM}]")
     if B * H >= 1 << 31:
         raise ValueError(f"B * H = {B * H} blocks exceed the grid")
+    return B, H, hd
+
+
+def rwkv6_step_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w: (B, H, hd) and u: (H, hd), one dtype (f32 or bf16);
+    state: (B, H, hd, hd) f32; all contiguous on one CUDA device, hd at
+    most 256. Returns (y (B, H, hd) in r's dtype, new state f32)."""
+    B, H, hd = _check(r, k, v, w, u, state)
     y = torch.empty_like(r)
     new_state = torch.empty_like(state)
     if B == 0 or H == 0:
         return y, new_state
     lib = _lib()
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.rwkv6_step_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), state.data_ptr(), y.data_ptr(),
-            new_state.data_ptr(), DTYPES[r.dtype], B, H, hd, stream)
+    err = _launches.launch(
+        lib.rwkv6_step_launch, r.device.index, r.data_ptr(), k.data_ptr(),
+        v.data_ptr(), w.data_ptr(), u.data_ptr(), state.data_ptr(),
+        y.data_ptr(), new_state.data_ptr(), DTYPES[r.dtype], B, H, hd)
     if err != 0:
         raise RuntimeError(f"rwkv6_step launch failed: "
                            f"{lib.rwkv6_step_error_string(err).decode()}")
-    rwkv6_step_launches += 1
+    _launches.count(__name__, "rwkv6_step_launches")
     return y, new_state

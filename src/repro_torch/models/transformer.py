@@ -347,34 +347,37 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return blob
 
 
-def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
-                     cache: Dict[str, torch.Tensor], x: torch.Tensor,
-                     pos: int) -> Tuple[torch.Tensor,
-                                        Dict[str, torch.Tensor]]:
-    """One decode token. x: (B,1,D); pos: the current position (an int).
-    Returns the new x and a new cache dict; ``cache`` is left as it was."""
+def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
+                      cache: Dict[str, torch.Tensor], x: torch.Tensor,
+                      pos_t: torch.Tensor) -> torch.Tensor:
+    """One decode token, writing ``cache`` in place (the reference's donated
+    cache). x: (B,1,D); pos_t: the current position, a 0-d int64 tensor on
+    x's device (the reference's traced scalar). Returns the new x.
+
+    No Python value is derived from ``pos_t``: the ring slot and the valid
+    cache positions are computed on the device, so a CUDA graph can capture
+    the step once and replay it at every position."""
     B = x.shape[0]
-    new_cache = dict(cache)
     h = _norm(cfg, p["ln1"], x)
 
     if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
         ap = p["attn"]
         q, k, v = _qkv(cfg, ap, h, cfg.n_heads, cfg.n_kv)
-        posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        posv = pos_t.reshape(1)
         q = rope(q, posv, cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, posv, cfg.rope_theta, cfg.rope_fraction)
-        L = cache["k"].shape[1]
-        slot = pos % L if spec.mix == ATTN_LOCAL else min(pos, L - 1)
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
-        new_cache["k"], new_cache["v"] = ck, cv
+        ck, cv = cache["k"], cache["v"]
+        L = ck.shape[1]
+        slot = (torch.remainder(posv, L) if spec.mix == ATTN_LOCAL
+                else torch.clamp(posv, max=L - 1))
+        ck.index_copy_(1, slot, k.to(ck.dtype))
+        cv.index_copy_(1, slot, v.to(cv.dtype))
         idx = torch.arange(L, device=x.device)
         if spec.mix == ATTN_LOCAL:
             kv_pos = posv - torch.remainder(posv - idx, L)
             kv_pos = torch.where(kv_pos >= 0, kv_pos, -1)
         else:
-            kv_pos = torch.where(idx <= pos, idx, -1)
+            kv_pos = torch.where(idx <= pos_t, idx, -1)
         window = cfg.window if spec.mix == ATTN_LOCAL else 0
         out = attention(q, ck, cv, q_pos=posv, kv_pos=kv_pos, causal=True,
                         window=window, logit_softcap=cfg.attn_softcap,
@@ -388,17 +391,20 @@ def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
                                          state=cache["conv"])
         log_a, b = _rglru_gates(vin2[:, 0, :], rp)
         h_new = rglru_step(log_a, b, cache["h"])
-        new_cache["h"], new_cache["conv"] = h_new, conv_state
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(conv_state)
         out = (gate[:, 0] * h_new.to(gate.dtype)) @ rp["w_out"]
         out = out[:, None, :]
     elif spec.mix == MIX_RWKV6:
         rp = p["rwkv"]
         xprev = cache["shift_t"][:, None, :].to(h.dtype)
         r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev)
+        # the op returns a new state: copied in, never aliased (the kernel's
+        # state and state_out are __restrict__)
         y, s_new = rk.wkv_step(r[:, 0], k[:, 0], v[:, 0],
                                torch.exp(lw[:, 0]), rp["u"], cache["s"])
-        new_cache["s"] = s_new
-        new_cache["shift_t"] = h[:, 0, :]
+        cache["s"].copy_(s_new)
+        cache["shift_t"].copy_(h[:, 0, :])
         out = _rwkv_out(cfg, rp, y[:, None], g, B, 1)
     else:
         raise ValueError(spec.mix)
@@ -411,12 +417,32 @@ def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
     if spec.mix == MIX_RWKV6:
         xprev_c = cache["shift_c"][:, None, :].to(h2.dtype)
         out2 = _rwkv_channel_mix(p["ffn"], h2, xprev_c)
-        new_cache["shift_c"] = h2[:, 0, :]
+        cache["shift_c"].copy_(h2[:, 0, :])
     else:
         out2, _ = _ffn_apply(cfg, spec, p["ffn"], h2)
     if cfg.post_norms:
         out2 = _norm(cfg, p["ln2p"], out2)
-    return x + out2, new_cache
+    return x + out2
+
+
+def _pos_tensor(pos, device: torch.device) -> torch.Tensor:
+    """``pos`` (an int or a tensor) as a 0-d int64 tensor on ``device``; an
+    int is written by a fill on the device, with no copy from the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(pos), dtype=torch.int64, device=device)
+
+
+def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
+                     cache: Dict[str, torch.Tensor], x: torch.Tensor,
+                     pos) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode token. x: (B,1,D); pos: the current position (an int or
+    a 0-d tensor). Returns the new x and a new cache dict; ``cache`` is
+    left as it was (:func:`apply_layer_step_` on a copy)."""
+    new_cache = {key: t.clone() for key, t in cache.items()}
+    x = apply_layer_step_(cfg, spec, p, new_cache, x,
+                          _pos_tensor(pos, x.device))
+    return x, new_cache
 
 
 # ===========================================================================
@@ -510,20 +536,33 @@ class Model(nn.Module):
                                  self.device) for spec in self.cfg.layers]
 
     @torch.no_grad()
-    def decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int
-                    ) -> Tuple[torch.Tensor, Cache]:
-        """One token for every sequence. tokens: (B, 1); pos: the position
-        of that token (an int). Returns (logits (B, 1, V), new cache);
-        ``cache`` is left as it was."""
+    def decode_step_(self, cache: Cache, tokens: torch.Tensor,
+                     pos_t: torch.Tensor) -> torch.Tensor:
+        """One token for every sequence, writing ``cache`` in place.
+        tokens: (B, 1) on the model's device; pos_t: the position of that
+        token, a 0-d int64 tensor there. Returns the logits (B, 1, V).
+        Nothing here reads a value back to the host, so a CUDA graph can
+        capture it (``serve.make_serve_step``)."""
         self._params()
         cfg = self.cfg
-        pos = int(pos)
         x = self._embed(tokens)
-        new_cache: Cache = []
         for spec, lp, cb in zip(cfg.layers, self.layers, cache):
-            x, nb = apply_layer_step(cfg, spec, lp, cb, x, pos)
-            new_cache.append(nb)
-        return self._logits(x), new_cache
+            x = apply_layer_step_(cfg, spec, lp, cb, x, pos_t)
+        return self._logits(x)
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, pos
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One token for every sequence. tokens: (B, 1); pos: the position
+        of that token (an int or a 0-d tensor). Returns (logits (B, 1, V),
+        new cache); ``cache`` is left as it was: :meth:`decode_step_` on
+        one copy of it."""
+        self._params()
+        new_cache = [{key: t.clone() for key, t in cb.items()}
+                     for cb in cache]
+        logits = self.decode_step_(new_cache, tokens,
+                                   _pos_tensor(pos, self.device))
+        return logits, new_cache
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int

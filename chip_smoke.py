@@ -9,15 +9,21 @@ failure:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
-   ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, one
-   ``nvcc`` each, started together, with each build time;
+   ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, and
+   the parent's ``policy_scan`` kernel (``v0`` of
+   ``tools/policy_scan_designs.cu``), one ``nvcc`` each, started together,
+   with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
    PyTorch versions (masks and rule indices identical, aggregates within
    ``rtol=1e-5, atol=1``: f32 sums of more than 2^24 units round in any
-   order) and timed with CUDA events (median after a warm-up) beside the
-   least time the card could take;
+   order), must repeat bit for bit on a second call, and the single
+   program's aggregates must equal the batch's program 0 bit for bit;
+   each is timed with CUDA events (median after a warm-up) beside the
+   least time the card could take, its scan and reduce kernels' own
+   device times (``torch.profiler``), its grid and ring stages, and the
+   parent's kernel in turns (parent, this, this, parent);
 4. profile cube at device scale, columns generated on the card from a
    seed: (a) 2^27 rows, 4096 groups, the prebucketed layout
    ``ProfileCube`` passes; (b) 2^27 rows, 64 groups, the raw layout
@@ -345,7 +351,23 @@ def make_columns(torch, n: int, seed: int, device):
     return cols
 
 
-def kernel_phase(torch, seed, device, results):
+def scan_variants():
+    """``tools/scan_variants.py`` as a module."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import scan_variants as sv
+    return sv
+
+
+def build_parent_scan():
+    """The parent's ``policy_scan`` kernel (PR 11-18's, ``v0`` of
+    ``tools/policy_scan_designs.cu``), built under ``build/``."""
+    sv = scan_variants()
+    built = sv.build("parent", sv.sources(["v0"])["v0"],
+                     os.path.join(ROOT, "build", "scan_variants"))
+    return sv.Variant("parent", built["lib"]), built["ptxas"]
+
+
+def kernel_phase(torch, seed, device, results, parent=None):
     from repro_torch.core.catalog import StringTable
     from repro_torch.core.policy import (KERNEL_COLUMNS, compile_programs,
                                          parse_expr)
@@ -387,6 +409,13 @@ def kernel_phase(torch, seed, device, results):
         f"{batch_rel!r}; matched per program "
         f"{agg_k[:, 0].tolist()}")
     del masks_r, rule_r
+    again = K.policy_scan_batch_cuda(cols, *prog, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(again[2], agg_k), "policy_scan_batch aggregates "
+          "differ between two calls")
+    check(torch.equal(again[0], masks_k) and torch.equal(again[1], rule_k),
+          "policy_scan_batch masks or rule differ between two calls")
+    del again
 
     # policy_scan (program 0) against its plain version and the batch row
     m1_k, a1_k = K.policy_scan_cuda(cols, *(p[0] for p in prog), **kw)
@@ -404,6 +433,13 @@ def kernel_phase(torch, seed, device, results):
                   / a1_r.double().abs().clamp_min(1)).max().item()
     log(f"[kernels] policy_scan N={n}: mask identical; agg max abs err "
         f"{single_err!r}, max rel err {single_rel!r}")
+    again = K.policy_scan_cuda(cols, *(p[0] for p in prog), **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(again[1], a1_k) and torch.equal(again[0], m1_k),
+          "policy_scan outputs differ between two calls")
+    check(torch.equal(a1_k, agg_k[0]), "policy_scan aggregates differ from "
+          "the batch kernel's program 0")
+    del again
     del m1_r, masks_k, rule_k, m1_k
 
     # times: CUDA events, median of REPS after a warm-up
@@ -424,19 +460,45 @@ def kernel_phase(torch, seed, device, results):
             bound_ms(n, ops[:1], colidx[:1], with_rule=False, **kw),
             single_err, single_rel),
     }
+    calls = {"policy_scan_batch": (
+                 lambda: K.policy_scan_batch_cuda(cols, *prog, **kw),
+                 prog, True),
+             "policy_scan": (lambda: K.policy_scan_cuda(cols, *p0, **kw),
+                             [p[None] for p in p0], False)}
     for name, ((ms, times), (plain_ms, _), (bms, by, nbytes, nops), err,
                rel) in timings.items():
+        call, pr, with_rule = calls[name]
+        shape = K.launch_shape(cols, pr[0], pr[1], **kw)
+        kern = kernel_device_ms(torch, call, REPS)
+        dev_ms = {"scan": one_kernel_ms(kern, "scan_kernel", name),
+                  "reduce": one_kernel_ms(kern, "reduce_kernel", name)}
         log(f"[kernels] {name}: {ms!r} ms (median of {len(times)}, min "
             f"{min(times)!r}, max {max(times)!r}); plain {plain_ms!r} ms; "
             f"bound {bms!r} ms by {by} ({nbytes} B, {nops} f32 ops); "
-            f"{bms / ms:.3f} of the bound")
+            f"{bms / ms:.3f} of the bound; kernel_device_ms {dev_ms}; "
+            f"launch {json.dumps(shape)}")
         results[name] = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": TPU_KERNELS[name], "launches": None,
             "max_abs_err": err, "max_rel_err": rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "rows": n, "programs": int(
-                ops.shape[0] if name == "policy_scan_batch" else 1)}
+                ops.shape[0] if name == "policy_scan_batch" else 1),
+            "device_ms": dev_ms, "grid": shape["grid"],
+            "stages": shape["stages"]}
+        if parent is not None:
+            # the parent's kernel beside this one in turns on this card:
+            # parent, this, this, parent (CUDA events, medians of REPS)
+            plan = (tuple(shape["staged_cols"]), None)
+            parent_call = (lambda: parent(cols, *pr, plan, with_rule, kw))
+            turns = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                turns[who].append(cuda_times_ms(
+                    parent_call if who == "parent" else call, REPS)[0])
+            log(f"[kernels] {name} in turns (ms, parent/this): "
+                f"{json.dumps(turns)}")
+            results[name]["parent_ms"] = statistics.median(turns["parent"])
+            results[name]["turns_ms"] = statistics.median(turns["this"])
     del cols
     torch.cuda.empty_cache()
 
@@ -2256,17 +2318,21 @@ def main() -> None:
     def timed_build(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        parent_fut = pool.submit(timed_build, build_parent_scan)
         builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
                                              RGK.build, RWK.build)))
+        (parent, parent_ptxas), parent_secs = parent_fut.result()
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
+    log(f"[build] the parent's policy_scan (tools/policy_scan_designs.cu v0)"
+        f" in {parent_secs:.2f} s: {json.dumps(parent_ptxas)}")
 
     # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports,
     # 7. paged attention and 8. the recurrent kernels at device scale,
     # 9. paged serving, 10. recurrent-model serving
     results: dict = {}
-    kernel_phase(torch, args.seed, device, results)
+    kernel_phase(torch, args.seed, device, results, parent)
     cube_phase(torch, args.seed, device, results)
     attn_phase(torch, args.seed, device, results)
     recurrent_kernel_phase(torch, args.seed, device, results)

@@ -10,165 +10,469 @@
 //
 // Bound on this card: bytes. Per row the scan reads the columns its
 // programs reference plus size, blocks and valid (4 B each) and writes
-// R * 4 B of masks and 4 B of rule index; the arithmetic, a few integer
-// and f32 operations per instruction and ~15 per program for the
-// aggregates, sits far below the card's rate at that traffic.
+// R * 4 B of masks and 4 B of rule index. What kept the first kernel (PR 11)
+// at a quarter of that bound was instruction issue: a per-(tile, program)
+// reduction of 14 aggregates through warp shuffles and two __syncthreads
+// (1.7 of its 6.1 ms at R = 4), and an interpreter that re-read each
+// program word for every row.
 //
-// Design (a simple, correct first kernel; TMA, cp.async or persistent
-// blocks are later work):
-//   - the (R, P) program batch is loaded once per block into shared memory;
-//   - each thread takes ITEMS rows of a TILE-row tile, tiles in a
-//     grid-stride loop; column c of row i is cols[c * n + i], so a warp's
-//     loads are coalesced; the ragged last tile is masked here, so the
-//     caller does not pad;
-//   - a row's 8-deep stack is a bit-stack in one register (policy_scan.cuh);
-//   - aggregates: warp shuffles, then shared memory, per (tile, program),
-//     summed into a per-block accumulator in tile order and written as
-//     partials (n_blocks, R, 14); a second kernel reduces them over blocks
-//     in a fixed tree order (sum for slots 0-12, max for slot 13). No
-//     atomics, so the sums are the same from run to run. (On the TPU the
-//     grid is sequential and carries the sum across steps; here blocks run
-//     in no order.)
+// Design:
+//   - a block decodes its programs once into shared memory (policy_scan.cuh:
+//     NOPs dropped, stack positions worked out), and each thread runs a
+//     program on its ITEMS rows together, one decoded word for all of them;
+//   - aggregates stay in registers across the whole grid-stride loop, with
+//     no barrier and no shuffle inside it: per 32 rows, one ballot per size
+//     bucket shared by all programs, and per program one ballot of its mask;
+//     lane k owns bucket k and adds popc(mask & bucket_k), so counts and the
+//     histogram are exact integers; volume and spc_used are summed per lane
+//     in f64 (exact on integer values below 2^53). A block reduces them once
+//     at the end in a fixed order, and reduce_kernel sums the blocks in a
+//     fixed order and casts once to f32: the same bits from run to run, and
+//     program r's bits do not depend on R or on the other programs of the
+//     launch (the grid depends on N and the card only);
+//   - R is a template parameter up to MAX_PASS; more programs run in passes
+//     of MAX_PASS, the rule index carried from pass to pass through `rule`;
+//   - the columns a launch reads (stage_plan in kernel.py: size, blocks,
+//     valid and every column a live compare reads) are staged a tile at a
+//     time in shared memory by 1-D TMA bulk copies (cp.async.bulk) issued by
+//     one producer thread into a ring of `stages` tiles, an mbarrier pair a
+//     stage (full: bytes landed; empty: every consumer warp done), so a
+//     block keeps several tiles of every column in flight while its
+//     consumer warps interpret the tile before. The grid is persistent
+//     (blocks an SM from the occupancy API);
+//   - a column whose start is not 16 B aligned (n % 4 != 0, or a view that
+//     starts inside its storage) is copied from the 16 B boundary before
+//     its first row of the tile (`shift` floats), and the ragged last tile
+//     from there to the boundary after its last row, so a copy reads no
+//     16 B chunk that holds none of the tensor's rows; only a column set
+//     too wide for a ring of 2 tiles is read by plain loads, in the same
+//     kernel;
+//   - masks and rule index go out as coalesced streaming stores.
 #include <cuda_runtime.h>
 
 #include "policy_scan.cuh"
 
 namespace policy_scan {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;             // consumer threads a block
 constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = 4;
+constexpr int BLOCK = THREADS + 32;      // and one producer warp
+constexpr int ITEMS = 4;                 // rows a consumer thread a tile
 constexpr int TILE = THREADS * ITEMS;
+constexpr int SEG = TILE + 4;            // floats a staged column segment
+constexpr int MAX_PASS = 8;              // programs a pass
+constexpr int MAX_STAGES = 4;
+// a block's shared memory: the stage ring (12 columns fit 2 tiles) and
+// the rest (programs, barriers, sums), 2 blocks an SM
+constexpr int RING_BYTES = 104 * 1024;
+constexpr int EXTRA_BYTES = 8 * 1024;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The staged columns of a launch, passed by value. Column col[s] starts
+// shift[s] floats past a 16 B boundary; its segment of a tile is copied
+// from that boundary, so row i of the tile lands at off[s] + i of the
+// stage, off[s] = s * SEG + shift[s].
+struct Stage {
+  int col[MAX_STAGE];
+  int shift[MAX_STAGE];
+  int off[MAX_STAGE];
+  int n;
+  int stages;        // ring depth; 0: no staging, every tile by plain loads
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.b32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One contiguous global segment into shared memory, its bytes counted on
+// `bar` (16 B aligned at both ends, a multiple of 16 B long).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Byte offsets of the dynamic shared memory of one launch.
+struct Layout {
+  size_t ring, bars, vol, spc, hist, code, opr, len, final_, total;
+  __host__ __device__ Layout(int r, int n_instr, int stages, int n_stage) {
+    ring = 0;
+    bars = static_cast<size_t>(stages) * n_stage * SEG * sizeof(float);
+    vol = bars + 2 * sizeof(uint64_t) * stages;
+    spc = vol + sizeof(double) * WARPS * r;
+    hist = spc + sizeof(double) * WARPS * r;
+    code = hist + sizeof(uint32_t) * WARPS * r * N_BUCKETS;
+    opr = code + sizeof(uint32_t) * r * n_instr;
+    len = opr + sizeof(float) * r * n_instr;
+    final_ = len + sizeof(int) * r;
+    total = final_ + sizeof(int) * r;
+  }
+};
+
+// One tile of a consumer thread: ITEMS rows, every program of the pass.
+// STAGED: the staged columns are in `seg` (row `local` of the column at
+// offset o at seg[o + local]); otherwise read from `cols`. Rows >= n are
+// masked either way.
+template <int R, bool STAGED>
+__device__ __forceinline__ void scan_tile(
+    const float* __restrict__ cols, long long n, long long tile,
+    const float* seg, const uint32_t* s_code, const float* s_opr,
+    const int* s_len, const int* s_final, int n_instr, int prog0,
+    int size_at, int blocks_at, int valid_at, bool has_valid,
+    float* __restrict__ masks, int* __restrict__ rule, uint32_t (&hist)[R],
+    double (&vol)[R], double (&spc)[R]) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const long long row0 = tile * TILE + tid;
+  bool in[ITEMS];
+  float size[ITEMS], blocks[ITEMS], valid[ITEMS];
+  uint32_t mine[ITEMS];       // rows of this warp's 32 in bucket `lane`
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long row = row0 + j * THREADS;
+    const int local = j * THREADS + tid;
+    in[j] = row < n;
+    if (STAGED) {
+      size[j] = in[j] ? seg[size_at + local] : 0.f;
+      blocks[j] = in[j] ? seg[blocks_at + local] : 0.f;
+      valid[j] = (in[j] && has_valid) ? seg[valid_at + local] : 1.f;
+    } else {
+      size[j] = in[j] ? __ldg(cols + size_at * n + row) : 0.f;
+      blocks[j] = in[j] ? __ldg(cols + blocks_at * n + row) : 0.f;
+      valid[j] = (in[j] && has_valid) ? __ldg(cols + valid_at * n + row)
+                                      : 1.f;
+    }
+    // lane k < 10 builds bucket k's mask from 4 ballots of the bucket's
+    // bits (a row past n has bucket 15, in no lane's mask)
+    const int bucket = in[j] ? size_bucket(size[j]) : 15;
+    uint32_t m = lane < N_BUCKETS ? FULL_MASK : 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t b = __ballot_sync(FULL_MASK, (bucket >> i) & 1);
+      m &= ((lane >> i) & 1) ? b : ~b;
+    }
+    mine[j] = m;
+  }
+  // every program on the ITEMS rows: bit r of bits[j] is program r's
+  uint32_t bits[ITEMS];
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) bits[j] = 0u;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    uint32_t bit[ITEMS];
+    const int base = r * n_instr;
+    if (STAGED) {
+      eval_program(s_code + base, s_opr + base, s_len[r], s_final[r],
+                   [&](int j, int at) {
+                     return seg[at + j * THREADS + tid];
+                   },
+                   bit);
+    } else {
+      eval_program(s_code + base, s_opr + base, s_len[r], s_final[r],
+                   [&](int j, int col) {
+                     return in[j] ? __ldg(cols + col * n + row0 + j * THREADS)
+                                  : 0.f;
+                   },
+                   bit);
+    }
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) bits[j] |= bit[j] << r;
+  }
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    const long long row = row0 + j * THREADS;
+    const double size_d = size[j], blocks_d = blocks[j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float m = in[j] ? static_cast<float>((bits[j] >> r) & 1u) *
+                                  valid[j]
+                            : 0.f;
+      if (in[j]) __stcs(masks + (prog0 + r) * n + row, m);
+      const uint32_t set = __ballot_sync(FULL_MASK, m != 0.f);
+      hist[r] += __popc(set & mine[j]);
+      const double md = m != 0.f ? 1.0 : 0.0;
+      vol[r] = fma(md, size_d, vol[r]);
+      spc[r] = fma(md, blocks_d, spc[r]);
+    }
+    if (rule != nullptr && in[j]) {
+      // the first program r >= 1 with m > 0.5 gives rule r - 1; a later
+      // pass continues the attribution of the passes before it
+      uint32_t hit = valid[j] > 0.5f ? bits[j] : 0u;
+      if (prog0 == 0) hit &= ~1u;
+      int first = prog0 > 0 ? rule[row] : -1;
+      if (first < 0 && hit != 0u) first = prog0 + __ffs(hit) - 2;
+      __stcs(rule + row, first);
+    }
+  }
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__global__ void __launch_bounds__(THREADS) scan_kernel(
+// Programs prog0 .. prog0+R-1 of n_progs over all rows. partials: per
+// (block, program) 14 words: volume and spc_used as f64, then the 10
+// bucket counts as u32.
+template <int R>
+__global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
     const float* __restrict__ cols, long long n, int n_cols,
     const int* __restrict__ g_ops, const int* __restrict__ g_colidx,
-    const float* __restrict__ g_operands, int n_progs, int n_instr,
-    int size_col, int blocks_col, int valid_col, float* __restrict__ masks,
-    int* __restrict__ rule, float* __restrict__ partials) {
-  extern __shared__ int smem[];
-  const int rp = n_progs * n_instr;
-  int* s_ops = smem;
-  int* s_col = s_ops + rp;
-  float* s_opr = reinterpret_cast<float*>(s_col + rp);
-  float* s_red = s_opr + rp;                 // [WARPS][N_AGG]
-  float* s_acc = s_red + WARPS * N_AGG;      // [n_progs][N_AGG]
+    const float* __restrict__ g_operands, int n_instr, int prog0,
+    int n_progs, int size_col, int blocks_col, int valid_col,
+    float* __restrict__ masks, int* __restrict__ rule,
+    uint32_t* __restrict__ partials, const Stage st) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int stages = st.stages;
+  const Layout lay(R, n_instr, stages, st.n);
+  float* ring = reinterpret_cast<float*>(smem + lay.ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + stages;
+  double* s_vol = reinterpret_cast<double*>(smem + lay.vol);
+  double* s_spc = reinterpret_cast<double*>(smem + lay.spc);
+  uint32_t* s_hist = reinterpret_cast<uint32_t*>(smem + lay.hist);
+  uint32_t* s_code = reinterpret_cast<uint32_t*>(smem + lay.code);
+  float* s_opr = reinterpret_cast<float*>(smem + lay.opr);
+  int* s_len = reinterpret_cast<int*>(smem + lay.len);
+  int* s_final = reinterpret_cast<int*>(smem + lay.final_);
 
-  for (int i = threadIdx.x; i < rp; i += THREADS) {
-    s_ops[i] = g_ops[i];
-    s_col[i] = g_colidx[i];
-    s_opr[i] = g_operands[i];
+  const int tid = threadIdx.x;
+  if (tid < R) {
+    const long long at = static_cast<long long>(prog0 + tid) * n_instr;
+    s_len[tid] = decode_program(g_ops + at, g_colidx + at, g_operands + at,
+                                n_instr, n_cols, st.col, st.off,
+                                stages > 0 ? st.n : 0, s_code + tid * n_instr,
+                                s_opr + tid * n_instr, &s_final[tid]);
   }
-  for (int i = threadIdx.x; i < n_progs * N_AGG; i += THREADS) s_acc[i] = 0.f;
+  if (tid == THREADS) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncwarp();
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const long long n_tiles = (n + TILE - 1) / TILE;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    long long row[ITEMS];
-    bool in[ITEMS];
-    float size[ITEMS], spc[ITEMS], valid[ITEMS];
-    int bucket[ITEMS], first[ITEMS];
-#pragma unroll
-    for (int j = 0; j < ITEMS; ++j) {
-      row[j] = tile * TILE + (long long)j * THREADS + threadIdx.x;
-      in[j] = row[j] < n;
-      size[j] = in[j] ? cols[(long long)size_col * n + row[j]] : 0.f;
-      spc[j] = in[j] ? cols[(long long)blocks_col * n + row[j]] : 0.f;
-      valid[j] = (in[j] && valid_col >= 0)
-                     ? cols[(long long)valid_col * n + row[j]] : 1.f;
-      bucket[j] = size_bucket(size[j]);
-      first[j] = -1;
+  const int stage_words = st.n * SEG;
+  if (tid >= THREADS) {                          // the producer warp
+    if (tid == THREADS && stages > 0) {
+      int k = 0;
+      for (long long tile = blockIdx.x; tile < n_tiles;
+           tile += gridDim.x, ++k) {
+        const int s = k % stages;
+        if (k >= stages) mbar_wait(&empty[s], ((k / stages) + 1) & 1);
+        // rows of the tile; each column's copy starts at the 16 B
+        // boundary at or before its first row and ends at the one at or
+        // after its last, so it reads no 16 B chunk without a row in it
+        const long long rows = n - tile * TILE < TILE ? n - tile * TILE
+                                                      : TILE;
+        uint32_t tx = 0;
+        for (int c = 0; c < st.n; ++c)
+          tx += ((st.shift[c] + rows + 3) / 4) * 16;
+        mbar_expect_tx(&full[s], tx);
+        for (int c = 0; c < st.n; ++c)
+          bulk_load(ring + s * stage_words + c * SEG,
+                    cols + st.col[c] * n + tile * TILE - st.shift[c],
+                    static_cast<uint32_t>((st.shift[c] + rows + 3) / 4) * 16,
+                    &full[s]);
+      }
     }
-    for (int r = 0; r < n_progs; ++r) {
-      const int* ops = s_ops + r * n_instr;
-      const int* cix = s_col + r * n_instr;
-      const float* opr = s_opr + r * n_instr;
-      float acc[N_AGG];
-#pragma unroll
-      for (int k = 0; k < N_AGG; ++k) acc[k] = 0.f;
-#pragma unroll
-      for (int j = 0; j < ITEMS; ++j) {
-        if (!in[j]) continue;
-        const float m =
-            static_cast<float>(eval_row(cols, n, n_cols, row[j], ops, cix,
-                                        opr, n_instr)) * valid[j];
-        masks[(long long)r * n + row[j]] = m;
-        if (r >= 1 && first[j] < 0 && m > 0.5f) first[j] = r - 1;
-        acc[0] += m;
-        acc[1] += m * size[j];
-        acc[2] += m * spc[j];
-#pragma unroll
-        for (int k = 0; k < N_BUCKETS; ++k)
-          acc[3 + k] += bucket[j] == k ? m : 0.f;
-        acc[N_AGG - 1] = fmaxf(acc[N_AGG - 1], m);
+    __syncwarp();
+  } else {                                       // the consumer warps
+    const bool has_valid = valid_col >= 0;
+    int size_at = size_col, blocks_at = blocks_col, valid_at = valid_col;
+    if (stages > 0) {
+      for (int c = st.n - 1; c >= 0; --c) {
+        if (st.col[c] == size_col) size_at = st.off[c];
+        if (st.col[c] == blocks_col) blocks_at = st.off[c];
+        if (st.col[c] == valid_col) valid_at = st.off[c];
       }
-#pragma unroll
-      for (int k = 0; k < N_AGG; ++k) {
-        const float v = k == N_AGG - 1 ? warp_max(acc[k]) : warp_sum(acc[k]);
-        if (lane == 0) s_red[warp * N_AGG + k] = v;
-      }
-      __syncthreads();
-      if (threadIdx.x < N_AGG) {
-        const int k = threadIdx.x;
-        const bool is_max = k == N_AGG - 1;
-        float s = s_red[k];
-        for (int w = 1; w < WARPS; ++w) {
-          const float p = s_red[w * N_AGG + k];
-          s = is_max ? fmaxf(s, p) : s + p;
-        }
-        float* dst = s_acc + r * N_AGG + k;
-        *dst = is_max ? fmaxf(*dst, s) : *dst + s;
-      }
-      __syncthreads();
     }
-    if (rule != nullptr) {
+    uint32_t hist[R];
+    double vol[R], spc[R];
 #pragma unroll
-      for (int j = 0; j < ITEMS; ++j)
-        if (in[j]) rule[row[j]] = first[j];
+    for (int r = 0; r < R; ++r) {
+      hist[r] = 0u;
+      vol[r] = 0.0;
+      spc[r] = 0.0;
+    }
+    int k = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles;
+         tile += gridDim.x, ++k) {
+      if (stages > 0) {
+        const int s = k % stages;
+        mbar_wait(&full[s], (k / stages) & 1);
+        scan_tile<R, true>(cols, n, tile, ring + s * stage_words, s_code,
+                           s_opr, s_len, s_final, n_instr, prog0, size_at,
+                           blocks_at, valid_at, has_valid, masks, rule, hist,
+                           vol, spc);
+        __syncwarp();                  // the warp is done with stage s
+        if ((tid & 31) == 0) mbar_arrive(&empty[s]);
+      } else {
+        scan_tile<R, false>(cols, n, tile, nullptr, s_code, s_opr, s_len,
+                            s_final, n_instr, prog0, size_at, blocks_at,
+                            valid_at, has_valid, masks, rule, hist, vol, spc);
+      }
+    }
+    // once a block, in a fixed order: lanes (a shuffle tree), then warps
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const double v = warp_sum(vol[r]), p = warp_sum(spc[r]);
+      if (lane == 0) {
+        s_vol[warp * R + r] = v;
+        s_spc[warp * R + r] = p;
+      }
+      if (lane < N_BUCKETS)
+        s_hist[(warp * R + r) * N_BUCKETS + lane] = hist[r];
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  if (tid < R * (N_BUCKETS + 2)) {
+    const int r = tid / (N_BUCKETS + 2), f = tid % (N_BUCKETS + 2);
+    const long long slot =
+        static_cast<long long>(blockIdx.x) * n_progs + prog0 + r;
+    uint32_t* out = partials + slot * N_AGG;
+    if (f < N_BUCKETS) {
+      uint32_t c = 0;
+      for (int w = 0; w < WARPS; ++w) c += s_hist[(w * R + r) * N_BUCKETS + f];
+      out[4 + f] = c;
+    } else {
+      const double* src = f == N_BUCKETS ? s_vol : s_spc;
+      double v = 0.0;
+      for (int w = 0; w < WARPS; ++w) v += src[w * R + r];
+      reinterpret_cast<double*>(out)[f - N_BUCKETS] = v;
     }
   }
-  for (int i = threadIdx.x; i < n_progs * N_AGG; i += THREADS)
-    partials[(long long)blockIdx.x * n_progs * N_AGG + i] = s_acc[i];
 }
 
-// One block per output slot (program r, aggregate k): a fixed-order tree
-// over the n_blocks partials.
+// One block per program: the blocks' partials summed in a fixed order
+// (a strided walk, then a tree), cast once to f32. count is the sum of the
+// bucket counts (every row lies in one bucket), any_match is count > 0.
 __global__ void __launch_bounds__(THREADS) reduce_kernel(
-    const float* __restrict__ partials, int n_blocks, int width,
+    const uint32_t* __restrict__ partials, int n_blocks, int n_progs,
     float* __restrict__ agg) {
-  __shared__ float s[THREADS];
-  const int slot = blockIdx.x;
-  const bool is_max = slot % N_AGG == N_AGG - 1;
-  float v = 0.f;
-  for (int b = threadIdx.x; b < n_blocks; b += THREADS) {
-    const float p = partials[(long long)b * width + slot];
-    v = is_max ? fmaxf(v, p) : v + p;
+  __shared__ unsigned long long s_hist[N_BUCKETS][THREADS];
+  __shared__ double s_sum[2][THREADS];
+  const int r = blockIdx.x, t = threadIdx.x;
+  unsigned long long h[N_BUCKETS] = {};
+  double sum[2] = {0.0, 0.0};
+  for (int b = t; b < n_blocks; b += THREADS) {
+    const uint32_t* p = partials + (static_cast<long long>(b) * n_progs + r) *
+                                       N_AGG;
+    sum[0] += reinterpret_cast<const double*>(p)[0];
+    sum[1] += reinterpret_cast<const double*>(p)[1];
+#pragma unroll
+    for (int k = 0; k < N_BUCKETS; ++k) h[k] += p[4 + k];
   }
-  s[threadIdx.x] = v;
+#pragma unroll
+  for (int k = 0; k < N_BUCKETS; ++k) s_hist[k][t] = h[k];
+  s_sum[0][t] = sum[0];
+  s_sum[1][t] = sum[1];
   __syncthreads();
-  for (int h = THREADS / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) {
-      const float p = s[threadIdx.x + h];
-      s[threadIdx.x] = is_max ? fmaxf(s[threadIdx.x], p) : s[threadIdx.x] + p;
+  for (int half = THREADS / 2; half > 0; half >>= 1) {
+    if (t < half) {
+#pragma unroll
+      for (int k = 0; k < N_BUCKETS; ++k) s_hist[k][t] += s_hist[k][t + half];
+      s_sum[0][t] += s_sum[0][t + half];
+      s_sum[1][t] += s_sum[1][t + half];
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) agg[slot] = s[0];
+  if (t == 0) {
+    float* out = agg + r * N_AGG;
+    unsigned long long count = 0;
+    for (int k = 0; k < N_BUCKETS; ++k) {
+      count += s_hist[k][0];
+      out[3 + k] = static_cast<float>(s_hist[k][0]);
+    }
+    out[0] = static_cast<float>(count);
+    out[1] = static_cast<float>(s_sum[0][0]);
+    out[2] = static_cast<float>(s_sum[1][0]);
+    out[N_AGG - 1] = count > 0 ? 1.f : 0.f;
+  }
+}
+
+template <int R>
+cudaError_t launch_pass(const float* cols, long long n, int n_cols,
+                        const int* ops, const int* colidx,
+                        const float* operands, int n_instr, int prog0,
+                        int n_progs, int size_col, int blocks_col,
+                        int valid_col, float* masks, int* rule,
+                        uint32_t* partials, const Stage& st, int grid,
+                        cudaStream_t s) {
+  const size_t smem = Layout(R, n_instr, st.stages, st.n).total;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  scan_kernel<R><<<grid, BLOCK, smem, s>>>(
+      cols, n, n_cols, ops, colidx, operands, n_instr, prog0, n_progs,
+      size_col, blocks_col, valid_col, masks, rule, partials, st);
+  return cudaGetLastError();
+}
+
+using PassFn = cudaError_t (*)(const float*, long long, int, const int*,
+                               const int*, const float*, int, int, int, int,
+                               int, int, float*, int*, uint32_t*,
+                               const Stage&, int, cudaStream_t);
+constexpr PassFn PASSES[MAX_PASS] = {
+    launch_pass<1>, launch_pass<2>, launch_pass<3>, launch_pass<4>,
+    launch_pass<5>, launch_pass<6>, launch_pass<7>, launch_pass<8>};
+
+// Ring depth for n_stage staged columns: as many tiles as RING_BYTES holds,
+// at most MAX_STAGES; fewer than 2 stages do not overlap, so 0 (no
+// staging) then.
+int ring_stages(int n_stage) {
+  if (n_stage < 1 || n_stage > MAX_STAGE) return 0;
+  const int per = n_stage * SEG * static_cast<int>(sizeof(float));
+  const int s = RING_BYTES / per < MAX_STAGES ? RING_BYTES / per : MAX_STAGES;
+  return s >= 2 ? s : 0;
 }
 
 }  // namespace policy_scan
@@ -181,33 +485,107 @@ const char* policy_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the scan and the block reduction on `stream`. `rule` may be null
-// (single-program form). `partials` holds grid * n_progs * 14 floats. Returns
-// cudaGetLastError() after the launches: 0 when both were accepted.
+int policy_scan_max_stage() { return policy_scan::MAX_STAGE; }
+
+int policy_scan_max_cols() { return policy_scan::MAX_COLS; }
+
+// Ring stages a launch with n_stage staged columns uses (0: plain loads).
+int policy_scan_stages(int n_stage) {
+  return policy_scan::ring_stages(n_stage);
+}
+
+// Resident blocks an SM of the widest pass (MAX_PASS programs) with a full
+// ring and EXTRA_BYTES for programs and sums; -1 on error.
+static int widest_occupancy() {
+  using namespace policy_scan;
+  const int smem = RING_BYTES + EXTRA_BYTES;
+  if (cudaFuncSetAttribute(scan_kernel<MAX_PASS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, scan_kernel<MAX_PASS>, BLOCK, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// The persistent grid for n rows on a card of `sms` SMs: every SM's resident
+// blocks, fewer when there are fewer tiles. It depends on n and the card
+// alone, never on the programs, so each program's sums group rows alike in
+// every launch. -1 on error.
+int policy_scan_grid(long long n, int sms) {
+  using namespace policy_scan;
+  static int per_sm = 0;
+  if (per_sm <= 0) per_sm = widest_occupancy();
+  if (per_sm <= 0) return -1;
+  const long long tiles = (n + TILE - 1) / TILE;
+  const long long grid = static_cast<long long>(sms) * per_sm;
+  return static_cast<int>(tiles < grid ? (tiles > 0 ? tiles : 1) : grid);
+}
+
+// Resident blocks an SM of a launch of n_progs programs of n_instr words
+// with n_stage staged columns (its widest pass); -1 on error.
+int policy_scan_occupancy(int n_progs, int n_instr, int n_stage) {
+  using namespace policy_scan;
+  const int r = n_progs < MAX_PASS ? n_progs : MAX_PASS;
+  const int stages = ring_stages(n_stage);
+  const size_t smem = Layout(r, n_instr, stages, stages ? n_stage : 0).total;
+  static const void* kernels[MAX_PASS] = {
+      (const void*)scan_kernel<1>, (const void*)scan_kernel<2>,
+      (const void*)scan_kernel<3>, (const void*)scan_kernel<4>,
+      (const void*)scan_kernel<5>, (const void*)scan_kernel<6>,
+      (const void*)scan_kernel<7>, (const void*)scan_kernel<8>};
+  const void* k = kernels[r - 1];
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, BLOCK,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// Launches the scan (in passes of at most MAX_PASS programs) and the block
+// reduction on `stream`. `rule` may be null (single-program form).
+// `partials` holds grid * n_progs * 14 words (f64 sums, u32 counts).
+// `stage_cols` (host memory) lists the n_stage columns to stage (kernel.py's
+// stage_plan); they are bulk-copied, each from the 16 B boundary at or
+// before its start, when the ring holds at least 2 tiles of them, else
+// every tile is read by plain loads. Returns cudaGetLastError() after the
+// launches: 0 when all were accepted.
 int policy_scan_launch(const float* cols, long long n, int n_cols,
                        const int* ops, const int* colidx,
                        const float* operands, int n_progs, int n_instr,
                        int size_col, int blocks_col, int valid_col,
                        float* masks, int* rule, float* partials, float* agg,
-                       int grid, void* stream) {
+                       int grid, void* stream, const int* stage_cols,
+                       int n_stage) {
   using namespace policy_scan;
-  const size_t smem =
-      sizeof(float) * (3 * static_cast<size_t>(n_progs) * n_instr +
-                       WARPS * N_AGG + static_cast<size_t>(n_progs) * N_AGG);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_cols > MAX_COLS || n_stage < 0 || n_stage > MAX_STAGE ||
+      reinterpret_cast<uintptr_t>(cols) % sizeof(float) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Stage st{};
+  st.stages = ring_stages(n_stage);
+  st.n = st.stages > 0 ? n_stage : 0;
+  for (int i = 0; i < st.n; ++i) {
+    st.col[i] = stage_cols[i];
+    st.shift[i] = static_cast<int>(
+        reinterpret_cast<uintptr_t>(cols + stage_cols[i] * n) % 16 /
+        sizeof(float));
+    st.off[i] = i * SEG + st.shift[i];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  scan_kernel<<<grid, THREADS, smem, s>>>(
-      cols, n, n_cols, ops, colidx, operands, n_progs, n_instr, size_col,
-      blocks_col, valid_col, masks, rule, partials);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  reduce_kernel<<<n_progs * N_AGG, THREADS, 0, s>>>(partials, grid,
-                                                    n_progs * N_AGG, agg);
+  uint32_t* part = reinterpret_cast<uint32_t*>(partials);
+  for (int p0 = 0; p0 < n_progs; p0 += MAX_PASS) {
+    const int r = n_progs - p0 < MAX_PASS ? n_progs - p0 : MAX_PASS;
+    const cudaError_t e = PASSES[r - 1](
+        cols, n, n_cols, ops, colidx, operands, n_instr, p0, n_progs,
+        size_col, blocks_col, valid_col, masks, rule, part, st, grid, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  reduce_kernel<<<n_progs, THREADS, 0, s>>>(part, grid, n_progs, agg);
   return static_cast<int>(cudaGetLastError());
 }
 

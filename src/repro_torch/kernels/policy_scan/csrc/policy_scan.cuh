@@ -8,77 +8,156 @@
 //   - a and b are read at clamp(sp-1) and clamp(sp-2);
 //   - the write position is clamped to [0, MAX_STACK-1];
 //   - NOPs (op < 0) are skipped; an empty program gives 0.
-// The stack pointer follows the opcodes alone, so it is the same in every
-// thread of a block: the branches below never diverge inside a warp.
+// The stack pointer follows the opcodes alone, never the data, so a block
+// decodes each program once (decode_program): NOPs dropped, and each
+// instruction's read and write positions worked out ahead of the rows. The
+// interpreter (eval_program) then only branches on the opcode, which is the
+// same in every thread: its branches never diverge inside a warp.
+//
+// The functions are __host__ __device__ so the decoder and interpreter can
+// be compiled for the host too.
 #pragma once
 
 #include <cstdint>
+#include <cstring>
+
+#ifdef __CUDACC__
+#define PS_HD __host__ __device__ __forceinline__
+#else
+#define PS_HD inline
+#endif
 
 namespace policy_scan {
 
 constexpr int MAX_STACK = 8;
 constexpr int N_AGG = 14;      // count, volume, spc_used, hist x10, any_match
 constexpr int N_BUCKETS = 10;
+constexpr int MAX_COLS = 1 << 19;   // a decoded column has 19 bits
+constexpr int MAX_STAGE = 32;       // columns a launch stages at most
 
 enum : int { OP_EQ = 0, OP_NE, OP_GT, OP_GE, OP_LT, OP_LE, OP_AND, OP_OR,
-             OP_NOT };
+             OP_NOT, OP_ELSE };
 
-__device__ __forceinline__ int clamp_slot(int pos) {
-  return min(max(pos, 0), MAX_STACK - 1);
+PS_HD int clamp_slot(int pos) {
+  return pos < 0 ? 0 : (pos > MAX_STACK - 1 ? MAX_STACK - 1 : pos);
 }
 
-// Evaluates program (ops, colidx, operands)[0:n_instr] on row `row` of the
-// column-major table `cols` (column c of row i at cols[c * n + i]).
-__device__ __forceinline__ uint32_t eval_row(
-    const float* __restrict__ cols, long long n, int n_cols, long long row,
-    const int* ops, const int* colidx, const float* operands, int n_instr) {
-  uint32_t stack = 0u;
-  int sp = 0;
+// A decoded instruction in one word: opcode (bits 0-3; OP_ELSE for any
+// unknown opcode), read positions a (4-6) and b (7-9), write position
+// (10-12) and, in bits 13-31, where a compare finds its column: the offset
+// of the column's staged segment when the launch stages (`offset` below),
+// else the column itself, clamped into [0, n_cols).
+PS_HD uint32_t pack(int op, int pa, int pb, int pw, int where) {
+  return static_cast<uint32_t>(op) | static_cast<uint32_t>(pa) << 4 |
+         static_cast<uint32_t>(pb) << 7 | static_cast<uint32_t>(pw) << 10 |
+         static_cast<uint32_t>(where) << 13;
+}
+
+// Decodes program (ops, colidx, operands)[0:n_instr] into code/opr[0:len].
+// With n_stage > 0 the columns stage[0:n_stage] are staged, column stage[s]
+// at offset[s]: a compare reads the first slot holding its clamped column
+// (slot 0 if none does, which stage_plan in kernel.py rules out). Returns
+// len; *final is the stack position of the result.
+PS_HD int decode_program(const int* ops, const int* colidx,
+                         const float* operands, int n_instr, int n_cols,
+                         const int* stage, const int* offset, int n_stage,
+                         uint32_t* code, float* opr, int* final) {
+  int sp = 0, len = 0;
   for (int i = 0; i < n_instr; ++i) {
-    const int op = ops[i];
+    int op = ops[i];
     if (op < 0) continue;                                  // NOP
-    const uint32_t a = (stack >> clamp_slot(sp - 1)) & 1u;
-    const uint32_t b = (stack >> clamp_slot(sp - 2)) & 1u;
-    uint32_t v;
-    int pos;
+    const int pa = clamp_slot(sp - 1), pb = clamp_slot(sp - 2);
+    int pw, where = 0;
     if (op < 6) {
-      const int c = min(max(colidx[i], 0), n_cols - 1);
-      const float x = __ldg(cols + (long long)c * n + row);
-      const float t = operands[i];
-      switch (op) {
-        case OP_EQ: v = x == t; break;
-        case OP_NE: v = x != t; break;
-        case OP_GT: v = x > t; break;
-        case OP_GE: v = x >= t; break;
-        case OP_LT: v = x < t; break;
-        default:    v = x <= t; break;
+      const int col = colidx[i] < 0 ? 0 : (colidx[i] > n_cols - 1
+                                               ? n_cols - 1 : colidx[i]);
+      where = col;
+      if (n_stage > 0) {
+        int slot = 0;
+        for (int s = n_stage - 1; s >= 0; --s)
+          if (stage[s] == col) slot = s;
+        where = offset[slot];
       }
-      pos = sp;
+      pw = clamp_slot(sp);
       sp += 1;
-    } else if (op == OP_AND) {
-      v = a & b; pos = sp - 2; sp -= 1;
-    } else if (op == OP_OR) {
-      v = a | b; pos = sp - 2; sp -= 1;
+    } else if (op == OP_AND || op == OP_OR) {
+      pw = clamp_slot(sp - 2);
+      sp -= 1;
     } else if (op == OP_NOT) {
-      v = a ^ 1u; pos = sp - 1;
+      pw = clamp_slot(sp - 1);
     } else {                      // unknown opcode: the reference's else arm
-      v = a ^ 1u; pos = sp - 2; sp -= 1;
+      op = OP_ELSE;
+      pw = clamp_slot(sp - 2);
+      sp -= 1;
     }
-    pos = clamp_slot(pos);
-    stack = (stack & ~(1u << pos)) | (v << pos);
+    code[len] = pack(op, pa, pb, pw, where);
+    opr[len] = operands[i];
+    ++len;
   }
-  return (stack >> clamp_slot(sp - 1)) & 1u;
+  *final = clamp_slot(sp - 1);
+  return len;
 }
 
-// Size-profile bucket: clip(sum(size >= edge) - 1, 0, 9), edges in f32.
-__device__ __forceinline__ int size_bucket(float size) {
-  const float edges[N_BUCKETS] = {
-      0.0f, 1.0f, 32.0f, 1024.0f, 32768.0f, 1048576.0f, 33554432.0f,
-      1073741824.0f, 34359738368.0f, 1099511627776.0f};
-  int b = -1;
-#pragma unroll
-  for (int k = 0; k < N_BUCKETS; ++k) b += size >= edges[k];
-  return min(max(b, 0), N_BUCKETS - 1);
+// Runs a decoded program on N rows at once: one decoded word and one
+// branch on its opcode serve all N rows, and their N column reads are
+// issued together; fetch(j, where) gives row j's value of the compared
+// column. bit[j] is row j's result.
+#define PS_EACH(expr)                  \
+  for (int j = 0; j < N; ++j) v[j] = (expr)
+#ifdef __CUDACC__
+#pragma nv_exec_check_disable
+#endif
+template <int N, typename Fetch>
+PS_HD void eval_program(const uint32_t* code, const float* opr, int len,
+                        int final, Fetch fetch, uint32_t (&bit)[N]) {
+  uint32_t stack[N];
+  for (int j = 0; j < N; ++j) stack[j] = 0u;
+  for (int i = 0; i < len; ++i) {
+    const uint32_t w = code[i];
+    const int op = w & 15u;
+    const uint32_t pa = (w >> 4) & 7u, pb = (w >> 7) & 7u;
+    const uint32_t pw = (w >> 10) & 7u;
+    uint32_t v[N];
+    if (op < 6) {
+      float x[N];
+      for (int j = 0; j < N; ++j) x[j] = fetch(j, static_cast<int>(w >> 13));
+      const float t = opr[i];
+      switch (op) {
+        case OP_EQ: PS_EACH(x[j] == t); break;
+        case OP_NE: PS_EACH(x[j] != t); break;
+        case OP_GT: PS_EACH(x[j] > t); break;
+        case OP_GE: PS_EACH(x[j] >= t); break;
+        case OP_LT: PS_EACH(x[j] < t); break;
+        default:    PS_EACH(x[j] <= t); break;
+      }
+    } else if (op == OP_AND) {
+      PS_EACH((stack[j] >> pa) & (stack[j] >> pb) & 1u);
+    } else if (op == OP_OR) {
+      PS_EACH(((stack[j] >> pa) | (stack[j] >> pb)) & 1u);
+    } else {                      // NOT and the else arm
+      PS_EACH(((stack[j] >> pa) & 1u) ^ 1u);
+    }
+    for (int j = 0; j < N; ++j)
+      stack[j] = (stack[j] & ~(1u << pw)) | (v[j] << pw);
+  }
+  for (int j = 0; j < N; ++j) bit[j] = (stack[j] >> final) & 1u;
+}
+#undef PS_EACH
+
+// Size-profile bucket: clip(sum(size >= edge) - 1, 0, 9) over the f32
+// edges 0, 1, 32, 32^2, ..., 32^8 (2^40). Below 1 (and NaN) that is 0;
+// from 1 on, size >= 2^(5k) exactly when the binary exponent of size is
+// at least 5k, so the bucket is 1 + min(exponent / 5, 8) (infinity: 9).
+PS_HD int size_bucket(float size) {
+  if (!(size >= 1.0f)) return 0;
+  uint32_t u;
+#ifdef __CUDA_ARCH__
+  u = __float_as_uint(size);
+#else
+  memcpy(&u, &size, sizeof u);
+#endif
+  const int e = static_cast<int>(u >> 23) - 127;
+  return 1 + (e / 5 < N_BUCKETS - 2 ? e / 5 : N_BUCKETS - 2);
 }
 
 }  // namespace policy_scan

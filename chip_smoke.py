@@ -10,7 +10,7 @@ failure:
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
    ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, and
-   the parent's ``policy_scan`` kernel (``v0`` of
+   the first ``policy_scan`` design (``v0`` of
    ``tools/policy_scan_designs.cu``), one ``nvcc`` each, started together,
    with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
@@ -23,7 +23,11 @@ failure:
    each is timed with CUDA events (median after a warm-up) beside the
    least time the card could take, its scan and reduce kernels' own
    device times (``torch.profiler``), its grid and ring stages, and the
-   parent's kernel in turns (parent, this, this, parent);
+   first design in turns (first, this, this, first; an older ``csrc/`` is
+   compared with ``tools/scan_variants.py --parent``); then a batch of
+   ``BATCH_CRITERIA`` and ``WIDE_CRITERIA`` (programs that read all 16
+   kernel columns, so the kernel stages half tiles) is held to the plain
+   version the same way and timed;
 4. profile cube at device scale, columns generated on the card from a
    seed: (a) 2^27 rows, 4096 groups, the prebucketed layout
    ``ProfileCube`` passes; (b) 2^27 rows, 64 groups, the raw layout
@@ -168,6 +172,18 @@ F32_EXACT = 1 << 24             # f32 holds every integer below this
 BATCH_CRITERIA = ["(size > 1GB or owner == 'u1') and type == file",
                   "size > 1GB", "owner == 'u1'",
                   "not (type == file and size <= 32M)"]
+# rules that read every kernel column between them and each
+WIDE_CRITERIA = [
+    "(size > 1GB or blocks < 4096) and (nlink == 2 or ost_idx == 3 or "
+    "archive_id == 1) or (mode >= 256 and dirty == 1) or last_access > 90d "
+    "or last_mod > 30d or creation > 1d or type == file or "
+    "hsm_state == archived or owner == 'u1' or group == 'u2' or "
+    "pool == 'u0' or status == 'u1'",
+    "size <= 32M and blocks >= 8 and nlink != 1 and ost_idx < 5 and "
+    "archive_id != 2 and mode < 448 and dirty == 0 and "
+    "not (last_access > 10d and last_mod > 20d and creation > 30d) and "
+    "type == file and hsm_state != released and owner != 'u0' and "
+    "(group == 'u1' or pool == 'u2' or status != 'u0')"]
 TPU_KERNELS = {
     "policy_scan_batch": "src/repro/kernels/policy_scan/kernel.py:237",
     "policy_scan": "src/repro/kernels/policy_scan/kernel.py:131",
@@ -358,16 +374,16 @@ def scan_variants():
     return sv
 
 
-def build_parent_scan():
-    """The parent's ``policy_scan`` kernel (PR 11-18's, ``v0`` of
+def build_first_scan():
+    """The first ``policy_scan`` design (``v0`` of
     ``tools/policy_scan_designs.cu``), built under ``build/``."""
     sv = scan_variants()
-    built = sv.build("parent", sv.sources(["v0"])["v0"],
+    built = sv.build("first", sv.sources(["v0"])["v0"],
                      os.path.join(ROOT, "build", "scan_variants"))
-    return sv.Variant("parent", built["lib"]), built["ptxas"]
+    return sv.Variant("first", built["lib"]), built["ptxas"]
 
 
-def kernel_phase(torch, seed, device, results, parent=None):
+def kernel_phase(torch, seed, device, results, first=None):
     from repro_torch.core.catalog import StringTable
     from repro_torch.core.policy import (KERNEL_COLUMNS, compile_programs,
                                          parse_expr)
@@ -469,6 +485,7 @@ def kernel_phase(torch, seed, device, results, parent=None):
                rel) in timings.items():
         call, pr, with_rule = calls[name]
         shape = K.launch_shape(cols, pr[0], pr[1], **kw)
+        ring = shape["passes"][0]
         kern = kernel_device_ms(torch, call, REPS)
         dev_ms = {"scan": one_kernel_ms(kern, "scan_kernel", name),
                   "reduce": one_kernel_ms(kern, "reduce_kernel", name)}
@@ -485,22 +502,84 @@ def kernel_phase(torch, seed, device, results, parent=None):
             "library_ms": None, "rows": n, "programs": int(
                 ops.shape[0] if name == "policy_scan_batch" else 1),
             "device_ms": dev_ms, "grid": shape["grid"],
-            "stages": shape["stages"]}
-        if parent is not None:
-            # the parent's kernel beside this one in turns on this card:
-            # parent, this, this, parent (CUDA events, medians of REPS)
-            plan = (tuple(shape["staged_cols"]), None)
-            parent_call = (lambda: parent(cols, *pr, plan, with_rule, kw))
-            turns = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
+            "stages": ring["stages"], "stage_rows": ring["stage_rows"]}
+        if first is not None:
+            # the first design beside this one in turns on this card:
+            # first, this, this, first (CUDA events, medians of REPS)
+            first_call = (lambda: first(cols, *pr, with_rule, kw))
+            turns = {"first": [], "this": []}
+            for who in ("first", "this", "this", "first"):
                 turns[who].append(cuda_times_ms(
-                    parent_call if who == "parent" else call, REPS)[0])
-            log(f"[kernels] {name} in turns (ms, parent/this): "
+                    first_call if who == "first" else call, REPS)[0])
+            log(f"[kernels] {name} in turns (ms, first design/this): "
                 f"{json.dumps(turns)}")
-            results[name]["parent_ms"] = statistics.median(turns["parent"])
+            results[name]["first_design_ms"] = statistics.median(
+                turns["first"])
             results[name]["turns_ms"] = statistics.median(turns["this"])
+    wide_phase(torch, K, R, cols, st, kw, results)
     del cols
     torch.cuda.empty_cache()
+
+
+def wide_phase(torch, K, R, cols, strings, kw, results):
+    """``BATCH_CRITERIA`` + ``WIDE_CRITERIA`` over the kernel phase's
+    columns: 17 staged columns, half-tile stages. Masks and rule identical
+    to the plain version, aggregates within TOL and bit for bit on a second
+    call, and each program's R = 1 launch bit-equal to its batch row (those
+    of ``BATCH_CRITERIA`` stage whole tiles alone); timed."""
+    from repro_torch.core.policy import compile_programs, parse_expr
+    exprs = BATCH_CRITERIA + WIDE_CRITERIA
+    ops, colidx, operands = compile_programs(
+        [parse_expr(e) for e in exprs], strings, NOW)
+    prog = [torch.from_numpy(a).to(cols.device)
+            for a in (ops, colidx, operands)]
+    shape = K.launch_shape(cols, prog[0], prog[1], **kw)
+    ring = shape["passes"][0]
+    check(len(ring["staged_cols"]) == cols.shape[0]
+          and ring["stage_rows"] < shape["tile_rows"],
+          f"the wide batch stages {ring}, not every column in part tiles")
+    masks_k, rule_k, agg_k = K.policy_scan_batch_cuda(cols, *prog, **kw)
+    again = K.policy_scan_batch_cuda(cols, *prog, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(again, (masks_k, rule_k,
+                                                        agg_k))),
+          "wide policy_scan_batch outputs differ between two calls")
+    del again
+    masks_r, rule_r, agg_r = R.policy_scan_batch_ref(cols, *prog, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(masks_k, masks_r) and torch.equal(rule_k, rule_r),
+          "wide policy_scan_batch masks or rule differ from the plain "
+          "version")
+    check(torch.allclose(agg_k, agg_r, **TOL), "wide policy_scan_batch "
+          f"aggregates differ:\n{agg_k}\n{agg_r}")
+    err = (agg_k.double() - agg_r.double()).abs().max().item()
+    del masks_r, rule_r
+    for r in range(len(exprs)):
+        m1, a1 = K.policy_scan_cuda(cols, *(p[r] for p in prog), **kw)
+        check(torch.equal(m1, masks_k[r]) and torch.equal(a1, agg_k[r]),
+              f"wide program {r}: the R = 1 launch differs from its batch "
+              "row")
+        del m1
+    del masks_k, rule_k
+    ms, times = cuda_times_ms(
+        lambda: K.policy_scan_batch_cuda(cols, *prog, **kw), REPS)
+    plain_ms, _ = cuda_times_ms(
+        lambda: R.policy_scan_batch_ref(cols, *prog, **kw), REPS)
+    bms, by, nbytes, _ = bound_ms(cols.shape[1], ops, colidx,
+                                  with_rule=True, **kw)
+    kern = kernel_device_ms(
+        torch, lambda: K.policy_scan_batch_cuda(cols, *prog, **kw), REPS)
+    dev = one_kernel_ms(kern, "scan_kernel", "wide policy_scan_batch")
+    log(f"[kernels] wide policy_scan_batch R={ops.shape[0]} "
+        f"N={cols.shape[1]} {CARD}: masks and rule identical, agg max abs "
+        f"err {err!r}, bit for bit on a second call and per program at "
+        f"R = 1; {ms!r} ms (median of {len(times)}); plain {plain_ms!r} ms;"
+        f" bound {bms!r} ms by {by} ({nbytes} B); {bms / ms:.3f} of the "
+        f"bound; scan device ms {dev!r}; launch {json.dumps(shape)}")
+    results["policy_scan_batch"]["wide"] = dict(
+        programs=int(ops.shape[0]), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        scan_device_ms=dev, max_abs_err=err, stages=ring["stages"],
+        stage_rows=ring["stage_rows"])
 
 
 def cube_columns(torch, n: int, n_groups: int, seed: int, device,
@@ -2319,20 +2398,20 @@ def main() -> None:
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
     with ThreadPoolExecutor(max_workers=6) as pool:
-        parent_fut = pool.submit(timed_build, build_parent_scan)
+        first_fut = pool.submit(timed_build, build_first_scan)
         builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
                                              RGK.build, RWK.build)))
-        (parent, parent_ptxas), parent_secs = parent_fut.result()
+        (first, first_ptxas), first_secs = first_fut.result()
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
-    log(f"[build] the parent's policy_scan (tools/policy_scan_designs.cu v0)"
-        f" in {parent_secs:.2f} s: {json.dumps(parent_ptxas)}")
+    log(f"[build] the first policy_scan design (tools/policy_scan_designs.cu"
+        f" v0) in {first_secs:.2f} s: {json.dumps(first_ptxas)}")
 
     # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports,
     # 7. paged attention and 8. the recurrent kernels at device scale,
     # 9. paged serving, 10. recurrent-model serving
     results: dict = {}
-    kernel_phase(torch, args.seed, device, results, parent)
+    kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
     attn_phase(torch, args.seed, device, results)
     recurrent_kernel_phase(torch, args.seed, device, results)

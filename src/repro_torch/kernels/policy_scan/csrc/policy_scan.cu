@@ -10,16 +10,17 @@
 //
 // Bound on this card: bytes. Per row the scan reads the columns its
 // programs reference plus size, blocks and valid (4 B each) and writes
-// R * 4 B of masks and 4 B of rule index. What kept the first kernel (PR 11)
-// at a quarter of that bound was instruction issue: a per-(tile, program)
+// R * 4 B of masks and 4 B of rule index. What kept the first kernel at a
+// quarter of that bound was instruction issue: a per-(tile, program)
 // reduction of 14 aggregates through warp shuffles and two __syncthreads
-// (1.7 of its 6.1 ms at R = 4), and an interpreter that re-read each
-// program word for every row.
+// (1.7 of its 6.1 ms at R = 4 on an H100), and an interpreter that re-read
+// each program word for every row.
 //
 // Design:
 //   - a block decodes its programs once into shared memory (policy_scan.cuh:
 //     NOPs dropped, stack positions worked out), and each thread runs a
-//     program on its ITEMS rows together, one decoded word for all of them;
+//     program on its rows of a stage together, one decoded word for all of
+//     them;
 //   - aggregates stay in registers across the whole grid-stride loop, with
 //     no barrier and no shuffle inside it: per 32 rows, one ballot per size
 //     bucket shared by all programs, and per program one ballot of its mask;
@@ -29,56 +30,45 @@
 //     at the end in a fixed order, and reduce_kernel sums the blocks in a
 //     fixed order and casts once to f32: the same bits from run to run, and
 //     program r's bits do not depend on R or on the other programs of the
-//     launch (the grid depends on N and the card only);
+//     launch (the grid depends on N and the card only, and a thread meets
+//     its rows in one order whatever the stage shape);
 //   - R is a template parameter up to MAX_PASS; more programs run in passes
 //     of MAX_PASS, the rule index carried from pass to pass through `rule`;
-//   - the columns a launch reads (stage_plan in kernel.py: size, blocks,
-//     valid and every column a live compare reads) are staged a tile at a
-//     time in shared memory by 1-D TMA bulk copies (cp.async.bulk) issued by
-//     one producer thread into a ring of `stages` tiles, an mbarrier pair a
-//     stage (full: bytes landed; empty: every consumer warp done), so a
-//     block keeps several tiles of every column in flight while its
-//     consumer warps interpret the tile before. The grid is persistent
-//     (blocks an SM from the occupancy API);
+//   - the columns a pass reads (stage_plan: size, blocks, valid and every
+//     column a live compare reads) are worked out by each block from its
+//     programs, so the host passes no plan and waits for nothing. They are
+//     staged a stage at a time in shared memory by 1-D TMA bulk copies
+//     (cp.async.bulk) issued by one producer thread into a ring of up to 4
+//     stages, an mbarrier pair a stage (full: bytes landed; empty: every
+//     consumer warp done), so a block keeps several stages of every column
+//     in flight while its consumer warps interpret the one before. A stage
+//     is a whole tile, or a half or a quarter of one when the columns are
+//     too many for 2 whole tiles (ring_shape); every column of the table
+//     fits a quarter-tile stage, so every value is read from shared memory.
+//     The grid is persistent (blocks an SM from the occupancy API);
 //   - a column whose start is not 16 B aligned (n % 4 != 0, or a view that
 //     starts inside its storage) is copied from the 16 B boundary before
-//     its first row of the tile (`shift` floats), and the ragged last tile
-//     from there to the boundary after its last row, so a copy reads no
-//     16 B chunk that holds none of the tensor's rows; only a column set
-//     too wide for a ring of 2 tiles is read by plain loads, in the same
-//     kernel;
+//     its first row of the stage (`shift` floats), and the ragged last
+//     stage from there to the boundary after its last row, so a copy reads
+//     no 16 B chunk that holds none of the tensor's rows;
 //   - masks and rule index go out as coalesced streaming stores.
+//
+// The aggregates count a row when its mask m = bit * valid is not 0 and
+// weight volume and spc_used by m: they equal the reference's sums of m
+// when the validity column holds only 0 and 1, as a catalog's does.
 #include <cuda_runtime.h>
 
 #include "policy_scan.cuh"
 
 namespace policy_scan {
 
-constexpr int THREADS = 256;             // consumer threads a block
 constexpr int WARPS = THREADS / 32;
 constexpr int BLOCK = THREADS + 32;      // and one producer warp
-constexpr int ITEMS = 4;                 // rows a consumer thread a tile
-constexpr int TILE = THREADS * ITEMS;
-constexpr int SEG = TILE + 4;            // floats a staged column segment
 constexpr int MAX_PASS = 8;              // programs a pass
-constexpr int MAX_STAGES = 4;
-// a block's shared memory: the stage ring (12 columns fit 2 tiles) and
-// the rest (programs, barriers, sums), 2 blocks an SM
-constexpr int RING_BYTES = 104 * 1024;
+// a block's shared memory besides the ring (barriers, plan, programs,
+// sums) that the grid leaves room for: 2 blocks an SM
 constexpr int EXTRA_BYTES = 8 * 1024;
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-// The staged columns of a launch, passed by value. Column col[s] starts
-// shift[s] floats past a 16 B boundary; its segment of a tile is copied
-// from that boundary, so row i of the tile lands at off[s] + i of the
-// stage, off[s] = s * SEG + shift[s].
-struct Stage {
-  int col[MAX_STAGE];
-  int shift[MAX_STAGE];
-  int off[MAX_STAGE];
-  int n;
-  int stages;        // ring depth; 0: no staging, every tile by plain loads
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -130,13 +120,23 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// Byte offsets of the dynamic shared memory of one launch.
+__host__ __device__ constexpr size_t align8(size_t x) {
+  return (x + 7) & ~static_cast<size_t>(7);
+}
+
+// Byte offsets of the dynamic shared memory of one launch: the ring first,
+// then the barriers, the plan (staged columns; where each column is in a
+// stage; the read set), the per-warp sums and the decoded programs.
 struct Layout {
-  size_t ring, bars, vol, spc, hist, code, opr, len, final_, total;
-  __host__ __device__ Layout(int r, int n_instr, int stages, int n_stage) {
-    ring = 0;
-    bars = static_cast<size_t>(stages) * n_stage * SEG * sizeof(float);
-    vol = bars + 2 * sizeof(uint64_t) * stages;
+  size_t bars, stage, where, seen, n_stage, vol, spc, hist, code, opr, len,
+      final_, total;
+  __host__ __device__ Layout(int r, int n_instr) {
+    bars = sizeof(float) * RING_FLOATS;
+    stage = bars + 2 * sizeof(uint64_t) * MAX_STAGES;
+    where = stage + sizeof(int) * MAX_COLS;
+    seen = where + sizeof(int) * MAX_COLS;
+    n_stage = seen + sizeof(uint32_t) * SEEN_WORDS;
+    vol = align8(n_stage + sizeof(int));
     spc = vol + sizeof(double) * WARPS * r;
     hist = spc + sizeof(double) * WARPS * r;
     code = hist + sizeof(uint32_t) * WARPS * r * N_BUCKETS;
@@ -147,39 +147,28 @@ struct Layout {
   }
 };
 
-// One tile of a consumer thread: ITEMS rows, every program of the pass.
-// STAGED: the staged columns are in `seg` (row `local` of the column at
-// offset o at seg[o + local]); otherwise read from `cols`. Rows >= n are
-// masked either way.
-template <int R, bool STAGED>
-__device__ __forceinline__ void scan_tile(
-    const float* __restrict__ cols, long long n, long long tile,
-    const float* seg, const uint32_t* s_code, const float* s_opr,
-    const int* s_len, const int* s_final, int n_instr, int prog0,
-    int size_at, int blocks_at, int valid_at, bool has_valid,
+// One stage of a consumer thread: its J rows from row0 (row0 + j * THREADS
+// + tid), every program of the pass. The stage's column at offset o holds
+// row row0 + i at seg[o + i]. Rows >= n are masked.
+template <int R, int J>
+__device__ __forceinline__ void scan_stage(
+    long long n, long long row0, const float* seg, const uint32_t* s_code,
+    const float* s_opr, const int* s_len, const int* s_final, int n_instr,
+    int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
     float* __restrict__ masks, int* __restrict__ rule, uint32_t (&hist)[R],
     double (&vol)[R], double (&spc)[R]) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const long long row0 = tile * TILE + tid;
-  bool in[ITEMS];
-  float size[ITEMS], blocks[ITEMS], valid[ITEMS];
-  uint32_t mine[ITEMS];       // rows of this warp's 32 in bucket `lane`
+  bool in[J];
+  float size[J], blocks[J], valid[J];
+  uint32_t mine[J];           // rows of this warp's 32 in bucket `lane`
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long row = row0 + j * THREADS;
+  for (int j = 0; j < J; ++j) {
     const int local = j * THREADS + tid;
-    in[j] = row < n;
-    if (STAGED) {
-      size[j] = in[j] ? seg[size_at + local] : 0.f;
-      blocks[j] = in[j] ? seg[blocks_at + local] : 0.f;
-      valid[j] = (in[j] && has_valid) ? seg[valid_at + local] : 1.f;
-    } else {
-      size[j] = in[j] ? __ldg(cols + size_at * n + row) : 0.f;
-      blocks[j] = in[j] ? __ldg(cols + blocks_at * n + row) : 0.f;
-      valid[j] = (in[j] && has_valid) ? __ldg(cols + valid_at * n + row)
-                                      : 1.f;
-    }
+    in[j] = row0 + local < n;
+    size[j] = in[j] ? seg[size_at + local] : 0.f;
+    blocks[j] = in[j] ? seg[blocks_at + local] : 0.f;
+    valid[j] = (in[j] && has_valid) ? seg[valid_at + local] : 1.f;
     // lane k < 10 builds bucket k's mask from 4 ballots of the bucket's
     // bits (a row past n has bucket 15, in no lane's mask)
     const int bucket = in[j] ? size_bucket(size[j]) : 15;
@@ -191,34 +180,23 @@ __device__ __forceinline__ void scan_tile(
     }
     mine[j] = m;
   }
-  // every program on the ITEMS rows: bit r of bits[j] is program r's
-  uint32_t bits[ITEMS];
+  // every program on the J rows: bit r of bits[j] is program r's
+  uint32_t bits[J];
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) bits[j] = 0u;
+  for (int j = 0; j < J; ++j) bits[j] = 0u;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    uint32_t bit[ITEMS];
+    uint32_t bit[J];
     const int base = r * n_instr;
-    if (STAGED) {
-      eval_program(s_code + base, s_opr + base, s_len[r], s_final[r],
-                   [&](int j, int at) {
-                     return seg[at + j * THREADS + tid];
-                   },
-                   bit);
-    } else {
-      eval_program(s_code + base, s_opr + base, s_len[r], s_final[r],
-                   [&](int j, int col) {
-                     return in[j] ? __ldg(cols + col * n + row0 + j * THREADS)
-                                  : 0.f;
-                   },
-                   bit);
-    }
+    eval_program(s_code + base, s_opr + base, s_len[r], s_final[r],
+                 [&](int j, int at) { return seg[at + j * THREADS + tid]; },
+                 bit);
 #pragma unroll
-    for (int j = 0; j < ITEMS; ++j) bits[j] |= bit[j] << r;
+    for (int j = 0; j < J; ++j) bits[j] |= bit[j] << r;
   }
 #pragma unroll
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long row = row0 + j * THREADS;
+  for (int j = 0; j < J; ++j) {
+    const long long row = row0 + j * THREADS + tid;
     const double size_d = size[j], blocks_d = blocks[j];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -228,7 +206,7 @@ __device__ __forceinline__ void scan_tile(
       if (in[j]) __stcs(masks + (prog0 + r) * n + row, m);
       const uint32_t set = __ballot_sync(FULL_MASK, m != 0.f);
       hist[r] += __popc(set & mine[j]);
-      const double md = m != 0.f ? 1.0 : 0.0;
+      const double md = m;
       vol[r] = fma(md, size_d, vol[r]);
       spc[r] = fma(md, blocks_d, spc[r]);
     }
@@ -250,6 +228,81 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// The stages of a tile in order: (tile, q) for q < ITEMS / items, while a
+// row of the stage is below n. The producer and the consumers walk the same
+// sequence through the ring's slots s = 0, 1, ..., stages - 1, 0, ..., the
+// barriers' phase flipping at each wrap.
+#define FOR_EACH_STAGE(items)                                              \
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)     \
+    for (int q = 0; q < ITEMS / (items); ++q)                              \
+      if (const long long row0 = tile * TILE +                             \
+                                 static_cast<long long>(q) * (items) *     \
+                                     THREADS;                              \
+          row0 < n)
+
+// A consumer warp's whole scan with J rows a thread a stage, then its
+// per-warp sums into shared memory.
+template <int R, int J>
+__device__ __forceinline__ void consume(
+    long long n, const float* ring, const Ring& g, int n_stage,
+    uint64_t* full, uint64_t* empty, const uint32_t* s_code,
+    const float* s_opr, const int* s_len, const int* s_final, int n_instr,
+    int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
+    float* __restrict__ masks, int* __restrict__ rule, double* s_vol,
+    double* s_spc, uint32_t* s_hist) {
+  const int tid = threadIdx.x;
+  const long long n_tiles = (n + TILE - 1) / TILE;
+  const int stage_floats = n_stage * g.seg;
+  uint32_t hist[R];
+  double vol[R], spc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    hist[r] = 0u;
+    vol[r] = 0.0;
+    spc[r] = 0.0;
+  }
+  int s = 0;
+  uint32_t phase = 0;
+  FOR_EACH_STAGE(J) {
+    mbar_wait(&full[s], phase);
+    scan_stage<R, J>(n, row0, ring + s * stage_floats, s_code, s_opr, s_len,
+                     s_final, n_instr, prog0, size_at, blocks_at, valid_at,
+                     has_valid, masks, rule, hist, vol, spc);
+    __syncwarp();                      // the warp is done with stage s
+    if ((tid & 31) == 0) mbar_arrive(&empty[s]);
+    if (++s == g.stages) {
+      s = 0;
+      phase ^= 1u;
+    }
+  }
+  // once a block, in a fixed order: lanes (a shuffle tree), then warps
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const double v = warp_sum(vol[r]), p = warp_sum(spc[r]);
+    if (lane == 0) {
+      s_vol[warp * R + r] = v;
+      s_spc[warp * R + r] = p;
+    }
+    if (lane < N_BUCKETS) s_hist[(warp * R + r) * N_BUCKETS + lane] = hist[r];
+  }
+}
+
+// consume for part-tile stages (wide column sets), out of line: inlined
+// beside the whole-tile path it cost that path registers and spills.
+template <int R, int J>
+__device__ __noinline__ void consume_far(
+    long long n, const float* ring, const Ring& g, int n_stage,
+    uint64_t* full, uint64_t* empty, const uint32_t* s_code,
+    const float* s_opr, const int* s_len, const int* s_final, int n_instr,
+    int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
+    float* __restrict__ masks, int* __restrict__ rule, double* s_vol,
+    double* s_spc, uint32_t* s_hist) {
+  consume<R, J>(n, ring, g, n_stage, full, empty, s_code, s_opr, s_len,
+                s_final, n_instr, prog0, size_at, blocks_at, valid_at,
+                has_valid, masks, rule, s_vol, s_spc, s_hist);
+}
+
 // Programs prog0 .. prog0+R-1 of n_progs over all rows. partials: per
 // (block, program) 14 words: volume and spc_used as f64, then the 10
 // bucket counts as u32.
@@ -260,13 +313,16 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
     const float* __restrict__ g_operands, int n_instr, int prog0,
     int n_progs, int size_col, int blocks_col, int valid_col,
     float* __restrict__ masks, int* __restrict__ rule,
-    uint32_t* __restrict__ partials, const Stage st) {
+    uint32_t* __restrict__ partials) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int stages = st.stages;
-  const Layout lay(R, n_instr, stages, st.n);
-  float* ring = reinterpret_cast<float*>(smem + lay.ring);
+  const Layout lay(R, n_instr);
+  float* ring = reinterpret_cast<float*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  uint64_t* empty = full + stages;
+  uint64_t* empty = full + MAX_STAGES;
+  int* s_stage = reinterpret_cast<int*>(smem + lay.stage);
+  int* s_where = reinterpret_cast<int*>(smem + lay.where);
+  uint32_t* s_seen = reinterpret_cast<uint32_t*>(smem + lay.seen);
+  int* s_n_stage = reinterpret_cast<int*>(smem + lay.n_stage);
   double* s_vol = reinterpret_cast<double*>(smem + lay.vol);
   double* s_spc = reinterpret_cast<double*>(smem + lay.spc);
   uint32_t* s_hist = reinterpret_cast<uint32_t*>(smem + lay.hist);
@@ -274,100 +330,97 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
   float* s_opr = reinterpret_cast<float*>(smem + lay.opr);
   int* s_len = reinterpret_cast<int*>(smem + lay.len);
   int* s_final = reinterpret_cast<int*>(smem + lay.final_);
-
   const int tid = threadIdx.x;
-  if (tid < R) {
-    const long long at = static_cast<long long>(prog0 + tid) * n_instr;
-    s_len[tid] = decode_program(g_ops + at, g_colidx + at, g_operands + at,
-                                n_instr, n_cols, st.col, st.off,
-                                stages > 0 ? st.n : 0, s_code + tid * n_instr,
-                                s_opr + tid * n_instr, &s_final[tid]);
+
+  // the plan: the columns the pass's live compares read, by every thread
+  if (tid < SEEN_WORDS) s_seen[tid] = 0u;
+  __syncthreads();
+  const long long at0 = static_cast<long long>(prog0) * n_instr;
+  for (int i = tid; i < R * n_instr; i += BLOCK) {
+    const int c = compare_col(g_ops[at0 + i], g_colidx[at0 + i], n_cols);
+    if (c >= 0) atomicOr(&s_seen[c >> 5], 1u << (c & 31));
+  }
+  __syncthreads();
+  if (tid == 0)
+    *s_n_stage = stage_list(s_seen, size_col, blocks_col, valid_col, s_stage);
+  __syncthreads();
+  const int n_stage = *s_n_stage;
+  const Ring g = ring_shape(n_stage);
+  if (tid < n_stage) {
+    // where column s_stage[tid] sits in a stage: its segment, then the
+    // floats its copy starts before its first row (stages start at
+    // multiples of THREADS rows, so the shift is the same for every stage)
+    const int col = s_stage[tid];
+    const int shift = static_cast<int>(
+        reinterpret_cast<uintptr_t>(cols + col * n) % 16 / sizeof(float));
+    s_where[col] = tid * g.seg + shift;
   }
   if (tid == THREADS) {
-    for (int s = 0; s < stages; ++s) {
+    for (int s = 0; s < g.stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  __syncwarp();
+  __syncthreads();
+  if (tid < R) {
+    const long long at = static_cast<long long>(prog0 + tid) * n_instr;
+    s_len[tid] = decode_program(g_ops + at, g_colidx + at, g_operands + at,
+                                n_instr, n_cols, s_where,
+                                s_code + tid * n_instr,
+                                s_opr + tid * n_instr, &s_final[tid]);
+  }
   __syncthreads();
 
-  const long long n_tiles = (n + TILE - 1) / TILE;
-  const int stage_words = st.n * SEG;
   if (tid >= THREADS) {                          // the producer warp
-    if (tid == THREADS && stages > 0) {
-      int k = 0;
-      for (long long tile = blockIdx.x; tile < n_tiles;
-           tile += gridDim.x, ++k) {
-        const int s = k % stages;
-        if (k >= stages) mbar_wait(&empty[s], ((k / stages) + 1) & 1);
-        // rows of the tile; each column's copy starts at the 16 B
-        // boundary at or before its first row and ends at the one at or
-        // after its last, so it reads no 16 B chunk without a row in it
-        const long long rows = n - tile * TILE < TILE ? n - tile * TILE
-                                                      : TILE;
+    if (tid == THREADS) {
+      const long long n_tiles = (n + TILE - 1) / TILE;
+      const int rows_max = g.items * THREADS;
+      int s = 0;
+      uint32_t phase = 0;
+      bool wrapped = false;
+      FOR_EACH_STAGE(g.items) {
+        if (wrapped) mbar_wait(&empty[s], phase ^ 1u);
+        // each column's copy starts at the 16 B boundary at or before its
+        // first row and ends at the one at or after its last, so it reads
+        // no 16 B chunk without a row in it
+        const int rows = n - row0 < rows_max ? static_cast<int>(n - row0)
+                                             : rows_max;
+        float* dst = ring + s * n_stage * g.seg;
         uint32_t tx = 0;
-        for (int c = 0; c < st.n; ++c)
-          tx += ((st.shift[c] + rows + 3) / 4) * 16;
+        for (int c = 0; c < n_stage; ++c)
+          tx += ((s_where[s_stage[c]] - c * g.seg + rows + 3) / 4) * 16;
         mbar_expect_tx(&full[s], tx);
-        for (int c = 0; c < st.n; ++c)
-          bulk_load(ring + s * stage_words + c * SEG,
-                    cols + st.col[c] * n + tile * TILE - st.shift[c],
-                    static_cast<uint32_t>((st.shift[c] + rows + 3) / 4) * 16,
+        for (int c = 0; c < n_stage; ++c) {
+          const int shift = s_where[s_stage[c]] - c * g.seg;
+          bulk_load(dst + c * g.seg, cols + s_stage[c] * n + row0 - shift,
+                    static_cast<uint32_t>((shift + rows + 3) / 4) * 16,
                     &full[s]);
+        }
+        if (++s == g.stages) {
+          s = 0;
+          phase ^= 1u;
+          wrapped = true;
+        }
       }
     }
     __syncwarp();
   } else {                                       // the consumer warps
     const bool has_valid = valid_col >= 0;
-    int size_at = size_col, blocks_at = blocks_col, valid_at = valid_col;
-    if (stages > 0) {
-      for (int c = st.n - 1; c >= 0; --c) {
-        if (st.col[c] == size_col) size_at = st.off[c];
-        if (st.col[c] == blocks_col) blocks_at = st.off[c];
-        if (st.col[c] == valid_col) valid_at = st.off[c];
-      }
-    }
-    uint32_t hist[R];
-    double vol[R], spc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      hist[r] = 0u;
-      vol[r] = 0.0;
-      spc[r] = 0.0;
-    }
-    int k = 0;
-    for (long long tile = blockIdx.x; tile < n_tiles;
-         tile += gridDim.x, ++k) {
-      if (stages > 0) {
-        const int s = k % stages;
-        mbar_wait(&full[s], (k / stages) & 1);
-        scan_tile<R, true>(cols, n, tile, ring + s * stage_words, s_code,
-                           s_opr, s_len, s_final, n_instr, prog0, size_at,
-                           blocks_at, valid_at, has_valid, masks, rule, hist,
-                           vol, spc);
-        __syncwarp();                  // the warp is done with stage s
-        if ((tid & 31) == 0) mbar_arrive(&empty[s]);
-      } else {
-        scan_tile<R, false>(cols, n, tile, nullptr, s_code, s_opr, s_len,
-                            s_final, n_instr, prog0, size_at, blocks_at,
-                            valid_at, has_valid, masks, rule, hist, vol, spc);
-      }
-    }
-    // once a block, in a fixed order: lanes (a shuffle tree), then warps
-    const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const double v = warp_sum(vol[r]), p = warp_sum(spc[r]);
-      if (lane == 0) {
-        s_vol[warp * R + r] = v;
-        s_spc[warp * R + r] = p;
-      }
-      if (lane < N_BUCKETS)
-        s_hist[(warp * R + r) * N_BUCKETS + lane] = hist[r];
-    }
+    const int size_at = s_where[size_col], blocks_at = s_where[blocks_col];
+    const int valid_at = has_valid ? s_where[valid_col] : 0;
+#define PS_ARGS                                                             \
+  n, ring, g, n_stage, full, empty, s_code, s_opr, s_len, s_final, n_instr, \
+      prog0, size_at, blocks_at, valid_at, has_valid, masks, rule, s_vol,   \
+      s_spc, s_hist
+    if (g.items == ITEMS)
+      consume<R, ITEMS>(PS_ARGS);
+    else if (g.items == ITEMS / 2)
+      consume_far<R, ITEMS / 2>(PS_ARGS);
+    else
+      consume_far<R, 1>(PS_ARGS);
+#undef PS_ARGS
     __syncwarp();
   }
   __syncthreads();
@@ -388,6 +441,7 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
     }
   }
 }
+#undef FOR_EACH_STAGE
 
 // One block per program: the blocks' partials summed in a fixed order
 // (a strided walk, then a tree), cast once to f32. count is the sum of the
@@ -442,37 +496,44 @@ cudaError_t launch_pass(const float* cols, long long n, int n_cols,
                         const float* operands, int n_instr, int prog0,
                         int n_progs, int size_col, int blocks_col,
                         int valid_col, float* masks, int* rule,
-                        uint32_t* partials, const Stage& st, int grid,
-                        cudaStream_t s) {
-  const size_t smem = Layout(R, n_instr, st.stages, st.n).total;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+                        uint32_t* partials, int grid, cudaStream_t s) {
+  const size_t smem = Layout(R, n_instr).total;
+  const cudaError_t e = cudaFuncSetAttribute(
+      scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
   scan_kernel<R><<<grid, BLOCK, smem, s>>>(
       cols, n, n_cols, ops, colidx, operands, n_instr, prog0, n_progs,
-      size_col, blocks_col, valid_col, masks, rule, partials, st);
+      size_col, blocks_col, valid_col, masks, rule, partials);
   return cudaGetLastError();
 }
 
 using PassFn = cudaError_t (*)(const float*, long long, int, const int*,
                                const int*, const float*, int, int, int, int,
-                               int, int, float*, int*, uint32_t*,
-                               const Stage&, int, cudaStream_t);
+                               int, int, float*, int*, uint32_t*, int,
+                               cudaStream_t);
 constexpr PassFn PASSES[MAX_PASS] = {
     launch_pass<1>, launch_pass<2>, launch_pass<3>, launch_pass<4>,
     launch_pass<5>, launch_pass<6>, launch_pass<7>, launch_pass<8>};
 
-// Ring depth for n_stage staged columns: as many tiles as RING_BYTES holds,
-// at most MAX_STAGES; fewer than 2 stages do not overlap, so 0 (no
-// staging) then.
-int ring_stages(int n_stage) {
-  if (n_stage < 1 || n_stage > MAX_STAGE) return 0;
-  const int per = n_stage * SEG * static_cast<int>(sizeof(float));
-  const int s = RING_BYTES / per < MAX_STAGES ? RING_BYTES / per : MAX_STAGES;
-  return s >= 2 ? s : 0;
+const void* const KERNELS[MAX_PASS] = {
+    (const void*)scan_kernel<1>, (const void*)scan_kernel<2>,
+    (const void*)scan_kernel<3>, (const void*)scan_kernel<4>,
+    (const void*)scan_kernel<5>, (const void*)scan_kernel<6>,
+    (const void*)scan_kernel<7>, (const void*)scan_kernel<8>};
+
+// Resident blocks an SM of the pass of r programs with smem bytes of
+// dynamic shared memory; -1 on error.
+int occupancy(int r, size_t smem) {
+  const void* k = KERNELS[r - 1];
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, BLOCK,
+                                                    smem) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace policy_scan
@@ -485,39 +546,33 @@ const char* policy_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int policy_scan_max_stage() { return policy_scan::MAX_STAGE; }
-
 int policy_scan_max_cols() { return policy_scan::MAX_COLS; }
 
-// Ring stages a launch with n_stage staged columns uses (0: plain loads).
-int policy_scan_stages(int n_stage) {
-  return policy_scan::ring_stages(n_stage);
-}
-
-// Resident blocks an SM of the widest pass (MAX_PASS programs) with a full
-// ring and EXTRA_BYTES for programs and sums; -1 on error.
-static int widest_occupancy() {
+// The plan a block of a pass over programs (ops, colidx)[0:count] (host
+// memory) makes: the staged columns into stage[0:MAX_COLS] (returns their
+// number), the rows of a stage and the ring's stages.
+int policy_scan_plan(const int* ops, const int* colidx, int count,
+                     int n_cols, int size_col, int blocks_col, int valid_col,
+                     int* stage, int* stage_rows, int* stages) {
   using namespace policy_scan;
-  const int smem = RING_BYTES + EXTRA_BYTES;
-  if (cudaFuncSetAttribute(scan_kernel<MAX_PASS>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return -1;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, scan_kernel<MAX_PASS>, BLOCK, smem) != cudaSuccess)
-    return -1;
-  return blocks;
+  const int n = stage_plan(ops, colidx, count, n_cols, size_col, blocks_col,
+                           valid_col, stage);
+  const Ring g = ring_shape(n);
+  *stage_rows = g.items * THREADS;
+  *stages = g.stages;
+  return n;
 }
 
-// The persistent grid for n rows on a card of `sms` SMs: every SM's resident
-// blocks, fewer when there are fewer tiles. It depends on n and the card
-// alone, never on the programs, so each program's sums group rows alike in
-// every launch. -1 on error.
+// The persistent grid for n rows on a card of `sms` SMs: every SM's
+// resident blocks of the widest pass (MAX_PASS programs, EXTRA_BYTES for
+// its programs and sums), fewer when there are fewer tiles. It depends on
+// n and the card alone, never on the programs, so each program's sums
+// group rows alike in every launch. -1 on error.
 int policy_scan_grid(long long n, int sms) {
   using namespace policy_scan;
   static int per_sm = 0;
-  if (per_sm <= 0) per_sm = widest_occupancy();
+  if (per_sm <= 0)
+    per_sm = occupancy(MAX_PASS, sizeof(float) * RING_FLOATS + EXTRA_BYTES);
   if (per_sm <= 0) return -1;
   const long long tiles = (n + TILE - 1) / TILE;
   const long long grid = static_cast<long long>(sms) * per_sm;
@@ -525,64 +580,37 @@ int policy_scan_grid(long long n, int sms) {
 }
 
 // Resident blocks an SM of a launch of n_progs programs of n_instr words
-// with n_stage staged columns (its widest pass); -1 on error.
-int policy_scan_occupancy(int n_progs, int n_instr, int n_stage) {
+// (its widest pass); -1 on error.
+int policy_scan_occupancy(int n_progs, int n_instr) {
   using namespace policy_scan;
   const int r = n_progs < MAX_PASS ? n_progs : MAX_PASS;
-  const int stages = ring_stages(n_stage);
-  const size_t smem = Layout(r, n_instr, stages, stages ? n_stage : 0).total;
-  static const void* kernels[MAX_PASS] = {
-      (const void*)scan_kernel<1>, (const void*)scan_kernel<2>,
-      (const void*)scan_kernel<3>, (const void*)scan_kernel<4>,
-      (const void*)scan_kernel<5>, (const void*)scan_kernel<6>,
-      (const void*)scan_kernel<7>, (const void*)scan_kernel<8>};
-  const void* k = kernels[r - 1];
-  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess)
-    return -1;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, BLOCK,
-                                                    smem) != cudaSuccess)
-    return -1;
-  return blocks;
+  return occupancy(r, Layout(r, n_instr).total);
 }
 
 // Launches the scan (in passes of at most MAX_PASS programs) and the block
 // reduction on `stream`. `rule` may be null (single-program form).
-// `partials` holds grid * n_progs * 14 words (f64 sums, u32 counts).
-// `stage_cols` (host memory) lists the n_stage columns to stage (kernel.py's
-// stage_plan); they are bulk-copied, each from the 16 B boundary at or
-// before its start, when the ring holds at least 2 tiles of them, else
-// every tile is read by plain loads. Returns cudaGetLastError() after the
-// launches: 0 when all were accepted.
+// `partials` holds grid * n_progs * 14 words (f64 sums, u32 counts); grid
+// is policy_scan_grid's. cols has at most MAX_COLS columns. Each block
+// works out from the programs which columns it stages. The aggregates
+// equal the reference's when the validity column holds only 0 and 1.
+// Returns cudaGetLastError() after the launches: 0 when all were accepted.
 int policy_scan_launch(const float* cols, long long n, int n_cols,
                        const int* ops, const int* colidx,
                        const float* operands, int n_progs, int n_instr,
                        int size_col, int blocks_col, int valid_col,
                        float* masks, int* rule, float* partials, float* agg,
-                       int grid, void* stream, const int* stage_cols,
-                       int n_stage) {
+                       int grid, void* stream) {
   using namespace policy_scan;
-  if (n_cols > MAX_COLS || n_stage < 0 || n_stage > MAX_STAGE ||
+  if (n_cols < 1 || n_cols > MAX_COLS ||
       reinterpret_cast<uintptr_t>(cols) % sizeof(float) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Stage st{};
-  st.stages = ring_stages(n_stage);
-  st.n = st.stages > 0 ? n_stage : 0;
-  for (int i = 0; i < st.n; ++i) {
-    st.col[i] = stage_cols[i];
-    st.shift[i] = static_cast<int>(
-        reinterpret_cast<uintptr_t>(cols + stage_cols[i] * n) % 16 /
-        sizeof(float));
-    st.off[i] = i * SEG + st.shift[i];
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* part = reinterpret_cast<uint32_t*>(partials);
   for (int p0 = 0; p0 < n_progs; p0 += MAX_PASS) {
     const int r = n_progs - p0 < MAX_PASS ? n_progs - p0 : MAX_PASS;
     const cudaError_t e = PASSES[r - 1](
         cols, n, n_cols, ops, colidx, operands, n_instr, p0, n_progs,
-        size_col, blocks_col, valid_col, masks, rule, part, st, grid, s);
+        size_col, blocks_col, valid_col, masks, rule, part, grid, s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   reduce_kernel<<<n_progs, THREADS, 0, s>>>(part, grid, n_progs, agg);

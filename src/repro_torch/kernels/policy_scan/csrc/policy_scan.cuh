@@ -14,8 +14,10 @@
 // interpreter (eval_program) then only branches on the opcode, which is the
 // same in every thread: its branches never diverge inside a warp.
 //
-// The functions are __host__ __device__ so the decoder and interpreter can
-// be compiled for the host too.
+// The staged column set of a launch (stage_plan) and the ring that holds it
+// (ring_shape) are worked out here too. The functions are __host__
+// __device__ so the staging plan, decoder and interpreter can be compiled
+// for the host too.
 #pragma once
 
 #include <cstdint>
@@ -32,8 +34,17 @@ namespace policy_scan {
 constexpr int MAX_STACK = 8;
 constexpr int N_AGG = 14;      // count, volume, spc_used, hist x10, any_match
 constexpr int N_BUCKETS = 10;
-constexpr int MAX_COLS = 1 << 19;   // a decoded column has 19 bits
-constexpr int MAX_STAGE = 32;       // columns a launch stages at most
+// A launch's table has at most MAX_COLS columns, so the ring below holds a
+// stage of every column a launch can read: no column is ever read outside
+// shared memory.
+constexpr int MAX_COLS = 96;
+constexpr int SEEN_WORDS = (MAX_COLS + 31) / 32;
+
+constexpr int THREADS = 256;             // consumer threads a block
+constexpr int ITEMS = 4;                 // rows a consumer thread a tile
+constexpr int TILE = THREADS * ITEMS;
+constexpr int RING_FLOATS = 26 * 1024;   // the stage ring, 104 KB
+constexpr int MAX_STAGES = 4;
 
 enum : int { OP_EQ = 0, OP_NE, OP_GT, OP_GE, OP_LT, OP_LE, OP_AND, OP_OR,
              OP_NOT, OP_ELSE };
@@ -42,26 +53,83 @@ PS_HD int clamp_slot(int pos) {
   return pos < 0 ? 0 : (pos > MAX_STACK - 1 ? MAX_STACK - 1 : pos);
 }
 
+// The column a live compare reads, clamped into [0, n_cols) as the
+// reference clamps it; -1 for any other instruction (it reads none).
+PS_HD int compare_col(int op, int col, int n_cols) {
+  if (op < 0 || op >= 6) return -1;
+  return col < 0 ? 0 : (col > n_cols - 1 ? n_cols - 1 : col);
+}
+
+// The staged columns of a launch from `seen`, the bit set of the columns
+// its live compares read: size, blocks and valid (none when valid_col < 0),
+// then the rest of `seen` in increasing order, each once. Returns their
+// number (at most MAX_COLS).
+PS_HD int stage_list(const uint32_t* seen, int size_col, int blocks_col,
+                     int valid_col, int* stage) {
+  int n = 0;
+  stage[n++] = size_col;
+  if (blocks_col != size_col) stage[n++] = blocks_col;
+  if (valid_col >= 0 && valid_col != size_col && valid_col != blocks_col)
+    stage[n++] = valid_col;
+  for (int c = 0; c < MAX_COLS; ++c)
+    if (((seen[c >> 5] >> (c & 31)) & 1u) && c != size_col &&
+        c != blocks_col && c != valid_col)
+      stage[n++] = c;
+  return n;
+}
+
+// stage_list of programs (ops, colidx)[0:count], one thread alone (the
+// kernel builds `seen` with all its threads, then calls stage_list).
+PS_HD int stage_plan(const int* ops, const int* colidx, int count,
+                     int n_cols, int size_col, int blocks_col, int valid_col,
+                     int* stage) {
+  uint32_t seen[SEEN_WORDS] = {};
+  for (int i = 0; i < count; ++i) {
+    const int c = compare_col(ops[i], colidx[i], n_cols);
+    if (c >= 0) seen[c >> 5] |= 1u << (c & 31);
+  }
+  return stage_list(seen, size_col, blocks_col, valid_col, stage);
+}
+
+// How the ring holds n_stage columns: a stage is `items` rows a consumer
+// thread (items * THREADS rows, a contiguous part of a tile), each column
+// in a segment of `seg` floats (the rows and up to 3 floats before them,
+// from the 16 B boundary), `stages` stages deep. The widest stage (a whole,
+// half or quarter tile) that leaves 2 stages is taken, else a quarter tile
+// with as many stages as fit (at least 1 for MAX_COLS columns). A thread
+// meets its rows in the same order whatever the stage, so the sums do not
+// depend on it.
+struct Ring {
+  int items, stages, seg;
+};
+
+PS_HD Ring ring_shape(int n_stage) {
+  Ring g{ITEMS, 0, 0};
+  for (;; g.items /= 2) {
+    g.seg = g.items * THREADS + 4;
+    g.stages = RING_FLOATS / (n_stage * g.seg);
+    if (g.stages > MAX_STAGES) g.stages = MAX_STAGES;
+    if (g.stages >= 2 || g.items == 1) return g;
+  }
+}
+
 // A decoded instruction in one word: opcode (bits 0-3; OP_ELSE for any
 // unknown opcode), read positions a (4-6) and b (7-9), write position
-// (10-12) and, in bits 13-31, where a compare finds its column: the offset
-// of the column's staged segment when the launch stages (`offset` below),
-// else the column itself, clamped into [0, n_cols).
+// (10-12) and, in bits 13-31, `where` a compare finds its column: the
+// offset of the column's segment in a stage (`where_of` below).
 PS_HD uint32_t pack(int op, int pa, int pb, int pw, int where) {
   return static_cast<uint32_t>(op) | static_cast<uint32_t>(pa) << 4 |
          static_cast<uint32_t>(pb) << 7 | static_cast<uint32_t>(pw) << 10 |
          static_cast<uint32_t>(where) << 13;
 }
 
-// Decodes program (ops, colidx, operands)[0:n_instr] into code/opr[0:len].
-// With n_stage > 0 the columns stage[0:n_stage] are staged, column stage[s]
-// at offset[s]: a compare reads the first slot holding its clamped column
-// (slot 0 if none does, which stage_plan in kernel.py rules out). Returns
-// len; *final is the stack position of the result.
+// Decodes program (ops, colidx, operands)[0:n_instr] into code/opr[0:len];
+// a compare of (clamped) column c finds it at where_of[c]. Returns len;
+// *final is the stack position of the result.
 PS_HD int decode_program(const int* ops, const int* colidx,
                          const float* operands, int n_instr, int n_cols,
-                         const int* stage, const int* offset, int n_stage,
-                         uint32_t* code, float* opr, int* final) {
+                         const int* where_of, uint32_t* code, float* opr,
+                         int* final) {
   int sp = 0, len = 0;
   for (int i = 0; i < n_instr; ++i) {
     int op = ops[i];
@@ -69,15 +137,7 @@ PS_HD int decode_program(const int* ops, const int* colidx,
     const int pa = clamp_slot(sp - 1), pb = clamp_slot(sp - 2);
     int pw, where = 0;
     if (op < 6) {
-      const int col = colidx[i] < 0 ? 0 : (colidx[i] > n_cols - 1
-                                               ? n_cols - 1 : colidx[i]);
-      where = col;
-      if (n_stage > 0) {
-        int slot = 0;
-        for (int s = n_stage - 1; s >= 0; --s)
-          if (stage[s] == col) slot = s;
-        where = offset[slot];
-      }
+      where = where_of[compare_col(op, colidx[i], n_cols)];
       pw = clamp_slot(sp);
       sp += 1;
     } else if (op == OP_AND || op == OP_OR) {

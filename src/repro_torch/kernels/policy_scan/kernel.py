@@ -63,53 +63,21 @@ def _lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.policy_scan_launch.argtypes = [
-                p, ll, i, p, p, p, i, i, i, i, i, p, p, p, p, i, p, p, i]
+                p, ll, i, p, p, p, i, i, i, i, i, p, p, p, p, i, p]
             lib.policy_scan_launch.restype = i
             lib.policy_scan_grid.argtypes = [ll, i]
             lib.policy_scan_grid.restype = i
-            lib.policy_scan_stages.argtypes = [i]
-            lib.policy_scan_stages.restype = i
-            lib.policy_scan_occupancy.argtypes = [i, i, i]
+            lib.policy_scan_plan.argtypes = [p, p, i, i, i, i, i, p, p, p]
+            lib.policy_scan_plan.restype = i
+            lib.policy_scan_occupancy.argtypes = [i, i]
             lib.policy_scan_occupancy.restype = i
-            for name in ("policy_scan_tile_rows", "policy_scan_max_stage",
-                         "policy_scan_max_cols"):
+            for name in ("policy_scan_tile_rows", "policy_scan_max_cols"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
             lib.policy_scan_error_string.argtypes = [i]
             lib.policy_scan_error_string.restype = ctypes.c_char_p
             _LIB = lib
         return _LIB
-
-
-def stage_plan(ops, colidx, *, n_cols: int, size_col: int, blocks_col: int,
-               valid_col: int) -> Tuple[Tuple[int, ...], np.ndarray]:
-    """The columns a launch stages in shared memory, and its programs'
-    column indices as slots of that set.
-
-    ``ops``/``colidx``: (R, P) or (P,) integer arrays. The staged set is
-    size, blocks and valid (none when ``valid_col`` < 0), then every other
-    column a live compare (``0 <= op < 6``) reads, its index clamped into
-    ``[0, n_cols)`` as the interpreter clamps it, in order of first use.
-    Returns ``(stage, slots)``: ``stage[s]`` is the column held in slot s,
-    and ``slots`` has ``colidx``'s shape, each live compare's slot (other
-    instructions read no column: 0). The kernel finds the same slot for an
-    instruction: the first of ``stage`` equal to its clamped column.
-    """
-    ops = np.asarray(ops)
-    colidx = np.asarray(colidx)
-    stage = [size_col]
-    for c in (blocks_col, valid_col):
-        if c >= 0 and c not in stage:
-            stage.append(c)
-    live = (ops >= 0) & (ops < 6)
-    clamped = np.clip(colidx, 0, n_cols - 1)
-    for c in clamped[live].tolist():     # row-major: program, instruction
-        if c not in stage:
-            stage.append(c)
-    index = {c: s for s, c in enumerate(stage)}
-    slots = np.zeros(colidx.shape, np.int32)
-    slots[live] = [index[c] for c in clamped[live].tolist()]
-    return tuple(stage), slots
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -129,41 +97,47 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _plan(lib, cols, ops, colidx, size_col, blocks_col, valid_col):
-    """(staged columns, grid) of a launch. The staged set needs the
-    programs on the host (a small copy, waiting for the stream); a set
-    wider than the kernel's limit stages nothing."""
+def _grid(lib, cols: torch.Tensor) -> int:
     n_cols, n = cols.shape
     if n_cols > lib.policy_scan_max_cols():
         raise ValueError(f"{n_cols} columns: the kernel takes at most "
                          f"{lib.policy_scan_max_cols()}")
-    stage, _slots = stage_plan(ops.cpu().numpy(), colidx.cpu().numpy(),
-                               n_cols=n_cols, size_col=size_col,
-                               blocks_col=blocks_col, valid_col=valid_col)
-    if len(stage) > lib.policy_scan_max_stage():
-        stage = ()
     sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
     grid = lib.policy_scan_grid(n, sms)
     if grid <= 0:
         raise RuntimeError("policy_scan: the occupancy query failed")
-    return stage, grid
+    return grid
 
 
 def launch_shape(cols: torch.Tensor, ops: torch.Tensor,
                  colidx: torch.Tensor, *, size_col: int = 0,
                  blocks_col: int = 1, valid_col: int = -1) -> dict:
-    """How a launch over ``cols`` with (R, P) programs runs: its grid, the
-    staged columns, the ring's stages (0: every tile by plain loads, when
-    the staged set is too wide for the ring) and the resident blocks an SM
-    of its widest pass. Launches nothing."""
+    """How a launch over ``cols`` with (R, P) programs runs: its grid, and
+    per pass of at most 8 programs the columns its blocks stage, the rows a
+    stage holds (a tile of 1024, or a half or a quarter of one for wide
+    column sets) and the ring's stages; and the resident blocks an SM of
+    its widest pass. It reads the programs on the host (the launch itself
+    does not). Launches nothing."""
     lib = _lib()
-    stage, grid = _plan(lib, cols, ops, colidx, size_col, blocks_col,
-                        valid_col)
+    grid = _grid(lib, cols)
+    n_cols = cols.shape[0]
     n_progs, n_instr = ops.shape
-    stages = lib.policy_scan_stages(len(stage))
-    return dict(grid=grid, staged_cols=list(stage), stages=stages,
-                blocks_per_sm=lib.policy_scan_occupancy(
-                    n_progs, n_instr, len(stage) if stages else 0),
+    ops_h = np.ascontiguousarray(ops.cpu().numpy(), np.int32)
+    col_h = np.ascontiguousarray(colidx.cpu().numpy(), np.int32)
+    passes = []
+    for p0 in range(0, n_progs, 8):
+        r = min(8, n_progs - p0)
+        stage = (ctypes.c_int * lib.policy_scan_max_cols())()
+        rows, stages = ctypes.c_int(), ctypes.c_int()
+        n_stage = lib.policy_scan_plan(
+            ops_h[p0:].ctypes.data, col_h[p0:].ctypes.data, r * n_instr,
+            n_cols, size_col, blocks_col, valid_col, stage,
+            ctypes.byref(rows), ctypes.byref(stages))
+        passes.append(dict(staged_cols=list(stage[:n_stage]),
+                           stage_rows=rows.value,
+                           stages=stages.value))
+    return dict(grid=grid, passes=passes,
+                blocks_per_sm=lib.policy_scan_occupancy(n_progs, n_instr),
                 tile_rows=lib.policy_scan_tile_rows())
 
 
@@ -189,8 +163,7 @@ def _launch(cols: torch.Tensor, ops: torch.Tensor, colidx: torch.Tensor,
     if not -1 <= valid_col < n_cols:
         raise ValueError(f"valid_col={valid_col} outside [-1, {n_cols})")
     lib = _lib()
-    stage, grid = _plan(lib, cols, ops, colidx, size_col, blocks_col,
-                        valid_col)
+    grid = _grid(lib, cols)
     masks = torch.empty((n_progs, n), dtype=torch.float32, device=dev)
     rule = torch.empty((n,), dtype=torch.int32, device=dev) if with_rule \
         else None
@@ -204,8 +177,7 @@ def _launch(cols: torch.Tensor, ops: torch.Tensor, colidx: torch.Tensor,
         operands.data_ptr(), n_progs, n_instr, size_col, blocks_col,
         valid_col, masks.data_ptr(),
         rule.data_ptr() if rule is not None else None, partials.data_ptr(),
-        agg.data_ptr(), grid, stream, (ctypes.c_int * len(stage))(*stage),
-        len(stage))
+        agg.data_ptr(), grid, stream)
     if err != 0:
         raise RuntimeError("policy_scan launch failed: "
                            f"{lib.policy_scan_error_string(err).decode()}")

@@ -8,6 +8,12 @@ only here (call ``ref.*`` directly to run it on the card). The kernel masks
 its own ragged edge, so no row padding happens on either path, and
 ``valid_col=-1`` reads as a validity row of ones in the kernel and in the
 plain version alike, so no row is appended either.
+
+On the card a table has at most 96 columns (the kernel raises
+beyond), and the aggregates count a row when its mask is not 0: they equal
+the plain version's sums of the mask when the validity column holds only 0
+and 1, as a catalog's does (volume and spc_used are weighted by the mask
+either way).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-// The first policy_scan kernel (PR 11's csrc/policy_scan.cu and its
-// header in one file) with the variants that tools/scan_variants.py times
+// The first policy_scan kernel (csrc/policy_scan.cu before the redesign
+// and its header in one file) with the variants that tools/scan_variants.py times
 // to find where its time goes. It is never built into the package.
 //
-//   VARIANT 0: the kernel as PR 11 wrote it: per (tile, program), 14 warp
+//   VARIANT 0: the kernel as first written: per (tile, program), 14 warp
 //              shuffle reductions, a serial fold over the warps and two
 //              __syncthreads;
 //   VARIANT 1: v0 without the aggregate code (masks and rule only; the
@@ -15,9 +15,9 @@
 //              compares reference, plus size, blocks and valid) and writes
 //              R + 1 words a row; the practical ceiling of the scan.
 //
-// With VARIANT 0 the code that runs is PR 11-18's line for line (the
-// unused shared words of v2 and v3 aside). The C interface is that of PR
-// 11-18's package (policy_scan_launch, policy_scan_tile_rows,
+// With VARIANT 0 the code that runs is the first kernel's line for line
+// (the unused shared words of v2 and v3 aside). The C interface is that
+// of the first package (policy_scan_launch, policy_scan_tile_rows,
 // policy_scan_error_string); policy_scan_occupancy adds the resident
 // blocks an SM of the scan kernel.
 #include <cuda_runtime.h>

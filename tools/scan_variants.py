@@ -2,30 +2,35 @@
 """Build variants of the ``policy_scan`` CUDA kernel, read what the
 compiler made of them, and time them in turns on one card.
 
-    python3 tools/scan_variants.py [--variants NAME,...] [--parent DIR]
-        [--programs batch,single] [--rows N] [--turns N] [--seed S]
+    python3 tools/scan_variants.py [--variants NAME,...] [--parent DIR,...]
+        [--programs batch,single,wide,allcols] [--rows N] [--turns N]
+        [--seed S]
 
 A variant is ``csrc/`` as it stands ("current") or a design of
-``tools/policy_scan_designs.cu`` (the first kernel, PR 11-18's, with its
-``VARIANT`` constant set): "v0" as it was, "v1" without the aggregate
-code, "v2" with each row's referenced columns loaded once before the
-program loop, "v3" a copy kernel that reads the same columns and writes
-R + 1 words a row. Each is written to a temporary directory, so the
-checkout is never changed; ``--parent DIR`` adds an older ``csrc/``
-(``policy_scan.cu`` and its header), named by the directory. Every
-variant is built with ``nvcc -Xptxas -v`` at once, one process each
-(registers, spills and shared memory of each kernel), and its resident
-blocks an SM come from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.
+``tools/policy_scan_designs.cu`` (the first kernel, with its ``VARIANT``
+constant set): "v0" as it was, "v1" without the aggregate code, "v2"
+with each row's referenced columns loaded once before the program loop,
+"v3" a copy kernel that reads the same columns and writes R + 1 words a
+row. Each is written to a temporary directory, so the checkout is never
+changed; ``--parent DIR,...`` adds older ``csrc/`` directories
+(``policy_scan.cu`` and its header, e.g. ``git archive <commit>`` of
+``src/repro_torch/kernels/policy_scan/csrc`` unpacked under ``build/``),
+each named by its directory. Every variant is built with ``nvcc -Xptxas
+-v`` at once, one process each (registers, spills and shared memory of
+each kernel), and its resident blocks an SM come from
+``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.
 
 Then ``chip_smoke.py``'s 2^27 rows are generated from the seed and each
-variant runs ``BATCH_CRITERIA`` (R = 4, "batch"), its first program
-(R = 1, "single") or, with ``--programs wide``, those and 4 more rules
-(R = 8): masks and rule index must equal the plain version's,
-aggregates lie within ``TOL`` and repeat bit for bit (v1's aggregates and
-all of v3's outputs are not checked). All are timed in turns (v0 .. vk
-vk .. v0, ``--turns`` times; CUDA events, median of 10 from an idle card,
-as ``chip_smoke.py`` times), with the scan and reduce kernels' own device
-times from ``torch.profiler`` and the bound from the same run.
+variant runs ``BATCH_CRITERIA`` (R = 4, "batch"), its first program (R =
+1, "single"), those and 4 more rules (R = 8, "wide") or those and
+``chip_smoke.WIDE_CRITERIA``'s 2 rules that read every kernel column (R
+= 6, "allcols", half-tile stages): masks and rule index must equal the
+plain version's, aggregates lie within ``TOL`` and repeat bit for bit
+(v1's aggregates and all of v3's outputs are not checked). All are timed
+in turns (v0 .. vk vk .. v0, ``--turns`` times; CUDA events, median of
+10 from an idle card, as ``chip_smoke.py`` times), with the scan and
+reduce kernels' own device times from ``torch.profiler`` and the bound
+from the same run.
 
 Needs one H100. Prints the card, then one JSON line a variant (registers,
 occupancy) and one a program set (checks, times); exits non-zero when a
@@ -64,7 +69,7 @@ VARIANTS = {
 }
 UNCHECKED_AGG = ("v1", "v3")
 UNCHECKED = ("v3",)
-# appended to a source without policy_scan_occupancy (PR 11-18's csrc/)
+# appended to a source without policy_scan_occupancy (the first kernel's csrc/)
 OCCUPANCY_OF_FIRST = r"""
 extern "C" int policy_scan_occupancy(int n_progs, int n_instr) {
   using namespace policy_scan;
@@ -132,13 +137,13 @@ def ptxas_info(stderr: str) -> dict:
     return dict(zip(demangle(names), out.values()))
 
 
-def sources(names, parent=None) -> dict:
+def sources(names, parents=()) -> dict:
     """variant -> {file name: text}, the edits applied."""
     def read(path):
         with open(path) as f:
             return f.read()
     out = {}
-    if parent:
+    for parent in parents:
         files = {f: read(os.path.join(parent, f))
                  for f in ("policy_scan.cu", "policy_scan.cuh")
                  if os.path.exists(os.path.join(parent, f))}
@@ -184,49 +189,39 @@ def build(name: str, files: dict, workdir: str) -> dict:
 
 class Variant:
     """One built library, launched as ``kernel.py`` launches its own: the
-    redesign's interface (``policy_scan_grid``, a staged column set) or
-    the first kernel's (a grid of 8 blocks an SM)."""
+    redesign's grid (``policy_scan_grid``) or the first kernel's (8 blocks
+    an SM); both take the first kernel's ``policy_scan_launch``
+    arguments."""
 
     def __init__(self, name: str, lib_path: str):
         self.name = name
         lib = ctypes.CDLL(lib_path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self.staged = hasattr(lib, "policy_scan_grid")
-        lib.policy_scan_launch.argtypes = (
-            [p, ll, i, p, p, p, i, i, i, i, i, p, p, p, p, i, p]
-            + ([p, i] if self.staged else []))
+        self.persistent = hasattr(lib, "policy_scan_grid")
+        lib.policy_scan_launch.argtypes = [p, ll, i, p, p, p, i, i, i, i, i,
+                                           p, p, p, p, i, p]
         lib.policy_scan_launch.restype = i
         lib.policy_scan_tile_rows.restype = i
-        if self.staged:
+        if self.persistent:
             lib.policy_scan_grid.argtypes = [ll, i]
             lib.policy_scan_grid.restype = i
-            lib.policy_scan_stages.argtypes = [i]
-            lib.policy_scan_stages.restype = i
-            lib.policy_scan_occupancy.argtypes = [i, i, i]
-        else:
-            lib.policy_scan_occupancy.argtypes = [i, i]
+        lib.policy_scan_occupancy.argtypes = [i, i]
         lib.policy_scan_occupancy.restype = i
         self.lib = lib
 
     def grid(self, n: int, sms: int) -> int:
-        if self.staged:
+        if self.persistent:
             return self.lib.policy_scan_grid(n, sms)
         tile = self.lib.policy_scan_tile_rows()
         return max(1, min(-(-n // tile), sms * FIRST_BLOCKS_PER_SM))
 
-    def shape(self, n: int, sms: int, prog, plan) -> dict:
-        """Grid, stages and resident blocks an SM of one launch."""
+    def shape(self, n: int, sms: int, prog) -> dict:
+        """Grid and resident blocks an SM of one launch."""
         r, p = prog[0].shape
-        if self.staged:
-            ns = len(plan[0])
-            return dict(grid=self.grid(n, sms),
-                        stages=self.lib.policy_scan_stages(ns),
-                        blocks_per_sm=self.lib.policy_scan_occupancy(r, p,
-                                                                     ns))
-        return dict(grid=self.grid(n, sms), stages=0,
+        return dict(grid=self.grid(n, sms),
                     blocks_per_sm=self.lib.policy_scan_occupancy(r, p))
 
-    def __call__(self, cols, ops, colidx, operands, plan, with_rule, kw):
+    def __call__(self, cols, ops, colidx, operands, with_rule, kw):
         import torch
         from repro_torch.kernels.policy_scan.ref import N_AGG
         dev = cols.device
@@ -246,9 +241,6 @@ class Variant:
                 rule.data_ptr() if rule is not None else None,
                 partials.data_ptr(), agg.data_ptr(), grid,
                 torch.cuda.current_stream(dev).cuda_stream]
-        if self.staged:
-            stage = (ctypes.c_int * len(plan[0]))(*plan[0])
-            args += [ctypes.cast(stage, ctypes.c_void_p), len(plan[0])]
         err = self.lib.policy_scan_launch(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: launch failed ({err})")
@@ -270,6 +262,11 @@ def program_sets(torch, cs, names, device):
                                  + WIDE_RULES], st, cs.NOW)
         out["wide"] = ([torch.from_numpy(a).to(device) for a in wide], wide,
                        True)
+    if "allcols" in names:           # R = 6: and 2 rules reading every column
+        every = compile_programs([parse_expr(e) for e in cs.BATCH_CRITERIA
+                                  + cs.WIDE_CRITERIA], st, cs.NOW)
+        out["allcols"] = ([torch.from_numpy(a).to(device) for a in every],
+                          every, True)
     if "batch" in names:
         out["batch"] = ([torch.from_numpy(a).to(device) for a in host], host,
                         True)
@@ -294,7 +291,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variants", default="v0,v1,v2,v3",
                     help="comma-separated names of VARIANTS")
-    ap.add_argument("--parent", help="an older csrc/ directory to time "
+    ap.add_argument("--parent", default="", help="older csrc/ directories "
+                    "(comma-separated) to time "
                     "beside them")
     ap.add_argument("--programs", default="batch,single")
     ap.add_argument("--rows", type=int, default=None,
@@ -320,7 +318,7 @@ def main() -> None:
                       "ncu": shutil.which("ncu") is not None}), flush=True)
 
     names = [v for v in args.variants.split(",") if v]
-    srcs = sources(names, args.parent)
+    srcs = sources(names, [d for d in args.parent.split(",") if d])
     with tempfile.TemporaryDirectory() as work:
         with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
             futs = {n: pool.submit(build, n, f, work)
@@ -337,24 +335,22 @@ def main() -> None:
         for v in variants:
             shapes = {}
             for pname, (prog, host, _) in sets.items():
-                plan = K.stage_plan(host[0], host[1], n_cols=cols.shape[0],
-                                    **kw)
-                shapes[pname] = v.shape(n, sms, prog, plan)
+                shapes[pname] = v.shape(n, sms, prog)
             print(json.dumps({"variant": v.name,
                               "ptxas": built[v.name]["ptxas"],
                               "launch": shapes}), flush=True)
         failed = []
         for pname, (prog, host, with_rule) in sets.items():
-            plan = K.stage_plan(host[0], host[1], n_cols=cols.shape[0], **kw)
+            res = {"programs": pname, "rows": n, "checks": {}, "agg_err": {},
+                   "launch": K.launch_shape(cols, prog[0], prog[1], **kw)}
             if with_rule:
                 want = R.policy_scan_batch_ref(cols, *prog, **kw)
             else:
                 m, a = R.policy_scan_ref(cols, *(x[0] for x in prog), **kw)
                 want = (m[None], None, a[None])
-            res = {"programs": pname, "rows": n, "checks": {}, "agg_err": {}}
             for v in variants:
-                got = v(cols, *prog, plan, with_rule, kw)
-                again = v(cols, *prog, plan, with_rule, kw)
+                got = v(cols, *prog, with_rule, kw)
+                again = v(cols, *prog, with_rule, kw)
                 torch.cuda.synchronize()
                 if v.name in UNCHECKED:
                     res["checks"][v.name] = "not checked"
@@ -375,7 +371,7 @@ def main() -> None:
             torch.cuda.empty_cache()
 
             def call(v):
-                return v(cols, *prog, plan, with_rule, kw)
+                return v(cols, *prog, with_rule, kw)
             times = turns(variants, call, args.turns, cs.REPS, cs)
             res["ms"] = times
             res["median_ms"] = {k: statistics.median(t)

@@ -28,7 +28,19 @@ failure:
    ``BATCH_CRITERIA`` and ``WIDE_CRITERIA`` (programs that read all 16
    kernel columns, so the kernel stages half tiles) is held to the plain
    version the same way and timed;
-4. profile cube at device scale, columns generated on the card from a
+4. the store form at device scale (after the kernel phase, on its rows):
+   the 2^27 rows laid out as the column store holds them, 8 shard groups
+   of 2^24 rows, ``(8, 17, 2^24)`` (9.13 GB more, freed after), and
+   ``policy_scan_store_cuda`` run on ``BATCH_CRITERIA`` with aggregates
+   and lean: mask 0 and the rule index identical to the plain version run
+   one group at a time and to the 2-D kernel over the same rows, the
+   aggregate counts equal to the 2-D kernel's and the sums within
+   ``TOL``, bit for bit on a second call; each form timed from an idle
+   card beside its scan kernel's device time (``torch.profiler``), its
+   bound (the columns ``launch_shape`` stages, read once, and mask 0 and
+   the rule index written once), its grid, and the 2-D kernel's time,
+   taken in turns (2-D, aggregates, lean, lean, aggregates, 2-D);
+5. profile cube at device scale, columns generated on the card from a
    seed: (a) 2^27 rows, 4096 groups, the prebucketed layout
    ``ProfileCube`` passes; (b) 2^27 rows, 64 groups, the raw layout
    (bucketized on the card); (c) 2^20 rows, 64 groups, every per-cell
@@ -41,7 +53,7 @@ failure:
    timed beside the bound, the plain version and one ``index_add_``
    (which excludes the bucketizing), with the kernels' own device times
    from a ``torch.profiler`` trace;
-5. engine: a 2^20-entry catalog, one policy (scope, two rules, LRU sort,
+6. engine: a 2^20-entry catalog, one policy (scope, two rules, LRU sort,
    a recording batch action) run through ``PolicyEngine.run`` with
    ``evaluator="policy_scan"`` on the card and with ``evaluator="numpy"``:
    the actioned (fid, rule params) sequences must be identical, with and
@@ -51,7 +63,35 @@ failure:
    single-program kernel once and ``match_programs(single_launch=False)``
    once per program, each path counted on its own, and both must agree
    with the batch path;
-6. reports on the same catalog: ``ProfileCube(use_kernel=True).attach()``
+7. the store engine (after the engine phase, on its catalog):
+   ``DeviceColumnStore(cat, groups=4, device="cuda")`` attached to a
+   ``PolicyEngine`` (one group a shard). The cold
+   ``run(evaluator="policy_scan_mesh")`` must make 4 full uploads; with
+   and without budgets its actioned (fid, rule params) sequence must equal
+   ``numpy``'s and ``policy_scan``'s, its window must show exactly one
+   lean store-form launch and no 2-D launch, and its report must name
+   ``policy_scan_mesh`` with no fallback. After the cold run the store
+   form, both ways, over the engine's resident ``(4, 17, Rp)`` tensor
+   with the run's programs must give mask 0 and the rule index identical
+   to its plain version on the same tensor, aggregates within TOL. Then
+   three warm rounds, each
+   changing 1% of the entries in place (10,486 distinct fids, as
+   ``benchmarks/bench_policy.py``'s churn): 0 full uploads, exactly the
+   changed rows scattered, ``Catalog.arrays`` not called, actions equal to
+   a ``numpy`` run of a twin engine; the warm run's ``run``,
+   ``run.match``, ``store.refresh`` and ``store.match`` spans are logged
+   beside a ``policy_scan`` run's on the same state. Then 1000 removes
+   and 1000 inserts in one shard must re-upload its group alone, and
+   ``scan_catalog(store=)`` must launch the store form with aggregates
+   once and agree with the 2-D ``scan_catalog``;
+8. collect (the paper's headline scenario, ``tests/test_system.py``): a
+   ``LustreSim`` under load mirrored by a ``Scanner`` and two
+   ``EventPipeline``s, ``HsmCoordinator`` policies run through
+   ``policy_scan_mesh`` over a ``DeviceColumnStore`` on the card: the
+   archive policy's matches equal ``numpy``'s, the archive pass is one
+   lean store-form launch, and after the watermark purges every OST is
+   under the high watermark;
+9. reports on the same catalog: ``ProfileCube(use_kernel=True).attach()``
    on the card must launch ``profile_cube`` once per shard (4) and give
    the cube of the exact int64 host groupby (counts equal, volume and
    spc_used within ``rtol=1e-5``), and ``Reports`` over the two cubes must
@@ -59,53 +99,53 @@ failure:
    plain version on each shard's columns; after a few thousand changed
    entries go through the catalog's delta hooks, the kernel-built cube's
    counts must equal a fresh host rebuild's;
-7. paged attention at device scale (after the cube phase): 64 sequences
-   with lengths uniform in [1, 8192] (one of length 0, one with a -1 hole
-   in its table, one a multiple of the 64-token page), tables drawn from a
-   seeded permutation of an 8192-page pool, in four configurations:
-   chatglm3-6b's widths (32 query heads, 2 KV heads, head_dim 128) in f32
-   and in bf16, deepseek-coder-33b's (56, 8) and codeqwen1.5-7b's (32, 32)
-   in f32; then one sequence of 8192 tokens (B = 1) at chatglm3-6b's
-   widths in f32 and bf16. The op (split kernel, and the combine when a
-   table is wider than one split; f32 on CUDA cores, bf16 on tensor cores)
-   is held to its plain version (f32 ``rtol=1e-4`` with atol
-   ``1e-4 * max|v|``; bf16 ``5e-2``; and each output row's relative L2
-   error within 1e-4 in f32, 1e-2 in bf16) and must repeat bit for bit; in
-   the batch the empty sequence must give exact zeros, and the hole
-   sequence must equal, bit for bit, the op over the same table with the
-   hole taken out and the op over that sequence alone. Each is timed from
-   an idle card with the L2 cache flushed before each call, beside its
-   bound, the plain version and one ``scaled_dot_product_attention`` over
-   K/V gathered beforehand; the split kernel's and the combine's own
-   device times come from a ``torch.profiler`` trace of the call, and the
-   grid (blocks, splits, live blocks, waves) is reported;
-8. recurrent kernels at device scale (after the attention phase), seeded
-   inputs drawn on the card with the models' decay distributions:
-   ``rglru_scan`` at recurrentgemma-9b's width (B 8, S 4096, R 4096, f32,
-   1.6 GB) and at S 1, S 2016 and R 100, each with and without ``h0``,
-   within ``rtol=1e-5, atol=1e-6`` of its plain version; ``rwkv6_step`` at
-   rwkv6-1.6b's heads (B 256, H 32, hd 64: a 134 MB state), at hd 16 and
-   at B 1, y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| +
-   |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
-   bit for bit and are timed beside their bound and plain version (no
-   single PyTorch call computes either), and at the serving paths' decode
-   shapes beside the kernels' own device times and the time of a call
-   launched from a CUDA graph (a graph of 64 calls, replayed from an idle
-   card, over 64);
-9. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
-   (28 layers, weights drawn on the card from the seed), 4 requests of 256
-   seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
-   so the watermark releases and restores pages in every layer. Each run
-   must launch ``paged_attention`` 28 * 4 * (256 + 31) = 32,144 times and
-   nothing else, with no combine (the tables are one split wide); a
-   checker around the op the engine calls holds the
-   kernel to its plain version on the run's own tensors (the first call of
-   every layer, every call right after a restore, every 29th call) within
-   bounds that follow the f32 error of the scores, which grow with depth
-   (see ``attn_agrees``); a
-   second run with the same seed must give the same tokens, and is timed
-   with the host seconds of each cache and op call kind;
-10. recurrent-model serving (last), one model after the other, each at
+10. paged attention at device scale (after the cube phase): 64 sequences
+    with lengths uniform in [1, 8192] (one of length 0, one with a -1 hole
+    in its table, one a multiple of the 64-token page), tables drawn from a
+    seeded permutation of an 8192-page pool, in four configurations:
+    chatglm3-6b's widths (32 query heads, 2 KV heads, head_dim 128) in f32
+    and in bf16, deepseek-coder-33b's (56, 8) and codeqwen1.5-7b's (32, 32)
+    in f32; then one sequence of 8192 tokens (B = 1) at chatglm3-6b's
+    widths in f32 and bf16. The op (split kernel, and the combine when a
+    table is wider than one split; f32 on CUDA cores, bf16 on tensor cores)
+    is held to its plain version (f32 ``rtol=1e-4`` with atol
+    ``1e-4 * max|v|``; bf16 ``5e-2``; and each output row's relative L2
+    error within 1e-4 in f32, 1e-2 in bf16) and must repeat bit for bit; in
+    the batch the empty sequence must give exact zeros, and the hole
+    sequence must equal, bit for bit, the op over the same table with the
+    hole taken out and the op over that sequence alone. Each is timed from
+    an idle card with the L2 cache flushed before each call, beside its
+    bound, the plain version and one ``scaled_dot_product_attention`` over
+    K/V gathered beforehand; the split kernel's and the combine's own
+    device times come from a ``torch.profiler`` trace of the call, and the
+    grid (blocks, splits, live blocks, waves) is reported;
+11. recurrent kernels at device scale (after the attention phase), seeded
+    inputs drawn on the card with the models' decay distributions:
+    ``rglru_scan`` at recurrentgemma-9b's width (B 8, S 4096, R 4096, f32,
+    1.6 GB) and at S 1, S 2016 and R 100, each with and without ``h0``,
+    within ``rtol=1e-5, atol=1e-6`` of its plain version; ``rwkv6_step`` at
+    rwkv6-1.6b's heads (B 256, H 32, hd 64: a 134 MB state), at hd 16 and
+    at B 1, y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| +
+    |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
+    bit for bit and are timed beside their bound and plain version (no
+    single PyTorch call computes either), and at the serving paths' decode
+    shapes beside the kernels' own device times and the time of a call
+    launched from a CUDA graph (a graph of 64 calls, replayed from an idle
+    card, over 64);
+12. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
+    (28 layers, weights drawn on the card from the seed), 4 requests of 256
+    seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
+    so the watermark releases and restores pages in every layer. Each run
+    must launch ``paged_attention`` 28 * 4 * (256 + 31) = 32,144 times and
+    nothing else, with no combine (the tables are one split wide); a
+    checker around the op the engine calls holds the
+    kernel to its plain version on the run's own tensors (the first call of
+    every layer, every call right after a restore, every 29th call) within
+    bounds that follow the f32 error of the scores, which grow with depth
+    (see ``attn_agrees``); a
+    second run with the same seed must give the same tokens, and is timed
+    with the host seconds of each cache and op call kind;
+13. recurrent-model serving (last), one model after the other, each at
     full width and depth with parameters drawn on the card from the seed,
     through ``make_prefill`` and a decode step: rwkv6-1.6b, 8 prompts of
     512 seeded tokens and 64 new (exactly 24 x 63 = 1,512 ``rwkv6_step``
@@ -156,6 +196,9 @@ NOW = 16_000_000.0              # f32-exact "now" for every phase
 CARD = ""                       # nvidia-smi's name and power limit
 TOL = dict(rtol=1e-5, atol=1.0)
 ROWS = 1 << 27                  # kernel phase: rows on the card
+STORE_GROUPS = 8                # store kernel phase: ROWS in 8 groups
+STORE_ENGINE_GROUPS = 4         # store engine phase: one group a shard
+CHURN = 0.01                    # store engine phase: entries changed a round
 ENTRIES = 1 << 20               # engine phase: catalog entries
 REPS = 10                       # timed calls per kernel and plain version
 L2_FLUSH_BYTES = 256 << 20      # written before each timed attention call
@@ -517,6 +560,7 @@ def kernel_phase(torch, seed, device, results, first=None):
                 turns["first"])
             results[name]["turns_ms"] = statistics.median(turns["this"])
     wide_phase(torch, K, R, cols, st, kw, results)
+    store_kernel_phase(torch, K, R, cols, prog, ops, colidx, kw, results)
     del cols
     torch.cuda.empty_cache()
 
@@ -580,6 +624,125 @@ def wide_phase(torch, K, R, cols, strings, kw, results):
         programs=int(ops.shape[0]), ms=ms, plain_ms=plain_ms, bound_ms=bms,
         scan_device_ms=dev, max_abs_err=err, stages=ring["stages"],
         stage_rows=ring["stage_rows"])
+
+
+def store_bound_ms(n: int, shape: dict, ops, with_agg: bool):
+    """Least time for one store-form scan of n rows: the columns its
+    blocks stage (``launch_shape``: with aggregates size, blocks, valid and
+    the read columns; lean valid and the read columns) read once, mask 0
+    (4 B, or 1 B lean) and the rule index (4 B) written once, over the
+    memory rate; or the f32 work over its peak rate."""
+    staged = shape["passes"][0]["staged_cols"]
+    bytes_moved = n * (4 * len(staged) + (4 if with_agg else 1) + 4)
+    live = int((ops >= 0).sum())
+    operations = n * (live + (16 * ops.shape[0] if with_agg else 0))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = operations / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", bytes_moved, operations)
+
+
+def store_kernel_phase(torch, K, R, cols, prog, ops, colidx, kw, results):
+    """The store form at device scale: the kernel phase's rows laid out as
+    STORE_GROUPS shard groups, ``(8, 17, 2^24)``, ``BATCH_CRITERIA`` with
+    aggregates and lean. mask 0 and rule identical to the plain version
+    run one group at a time and to the 2-D kernel over the same rows; the
+    aggregate counts equal to the 2-D kernel's, the sums within TOL; bit
+    for bit on a second call. Each form timed (CUDA events from an idle
+    card) beside its scan device time, bound and grid, in turns with the
+    2-D kernel (2-D, aggregates, lean, lean, aggregates, 2-D)."""
+    d = STORE_GROUPS
+    n = cols.shape[1]
+    rp = n // d
+    t0 = time.perf_counter()
+    store = cols.view(cols.shape[0], d, rp).permute(1, 0, 2).contiguous()
+    torch.cuda.synchronize()
+    log(f"[store-kernel] columns {tuple(store.shape)} f32 = "
+        f"{store.numel() * 4 / 1e9:.2f} GB laid out in "
+        f"{time.perf_counter() - t0:.2f} s")
+    masks2, rule2, agg2 = K.policy_scan_batch_cuda(cols, *prog, **kw)
+    mask0_2d = masks2[0].view(d, rp).clone()
+    del masks2
+    rule2 = rule2.view(d, rp)
+    counts = [0] + list(range(3, 14))          # count, histogram, any_match
+    out = {}
+    calls = {}
+    for with_agg in (True, False):
+        form = "store" if with_agg else "store_lean"
+        call = (lambda a=with_agg: K.policy_scan_store_cuda(
+            store, *prog, with_agg=a, **kw))
+        calls[form] = call
+        mask, rule, agg = call()
+        again = call()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(again, (mask, rule,
+                                                            agg))),
+              f"{form}: outputs differ between two calls")
+        del again
+        pm, pr, pa = R.policy_scan_store_ref(store, *prog, with_agg=with_agg,
+                                             **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(mask, pm) and torch.equal(rule, pr),
+              f"{form}: mask 0 or rule differ from the plain version")
+        del pm, pr
+        want0 = mask0_2d if with_agg else mask0_2d > 0.5
+        check(torch.equal(mask, want0) and torch.equal(rule, rule2),
+              f"{form}: mask 0 or rule differ from the 2-D kernel's")
+        del mask, rule, want0
+        if with_agg:
+            check(torch.equal(agg[:, counts], agg2[:, counts]),
+                  f"{form}: counts differ from the 2-D kernel's:\n{agg}\n"
+                  f"{agg2}")
+            check(torch.allclose(agg, agg2, **TOL) and
+                  torch.allclose(agg, pa, **TOL),
+                  f"{form}: sums differ:\n{agg}\n{agg2}\n{pa}")
+            err = max((agg.double() - pa.double()).abs().max().item(),
+                      (agg.double() - agg2.double()).abs().max().item())
+        else:
+            check(not agg.any(), f"{form}: aggregates are not zero")
+            err = 0.0
+        del agg, pa
+        shape = K.launch_shape(store, prog[0], prog[1], with_agg=with_agg,
+                               **kw)
+        bms, by, nbytes, nops = store_bound_ms(n, shape, ops, with_agg)
+        kern = kernel_device_ms(torch, call, REPS)
+        dev = one_kernel_ms(kern, "scan_kernel", form)
+        check(with_agg == any("reduce_kernel" in k for k in kern),
+              f"{form}: reduce kernel launches {sorted(kern)}")
+        plain_ms, _ = cuda_times_ms(lambda a=with_agg: R.policy_scan_store_ref(
+            store, *prog, with_agg=a, **kw), REPS)
+        out[form] = dict(max_abs_err=err, bound_ms=bms, bound_by=by,
+                         bytes=nbytes, operations=nops, scan_device_ms=dev,
+                         plain_ms=plain_ms, grid=shape["grid"],
+                         staged_cols=shape["passes"][0]["staged_cols"],
+                         stages=shape["passes"][0]["stages"],
+                         blocks_per_sm=shape["blocks_per_sm"])
+    del mask0_2d, rule2
+    flat = (lambda: K.policy_scan_batch_cuda(cols, *prog, **kw))
+    turns = {"2d": [], "store": [], "store_lean": []}
+    for who in ("2d", "store", "store_lean", "store_lean", "store", "2d"):
+        turns[who].append(cuda_times_ms(flat if who == "2d" else calls[who],
+                                        REPS)[0])
+    for form in ("store", "store_lean"):
+        o = out[form]
+        o["ms"] = statistics.median(turns[form])
+        log(f"[store-kernel] {form} R={ops.shape[0]} D={d} Rp={rp} {CARD}: "
+            "mask 0 and rule identical to the plain version (one group at "
+            "a time) and to the 2-D kernel, bit for bit on a second call"
+            + (", counts equal to the 2-D kernel's, sums max abs err "
+               f"{o['max_abs_err']!r}" if form == "store" else "")
+            + f"; {o['ms']!r} ms (turns {turns[form]}); scan device ms "
+            f"{o['scan_device_ms']!r}; plain {o['plain_ms']!r} ms; bound "
+            f"{o['bound_ms']!r} ms by {o['bound_by']} ({o['bytes']} B); "
+            f"{o['bound_ms'] / o['ms']:.3f} of the bound; grid {o['grid']}, "
+            f"staged {o['staged_cols']}, {o['stages']} stages, "
+            f"{o['blocks_per_sm']} blocks an SM")
+    log(f"[store-kernel] the 2-D kernel in the same turns: {turns['2d']} ms")
+    results["policy_scan_batch"]["store"] = dict(
+        groups=d, rows_per_group=rp, programs=int(ops.shape[0]),
+        flat_turns_ms=statistics.median(turns["2d"]), **out)
+    del store
+    torch.cuda.empty_cache()
 
 
 def cube_columns(torch, n: int, n_groups: int, seed: int, device,
@@ -1027,6 +1190,8 @@ def launch_window(fn):
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
                  "policy_scan_batch": K.policy_scan_batch_launches,
+                 "policy_scan_store": K.policy_scan_store_launches,
+                 "policy_scan_store_lean": K.policy_scan_store_lean_launches,
                  "profile_cube": PK.profile_cube_launches,
                  "paged_attention": AK.paged_attention_launches,
                  "rglru_scan": RGK.rglru_scan_launches,
@@ -1035,8 +1200,10 @@ def launch_window(fn):
 
 def only(**launches) -> dict:
     """The counts a window must show: these kernels so many times, every
-    other kernel never."""
-    want = dict.fromkeys(TPU_KERNELS, 0)
+    other kernel never (``policy_scan_store`` counts the store form with
+    aggregates, ``policy_scan_store_lean`` the lean form)."""
+    want = dict.fromkeys(list(TPU_KERNELS) + ["policy_scan_store",
+                                              "policy_scan_store_lean"], 0)
     want.update(launches)
     return want
 
@@ -1226,6 +1393,306 @@ def engine_phase(torch, cat, device, results):
         windows["PolicyEngine.run"]["policy_scan_batch"]
     results["policy_scan"]["launches"] = \
         windows["scan_catalog"]["policy_scan"]
+
+
+def churn_fids(rng, n_entries: int):
+    """CHURN of the entries' fids (1..n_entries), distinct."""
+    import numpy as np
+    return rng.choice(np.arange(1, n_entries + 1),
+                      size=round(n_entries * CHURN), replace=False)
+
+
+def span_times(rep, names) -> dict:
+    """name -> seconds of the first span of each name in a RunReport."""
+    out = {}
+    for name, secs in flat_spans(rep.telemetry.get("spans")):
+        out.setdefault(name.lstrip("."), secs)
+    return {k: out.get(k) for k in names}
+
+
+def store_form_at_engine_shape(torch, store, programs) -> dict:
+    """The store form, both ways, over ``store``'s resident tensor with
+    the run's ``programs``, held to its plain version on the same tensor:
+    mask 0 and rule identical, aggregates within TOL, zeros when lean."""
+    from repro_torch.core.device_store import _VALID_COL
+    from repro_torch.core.policy import KERNEL_COLUMNS, compile_programs
+    from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.policy_scan import ref as R
+    buf = store._buf
+    prog = [torch.from_numpy(a).to(buf.device) for a in
+            compile_programs(programs, store.catalog.strings, NOW)]
+    kw = dict(size_col=KERNEL_COLUMNS.index("size"),
+              blocks_col=KERNEL_COLUMNS.index("blocks"),
+              valid_col=_VALID_COL)
+    err = 0.0
+    for with_agg in (False, True):
+        form = "store" if with_agg else "store_lean"
+        mask, rule, agg = K.policy_scan_store_cuda(buf, *prog,
+                                                   with_agg=with_agg, **kw)
+        pm, pr, pa = R.policy_scan_store_ref(buf, *prog, with_agg=with_agg,
+                                             **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(mask, pm), f"engine-shape {form}: mask 0 differs "
+              "from the plain version")
+        check(torch.equal(rule, pr), f"engine-shape {form}: rule index "
+              "differs from the plain version")
+        if with_agg:
+            check(torch.allclose(agg, pa, **TOL), f"engine-shape {form}: "
+                  f"aggregates differ:\n{agg}\n{pa}")
+            err = (agg.double() - pa.double()).abs().max().item()
+        else:
+            check(not agg.any(), f"engine-shape {form}: aggregates are not "
+                  "zero")
+    log(f"[store-engine] store form R={len(programs)} over the resident "
+        f"{tuple(buf.shape)} tensor, lean and with aggregates: mask 0 and "
+        f"rule identical to the plain version; agg max abs err {err!r}")
+    return dict(shape=list(buf.shape), programs=len(programs),
+                max_abs_err=err)
+
+
+def store_engine_phase(torch, cat, device, results, seed: int):
+    """``PolicyEngine`` over a ``DeviceColumnStore`` on the card: cold,
+    three warm rounds of in-place churn, a round of inserts and removes in
+    one shard, and ``scan_catalog(store=)``; see the module docstring."""
+    import numpy as np
+    from repro_torch.core import (DeviceColumnStore, PolicyDefinition,
+                                  PolicyEngine)
+    from repro_torch.kernels.policy_scan.ops import scan_catalog
+    store = DeviceColumnStore(cat, groups=STORE_ENGINE_GROUPS, device=device)
+    eng = PolicyEngine(cat, clock=lambda: NOW, device=device)
+    eng.attach_device_store(store)
+    twin = PolicyEngine(cat, clock=lambda: NOW, device=device)
+    rules = [("archive_big", "size > 16G", {"tier": "archive"}),
+             ("purge_old", "last_access > 90d", {"tier": "purge"})]
+
+    def register(engine, budget):
+        rec = Recorder()
+        engine.register(PolicyDefinition.from_config(
+            name="lru", action=rec, scope="type == file", rules=rules,
+            sort_by="atime", mutates=False, batch_size=4096,
+            max_actions_per_run=budget.get("max_actions_per_run", 0)))
+        return rec
+
+    def run(engine, evaluator, budget):
+        rec = register(engine, budget)
+        arrays0 = cat.arrays_calls
+        t1 = time.perf_counter()
+        rep, counts = launch_window(lambda: engine.run(
+            "lru", evaluator=evaluator,
+            target_volume=budget.get("target", 0)))
+        wall = time.perf_counter() - t1
+        check(rep.evaluator == evaluator and rep.fallback_reason == "",
+              f"run(evaluator={evaluator!r}) ran {rep.evaluator!r}, "
+              f"fallback {rep.fallback_reason!r}")
+        want = only(policy_scan_store_lean=1) if evaluator == "policy_scan_mesh" else only(
+                policy_scan_batch=1 if evaluator == "policy_scan" else 0)
+        check(counts == want, f"run(evaluator={evaluator!r}) launched "
+              f"{counts}, expected {want}")
+        return rep, list(rec.calls), counts, wall, \
+            cat.arrays_calls - arrays0
+
+    r = results["policy_scan_batch"]
+    windows = {}
+    uploads0 = store.full_uploads
+    for i, budget in enumerate(({}, {"max_actions_per_run": 10_000},
+                                {"target": 1 << 44})):
+        tag = ",".join(f"{k}={v}" for k, v in budget.items()) or "none"
+        seqs = {}
+        for evaluator in ("policy_scan_mesh", "policy_scan", "numpy"):
+            rep, calls, counts, wall, _ = run(eng, evaluator, budget)
+            seqs[evaluator] = (rep.matched, rep.succeeded, rep.volume, calls)
+            if i == 0 and evaluator == "policy_scan_mesh":
+                check(store.full_uploads - uploads0 == STORE_ENGINE_GROUPS,
+                      f"the cold run made {store.full_uploads - uploads0} "
+                      f"full uploads, not {STORE_ENGINE_GROUPS}")
+                windows["PolicyEngine.run(policy_scan_mesh)"] = counts
+                r["store_engine_shape"] = store_form_at_engine_shape(
+                    torch, store, eng._programs(eng.policies["lru"], None))
+                log(f"[store-engine] cold run: {STORE_ENGINE_GROUPS} full "
+                    f"uploads, wall {wall!r} s, spans "
+                    + "; ".join(f"{n} {t!r}" for n, t in flat_spans(
+                        rep.telemetry.get("spans"))))
+        check(len(seqs["numpy"][3]) > 0, "the policy actioned nothing")
+        check(seqs["policy_scan_mesh"] == seqs["numpy"] == seqs[
+            "policy_scan"], f"actioned (fid, tier) sequences differ (budget "
+            f"{tag}): " + ", ".join(f"{k} {len(v[3])}"
+                                    for k, v in seqs.items()))
+        log(f"[store-engine] budget {tag}: {len(seqs['numpy'][3])} actioned "
+            "(fid, tier) pairs identical across policy_scan_mesh, "
+            "policy_scan and numpy; the mesh run launched one lean store "
+            "form and no 2-D kernel")
+
+    rng = np.random.default_rng(seed + 20)
+    span_names = ("run", "run.match", "store.refresh", "store.match",
+                  "run.act")
+    warm = []
+    for round_i in range(3):
+        fids = churn_fids(rng, ENTRIES)
+        half = len(fids) // 2
+        cat.update_fields_batch(fids[:half].tolist(), atime=NOW)
+        cat.update_fields_batch(fids[half:].tolist(), size=1 << 35,
+                                atime=NOW - 100 * 86400)
+        before = (store.full_uploads, store.rows_scattered,
+                  store.delta_refreshes)
+        rep, calls, counts, wall, arrays = run(eng, "policy_scan_mesh", {})
+        check(store.full_uploads == before[0], f"warm round {round_i}: "
+              f"{store.full_uploads - before[0]} full uploads")
+        check(store.rows_scattered - before[1] == len(fids),
+              f"warm round {round_i}: {store.rows_scattered - before[1]} "
+              f"rows scattered for {len(fids)} changed entries")
+        check(arrays == 0, f"warm round {round_i}: Catalog.arrays() ran "
+              f"{arrays} times")
+        # the policy_scan run first: it pays the host column concat
+        scan_rep, _, _, scan_wall, _ = run(twin, "policy_scan", {})
+        twin_rep, twin_calls, *_ = run(twin, "numpy", {})
+        check(calls == twin_calls and rep.matched == twin_rep.matched,
+              f"warm round {round_i}: actions differ from the numpy twin "
+              f"({len(calls)} vs {len(twin_calls)})")
+        mesh_spans = span_times(rep, span_names)
+        scan_spans = span_times(scan_rep, span_names)
+        warm.append(dict(mesh=mesh_spans, policy_scan=scan_spans,
+                         mesh_wall=wall, policy_scan_wall=scan_wall,
+                         delta_refreshes=store.delta_refreshes - before[2]))
+        log(f"[store-engine] warm round {round_i} {CARD}: {len(fids)} "
+            f"entries changed in place; 0 full uploads, "
+            f"{store.rows_scattered - before[1]} rows scattered in "
+            f"{store.delta_refreshes - before[2]} groups, Catalog.arrays() "
+            f"flat; actions equal to the numpy twin's ({len(calls)}); "
+            f"policy_scan_mesh wall {wall!r} s spans {mesh_spans}; "
+            f"policy_scan (same state) wall {scan_wall!r} s spans "
+            f"{scan_spans}")
+
+    # inserts and removes in one shard: only its group re-uploads
+    shard = 1
+    live = [f for f in range(1, ENTRIES + 1)
+            if cat._shard_id(f) == shard][:1000]
+    cat.remove_batch(live)
+    new = [f for f in range(ENTRIES + 1, ENTRIES + 200_000)
+           if cat._shard_id(f) == shard][:1000]
+    from repro_torch.core import Entry, FsType
+    cat.upsert_batch([Entry(fid=f, name=f"n{f}", path=f"/fs/new/n{f}",
+                            type=FsType.FILE, size=(f % 4096) << 24,
+                            atime=float(f % (1 << 24)), owner="u1")
+                      for f in new])
+    before = store.full_uploads
+    rep, calls, counts, wall, arrays = run(eng, "policy_scan_mesh", {})
+    twin_rep, twin_calls, *_ = run(twin, "numpy", {})
+    check(store.full_uploads - before == 1, f"the structural round made "
+          f"{store.full_uploads - before} full uploads, not 1")
+    check(calls == twin_calls, "structural round: actions differ from the "
+          "numpy twin")
+    check(arrays == 0, "structural round: Catalog.arrays() ran")
+    log(f"[store-engine] 1000 removes and 1000 inserts in shard {shard}: "
+        f"1 full upload (its group), actions equal to the numpy twin's "
+        f"({len(calls)}); wall {wall!r} s")
+
+    # scan_catalog(store=): the store form with aggregates, once
+    expr = eng._programs(eng.policies["lru"], None)[0]
+    (fids_s, agg_s), counts = launch_window(
+        lambda: scan_catalog(cat, expr, NOW, store=store))
+    check(counts == only(policy_scan_store=1),
+          f"scan_catalog(store=) launched {counts}, expected one store form "
+          "with aggregates")
+    windows["scan_catalog(store=)"] = counts
+    fids_2d, agg_2d = scan_catalog(cat, expr, NOW, device=device)
+    check(np.array_equal(np.sort(fids_s), np.sort(fids_2d)),
+          "scan_catalog(store=) fids differ from the 2-D scan_catalog's")
+    check(agg_close(agg_s, agg_2d), f"scan_catalog(store=) aggregates "
+          f"differ: {agg_s} vs {agg_2d}")
+    log(f"[store-engine] scan_catalog(store=): {len(fids_s)} fids and "
+        f"aggregates equal to the 2-D scan_catalog's; launches per path "
+        f"{json.dumps(windows)}")
+    store.detach()
+    r["store_launches_by_path"] = {
+        path: {k: c[k] for k in ("policy_scan_store",
+                                 "policy_scan_store_lean")}
+        for path, c in windows.items()}
+    r["store_launches"] = windows["scan_catalog(store=)"][
+        "policy_scan_store"]
+    r["store_lean_launches"] = windows["PolicyEngine.run(policy_scan_mesh)"][
+        "policy_scan_store_lean"]
+    r["store_warm_rounds"] = warm
+
+
+def collect_phase(torch, device, results):
+    """The paper's headline scenario (``tests/test_system.py``) on the
+    card: a ``LustreSim`` under load mirrored by a ``Scanner`` and two
+    ``EventPipeline``s, an ``HsmCoordinator`` whose policies run through
+    ``policy_scan_mesh`` over a ``DeviceColumnStore``."""
+    from repro_torch.core import (Catalog, DeviceColumnStore, EventPipeline,
+                                  HsmCoordinator, PipelineConfig,
+                                  PolicyEngine, Reports, Scanner,
+                                  StatsAggregator)
+    from repro_torch.fs import HsmBackend, LustreSim
+
+    class Clock:
+        t = 1_000_000.0
+
+        def __call__(self):
+            return self.t
+    clock = Clock()
+    fs = LustreSim(n_osts=4, ost_capacity=100_000, n_mdts=2,
+                   hsm=HsmBackend(), clock=clock)
+    home = fs.mkdir(fs.root_fid(), "home")
+    users = {u: fs.mkdir(home, u, owner=u) for u in ("ann", "bob")}
+    cat = Catalog(n_shards=4)
+    stats = StatsAggregator(cat.strings)
+    cat.add_delta_hook(stats.on_delta)
+    Scanner(fs, cat, n_threads=2).scan()
+    pipes = [EventPipeline(fs, cat, fs.changelog.stream(m),
+                           PipelineConfig()) for m in range(2)]
+    eng = PolicyEngine(cat, clock=clock, device=device)
+    coord = HsmCoordinator(fs, cat, eng, archive_age="10s", high_wm=60.0,
+                           low_wm=30.0)
+    store = DeviceColumnStore(cat, groups=4, device=device)
+    eng.attach_device_store(store)
+    for name in ("hsm_archive", "hsm_release"):
+        eng.policies[name].evaluator = "policy_scan_mesh"
+    for i in range(40):
+        u = "ann" if i % 2 else "bob"
+        f = fs.create(users[u], f"f{i}", owner=u, uid=u, jobid=f"job{i % 3}")
+        fs.write(f, 8000, uid=u)
+    for p in pipes:
+        p.process_once(10000)
+    check(len(cat) == fs.count(), "the changelog pipelines did not mirror "
+          "the file system")
+    ann = [r for r in Reports(cat, stats).report_user("ann")
+           if r["type"] == "file"][0]
+    check(ann["count"] == 20 and ann["volume"] == 160_000,
+          f"report_user('ann') gives {ann}")
+    clock.t += 60
+    policy = eng.policies["hsm_archive"]
+    mesh = store.match(eng._programs(policy, None), clock(), with_agg=False)
+    mesh_fids = sorted(mesh.plan(policy.sort_by)[0].tolist())
+    mask, _rule, cols, used, _why = eng._match(policy, None, clock(),
+                                               "numpy")
+    check(used == "numpy" and mesh_fids == sorted(cols["fid"][mask].tolist())
+          and len(mesh_fids) == 40, "the archive policy's matches through "
+          "the store differ from the numpy evaluator's")
+    archived, counts = launch_window(coord.archive_pass)
+    check(archived.evaluator == "policy_scan_mesh"
+          and not archived.fallback_reason and archived.succeeded == 40,
+          f"archive pass: {archived.evaluator} {archived.fallback_reason!r} "
+          f"{archived.succeeded}")
+    check(counts == only(policy_scan_store_lean=1),
+          f"the archive pass launched {counts}")
+    purges = coord.space_check()
+    check(bool(purges) and all(r.evaluator == "policy_scan_mesh"
+                               and not r.fallback_reason for r in purges),
+          "the watermark purges did not run through policy_scan_mesh")
+    usage = [o.usage_pct for o in fs.osts]
+    check(all(u <= 60.0 for u in usage), f"OSTs above the high watermark "
+          f"after the purges: {usage}")
+    for p in pipes:
+        p.process_once(10000)
+    released = stats.report_hsm().get("released", {}).get("count", 0)
+    check(released > 0, "no release reached the catalog")
+    log(f"[collect] headline scenario on the card: 40 files mirrored by "
+        f"changelog, archive policy matches through policy_scan_mesh equal "
+        f"to numpy's (40), archive pass {archived.succeeded} succeeded in "
+        f"one lean store-form launch, {len(purges)} purges, OST usage "
+        f"{usage}, {released} released")
+    store.detach()
 
 
 def attn_tables(torch, seed: int, device):
@@ -2407,9 +2874,10 @@ def main() -> None:
     log(f"[build] the first policy_scan design (tools/policy_scan_designs.cu"
         f" v0) in {first_secs:.2f} s: {json.dumps(first_ptxas)}")
 
-    # 3.-4. kernels at device scale, 5. the engine's main path, 6. reports,
-    # 7. paged attention and 8. the recurrent kernels at device scale,
-    # 9. paged serving, 10. recurrent-model serving
+    # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
+    # store engine, 8. collect, 9. reports, 10. paged attention and 11. the
+    # recurrent kernels at device scale, 12. paged serving, 13. recurrent-
+    # model serving
     results: dict = {}
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
@@ -2420,6 +2888,8 @@ def main() -> None:
     log(f"[engine] catalog of {len(cat)} entries built in "
         f"{time.perf_counter() - t0:.2f} s")
     engine_phase(torch, cat, device, results)
+    store_engine_phase(torch, cat, device, results, args.seed)
+    collect_phase(torch, device, results)
     reports_phase(torch, cat, device, results)
     del cat
     serve_phase(torch, args.seed, device, results)
@@ -2431,6 +2901,8 @@ def main() -> None:
     for r in results.values():
         check(r["launches"] is not None and r["launches"] > 0,
               f"{r['name']} was not launched on the main path")
+    check(results["policy_scan_batch"]["store_lean_launches"] == 1,
+          "the store form was not launched on the policy_scan_mesh path")
     log(json.dumps({"card": card, "kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

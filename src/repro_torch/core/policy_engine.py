@@ -21,7 +21,7 @@ more than one kernel per shard batch:
   kernel on the engine's CUDA device, its plain PyTorch version when the
   engine runs on ``device="cpu"``) or ``"policy_scan_mesh"``
   (the same program batch evaluated data-parallel over a device-resident
-  column store — see
+  :class:`~repro_torch.core.device_store.DeviceColumnStore` — see
   :meth:`PolicyEngine.attach_device_store`; no per-run host concat or
   host→device re-upload, stale shard groups refresh by delta scatter).
   The kernel backends evaluate the policy's whole (R, P) rule-program
@@ -452,9 +452,8 @@ class PolicyEngine:
         self.device_store = None         # attach_device_store wires the mesh
 
     def attach_device_store(self, store) -> None:
-        """Wire a device column store (an object with ``catalog`` and
-        ``match``; none ships with this package yet) so the
-        ``policy_scan_mesh`` evaluator can match data-parallel over the
+        """Wire a :class:`~repro_torch.core.device_store.DeviceColumnStore`
+        so the ``policy_scan_mesh`` evaluator can match over the
         device-resident sharded column stacks (no per-run host concat, no
         host→device re-upload — warm runs refresh churned rows by scatter).
         The store must wrap this engine's catalog."""
@@ -720,7 +719,7 @@ class PolicyEngine:
         first); only matched local rows come back and are translated
         through the store's host mirrors — the catalog columns are never
         concatenated or re-uploaded. Returns the live
-        ``MeshMatch`` (``plan`` for the
+        :class:`~repro_torch.core.device_store.MeshMatch` (``plan`` for the
         action plan, ``cache_arrays`` to prime the incremental cache).
         Raises PolicyError when no store is attached or the criteria hold
         host-only (glob) predicates.

@@ -6,7 +6,10 @@
 //   policy_scan_batch_pallas (_policy_scan_batch_kernel) -> R programs,
 //     rule index over programs 1..R-1;
 //   policy_scan_pallas (_policy_scan_kernel) -> the same launch with R = 1
-//     and no attribution (rule == nullptr).
+//     and no attribution (rule == nullptr);
+//   policy_scan_batch_pallas as mesh_policy_scan_batch runs it, once per
+//     shard group of the store (src/repro/kernels/policy_scan/ops.py:225)
+//     -> the store form below, one launch over every group.
 //
 // Bound on this card: bytes. Per row the scan reads the columns its
 // programs reference plus size, blocks and valid (4 B each) and writes
@@ -56,7 +59,22 @@
 // The aggregates count a row when its mask m = bit * valid is not 0 and
 // weight volume and spc_used by m: they equal the reference's sums of m
 // when the validity column holds only 0 and 1, as a catalog's does.
+//
+// The store form (Form STORE and LEAN) runs the same machine over the
+// device column store's (D, C, Rp) layout: D shard groups of Rp rows, one
+// group's C columns after the other, column c of group d at
+// cols + (d * C + c) * Rp. The persistent grid walks D * ceil(Rp / TILE)
+// tiles (tile_group: a tile never spans two groups, a group's last one may
+// be ragged), and a launch writes only program 0's mask and the rule index,
+// each (D, Rp): the masks of the other programs never reach memory. STORE
+// keeps the aggregates (summed over every group, as the reference's psum);
+// LEAN, what a policy run asks for, has no ballots, no f64 sums, no
+// partials and no reduce launch, stages size and blocks only when a compare
+// reads them, and writes mask 0 as one byte a row. The 2-D form (FLAT) is
+// the same code with the group fixed at 0.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "policy_scan.cuh"
 
@@ -69,6 +87,27 @@ constexpr int MAX_PASS = 8;              // programs a pass
 // sums) that the grid leaves room for: 2 blocks an SM
 constexpr int EXTRA_BYTES = 8 * 1024;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// What a launch computes and writes (see the top of the file).
+enum Form : int { FLAT = 0, STORE = 1, LEAN = 2 };
+
+template <int F>
+struct FormOf {
+  static constexpr bool store = F != FLAT;
+  static constexpr bool agg = F != LEAN;
+  using Mask = std::conditional_t<F == LEAN, uint8_t, float>;
+};
+
+// The group of tile t (tile_group): FLAT has one group, so its rows start
+// at t * TILE exactly as they always have.
+template <int F>
+__device__ __forceinline__ long long group_of(long long t,
+                                              long long per_group) {
+  if constexpr (F == FLAT)
+    return 0;
+  else
+    return tile_group(t, per_group);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -130,16 +169,17 @@ __host__ __device__ constexpr size_t align8(size_t x) {
 struct Layout {
   size_t bars, stage, where, seen, n_stage, vol, spc, hist, code, opr, len,
       final_, total;
-  __host__ __device__ Layout(int r, int n_instr) {
+  __host__ __device__ Layout(int r, int n_instr, bool agg = true) {
+    const int rs = agg ? r : 0;      // programs with sums
     bars = sizeof(float) * RING_FLOATS;
     stage = bars + 2 * sizeof(uint64_t) * MAX_STAGES;
     where = stage + sizeof(int) * MAX_COLS;
     seen = where + sizeof(int) * MAX_COLS;
     n_stage = seen + sizeof(uint32_t) * SEEN_WORDS;
     vol = align8(n_stage + sizeof(int));
-    spc = vol + sizeof(double) * WARPS * r;
-    hist = spc + sizeof(double) * WARPS * r;
-    code = hist + sizeof(uint32_t) * WARPS * r * N_BUCKETS;
+    spc = vol + sizeof(double) * WARPS * rs;
+    hist = spc + sizeof(double) * WARPS * rs;
+    code = hist + sizeof(uint32_t) * WARPS * rs * N_BUCKETS;
     opr = code + sizeof(uint32_t) * r * n_instr;
     len = opr + sizeof(float) * r * n_instr;
     final_ = len + sizeof(int) * r;
@@ -148,15 +188,18 @@ struct Layout {
 };
 
 // One stage of a consumer thread: its J rows from row0 (row0 + j * THREADS
-// + tid), every program of the pass. The stage's column at offset o holds
-// row row0 + i at seg[o + i]. Rows >= n are masked.
-template <int R, int J>
+// + tid) of group grp, every program of the pass. The stage's column at
+// offset o holds row row0 + i at seg[o + i]. Rows >= n (the rows of a
+// group) are masked. A row's outputs sit at grp * n + row.
+template <int R, int J, int F>
 __device__ __forceinline__ void scan_stage(
-    long long n, long long row0, const float* seg, const uint32_t* s_code,
-    const float* s_opr, const int* s_len, const int* s_final, int n_instr,
-    int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
-    float* __restrict__ masks, int* __restrict__ rule, uint32_t (&hist)[R],
-    double (&vol)[R], double (&spc)[R]) {
+    long long n, long long grp, long long row0, const float* seg,
+    const uint32_t* s_code, const float* s_opr, const int* s_len,
+    const int* s_final, int n_instr, int prog0, int size_at, int blocks_at,
+    int valid_at, bool has_valid,
+    typename FormOf<F>::Mask* __restrict__ masks, int* __restrict__ rule,
+    uint32_t (&hist)[R], double (&vol)[R], double (&spc)[R]) {
+  constexpr bool AGG = FormOf<F>::agg;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   bool in[J];
@@ -166,19 +209,23 @@ __device__ __forceinline__ void scan_stage(
   for (int j = 0; j < J; ++j) {
     const int local = j * THREADS + tid;
     in[j] = row0 + local < n;
-    size[j] = in[j] ? seg[size_at + local] : 0.f;
-    blocks[j] = in[j] ? seg[blocks_at + local] : 0.f;
-    valid[j] = (in[j] && has_valid) ? seg[valid_at + local] : 1.f;
-    // lane k < 10 builds bucket k's mask from 4 ballots of the bucket's
-    // bits (a row past n has bucket 15, in no lane's mask)
-    const int bucket = in[j] ? size_bucket(size[j]) : 15;
-    uint32_t m = lane < N_BUCKETS ? FULL_MASK : 0u;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint32_t b = __ballot_sync(FULL_MASK, (bucket >> i) & 1);
-      m &= ((lane >> i) & 1) ? b : ~b;
+    if constexpr (AGG) {
+      size[j] = in[j] ? seg[size_at + local] : 0.f;
+      blocks[j] = in[j] ? seg[blocks_at + local] : 0.f;
     }
-    mine[j] = m;
+    valid[j] = (in[j] && has_valid) ? seg[valid_at + local] : 1.f;
+    if constexpr (AGG) {
+      // lane k < 10 builds bucket k's mask from 4 ballots of the bucket's
+      // bits (a row past n has bucket 15, in no lane's mask)
+      const int bucket = in[j] ? size_bucket(size[j]) : 15;
+      uint32_t m = lane < N_BUCKETS ? FULL_MASK : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t b = __ballot_sync(FULL_MASK, (bucket >> i) & 1);
+        m &= ((lane >> i) & 1) ? b : ~b;
+      }
+      mine[j] = m;
+    }
   }
   // every program on the J rows: bit r of bits[j] is program r's
   uint32_t bits[J];
@@ -196,19 +243,30 @@ __device__ __forceinline__ void scan_stage(
   }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    const long long row = row0 + j * THREADS + tid;
-    const double size_d = size[j], blocks_d = blocks[j];
+    const long long row = grp * n + row0 + j * THREADS + tid;
+    if constexpr (AGG) {
+      const double size_d = size[j], blocks_d = blocks[j];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float m = in[j] ? static_cast<float>((bits[j] >> r) & 1u) *
-                                  valid[j]
-                            : 0.f;
-      if (in[j]) __stcs(masks + (prog0 + r) * n + row, m);
-      const uint32_t set = __ballot_sync(FULL_MASK, m != 0.f);
-      hist[r] += __popc(set & mine[j]);
-      const double md = m;
-      vol[r] = fma(md, size_d, vol[r]);
-      spc[r] = fma(md, blocks_d, spc[r]);
+      for (int r = 0; r < R; ++r) {
+        const float m = in[j] ? static_cast<float>((bits[j] >> r) & 1u) *
+                                    valid[j]
+                              : 0.f;
+        if constexpr (F == FLAT) {
+          if (in[j]) __stcs(masks + (prog0 + r) * n + row, m);
+        } else {
+          if (in[j] && prog0 + r == 0) __stcs(masks + row, m);
+        }
+        const uint32_t set = __ballot_sync(FULL_MASK, m != 0.f);
+        hist[r] += __popc(set & mine[j]);
+        const double md = m;
+        vol[r] = fma(md, size_d, vol[r]);
+        spc[r] = fma(md, blocks_d, spc[r]);
+      }
+    } else {
+      // the reference's lean mask: program 0 and validity above one half
+      if (in[j] && prog0 == 0)
+        __stcs(masks + row, static_cast<uint8_t>((bits[j] & 1u) &&
+                                                 valid[j] > 0.5f));
     }
     if (rule != nullptr && in[j]) {
       // the first program r >= 1 with m > 0.5 gives rule r - 1; a later
@@ -229,29 +287,32 @@ __device__ __forceinline__ double warp_sum(double v) {
 }
 
 // The stages of a tile in order: (tile, q) for q < ITEMS / items, while a
-// row of the stage is below n. The producer and the consumers walk the same
-// sequence through the ring's slots s = 0, 1, ..., stages - 1, 0, ..., the
-// barriers' phase flipping at each wrap.
+// row of the stage is below n, the tile's group being grp (0 in FLAT). The
+// producer and the consumers walk the same sequence through the ring's
+// slots s = 0, 1, ..., stages - 1, 0, ..., the barriers' phase flipping at
+// each wrap.
 #define FOR_EACH_STAGE(items)                                              \
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)     \
     for (int q = 0; q < ITEMS / (items); ++q)                              \
-      if (const long long row0 = tile * TILE +                             \
-                                 static_cast<long long>(q) * (items) *     \
-                                     THREADS;                              \
+      if (const long long grp = group_of<F>(tile, per_group),              \
+          row0 = tile_row0(tile, grp, per_group) +                         \
+                 static_cast<long long>(q) * (items) * THREADS;            \
           row0 < n)
 
 // A consumer warp's whole scan with J rows a thread a stage, then its
 // per-warp sums into shared memory.
-template <int R, int J>
+template <int R, int J, int F>
 __device__ __forceinline__ void consume(
-    long long n, const float* ring, const Ring& g, int n_stage,
-    uint64_t* full, uint64_t* empty, const uint32_t* s_code,
+    long long n, long long n_groups, const float* ring, const Ring& g,
+    int n_stage, uint64_t* full, uint64_t* empty, const uint32_t* s_code,
     const float* s_opr, const int* s_len, const int* s_final, int n_instr,
     int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
-    float* __restrict__ masks, int* __restrict__ rule, double* s_vol,
-    double* s_spc, uint32_t* s_hist) {
+    typename FormOf<F>::Mask* __restrict__ masks, int* __restrict__ rule,
+    double* s_vol, double* s_spc, uint32_t* s_hist) {
   const int tid = threadIdx.x;
-  const long long n_tiles = (n + TILE - 1) / TILE;
+  const long long per_group = tiles_per_group(n);
+  const long long n_tiles = FormOf<F>::store ? per_group * n_groups
+                                             : per_group;
   const int stage_floats = n_stage * g.seg;
   uint32_t hist[R];
   double vol[R], spc[R];
@@ -265,9 +326,9 @@ __device__ __forceinline__ void consume(
   uint32_t phase = 0;
   FOR_EACH_STAGE(J) {
     mbar_wait(&full[s], phase);
-    scan_stage<R, J>(n, row0, ring + s * stage_floats, s_code, s_opr, s_len,
-                     s_final, n_instr, prog0, size_at, blocks_at, valid_at,
-                     has_valid, masks, rule, hist, vol, spc);
+    scan_stage<R, J, F>(n, grp, row0, ring + s * stage_floats, s_code, s_opr,
+                        s_len, s_final, n_instr, prog0, size_at, blocks_at,
+                        valid_at, has_valid, masks, rule, hist, vol, spc);
     __syncwarp();                      // the warp is done with stage s
     if ((tid & 31) == 0) mbar_arrive(&empty[s]);
     if (++s == g.stages) {
@@ -275,47 +336,52 @@ __device__ __forceinline__ void consume(
       phase ^= 1u;
     }
   }
-  // once a block, in a fixed order: lanes (a shuffle tree), then warps
-  const int lane = tid & 31, warp = tid >> 5;
+  if constexpr (FormOf<F>::agg) {
+    // once a block, in a fixed order: lanes (a shuffle tree), then warps
+    const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const double v = warp_sum(vol[r]), p = warp_sum(spc[r]);
-    if (lane == 0) {
-      s_vol[warp * R + r] = v;
-      s_spc[warp * R + r] = p;
+    for (int r = 0; r < R; ++r) {
+      const double v = warp_sum(vol[r]), p = warp_sum(spc[r]);
+      if (lane == 0) {
+        s_vol[warp * R + r] = v;
+        s_spc[warp * R + r] = p;
+      }
+      if (lane < N_BUCKETS)
+        s_hist[(warp * R + r) * N_BUCKETS + lane] = hist[r];
     }
-    if (lane < N_BUCKETS) s_hist[(warp * R + r) * N_BUCKETS + lane] = hist[r];
   }
 }
 
 // consume for part-tile stages (wide column sets), out of line: inlined
 // beside the whole-tile path it cost that path registers and spills.
-template <int R, int J>
+template <int R, int J, int F>
 __device__ __noinline__ void consume_far(
-    long long n, const float* ring, const Ring& g, int n_stage,
-    uint64_t* full, uint64_t* empty, const uint32_t* s_code,
+    long long n, long long n_groups, const float* ring, const Ring& g,
+    int n_stage, uint64_t* full, uint64_t* empty, const uint32_t* s_code,
     const float* s_opr, const int* s_len, const int* s_final, int n_instr,
     int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
-    float* __restrict__ masks, int* __restrict__ rule, double* s_vol,
-    double* s_spc, uint32_t* s_hist) {
-  consume<R, J>(n, ring, g, n_stage, full, empty, s_code, s_opr, s_len,
-                s_final, n_instr, prog0, size_at, blocks_at, valid_at,
-                has_valid, masks, rule, s_vol, s_spc, s_hist);
+    typename FormOf<F>::Mask* __restrict__ masks, int* __restrict__ rule,
+    double* s_vol, double* s_spc, uint32_t* s_hist) {
+  consume<R, J, F>(n, n_groups, ring, g, n_stage, full, empty, s_code, s_opr,
+                   s_len, s_final, n_instr, prog0, size_at, blocks_at,
+                   valid_at, has_valid, masks, rule, s_vol, s_spc, s_hist);
 }
 
-// Programs prog0 .. prog0+R-1 of n_progs over all rows. partials: per
+// Programs prog0 .. prog0+R-1 of n_progs over all rows: n rows in FLAT, or
+// n_groups groups of n rows (the store form). partials (not in LEAN): per
 // (block, program) 14 words: volume and spc_used as f64, then the 10
 // bucket counts as u32.
-template <int R>
+template <int R, int F>
 __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
-    const float* __restrict__ cols, long long n, int n_cols,
-    const int* __restrict__ g_ops, const int* __restrict__ g_colidx,
-    const float* __restrict__ g_operands, int n_instr, int prog0,
-    int n_progs, int size_col, int blocks_col, int valid_col,
-    float* __restrict__ masks, int* __restrict__ rule,
-    uint32_t* __restrict__ partials) {
+    const float* __restrict__ cols, long long n, long long n_groups,
+    int n_cols, const int* __restrict__ g_ops,
+    const int* __restrict__ g_colidx, const float* __restrict__ g_operands,
+    int n_instr, int prog0, int n_progs, int size_col, int blocks_col,
+    int valid_col, typename FormOf<F>::Mask* __restrict__ masks,
+    int* __restrict__ rule, uint32_t* __restrict__ partials) {
+  constexpr bool AGG = FormOf<F>::agg;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(R, n_instr);
+  const Layout lay(R, n_instr, AGG);
   float* ring = reinterpret_cast<float*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
   uint64_t* empty = full + MAX_STAGES;
@@ -342,14 +408,16 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
   }
   __syncthreads();
   if (tid == 0)
-    *s_n_stage = stage_list(s_seen, size_col, blocks_col, valid_col, s_stage);
+    *s_n_stage =
+        stage_list(s_seen, size_col, blocks_col, valid_col, s_stage, AGG);
   __syncthreads();
   const int n_stage = *s_n_stage;
   const Ring g = ring_shape(n_stage);
   if (tid < n_stage) {
     // where column s_stage[tid] sits in a stage: its segment, then the
     // floats its copy starts before its first row (stages start at
-    // multiples of THREADS rows, so the shift is the same for every stage)
+    // multiples of THREADS rows, so the shift is the same for every stage;
+    // in the store form n % 4 == 0, so it is the same for every group too)
     const int col = s_stage[tid];
     const int shift = static_cast<int>(
         reinterpret_cast<uintptr_t>(cols + col * n) % 16 / sizeof(float));
@@ -375,7 +443,9 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
 
   if (tid >= THREADS) {                          // the producer warp
     if (tid == THREADS) {
-      const long long n_tiles = (n + TILE - 1) / TILE;
+      const long long per_group = tiles_per_group(n);
+      const long long n_tiles = FormOf<F>::store ? per_group * n_groups
+                                                 : per_group;
       const int rows_max = g.items * THREADS;
       int s = 0;
       uint32_t phase = 0;
@@ -394,7 +464,8 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
         mbar_expect_tx(&full[s], tx);
         for (int c = 0; c < n_stage; ++c) {
           const int shift = s_where[s_stage[c]] - c * g.seg;
-          bulk_load(dst + c * g.seg, cols + s_stage[c] * n + row0 - shift,
+          bulk_load(dst + c * g.seg,
+                    cols + (grp * n_cols + s_stage[c]) * n + row0 - shift,
                     static_cast<uint32_t>((shift + rows + 3) / 4) * 16,
                     &full[s]);
         }
@@ -408,36 +479,40 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
     __syncwarp();
   } else {                                       // the consumer warps
     const bool has_valid = valid_col >= 0;
-    const int size_at = s_where[size_col], blocks_at = s_where[blocks_col];
+    const int size_at = AGG ? s_where[size_col] : 0;
+    const int blocks_at = AGG ? s_where[blocks_col] : 0;
     const int valid_at = has_valid ? s_where[valid_col] : 0;
-#define PS_ARGS                                                             \
-  n, ring, g, n_stage, full, empty, s_code, s_opr, s_len, s_final, n_instr, \
-      prog0, size_at, blocks_at, valid_at, has_valid, masks, rule, s_vol,   \
-      s_spc, s_hist
+#define PS_ARGS                                                              \
+  n, n_groups, ring, g, n_stage, full, empty, s_code, s_opr, s_len, s_final, \
+      n_instr, prog0, size_at, blocks_at, valid_at, has_valid, masks, rule,  \
+      s_vol, s_spc, s_hist
     if (g.items == ITEMS)
-      consume<R, ITEMS>(PS_ARGS);
+      consume<R, ITEMS, F>(PS_ARGS);
     else if (g.items == ITEMS / 2)
-      consume_far<R, ITEMS / 2>(PS_ARGS);
+      consume_far<R, ITEMS / 2, F>(PS_ARGS);
     else
-      consume_far<R, 1>(PS_ARGS);
+      consume_far<R, 1, F>(PS_ARGS);
 #undef PS_ARGS
     __syncwarp();
   }
-  __syncthreads();
-  if (tid < R * (N_BUCKETS + 2)) {
-    const int r = tid / (N_BUCKETS + 2), f = tid % (N_BUCKETS + 2);
-    const long long slot =
-        static_cast<long long>(blockIdx.x) * n_progs + prog0 + r;
-    uint32_t* out = partials + slot * N_AGG;
-    if (f < N_BUCKETS) {
-      uint32_t c = 0;
-      for (int w = 0; w < WARPS; ++w) c += s_hist[(w * R + r) * N_BUCKETS + f];
-      out[4 + f] = c;
-    } else {
-      const double* src = f == N_BUCKETS ? s_vol : s_spc;
-      double v = 0.0;
-      for (int w = 0; w < WARPS; ++w) v += src[w * R + r];
-      reinterpret_cast<double*>(out)[f - N_BUCKETS] = v;
+  if constexpr (AGG) {
+    __syncthreads();
+    if (tid < R * (N_BUCKETS + 2)) {
+      const int r = tid / (N_BUCKETS + 2), f = tid % (N_BUCKETS + 2);
+      const long long slot =
+          static_cast<long long>(blockIdx.x) * n_progs + prog0 + r;
+      uint32_t* out = partials + slot * N_AGG;
+      if (f < N_BUCKETS) {
+        uint32_t c = 0;
+        for (int w = 0; w < WARPS; ++w)
+          c += s_hist[(w * R + r) * N_BUCKETS + f];
+        out[4 + f] = c;
+      } else {
+        const double* src = f == N_BUCKETS ? s_vol : s_spc;
+        double v = 0.0;
+        for (int w = 0; w < WARPS; ++w) v += src[w * R + r];
+        reinterpret_cast<double*>(out)[f - N_BUCKETS] = v;
+      }
     }
   }
 }
@@ -490,42 +565,47 @@ __global__ void __launch_bounds__(THREADS) reduce_kernel(
   }
 }
 
-template <int R>
-cudaError_t launch_pass(const float* cols, long long n, int n_cols,
-                        const int* ops, const int* colidx,
+template <int R, int F>
+cudaError_t launch_pass(const float* cols, long long n, long long n_groups,
+                        int n_cols, const int* ops, const int* colidx,
                         const float* operands, int n_instr, int prog0,
                         int n_progs, int size_col, int blocks_col,
-                        int valid_col, float* masks, int* rule,
+                        int valid_col, void* masks, int* rule,
                         uint32_t* partials, int grid, cudaStream_t s) {
-  const size_t smem = Layout(R, n_instr).total;
+  const size_t smem = Layout(R, n_instr, FormOf<F>::agg).total;
   const cudaError_t e = cudaFuncSetAttribute(
-      scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan_kernel<R, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  scan_kernel<R><<<grid, BLOCK, smem, s>>>(
-      cols, n, n_cols, ops, colidx, operands, n_instr, prog0, n_progs,
-      size_col, blocks_col, valid_col, masks, rule, partials);
+  scan_kernel<R, F><<<grid, BLOCK, smem, s>>>(
+      cols, n, n_groups, n_cols, ops, colidx, operands, n_instr, prog0,
+      n_progs, size_col, blocks_col, valid_col,
+      static_cast<typename FormOf<F>::Mask*>(masks), rule, partials);
   return cudaGetLastError();
 }
 
-using PassFn = cudaError_t (*)(const float*, long long, int, const int*,
-                               const int*, const float*, int, int, int, int,
-                               int, int, float*, int*, uint32_t*, int,
-                               cudaStream_t);
+using PassFn = cudaError_t (*)(const float*, long long, long long, int,
+                               const int*, const int*, const float*, int,
+                               int, int, int, int, int, void*, int*,
+                               uint32_t*, int, cudaStream_t);
+template <int F>
 constexpr PassFn PASSES[MAX_PASS] = {
-    launch_pass<1>, launch_pass<2>, launch_pass<3>, launch_pass<4>,
-    launch_pass<5>, launch_pass<6>, launch_pass<7>, launch_pass<8>};
+    launch_pass<1, F>, launch_pass<2, F>, launch_pass<3, F>,
+    launch_pass<4, F>, launch_pass<5, F>, launch_pass<6, F>,
+    launch_pass<7, F>, launch_pass<8, F>};
 
+template <int F>
 const void* const KERNELS[MAX_PASS] = {
-    (const void*)scan_kernel<1>, (const void*)scan_kernel<2>,
-    (const void*)scan_kernel<3>, (const void*)scan_kernel<4>,
-    (const void*)scan_kernel<5>, (const void*)scan_kernel<6>,
-    (const void*)scan_kernel<7>, (const void*)scan_kernel<8>};
+    (const void*)scan_kernel<1, F>, (const void*)scan_kernel<2, F>,
+    (const void*)scan_kernel<3, F>, (const void*)scan_kernel<4, F>,
+    (const void*)scan_kernel<5, F>, (const void*)scan_kernel<6, F>,
+    (const void*)scan_kernel<7, F>, (const void*)scan_kernel<8, F>};
 
-// Resident blocks an SM of the pass of r programs with smem bytes of
+// Resident blocks an SM of form F's pass of r programs with smem bytes of
 // dynamic shared memory; -1 on error.
+template <int F>
 int occupancy(int r, size_t smem) {
-  const void* k = KERNELS[r - 1];
+  const void* k = KERNELS<F>[r - 1];
   if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return -1;
@@ -534,6 +614,46 @@ int occupancy(int r, size_t smem) {
                                                     smem) != cudaSuccess)
     return -1;
   return blocks;
+}
+
+// The persistent grid over `tiles` tiles on a card of `sms` SMs: every
+// SM's resident blocks of the widest FLAT pass (MAX_PASS programs,
+// EXTRA_BYTES for its programs and sums), fewer when there are fewer
+// tiles. -1 on error.
+int grid_for(long long tiles, int sms) {
+  static int per_sm = 0;
+  if (per_sm <= 0)
+    per_sm = occupancy<FLAT>(MAX_PASS,
+                             sizeof(float) * RING_FLOATS + EXTRA_BYTES);
+  if (per_sm <= 0) return -1;
+  const long long grid = static_cast<long long>(sms) * per_sm;
+  return static_cast<int>(tiles < grid ? (tiles > 0 ? tiles : 1) : grid);
+}
+
+// The passes of form F (at most MAX_PASS programs each), then the block
+// reduction unless F is LEAN.
+template <int F>
+int launch_all(const float* cols, long long n, long long n_groups,
+               int n_cols, const int* ops, const int* colidx,
+               const float* operands, int n_progs, int n_instr, int size_col,
+               int blocks_col, int valid_col, void* masks, int* rule,
+               float* partials, float* agg, int grid, void* stream) {
+  if (n_cols < 1 || n_cols > MAX_COLS ||
+      reinterpret_cast<uintptr_t>(cols) % sizeof(float) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* part = reinterpret_cast<uint32_t*>(partials);
+  for (int p0 = 0; p0 < n_progs; p0 += MAX_PASS) {
+    const int r = n_progs - p0 < MAX_PASS ? n_progs - p0 : MAX_PASS;
+    const cudaError_t e = PASSES<F>[r - 1](
+        cols, n, n_groups, n_cols, ops, colidx, operands, n_instr, p0,
+        n_progs, size_col, blocks_col, valid_col, masks, rule, part, grid,
+        s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if constexpr (FormOf<F>::agg)
+    reduce_kernel<<<n_progs, THREADS, 0, s>>>(part, grid, n_progs, agg);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace policy_scan
@@ -550,33 +670,34 @@ int policy_scan_max_cols() { return policy_scan::MAX_COLS; }
 
 // The plan a block of a pass over programs (ops, colidx)[0:count] (host
 // memory) makes: the staged columns into stage[0:MAX_COLS] (returns their
-// number), the rows of a stage and the ring's stages.
+// number), the rows of a stage and the ring's stages. with_agg 0 is the
+// store's lean form, which stages size and blocks only when a compare
+// reads them.
 int policy_scan_plan(const int* ops, const int* colidx, int count,
                      int n_cols, int size_col, int blocks_col, int valid_col,
-                     int* stage, int* stage_rows, int* stages) {
+                     int with_agg, int* stage, int* stage_rows,
+                     int* stages) {
   using namespace policy_scan;
   const int n = stage_plan(ops, colidx, count, n_cols, size_col, blocks_col,
-                           valid_col, stage);
+                           valid_col, stage, with_agg != 0);
   const Ring g = ring_shape(n);
   *stage_rows = g.items * THREADS;
   *stages = g.stages;
   return n;
 }
 
-// The persistent grid for n rows on a card of `sms` SMs: every SM's
-// resident blocks of the widest pass (MAX_PASS programs, EXTRA_BYTES for
-// its programs and sums), fewer when there are fewer tiles. It depends on
-// n and the card alone, never on the programs, so each program's sums
-// group rows alike in every launch. -1 on error.
+// The persistent grid for n rows on a card of `sms` SMs (grid_for). It
+// depends on n and the card alone, never on the programs, so each
+// program's sums group rows alike in every launch. -1 on error.
 int policy_scan_grid(long long n, int sms) {
+  return policy_scan::grid_for(policy_scan::tiles_per_group(n), sms);
+}
+
+// The store form's grid for n_groups groups of rp rows: the same rule
+// over their n_groups * ceil(rp / TILE) tiles. -1 on error.
+int policy_scan_store_grid(long long n_groups, long long rp, int sms) {
   using namespace policy_scan;
-  static int per_sm = 0;
-  if (per_sm <= 0)
-    per_sm = occupancy(MAX_PASS, sizeof(float) * RING_FLOATS + EXTRA_BYTES);
-  if (per_sm <= 0) return -1;
-  const long long tiles = (n + TILE - 1) / TILE;
-  const long long grid = static_cast<long long>(sms) * per_sm;
-  return static_cast<int>(tiles < grid ? (tiles > 0 ? tiles : 1) : grid);
+  return grid_for(n_groups * tiles_per_group(rp), sms);
 }
 
 // Resident blocks an SM of a launch of n_progs programs of n_instr words
@@ -584,7 +705,15 @@ int policy_scan_grid(long long n, int sms) {
 int policy_scan_occupancy(int n_progs, int n_instr) {
   using namespace policy_scan;
   const int r = n_progs < MAX_PASS ? n_progs : MAX_PASS;
-  return occupancy(r, Layout(r, n_instr).total);
+  return occupancy<FLAT>(r, Layout(r, n_instr).total);
+}
+
+// The same for the store form, with aggregates or lean.
+int policy_scan_store_occupancy(int with_agg, int n_progs, int n_instr) {
+  using namespace policy_scan;
+  const int r = n_progs < MAX_PASS ? n_progs : MAX_PASS;
+  const size_t smem = Layout(r, n_instr, with_agg != 0).total;
+  return with_agg ? occupancy<STORE>(r, smem) : occupancy<LEAN>(r, smem);
 }
 
 // Launches the scan (in passes of at most MAX_PASS programs) and the block
@@ -601,20 +730,37 @@ int policy_scan_launch(const float* cols, long long n, int n_cols,
                        float* masks, int* rule, float* partials, float* agg,
                        int grid, void* stream) {
   using namespace policy_scan;
-  if (n_cols < 1 || n_cols > MAX_COLS ||
-      reinterpret_cast<uintptr_t>(cols) % sizeof(float) != 0)
+  return launch_all<FLAT>(cols, n, 1, n_cols, ops, colidx, operands,
+                          n_progs, n_instr, size_col, blocks_col, valid_col,
+                          masks, rule, partials, agg, grid, stream);
+}
+
+// The store form over cols (n_groups, n_cols, rp): mask0 (n_groups, rp),
+// f32 with aggregates, else one byte a row (0 or 1); rule (n_groups, rp)
+// i32, never null. With aggregates, partials and agg as policy_scan_launch
+// (grid from policy_scan_store_grid); without, neither is touched and no
+// reduction runs. rp must be a multiple of 4 (every group's columns then
+// start as column 0 of group 0 does, modulo 16 B) and valid_col a column.
+int policy_scan_store_launch(const float* cols, long long n_groups,
+                             long long rp, int n_cols, const int* ops,
+                             const int* colidx, const float* operands,
+                             int n_progs, int n_instr, int size_col,
+                             int blocks_col, int valid_col, int with_agg,
+                             void* mask0, int* rule, float* partials,
+                             float* agg, int grid, void* stream) {
+  using namespace policy_scan;
+  if (n_groups < 1 || rp < 1 || rp % 4 != 0 || valid_col < 0 ||
+      rule == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* part = reinterpret_cast<uint32_t*>(partials);
-  for (int p0 = 0; p0 < n_progs; p0 += MAX_PASS) {
-    const int r = n_progs - p0 < MAX_PASS ? n_progs - p0 : MAX_PASS;
-    const cudaError_t e = PASSES[r - 1](
-        cols, n, n_cols, ops, colidx, operands, n_instr, p0, n_progs,
-        size_col, blocks_col, valid_col, masks, rule, part, grid, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  reduce_kernel<<<n_progs, THREADS, 0, s>>>(part, grid, n_progs, agg);
-  return static_cast<int>(cudaGetLastError());
+  return with_agg
+             ? launch_all<STORE>(cols, rp, n_groups, n_cols, ops, colidx,
+                                 operands, n_progs, n_instr, size_col,
+                                 blocks_col, valid_col, mask0, rule,
+                                 partials, agg, grid, stream)
+             : launch_all<LEAN>(cols, rp, n_groups, n_cols, ops, colidx,
+                                operands, n_progs, n_instr, size_col,
+                                blocks_col, valid_col, mask0, rule, nullptr,
+                                nullptr, grid, stream);
 }
 
 }  // extern "C"

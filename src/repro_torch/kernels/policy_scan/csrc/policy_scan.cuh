@@ -15,9 +15,9 @@
 // same in every thread: its branches never diverge inside a warp.
 //
 // The staged column set of a launch (stage_plan) and the ring that holds it
-// (ring_shape) are worked out here too. The functions are __host__
-// __device__ so the staging plan, decoder and interpreter can be compiled
-// for the host too.
+// (ring_shape), and the store form's tile walk (tile_group), are worked
+// out here too. The functions are __host__ __device__ so the staging plan,
+// tile walk, decoder and interpreter can be compiled for the host too.
 #pragma once
 
 #include <cstdint>
@@ -63,12 +63,18 @@ PS_HD int compare_col(int op, int col, int n_cols) {
 // The staged columns of a launch from `seen`, the bit set of the columns
 // its live compares read: size, blocks and valid (none when valid_col < 0),
 // then the rest of `seen` in increasing order, each once. Returns their
-// number (at most MAX_COLS).
+// number (at most MAX_COLS). A launch without aggregates (agg false, the
+// store's lean form) stages size and blocks only when a compare reads
+// them: valid, then `seen` in increasing order.
 PS_HD int stage_list(const uint32_t* seen, int size_col, int blocks_col,
-                     int valid_col, int* stage) {
+                     int valid_col, int* stage, bool agg = true) {
   int n = 0;
-  stage[n++] = size_col;
-  if (blocks_col != size_col) stage[n++] = blocks_col;
+  if (agg) {
+    stage[n++] = size_col;
+    if (blocks_col != size_col) stage[n++] = blocks_col;
+  } else {
+    size_col = blocks_col = -1;
+  }
   if (valid_col >= 0 && valid_col != size_col && valid_col != blocks_col)
     stage[n++] = valid_col;
   for (int c = 0; c < MAX_COLS; ++c)
@@ -82,13 +88,29 @@ PS_HD int stage_list(const uint32_t* seen, int size_col, int blocks_col,
 // kernel builds `seen` with all its threads, then calls stage_list).
 PS_HD int stage_plan(const int* ops, const int* colidx, int count,
                      int n_cols, int size_col, int blocks_col, int valid_col,
-                     int* stage) {
+                     int* stage, bool agg = true) {
   uint32_t seen[SEEN_WORDS] = {};
   for (int i = 0; i < count; ++i) {
     const int c = compare_col(ops[i], colidx[i], n_cols);
     if (c >= 0) seen[c >> 5] |= 1u << (c & 31);
   }
-  return stage_list(seen, size_col, blocks_col, valid_col, stage);
+  return stage_list(seen, size_col, blocks_col, valid_col, stage, agg);
+}
+
+// The store form's tiles: each of the groups of `rows` rows is cut into
+// tiles_per_group(rows) tiles of TILE rows (its last one ragged), tile t
+// being tile t % per_group of group tile_group(t, per_group), so no tile
+// spans two groups; tile_row0 is its first row within its group.
+PS_HD long long tiles_per_group(long long rows) {
+  return (rows + TILE - 1) / TILE;
+}
+
+PS_HD long long tile_group(long long t, long long per_group) {
+  return t / per_group;
+}
+
+PS_HD long long tile_row0(long long t, long long group, long long per_group) {
+  return (t - group * per_group) * TILE;
 }
 
 // How the ring holds n_stage columns: a stage is `items` rows a consumer

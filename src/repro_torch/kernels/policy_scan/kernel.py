@@ -4,14 +4,20 @@ The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes`` (see :mod:`repro_torch.kernels._build`).
 
-Two wrappers, each counting its launches in a plain integer:
+Three wrappers, each counting its launches in a plain integer:
 
 * :func:`policy_scan_batch_cuda` — R programs, masks + rule index + (R, 14)
   aggregates (replaces ``policy_scan_batch_pallas``);
 * :func:`policy_scan_cuda` — one program, mask + (14,) aggregates
-  (replaces ``policy_scan_pallas``).
+  (replaces ``policy_scan_pallas``);
+* :func:`policy_scan_store_cuda` — the store form: R programs over the
+  device column store's ``(D, C, Rp)`` shard groups in one launch, program
+  0's mask + rule index, each ``(D, Rp)``, and the (R, 14) aggregates over
+  every group, or the lean form without them (replaces
+  ``policy_scan_batch_pallas`` as ``mesh_policy_scan_batch`` runs it once
+  per shard group).
 
-Both take CUDA tensors only and raise on anything else: there is no
+All take CUDA tensors only and raise on anything else: there is no
 fallback here. The plain version lives in ``ref.py``.
 """
 from __future__ import annotations
@@ -32,9 +38,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("policy_scan.cu",)
 HEADERS = ("policy_scan.cuh",)
 
-# launch counters: +1 per kernel launch, nowhere else
+# launch counters: +1 per kernel launch, nowhere else; the store form
+# counts in policy_scan_store_launches with aggregates and in
+# policy_scan_store_lean_launches without, never in both
 policy_scan_launches = 0
 policy_scan_batch_launches = 0
+policy_scan_store_launches = 0
+policy_scan_store_lean_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -42,8 +52,11 @@ _LIB_LOCK = threading.Lock()
 
 def reset_counters() -> None:
     global policy_scan_launches, policy_scan_batch_launches
+    global policy_scan_store_launches, policy_scan_store_lean_launches
     policy_scan_launches = 0
     policy_scan_batch_launches = 0
+    policy_scan_store_launches = 0
+    policy_scan_store_lean_launches = 0
 
 
 def library_path() -> Path:
@@ -67,10 +80,18 @@ def _lib() -> ctypes.CDLL:
             lib.policy_scan_launch.restype = i
             lib.policy_scan_grid.argtypes = [ll, i]
             lib.policy_scan_grid.restype = i
-            lib.policy_scan_plan.argtypes = [p, p, i, i, i, i, i, p, p, p]
+            lib.policy_scan_plan.argtypes = [p, p, i, i, i, i, i, i, p, p,
+                                             p]
             lib.policy_scan_plan.restype = i
             lib.policy_scan_occupancy.argtypes = [i, i]
             lib.policy_scan_occupancy.restype = i
+            lib.policy_scan_store_launch.argtypes = [
+                p, ll, ll, i, p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
+            lib.policy_scan_store_launch.restype = i
+            lib.policy_scan_store_grid.argtypes = [ll, ll, i]
+            lib.policy_scan_store_grid.restype = i
+            lib.policy_scan_store_occupancy.argtypes = [i, i, i]
+            lib.policy_scan_store_occupancy.restype = i
             for name in ("policy_scan_tile_rows", "policy_scan_max_cols"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = i
@@ -109,18 +130,33 @@ def _grid(lib, cols: torch.Tensor) -> int:
     return grid
 
 
+def _store_grid(lib, cols: torch.Tensor) -> int:
+    n_groups, n_cols, rp = cols.shape
+    if n_cols > lib.policy_scan_max_cols():
+        raise ValueError(f"{n_cols} columns: the kernel takes at most "
+                         f"{lib.policy_scan_max_cols()}")
+    sms = torch.cuda.get_device_properties(cols.device).multi_processor_count
+    grid = lib.policy_scan_store_grid(n_groups, rp, sms)
+    if grid <= 0:
+        raise RuntimeError("policy_scan: the occupancy query failed")
+    return grid
+
+
 def launch_shape(cols: torch.Tensor, ops: torch.Tensor,
                  colidx: torch.Tensor, *, size_col: int = 0,
-                 blocks_col: int = 1, valid_col: int = -1) -> dict:
+                 blocks_col: int = 1, valid_col: int = -1,
+                 with_agg: bool = True) -> dict:
     """How a launch over ``cols`` with (R, P) programs runs: its grid, and
     per pass of at most 8 programs the columns its blocks stage, the rows a
     stage holds (a tile of 1024, or a half or a quarter of one for wide
     column sets) and the ring's stages; and the resident blocks an SM of
-    its widest pass. It reads the programs on the host (the launch itself
-    does not). Launches nothing."""
+    its widest pass. ``cols`` of 3 dims, ``(D, C, Rp)``, is the store
+    form's launch (``with_agg=False`` its lean form). It reads the programs
+    on the host (the launch itself does not). Launches nothing."""
     lib = _lib()
-    grid = _grid(lib, cols)
-    n_cols = cols.shape[0]
+    store = cols.dim() == 3
+    grid = _store_grid(lib, cols) if store else _grid(lib, cols)
+    n_cols = cols.shape[-2]
     n_progs, n_instr = ops.shape
     ops_h = np.ascontiguousarray(ops.cpu().numpy(), np.int32)
     col_h = np.ascontiguousarray(colidx.cpu().numpy(), np.int32)
@@ -131,13 +167,15 @@ def launch_shape(cols: torch.Tensor, ops: torch.Tensor,
         rows, stages = ctypes.c_int(), ctypes.c_int()
         n_stage = lib.policy_scan_plan(
             ops_h[p0:].ctypes.data, col_h[p0:].ctypes.data, r * n_instr,
-            n_cols, size_col, blocks_col, valid_col, stage,
-            ctypes.byref(rows), ctypes.byref(stages))
+            n_cols, size_col, blocks_col, valid_col,
+            int(with_agg or not store), stage, ctypes.byref(rows),
+            ctypes.byref(stages))
         passes.append(dict(staged_cols=list(stage[:n_stage]),
                            stage_rows=rows.value,
                            stages=stages.value))
-    return dict(grid=grid, passes=passes,
-                blocks_per_sm=lib.policy_scan_occupancy(n_progs, n_instr),
+    occ = (lib.policy_scan_store_occupancy(int(with_agg), n_progs, n_instr)
+           if store else lib.policy_scan_occupancy(n_progs, n_instr))
+    return dict(grid=grid, passes=passes, blocks_per_sm=occ,
                 tile_rows=lib.policy_scan_tile_rows())
 
 
@@ -212,3 +250,64 @@ def policy_scan_cuda(cols: torch.Tensor, ops: torch.Tensor,
                                 valid_col, with_rule=False)
     _launches.count(__name__, "policy_scan_launches")
     return masks[0], agg[0]
+
+
+def policy_scan_store_cuda(cols: torch.Tensor, ops: torch.Tensor,
+                           colidx: torch.Tensor, operands: torch.Tensor, *,
+                           size_col: int, blocks_col: int, valid_col: int,
+                           with_agg: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The store form, one launch over every shard group.
+
+    cols: (D, C+1, Rp) f32 CUDA, group d's columns in ``cols[d]`` with a
+    0/1 validity column ``valid_col``; Rp a multiple of 4. ops/colidx
+    (R, P) i32, operands (R, P) f32. Returns (mask0 (D, Rp), f32 with
+    ``with_agg`` else bool; rule (D, Rp) i32; agg (R, 14) f32 summed over
+    every group, zeros without ``with_agg``). The masks of programs 1..R-1
+    are not kept: only program 0's and the rule index leave the kernel."""
+    dev = cols.device
+    _check(cols, "cols", torch.float32, 3, dev)
+    _check(ops, "ops", torch.int32, 2, dev)
+    _check(colidx, "colidx", torch.int32, 2, dev)
+    _check(operands, "operands", torch.float32, 2, dev)
+    n_groups, n_cols, rp = cols.shape
+    n_progs, n_instr = ops.shape
+    if colidx.shape != ops.shape or operands.shape != ops.shape:
+        raise ValueError("ops, colidx and operands must share one (R, P) shape")
+    if n_groups == 0 or rp == 0 or n_progs == 0:
+        raise ValueError("the store form needs D > 0 groups, Rp > 0 rows "
+                         "and R > 0 programs")
+    if rp % 4:
+        raise ValueError(f"Rp={rp}: the store form needs a multiple of 4 "
+                         "rows a group")
+    for name, c in (("size_col", size_col), ("blocks_col", blocks_col),
+                    ("valid_col", valid_col)):
+        if not 0 <= c < n_cols:
+            raise ValueError(f"{name}={c} outside [0, {n_cols})")
+    lib = _lib()
+    grid = _store_grid(lib, cols)
+    mask0 = torch.empty((n_groups, rp), device=dev,
+                        dtype=torch.float32 if with_agg else torch.bool)
+    rule = torch.empty((n_groups, rp), dtype=torch.int32, device=dev)
+    if with_agg:
+        partials = torch.empty((grid, n_progs, N_AGG), dtype=torch.float32,
+                               device=dev)
+        agg = torch.empty((n_progs, N_AGG), dtype=torch.float32, device=dev)
+    else:
+        partials = None
+        agg = torch.zeros((n_progs, N_AGG), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.policy_scan_store_launch(
+        cols.data_ptr(), n_groups, rp, n_cols, ops.data_ptr(),
+        colidx.data_ptr(), operands.data_ptr(), n_progs, n_instr, size_col,
+        blocks_col, valid_col, int(bool(with_agg)), mask0.data_ptr(),
+        rule.data_ptr(), partials.data_ptr() if with_agg else None,
+        agg.data_ptr() if with_agg else None, grid, stream)
+    if err != 0:
+        raise RuntimeError("policy_scan store launch failed: "
+                           f"{lib.policy_scan_error_string(err).decode()}")
+    _launches.count(__name__, "policy_scan_store_launches" if with_agg
+                    else "policy_scan_store_lean_launches")
+    return mask0, rule, agg

@@ -14,6 +14,14 @@ beyond), and the aggregates count a row when its mask is not 0: they equal
 the plain version's sums of the mask when the validity column holds only 0
 and 1, as a catalog's does (volume and spc_used are weighted by the mask
 either way).
+
+:func:`mesh_policy_scan_batch` is the device column store's matcher over
+its ``(D, C+1, Rp)`` shard groups: the kernel's store form on the card (one
+launch over every group), and on the CPU the static-program evaluator
+(:func:`_unrolled_masks`) one group at a time, as the reference runs it off
+the TPU. :func:`policy_scan_multi` and :func:`policy_scan_batch_unrolled`
+have no kernel in the reference either: they are plain PyTorch on any
+device, and the card's main path never calls them.
 """
 from __future__ import annotations
 
@@ -23,8 +31,11 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from .kernel import policy_scan_batch_cuda, policy_scan_cuda
-from .ref import N_AGG, policy_scan_batch_ref, policy_scan_ref
+from .kernel import (policy_scan_batch_cuda, policy_scan_cuda,
+                     policy_scan_store_cuda)
+from .ref import (N_AGG, OP_AND, OP_NOP, OP_NOT, OP_OR, aggregate_multi,
+                  attribute_ref, combine_groups, policy_scan_batch_ref,
+                  policy_scan_multi_ref, policy_scan_ref)
 
 
 def _kernel_for(cols: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -103,6 +114,168 @@ def policy_scan_batch(cols: torch.Tensor, ops: torch.Tensor,
     if kernel:
         return policy_scan_batch_cuda(*args, **kw)
     return policy_scan_batch_ref(*args, **kw)
+
+
+def policy_scan_multi(cols: torch.Tensor, ops: torch.Tensor,
+                      colidx: torch.Tensor, operands: torch.Tensor,
+                      size_col: int = 0, blocks_col: int = 1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate R padded predicate programs over one column stack.
+
+    cols: (n_cols, N) f32; ops/colidx/operands: (R, P), OP_NOP padded.
+    Returns (masks (R, N) f32, agg (N_AGG,) f32 for program 0). One
+    columnar pass: matching and size/blocks aggregation fuse in one scan.
+    """
+    dev = cols.device
+    return policy_scan_multi_ref(
+        cols.to(torch.float32), ops.to(dev, torch.int32),
+        colidx.to(dev, torch.int32), operands.to(dev, torch.float32),
+        size_col=size_col, blocks_col=blocks_col)
+
+
+_CMP_FNS = (torch.eq, torch.ne, torch.gt, torch.ge, torch.lt, torch.le)
+
+
+def _eval_unrolled(cols: torch.Tensor, ops: Tuple[int, ...],
+                   colidx: Tuple[int, ...], operands: torch.Tensor
+                   ) -> torch.Tensor:
+    """Postfix program evaluation with the *program* static.
+
+    A policy's opcode/column sequence is fixed per definition (only the
+    *operands* move with ``now``), so this path unrolls the program in
+    Python: each instruction runs exactly the one comparison it needs, the
+    stack is a Python list, and booleans (1 byte) replace f32 masks until
+    the end. Bit-identical to :func:`ref.eval_program` on {0, 1} masks —
+    differential-tested.
+    """
+    vals = operands.to(torch.float32).tolist()     # f32 values, exactly
+    stack: List[torch.Tensor] = []
+    for i, op in enumerate(ops):
+        if op == OP_NOP:
+            continue
+        if op < 6:
+            stack.append(_CMP_FNS[op](cols[colidx[i]], vals[i]))
+        elif op == OP_AND:
+            b, a = stack.pop(), stack.pop()
+            stack.append(a & b)
+        elif op == OP_OR:
+            b, a = stack.pop(), stack.pop()
+            stack.append(a | b)
+        elif op == OP_NOT:
+            stack.append(~stack.pop())
+    if not stack:
+        return torch.zeros(cols.shape[1], dtype=torch.bool,
+                           device=cols.device)
+    return stack[-1]
+
+
+def _unrolled_masks(cols: torch.Tensor, ops_t, colidx_t,
+                    operands: torch.Tensor, valid_col: int
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Shared core of the unrolled paths: (bool program masks,
+    first-match-wins rule_idx). Single semantics authority for the
+    single-device oracle and the lean store branch — fix either behaviour
+    here, never in a caller."""
+    masks_b = []
+    for r in range(len(ops_t)):
+        m = _eval_unrolled(cols, ops_t[r], colidx_t[r], operands[r])
+        if valid_col >= 0:
+            m = m & (cols[valid_col] > 0.5)
+        masks_b.append(m)
+    if len(masks_b) > 1:
+        rule = attribute_ref(torch.stack(masks_b).to(torch.float32))
+    else:
+        rule = torch.full((cols.shape[1],), -1, dtype=torch.int32,
+                          device=cols.device)
+    return masks_b, rule
+
+
+def policy_scan_batch_unrolled(cols: torch.Tensor, operands: torch.Tensor,
+                               *, ops_t: Tuple[Tuple[int, ...], ...],
+                               colidx_t: Tuple[Tuple[int, ...], ...],
+                               size_col: int = 0, blocks_col: int = 1,
+                               valid_col: int = -1
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Static-program batch matcher.
+
+    Same contract as :func:`policy_scan_batch` — (masks (R, N) f32,
+    rule_idx (N,) i32, agg (R, N_AGG) f32) — but the (R, P) opcode/column
+    arrays are hashable tuples (operand values, which carry ``now``-
+    relative thresholds, stay data). Any N works.
+    """
+    masks_b, rule = _unrolled_masks(cols, ops_t, colidx_t, operands,
+                                    valid_col)
+    masks = torch.stack(masks_b).to(torch.float32)
+    agg = aggregate_multi(masks, cols[size_col], cols[blocks_col])
+    return masks, rule, agg
+
+
+def _program_tuples(ops: np.ndarray, colidx: np.ndarray
+                    ) -> Tuple[Tuple[Tuple[int, ...], ...],
+                               Tuple[Tuple[int, ...], ...]]:
+    return (tuple(tuple(int(o) for o in row) for row in np.asarray(ops)),
+            tuple(tuple(int(c) for c in row) for row in np.asarray(colidx)))
+
+
+def mesh_policy_scan_batch(global_cols: torch.Tensor,
+                           operands: torch.Tensor, *,
+                           ops_t: Tuple[Tuple[int, ...], ...],
+                           colidx_t: Tuple[Tuple[int, ...], ...],
+                           size_col: int = 0, blocks_col: int = 1,
+                           valid_col: int = -1, with_agg: bool = True,
+                           use_kernel: Optional[bool] = None,
+                           perm=None, subject=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Batch matcher over the device column store's resident table.
+
+    ``global_cols`` is (D, n_cols, Rp) f32: one shard group's padded column
+    stack a group (see ``core.device_store``), ``valid_col`` its 0/1
+    row-validity column. The (R, P) opcode/column program structure rides
+    as static tuples; only the operand values are data. Returns (mask0
+    (D, Rp) and rule_idx (D, Rp) i32; agg (R, N_AGG) f32 over every group,
+    the additive slots summed and ``any_match`` their maximum): only the
+    combined-criteria mask and the attribution leave the device.
+
+    On a CUDA tensor one launch of the kernel's store form walks every
+    group (mask0 f32); on a CPU tensor the unrolled static-program
+    evaluator runs one group at a time (mask0 f32 with ``with_agg``).
+    ``with_agg=False`` skips the fused size-profile aggregation (mask0 is
+    bool and agg zeros) — the policy engine's match path, which only
+    consumes mask + attribution. ``use_kernel`` as :func:`policy_scan`.
+
+    ``perm``/``subject`` (tenant scoping) are not ported yet.
+    """
+    if perm is not None or subject is not None:
+        raise NotImplementedError(
+            "subject scoping (perm=/subject=) is not ported yet: ROADMAP.md "
+            "queue 1 item 6, the permissions plane")
+    kernel = _kernel_for(global_cols, use_kernel)
+    dev = global_cols.device
+    if kernel:
+        ops = torch.tensor(ops_t, dtype=torch.int32).to(dev)
+        colidx = torch.tensor(colidx_t, dtype=torch.int32).to(dev)
+        return policy_scan_store_cuda(
+            global_cols, ops, colidx,
+            operands.to(device=dev, dtype=torch.float32).contiguous(),
+            size_col=size_col, blocks_col=blocks_col, valid_col=valid_col,
+            with_agg=with_agg)
+    operands = operands.to(device=dev, dtype=torch.float32)
+    mask0, rule, parts = [], [], []
+    for c in global_cols:
+        masks_b, r = _unrolled_masks(c, ops_t, colidx_t, operands,
+                                     valid_col)
+        if with_agg:
+            masks = torch.stack(masks_b).to(torch.float32)
+            parts.append(aggregate_multi(masks, c[size_col], c[blocks_col]))
+            mask0.append(masks[0])
+        else:
+            mask0.append(masks_b[0])
+        rule.append(r)
+    agg = combine_groups(parts) if with_agg else torch.zeros(
+        (len(ops_t), N_AGG), dtype=torch.float32, device=dev)
+    return torch.stack(mask0), torch.stack(rule), agg
 
 
 def column_stack(arrays, device=None) -> torch.Tensor:
@@ -212,15 +385,44 @@ def match_programs(arrays, exprs, strings, now: float,
     return masks, _agg_dict(per_rule[0], per_rule), _attribute_np(masks)
 
 
+def match_programs_mesh(store, exprs, now: float,
+                        use_kernel: Optional[bool] = None):
+    """Store-resident sibling of :func:`match_programs`: evaluate the
+    (R, P) program batch over a
+    :class:`~repro_torch.core.device_store.DeviceColumnStore` instead of a
+    freshly uploaded column stack.
+
+    The store refreshes stale shard groups by delta scatter (or full
+    re-upload), launches :func:`mesh_policy_scan_batch` over the resident
+    (D, n_cols, Rp) tensor, and pulls back only the program-0 mask and the
+    rule attribution. Returns a ``MeshMatch`` (see device_store):
+    ``.plan(sort_by)`` yields the matched (fids, sizes, sort_keys,
+    rule_idx) arrays and ``.agg`` the fused aggregate dict — same
+    semantics as :func:`match_programs`, differential-tested equal.
+    Raises PolicyError on host-only (glob) predicates.
+    """
+    return store.match(exprs, now, use_kernel=use_kernel)
+
+
 def scan_catalog(catalog, expr, now: float,
-                 use_kernel: Optional[bool] = None, device=None
-                 ) -> Tuple[np.ndarray, dict]:
+                 use_kernel: Optional[bool] = None, device=None,
+                 store=None) -> Tuple[np.ndarray, dict]:
     """Run a core.policy expression over a Catalog via the kernel path.
 
     Only numeric/categorical predicates compile to the kernel program;
     glob predicates raise PolicyError (callers fall back to Expr.mask).
-    Returns (matching fids, aggregate dict).
+    Returns (matching fids, aggregate dict). When ``store`` (a
+    :class:`~repro_torch.core.device_store.DeviceColumnStore` over the same
+    catalog) is given, the scan runs over its resident column stacks on
+    the store's device — no host-side concat, no host->device re-upload;
+    ``device`` is then not used.
     """
+    if store is not None:
+        if store.catalog is not catalog:
+            from ...core.policy import PolicyError
+            raise PolicyError("device store wraps a different catalog "
+                              "than the one passed to scan_catalog")
+        return store.scan(expr, now, use_kernel=use_kernel)
     from ...core.policy import KERNEL_COLUMNS, compile_program
     from ...core.telemetry import span as _tspan
     dev = resolve_device(device)

@@ -113,6 +113,22 @@ def policy_scan_ref(cols: torch.Tensor, ops: torch.Tensor,
     return mask, aggregate(mask, cols[size_col], cols[blocks_col])
 
 
+def policy_scan_multi_ref(cols: torch.Tensor, ops: torch.Tensor,
+                          colidx: torch.Tensor, operands: torch.Tensor,
+                          size_col: int = 0, blocks_col: int = 1
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate R padded programs in one columnar pass.
+
+    ops/colidx/operands: (R, P) with OP_NOP padding. Returns
+    (masks (R, N) f32, agg (N_AGG,) f32 for program 0) — program 0 is, by
+    convention, the policy's combined scope∧rules∧extra criteria; the
+    remaining rows are per-rule masks used for vectorized attribution.
+    """
+    masks = torch.stack([eval_program(cols, o, c, v)
+                         for o, c, v in zip(ops, colidx, operands)])
+    return masks, aggregate(masks[0], cols[size_col], cols[blocks_col])
+
+
 def attribute_ref(masks: torch.Tensor) -> torch.Tensor:
     """First-match-wins rule attribution over (R, N) program masks.
 
@@ -148,3 +164,38 @@ def policy_scan_batch_ref(cols: torch.Tensor, ops: torch.Tensor,
         masks = masks * cols[valid_col][None, :]
     return (masks, attribute_ref(masks),
             aggregate_multi(masks, cols[size_col], cols[blocks_col]))
+
+
+def combine_groups(parts: List[torch.Tensor]) -> torch.Tensor:
+    """(R, N_AGG) f32 aggregates of every shard group from theirs, in group
+    order: the additive slots summed in f32 and ``any_match`` their
+    maximum, as the reference's psum / pmax across the mesh."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out[:, : N_AGG - 1] += p[:, : N_AGG - 1]
+        out[:, N_AGG - 1] = torch.maximum(out[:, N_AGG - 1], p[:, N_AGG - 1])
+    return out
+
+
+def policy_scan_store_ref(cols: torch.Tensor, ops: torch.Tensor,
+                          colidx: torch.Tensor, operands: torch.Tensor, *,
+                          size_col: int, blocks_col: int, valid_col: int,
+                          with_agg: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The store form's plain version: :func:`policy_scan_batch_ref` on
+    each shard group of ``cols`` (D, C, Rp), one group at a time.
+
+    Returns (mask0 (D, Rp): program 0's f32 mask with ``with_agg``, else
+    ``mask0 > 0.5`` as bool; rule (D, Rp) i32; agg (R, N_AGG) f32 over
+    every group (:func:`combine_groups`), zeros without ``with_agg``)."""
+    mask0, rule, parts = [], [], []
+    for c in cols:
+        masks, r, agg = policy_scan_batch_ref(
+            c, ops, colidx, operands, size_col=size_col,
+            blocks_col=blocks_col, valid_col=valid_col)
+        mask0.append(masks[0] if with_agg else masks[0] > 0.5)
+        rule.append(r)
+        parts.append(agg)
+    agg = combine_groups(parts) if with_agg else torch.zeros(
+        (ops.shape[0], N_AGG), dtype=torch.float32, device=cols.device)
+    return torch.stack(mask0), torch.stack(rule), agg

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
 ``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
-module of the JAX package; a policy must run, a profile cube and its
+module of the JAX package; a policy must run (through ``policy_scan`` and,
+over a ``DeviceColumnStore``, ``policy_scan_mesh``), a profile cube and its
 reports must build, and the paged serving engine must serve requests over
 its tiered KV cache, with both blocked; the default device must raise when
 CUDA is absent; and the kernel path must refuse CPU tensors instead of
@@ -56,6 +57,15 @@ r = eng.run("p", evaluator="policy_scan")
 assert r.evaluator == "policy_scan" and r.fallback_reason == "", r
 assert acted == list(range(102, 201)), acted[:5]
 
+from repro_torch.core import DeviceColumnStore
+eng.attach_device_store(DeviceColumnStore(cat, groups=3, device="cpu"))
+acted.clear()
+rm = eng.run("p", evaluator="policy_scan_mesh")
+assert rm.evaluator == "policy_scan_mesh" and rm.fallback_reason == "", rm
+assert acted == list(range(102, 201)), acted[:5]
+assert kernel.policy_scan_store_launches == 0
+assert kernel.policy_scan_store_lean_launches == 0
+
 from repro_torch.core import ProfileCube, Reports
 from repro_torch.kernels.profile_cube import kernel as pc_kernel
 cube = ProfileCube(cat, clock=lambda: 1e6, use_kernel=True,
@@ -106,7 +116,9 @@ print("OK", r.matched)
 
 
 def test_policy_runs_with_jax_and_repro_blocked():
-    """Also builds a ``ProfileCube(use_kernel=True)`` and ``Reports``,
+    """Also runs the policy through ``policy_scan_mesh`` over a
+    ``DeviceColumnStore(groups=3, device="cpu")``, builds a
+    ``ProfileCube(use_kernel=True)`` and ``Reports``,
     serves requests through ``ServingEngine(device="cpu").run``, and runs a
     prefill and three decode steps of both recurrent smoke models."""
     env = dict(os.environ)
@@ -129,6 +141,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):
         PolicyEngine(Catalog())
+    from repro_torch.core import DeviceColumnStore
+    cat = Catalog()
+    with pytest.raises(RuntimeError):
+        DeviceColumnStore(cat)
+    assert not cat._hooks                  # raised before subscribing
     from repro_torch.core.policy import KERNEL_COLUMNS
     with pytest.raises(RuntimeError):
         ops.column_stack({c: np.zeros(3) for c in KERNEL_COLUMNS})

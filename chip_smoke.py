@@ -84,14 +84,38 @@ failure:
    and 1000 inserts in one shard must re-upload its group alone, and
    ``scan_catalog(store=)`` must launch the store form with aggregates
    once and agree with the 2-D ``scan_catalog``;
-8. collect (the paper's headline scenario, ``tests/test_system.py``): a
+8. store reports (after the store engine, on its catalog): a fresh
+   ``DeviceColumnStore(cat, groups=4)`` with ``Reports`` and
+   ``ProfileCube`` attached to it, held to the host folds: two kernel
+   ``find`` predicates (each exactly one lean store-form launch) and a
+   glob that must fall back, ``top_files`` by size and atime (k = 10,
+   both orders), ``du`` of ``/fs``, ``/fs/d3`` and a missing prefix, and
+   the cube (a cold one is exactly 4 ``profile_cube`` launches). Paths,
+   orders and counts identical, du's sums equal, cube counts equal and
+   sums within ``rtol=1e-5``. Then a warm round (1% in-place churn, 30
+   days later): 0 full uploads, exactly the changed rows scattered, no
+   cube rebuild and no ``profile_cube`` launch (the signed scatter-adds
+   and the age rollovers serve), ``Catalog.arrays`` flat across the store
+   queries; and a rename round (5 paths of one shard: its group alone
+   re-uploads). The query walls are logged, store against host. Then at
+   device scale, the store's ``(8, 21, 2^24)`` layout (11.27 GB, drawn on
+   the card: ``ord`` a permutation a group, 6,000 profile groups, so a
+   cube capacity of 7,504): (i) the store form on ``BATCH_CRITERIA``,
+   both ways, identical to the 17-row layout of the same rows and timed
+   in turns with it; (ii) ``mesh_profile_cube``, 8 launches, counts
+   equal to the plain version and sums to the f64 plain version; (iii)
+   the two-pass top-k on size against a ``torch.sort`` of the filtered
+   column; (iv) ``mesh_range_aggregate`` on random rank bounds against
+   the same sums from a ``torch.sort`` of ``ord``; each timed beside the
+   rows it reads over the memory rate;
+9. collect (the paper's headline scenario, ``tests/test_system.py``): a
    ``LustreSim`` under load mirrored by a ``Scanner`` and two
    ``EventPipeline``s, ``HsmCoordinator`` policies run through
    ``policy_scan_mesh`` over a ``DeviceColumnStore`` on the card: the
    archive policy's matches equal ``numpy``'s, the archive pass is one
    lean store-form launch, and after the watermark purges every OST is
    under the high watermark;
-9. reports on the same catalog: ``ProfileCube(use_kernel=True).attach()``
+10. reports on the same catalog: ``ProfileCube(use_kernel=True).attach()``
    on the card must launch ``profile_cube`` once per shard (4) and give
    the cube of the exact int64 host groupby (counts equal, volume and
    spc_used within ``rtol=1e-5``), and ``Reports`` over the two cubes must
@@ -99,7 +123,7 @@ failure:
    plain version on each shard's columns; after a few thousand changed
    entries go through the catalog's delta hooks, the kernel-built cube's
    counts must equal a fresh host rebuild's;
-10. paged attention at device scale (after the cube phase): 64 sequences
+11. paged attention at device scale (after the cube phase): 64 sequences
     with lengths uniform in [1, 8192] (one of length 0, one with a -1 hole
     in its table, one a multiple of the 64-token page), tables drawn from a
     seeded permutation of an 8192-page pool, in four configurations:
@@ -119,7 +143,7 @@ failure:
     K/V gathered beforehand; the split kernel's and the combine's own
     device times come from a ``torch.profiler`` trace of the call, and the
     grid (blocks, splits, live blocks, waves) is reported;
-11. recurrent kernels at device scale (after the attention phase), seeded
+12. recurrent kernels at device scale (after the attention phase), seeded
     inputs drawn on the card with the models' decay distributions:
     ``rglru_scan`` at recurrentgemma-9b's width (B 8, S 4096, R 4096, f32,
     1.6 GB) and at S 1, S 2016 and R 100, each with and without ``h0``,
@@ -132,7 +156,7 @@ failure:
     shapes beside the kernels' own device times and the time of a call
     launched from a CUDA graph (a graph of 64 calls, replayed from an idle
     card, over 64);
-12. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
+13. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
     (28 layers, weights drawn on the card from the seed), 4 requests of 256
     seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
     so the watermark releases and restores pages in every layer. Each run
@@ -145,7 +169,7 @@ failure:
     (see ``attn_agrees``); a
     second run with the same seed must give the same tokens, and is timed
     with the host seconds of each cache and op call kind;
-13. recurrent-model serving (last), one model after the other, each at
+14. recurrent-model serving (last), one model after the other, each at
     full width and depth with parameters drawn on the card from the seed,
     through ``make_prefill`` and a decode step: rwkv6-1.6b, 8 prompts of
     512 seeded tokens and 64 new (exactly 24 x 63 = 1,512 ``rwkv6_step``
@@ -198,11 +222,15 @@ TOL = dict(rtol=1e-5, atol=1.0)
 ROWS = 1 << 27                  # kernel phase: rows on the card
 STORE_GROUPS = 8                # store kernel phase: ROWS in 8 groups
 STORE_ENGINE_GROUPS = 4         # store engine phase: one group a shard
+SCALE_ROWS = 1 << 24            # store reports phase: rows a group (the
+                                # f32 envelope edge of the ord row)
+SCALE_CUBE_GROUPS = 6000        # store reports phase: distinct profile
+                                # groups (capacity 7,504 past the cap 4096)
 CHURN = 0.01                    # store engine phase: entries changed a round
 ENTRIES = 1 << 20               # engine phase: catalog entries
 REPS = 10                       # timed calls per kernel and plain version
 L2_FLUSH_BYTES = 256 << 20      # written before each timed attention call
-CUBE_GROUPS = 4096              # cell (a): profile_cube's MAX_GROUPS
+CUBE_GROUPS = 4096              # cell (a): the profile_cube op's cap
 CUBE_GROUPS_SMALL = 64          # cells (b) and (c)
 # cell (d): cell (a) with gid drawn from p_g ~ (g + 1)^-CUBE_ZIPF_S over
 # CUBE_GROUPS groups. The exponent is a choice: it puts about 16% of rows
@@ -941,20 +969,35 @@ def cube_phase(torch, seed, device, results):
     got = PK.profile_cube_cuda(ragged, **kw)
     check(torch.equal(got, PR.profile_cube_ref(ragged.double(), **kw)
                       .float()), "profile_cube differs on a ragged N")
+    # the op's cap stays at 4096 (past it ProfileCube takes its host
+    # groupby); the kernel takes up to KERNEL_MAX_GROUPS and refuses more
+    # before it launches
+    check(PK.max_groups() == PK.KERNEL_MAX_GROUPS, "the library's group "
+          f"limit {PK.max_groups()} is not {PK.KERNEL_MAX_GROUPS}")
+    before = PK.profile_cube_launches
     for fn in (lambda: PO.profile_cube(
                    *(torch.zeros(4).numpy(),) * 4,
-                   n_groups=PK.MAX_GROUPS + 1, device=device),
+                   n_groups=PO.MAX_GROUPS + 1, device=device),
                lambda: PK.profile_cube_cuda(
                    cols_c, **dict(PREBUCKETED,
-                                  n_groups=PK.MAX_GROUPS + 1))):
+                                  n_groups=PK.KERNEL_MAX_GROUPS + 1))):
         try:
             fn()
         except ValueError:
             continue
-        fail("n_groups = MAX_GROUPS + 1 did not raise")
+        fail("n_groups past the op's or the kernel's cap did not raise")
+    check(PK.profile_cube_launches == before, "a refused call counted a "
+          "launch")
+    kw = dict(PREBUCKETED, n_groups=PO.MAX_GROUPS + 1)
+    check(torch.equal(PK.profile_cube_cuda(cols_c, **kw),
+                      PR.profile_cube_ref(cols_c.double(), **kw).float()),
+          f"profile_cube at {PO.MAX_GROUPS + 1} groups differs from the f64 "
+          "plain version")
     log(f"[cube] edges: empty shapes as the reference's, ragged N="
-        f"{ragged.shape[1]} identical to the f64 plain version, n_groups="
-        f"{PK.MAX_GROUPS + 1} raises")
+        f"{ragged.shape[1]} identical to the f64 plain version, the op "
+        f"refuses n_groups={PO.MAX_GROUPS + 1}, the kernel takes it "
+        f"(identical to the f64 plain version) and refuses "
+        f"{PK.KERNEL_MAX_GROUPS + 1}")
     del cols_c, ragged
 
     # times: CUDA events, median of REPS after a warm-up, beside the bound,
@@ -1054,8 +1097,8 @@ def reports_phase(torch, cat, device, results):
     check(counts == want, f"ProfileCube(use_kernel=True).attach() launched "
           f"{counts}, expected {want}")
     results["profile_cube"]["launches"] = counts["profile_cube"]
-    results["profile_cube"]["launches_by_path"] = {
-        "ProfileCube.rebuild": counts["profile_cube"]}
+    results["profile_cube"].setdefault("launches_by_path", {})[
+        "ProfileCube.rebuild"] = counts["profile_cube"]
     t0 = time.perf_counter()
     host = ProfileCube(cat, clock=clock, device=device)
     host.rebuild()
@@ -1612,6 +1655,437 @@ def store_engine_phase(torch, cat, device, results, seed: int):
     r["store_lean_launches"] = windows["PolicyEngine.run(policy_scan_mesh)"][
         "policy_scan_store_lean"]
     r["store_warm_rounds"] = warm
+
+
+class MovingClock:
+    """A clock a phase moves by hand (``t`` seconds)."""
+
+    def __init__(self, t: float = NOW):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def cube_equal(got, want) -> bool:
+    """Two merged cubes agree: same shape, counts equal, volume and
+    spc_used within rtol=1e-5 (the store's partials are f32, the host
+    groupby's int64)."""
+    import numpy as np
+    return (got.shape == want.shape and np.array_equal(got[0], want[0])
+            and np.allclose(got[1:], want[1:], rtol=1e-5, atol=0))
+
+
+def host_cube(cat, now):
+    """The exact int64 host groupby of ``cat`` at ``now``."""
+    from repro_torch.core import ProfileCube
+    cube = ProfileCube(cat, clock=lambda: now, device="cpu")
+    cube.rebuild(now=now)
+    return cube.cube(now)
+
+
+def store_reports_phase(torch, cat, device, results, seed: int):
+    """``Reports`` and ``ProfileCube`` served from a ``DeviceColumnStore``
+    on the card, held to the host folds: cold, after 1% in-place churn,
+    after a rename; then the planes' ops at device scale
+    (:func:`store_scale_phase`). See the module docstring."""
+    import numpy as np
+    from repro_torch.core import DeviceColumnStore, ProfileCube, Reports
+    clock = MovingClock()
+    store = DeviceColumnStore(cat, groups=STORE_ENGINE_GROUPS, device=device)
+    rs = Reports(cat, clock=clock).attach_device_store(store)
+    pc = ProfileCube(cat, clock=clock, device=device) \
+        .attach_device_store(store)
+    rh = Reports(cat, clock=clock)
+    finds = ("size > 60G and type == file",
+             "last_access > 180d and owner == 'u3'")
+    tops = [(by, desc) for by in ("size", "atime") for desc in (True, False)]
+    prefixes = ("/fs", "/fs/d3", "/nope")
+    windows, walls = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out, counts = launch_window(fn)
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        return out, counts
+
+    def queries(tag, want_cube_launches):
+        """Every store query, then the host folds; all must agree."""
+        arrays0 = cat.arrays_calls
+        got = {}
+        for crit in finds:
+            got["find", crit], counts = timed("find (store)",
+                                              lambda c=crit: rs.find(c))
+            check(counts == only(policy_scan_store_lean=1), f"{tag}: find "
+                  f"{crit!r} launched {counts}, not one lean store form")
+            windows["DeviceColumnStore.find_paths"] = counts
+        for by, desc in tops:
+            got["top", by, desc], counts = timed(
+                "top_files (store)", lambda b=by, d=desc: rs.top_files(
+                    by=b, k=10, desc=d))
+            check(counts == only(), f"{tag}: top_files launched {counts}")
+        for p in prefixes:
+            got["du", p], counts = timed("du (store)", lambda q=p: rs.du(q))
+            check(counts == only(), f"{tag}: du launched {counts}")
+        got["cube"], counts = timed("analytics_cube (store)",
+                                    lambda: pc.cube(clock()))
+        check(counts == only(profile_cube=want_cube_launches),
+              f"{tag}: the cube launched {counts}, expected "
+              f"{want_cube_launches} profile_cube")
+        if want_cube_launches:
+            windows["DeviceColumnStore._rebuild_cube"] = counts
+        check(cat.arrays_calls == arrays0, f"{tag}: the store queries "
+              f"called Catalog.arrays() {cat.arrays_calls - arrays0} times")
+        check(rs.last_fallback_reason is None and rs.host_served == 0,
+              f"{tag}: a store query fell back: {rs.last_fallback_reason}")
+        for key, val in got.items():
+            t0 = time.perf_counter()
+            if key[0] == "find":
+                want = rh.find(key[1])
+            elif key[0] == "top":
+                want = rh.top_files(by=key[1], k=10, desc=key[2])
+            elif key[0] == "du":
+                want = rh.du(key[1])
+            else:
+                want = host_cube(cat, clock())
+                walls.setdefault("cube (host rebuild)", []).append(
+                    time.perf_counter() - t0)
+                check(cube_equal(val, want), f"{tag}: the store's cube "
+                      "differs from the host groupby's")
+                continue
+            walls.setdefault(f"{key[0]} (host)", []).append(
+                time.perf_counter() - t0)
+            check(val == want, f"{tag}: {key} differs from the host fold "
+                  f"({len(val)} vs {len(want)})")
+        return got
+
+    # cold: 4 full uploads with paths, the cube built by 4 launches
+    t0 = time.perf_counter()
+    cold = queries("cold", STORE_ENGINE_GROUPS)
+    check(store.full_uploads == STORE_ENGINE_GROUPS and
+          store.cube_rebuilds == 1, f"cold: {store.full_uploads} full "
+          f"uploads, {store.cube_rebuilds} cube rebuilds")
+    n_found = [len(cold["find", c]) for c in finds]
+    log(f"[store-reports] cold {CARD}: {len(finds)} finds "
+        f"({n_found} paths), {len(tops)} top_files, {len(prefixes)} du and "
+        f"the cube from DeviceColumnStore(groups={STORE_ENGINE_GROUPS}) "
+        f"equal to the host folds in {time.perf_counter() - t0:.2f} s; "
+        f"{store.full_uploads} full uploads, launches "
+        f"{json.dumps(windows)}; du('/fs') {cold['du', '/fs']}")
+    glob = rs.find("name == 'f12345'")
+    check(glob == rh.find("name == 'f12345'") and len(glob) == 1
+          and rs.last_fallback_reason is not None, "a glob find did not "
+          f"fall back to the host fold: {rs.last_fallback_reason!r}")
+    rs.last_fallback_reason, rs.host_served = None, 0
+
+    # warm: 1% of the entries changed in place, at a later instant
+    rng = np.random.default_rng(seed + 21)
+    live = np.concatenate([g.fids for g in store._groups])
+    fids = rng.choice(live, size=round(ENTRIES * CHURN), replace=False)
+    half = len(fids) // 2
+    cat.update_fields_batch(fids[:half].tolist(), atime=NOW - 40 * 86400)
+    cat.update_fields_batch(fids[half:].tolist(), size=1 << 35)
+    clock.t = NOW + 30 * 86400
+    before = (store.full_uploads, store.rows_scattered, store.cube_rebuilds,
+              store.rollovers)
+    queries("warm", 0)
+    check(store.full_uploads == before[0], f"warm: "
+          f"{store.full_uploads - before[0]} full uploads")
+    check(store.rows_scattered - before[1] == len(fids), f"warm: "
+          f"{store.rows_scattered - before[1]} rows scattered for "
+          f"{len(fids)} changed entries")
+    check(store.cube_rebuilds == before[2] and store.rollovers > before[3],
+          f"warm: {store.cube_rebuilds - before[2]} cube rebuilds, "
+          f"{store.rollovers - before[3]} rollovers")
+    log(f"[store-reports] warm {CARD}: {len(fids)} entries changed in "
+        f"place, now + 30 days: 0 full uploads, "
+        f"{store.rows_scattered - before[1]} rows scattered, 0 cube "
+        f"rebuilds and 0 profile_cube launches (signed scatter-adds), "
+        f"{store.rollovers - before[3]} age rollovers on the card, "
+        f"Catalog.arrays() flat; every answer equal to the host folds")
+
+    # rename: a few paths in one shard; only its group re-uploads
+    shard = 2
+    moved = [int(f) for f in live if cat._shard_id(int(f)) == shard][:5]
+    import dataclasses
+    cat.upsert_batch([dataclasses.replace(cat.get(f),
+                                          path=f"/fs/renamed/r{f}")
+                      for f in moved])
+    before = store.full_uploads
+    renamed = queries("rename", STORE_ENGINE_GROUPS)
+    check(store.full_uploads - before == 1, f"rename: "
+          f"{store.full_uploads - before} full uploads, not 1")
+    check(rs.du("/fs/renamed") == rh.du("/fs/renamed")
+          and rs.du("/fs/renamed")["count"] == len(moved),
+          "rename: du of the new subtree differs")
+    log(f"[store-reports] rename of {len(moved)} paths in shard {shard}: 1 "
+        f"full upload (its group), the cube rebuilt ({STORE_ENGINE_GROUPS} "
+        f"launches), every answer equal to the host folds; du('/fs') "
+        f"{renamed['du', '/fs']}")
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[store-reports] {CARD}: query walls, median s over the rounds: "
+        f"{json.dumps(med)}")
+    results["policy_scan_batch"].setdefault("store_launches_by_path", {})[
+        "DeviceColumnStore.find_paths"] = {
+            k: windows["DeviceColumnStore.find_paths"][k]
+            for k in ("policy_scan_store", "policy_scan_store_lean")}
+    results["policy_scan_batch"]["find_paths_launches"] = windows[
+        "DeviceColumnStore.find_paths"]["policy_scan_store_lean"]
+    results["profile_cube"].setdefault("launches_by_path", {})[
+        "DeviceColumnStore._rebuild_cube"] = windows[
+            "DeviceColumnStore._rebuild_cube"]["profile_cube"]
+    results["profile_cube"]["store_query_walls_s"] = med
+    store.detach()
+    del store, rs, pc
+    store_scale_phase(torch, device, results, seed)
+
+
+def store_scale_columns(torch, seed: int, device):
+    """The store-reports layout at device scale, ``(8, 21, 2^24)`` f32 on
+    the card: each group's 16 kernel columns and validity as
+    :func:`make_columns` draws them, then ``ord`` a permutation of the
+    group's rows, gid uniform over SCALE_CUBE_GROUPS groups, sb the size's
+    bucket and ab uniform in [0, 7)."""
+    from repro_torch.core.device_store import (_AB_COL, _GID_COL, _ORD_COL,
+                                               _SB_COL)
+    from repro_torch.core.policy import KERNEL_COLUMNS
+    from repro_torch.kernels.profile_cube import ref as PR
+    d, rp = STORE_GROUPS, SCALE_ROWS
+    buf = torch.empty((d, _AB_COL + 1, rp), dtype=torch.float32,
+                      device=device)
+    size = KERNEL_COLUMNS.index("size")
+    g = torch.Generator(device=device)
+    for i in range(d):
+        buf[i, : _ORD_COL] = make_columns(torch, rp, seed * 100 + i, device)
+        g.manual_seed(seed * 100 + 50 + i)
+        buf[i, _ORD_COL] = torch.randperm(rp, generator=g, device=device)
+        buf[i, _GID_COL] = torch.randint(0, SCALE_CUBE_GROUPS, (rp,),
+                                         generator=g, device=device)
+        buf[i, _SB_COL] = PR.size_buckets(buf[i, size])
+        buf[i, _AB_COL] = torch.randint(0, PR.A_BUCKETS, (rp,),
+                                        generator=g, device=device)
+    return buf
+
+
+def read_bound_ms(n_bytes: int) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def store_scale_phase(torch, device, results, seed: int):
+    """The planes' ops at device scale over ``store_scale_columns``:
+    (i) the store form on ``BATCH_CRITERIA`` in turns with the 17-row
+    layout of the same rows; (ii) ``mesh_profile_cube`` at 7,504 groups;
+    (iii) the two-pass top-k on size; (iv) ``mesh_range_aggregate`` on
+    random rank bounds. Each held to its reference, timed from an idle
+    card beside the rows it reads over the memory rate."""
+    from repro_torch.core.catalog import StringTable
+    from repro_torch.core.device_store import (_AB_COL, _GID_COL, _ORD_COL,
+                                               _SB_COL, _VALID_COL)
+    from repro_torch.core.policy import (KERNEL_COLUMNS, compile_programs,
+                                         parse_expr)
+    from repro_torch.core.types import FsType
+    from repro_torch.kernels.policy_scan import kernel as K
+    from repro_torch.kernels.policy_scan import ops as PO
+    from repro_torch.kernels.policy_scan import ref as R
+    from repro_torch.kernels.profile_cube import ops as CO
+    from repro_torch.kernels.profile_cube import ref as PR
+    t0 = time.perf_counter()
+    buf = store_scale_columns(torch, seed, device)
+    torch.cuda.synchronize()
+    d, n_rows, rp = buf.shape
+    n = d * rp
+    log(f"[store-scale] columns {tuple(buf.shape)} f32 = "
+        f"{buf.numel() * 4 / 1e9:.2f} GB drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    size, blocks = KERNEL_COLUMNS.index("size"), KERNEL_COLUMNS.index("blocks")
+    type_col = KERNEL_COLUMNS.index("type")
+    valid = buf[:, _VALID_COL] > 0.5
+    n_valid = int(valid.sum().item())
+    out = {}
+
+    # (i) the store form, 21 rows against the 17-row layout of the rows
+    st = StringTable()
+    for s in ("u0", "u1", "u2"):
+        st.intern(s)
+    ops, colidx, operands = compile_programs(
+        [parse_expr(e) for e in BATCH_CRITERIA], st, now=NOW)
+    prog = [torch.from_numpy(a).to(device) for a in (ops, colidx, operands)]
+    kw = dict(size_col=size, blocks_col=blocks, valid_col=_VALID_COL)
+    narrow = buf[:, : _ORD_COL].contiguous()
+    calls = {}
+    for with_agg in (True, False):
+        form = "store" if with_agg else "store_lean"
+        wide = K.policy_scan_store_cuda(buf, *prog, with_agg=with_agg, **kw)
+        thin = K.policy_scan_store_cuda(narrow, *prog, with_agg=with_agg,
+                                        **kw)
+        plain = R.policy_scan_store_ref(buf, *prog, with_agg=with_agg, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(wide, thin)),
+              f"(i) {form}: the 21-row layout differs from the 17-row one")
+        check(torch.equal(wide[0], plain[0]) and torch.equal(wide[1],
+                                                             plain[1]),
+              f"(i) {form}: mask 0 or rule differ from the plain version")
+        if with_agg:
+            check(torch.allclose(wide[2], plain[2], **TOL),
+                  f"(i) {form}: aggregates differ from the plain version")
+        err = (wide[2].double() - plain[2].double()).abs().max().item()
+        del wide, thin, plain
+        shape = K.launch_shape(buf, prog[0], prog[1], with_agg=with_agg, **kw)
+        bms, by, nbytes, _ = store_bound_ms(n, shape, ops, with_agg)
+        out[form] = dict(bound_ms=bms, bound_by=by, bytes=nbytes,
+                         max_abs_err=err,
+                         staged_cols=shape["passes"][0]["staged_cols"])
+        calls[form, 21] = (lambda a=with_agg: K.policy_scan_store_cuda(
+            buf, *prog, with_agg=a, **kw))
+        calls[form, 17] = (lambda a=with_agg: K.policy_scan_store_cuda(
+            narrow, *prog, with_agg=a, **kw))
+    turns = {key: [] for key in calls}
+    for key in (("store", 17), ("store", 21), ("store_lean", 17),
+                ("store_lean", 21), ("store_lean", 21), ("store_lean", 17),
+                ("store", 21), ("store", 17)):
+        turns[key].append(cuda_times_ms(calls[key], REPS)[0])
+    for form in ("store", "store_lean"):
+        o = out[form]
+        o["ms_21_rows"] = statistics.median(turns[form, 21])
+        o["ms_17_rows"] = statistics.median(turns[form, 17])
+        log(f"[store-scale] (i) {form} R={ops.shape[0]} over "
+            f"{tuple(buf.shape)} {CARD}: outputs identical to the 17-row layout's and mask 0 / "
+            f"rule to the plain version (agg max abs err "
+            f"{o['max_abs_err']!r}); 21 rows {o['ms_21_rows']!r} ms (turns "
+            f"{turns[form, 21]}), 17 rows {o['ms_17_rows']!r} ms (turns "
+            f"{turns[form, 17]}); bound {o['bound_ms']!r} ms by "
+            f"{o['bound_by']}, staged {o['staged_cols']}")
+    del narrow, calls
+    torch.cuda.empty_cache()
+
+    # (ii) the cube plane's rebuild: one profile_cube launch a group
+    b = max(-(-int(SCALE_CUBE_GROUPS * 1.25) // 8) * 8, 8)
+    ckw = dict(n_groups=b, gid_col=_GID_COL, size_col=size,
+               blocks_col=blocks, sb_col=_SB_COL, ab_col=_AB_COL,
+               valid_col=_VALID_COL)
+    (partials, combined), counts = launch_window(
+        lambda: CO.mesh_profile_cube(buf, **ckw))
+    check(counts == only(profile_cube=d), f"(ii) mesh_profile_cube "
+          f"launched {counts}, not {d} profile_cube")
+    pkw = dict(n_groups=b, gid_col=0, size_col=1, blocks_col=2, age_col=1,
+               sb_col=3, ab_col=4, valid_col=5)
+    rows = [_GID_COL, size, blocks, _SB_COL, _AB_COL, _VALID_COL]
+    err = 0.0
+    for i in range(d):
+        sub = buf[i, rows]
+        want64 = PR.profile_cube_ref(sub.double(), **pkw).reshape(3, -1)
+        want32 = PR.profile_cube_ref(sub, **pkw).reshape(3, -1)
+        check(torch.equal(partials[i, 0], want32[0]), f"(ii) group {i}: "
+              "counts differ from the plain version")
+        check(torch.equal(partials[i], want64), f"(ii) group {i}: sums "
+              "differ from the f64 plain version")
+        err = max(err, (partials[i].double() - want32.double()).abs()
+                  .max().item())
+        del sub, want64, want32
+    check(torch.equal(combined.reshape(3, -1), partials.sum(0)),
+          "(ii) the combined cube is not the partials' sum")
+    check(int(combined[0].sum().item()) == n_valid, "(ii) the counts do not "
+          "sum to the valid rows")
+    cube_call = lambda: CO.mesh_profile_cube(buf, **ckw)  # noqa: E731
+    cube_ms, cube_turns = cuda_times_ms(cube_call, REPS)
+    dev_ms = cube_device_ms(torch, cube_call)
+    plain_ms = cuda_times_ms(lambda: [PR.profile_cube_ref(g, **dict(
+        ckw, age_col=size)) for g in buf], REPS)[0]
+    cube_bytes = 4 * n + 20 * n_valid + d * 3 * b * 70 * 4
+    out["mesh_profile_cube"] = dict(
+        groups=b, launches=counts["profile_cube"], ms=cube_ms,
+        device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=read_bound_ms(cube_bytes), bound_by="bytes",
+        bytes=cube_bytes, max_abs_err_vs_f32_plain=err)
+    log(f"[store-scale] (ii) mesh_profile_cube B={b} (distinct "
+        f"{SCALE_CUBE_GROUPS}, past the op's cap {CO.MAX_GROUPS}) over "
+        f"{d} x {rp} rows {CARD}: {d} launches; counts equal to the plain "
+        f"version, sums equal to the f64 plain version (max abs err "
+        f"against the f32 plain version {err!r}); {cube_ms!r} ms (calls "
+        f"{cube_turns}), the kernels' own ms {json.dumps(dev_ms)}; plain "
+        f"{plain_ms!r} ms; bound {read_bound_ms(cube_bytes)!r} ms "
+        f"({cube_bytes} B)")
+    del partials, combined
+    torch.cuda.empty_cache()
+
+    # (iii) the two-pass top-k on size, k = 10 largest
+    tkw = dict(col=size, valid_col=_VALID_COL, type_col=type_col,
+               file_code=float(int(FsType.FILE)))
+    vals, idx = PO.mesh_column_topk(buf, k=10, desc=True, **tkw)
+    merged = torch.sort(vals.flatten(), descending=True).values
+    thr = float(merged[9])
+    mask = PO.mesh_threshold_rows(buf, thr, ge=True, **tkw)
+    files = valid & (buf[:, type_col] == float(int(FsType.FILE)))
+    ref_sorted = torch.sort(buf[:, size][files], descending=True).values
+    check(torch.equal(merged[:10], ref_sorted[:10]), "(iii) the top 10 "
+          "sizes differ from a torch.sort of the filtered column")
+    check(int(mask.sum().item()) == int((ref_sorted >= thr).sum().item()),
+          "(iii) the threshold rows differ from the sorted column's")
+    check(bool(torch.equal(buf[:, size].gather(1, idx), vals)),
+          "(iii) the top-k indices do not point at their values")
+    n_hits = int(mask.sum().item())
+    del ref_sorted, files, mask
+    topk_ms = cuda_times_ms(lambda: PO.mesh_column_topk(
+        buf, k=10, desc=True, **tkw), REPS)[0]
+    thr_ms = cuda_times_ms(lambda: PO.mesh_threshold_rows(
+        buf, thr, ge=True, **tkw), REPS)[0]
+    out["mesh_column_topk"] = dict(ms=topk_ms,
+                                   bound_ms=read_bound_ms(12 * n),
+                                   bound_by="bytes", bytes=12 * n)
+    out["mesh_threshold_rows"] = dict(ms=thr_ms,
+                                      bound_ms=read_bound_ms(13 * n),
+                                      bound_by="bytes", bytes=13 * n,
+                                      rows=n_hits)
+    log(f"[store-scale] (iii) top-10 sizes over {d} x {rp} rows {CARD}: "
+        f"equal to a torch.sort of the valid file rows, threshold {thr!r} "
+        f"recovers the {n_hits} rows at or above it; mesh_column_topk "
+        f"{topk_ms!r} ms "
+        f"(bound {read_bound_ms(12 * n)!r}), mesh_threshold_rows "
+        f"{thr_ms!r} ms (bound {read_bound_ms(13 * n)!r})")
+
+    # (iv) the range aggregate on random rank bounds, against a sort
+    g = torch.Generator()
+    g.manual_seed(seed + 4)
+    ranks = torch.randint(0, rp + 1, (d, 4), generator=g)
+    bounds = torch.cat([ranks[:, :2].sort(1).values,
+                        ranks[:, 2:].sort(1).values], 1).to(torch.float32)
+    akw = dict(ord_col=_ORD_COL, type_col=type_col, size_col=size,
+               blocks_col=blocks, valid_col=_VALID_COL,
+               file_code=float(int(FsType.FILE)))
+    got = PO.mesh_range_aggregate(buf, bounds.numpy(), **akw)
+    want = torch.zeros(4, dtype=torch.float64, device=device)
+    for i in range(d):
+        perm = torch.argsort(buf[i, _ORD_COL])
+        lo, hi, lo2, hi2 = (int(v) for v in bounds[i].tolist())
+        m = torch.zeros(rp, dtype=torch.bool, device=device)
+        m[perm[lo:hi]] = True
+        m[perm[lo2:hi2]] = True
+        m &= buf[i, _VALID_COL] > 0.5
+        f = m & (buf[i, type_col] == float(int(FsType.FILE)))
+        want += torch.stack([m.sum().double(), f.sum().double(),
+                             buf[i, size][f].double().sum(),
+                             buf[i, blocks][f].double().sum()])
+        del perm, m, f
+    check(torch.equal(got, want), f"(iv) mesh_range_aggregate {got.tolist()}"
+          f" differs from the sort's {want.tolist()}")
+    agg_ms = cuda_times_ms(lambda: PO.mesh_range_aggregate(
+        buf, bounds.numpy(), **akw), REPS)[0]
+    out["mesh_range_aggregate"] = dict(ms=agg_ms,
+                                       bound_ms=read_bound_ms(20 * n),
+                                       bound_by="bytes", bytes=20 * n,
+                                       result=got.tolist())
+    log(f"[store-scale] (iv) mesh_range_aggregate on random rank bounds "
+        f"over {d} x {rp} rows {CARD}: {got.tolist()} equal to the counts "
+        f"of a torch.sort on ord; {agg_ms!r} ms (bound "
+        f"{read_bound_ms(20 * n)!r})")
+    results["policy_scan_batch"]["store_reports_scale"] = {
+        k: out[k] for k in ("store", "store_lean")}
+    results["profile_cube"]["store_scale"] = out["mesh_profile_cube"]
+    results["profile_cube"]["store_scale_ops"] = {
+        k: out[k] for k in ("mesh_column_topk", "mesh_threshold_rows",
+                            "mesh_range_aggregate")}
+    del buf, valid
+    torch.cuda.empty_cache()
 
 
 def collect_phase(torch, device, results):
@@ -2875,9 +3349,9 @@ def main() -> None:
         f" v0) in {first_secs:.2f} s: {json.dumps(first_ptxas)}")
 
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
-    # store engine, 8. collect, 9. reports, 10. paged attention and 11. the
-    # recurrent kernels at device scale, 12. paged serving, 13. recurrent-
-    # model serving
+    # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
+    # paged attention and 12. the recurrent kernels at device scale, 13.
+    # paged serving, 14. recurrent-model serving
     results: dict = {}
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
@@ -2889,6 +3363,7 @@ def main() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     engine_phase(torch, cat, device, results)
     store_engine_phase(torch, cat, device, results, args.seed)
+    store_reports_phase(torch, cat, device, results, args.seed)
     collect_phase(torch, device, results)
     reports_phase(torch, cat, device, results)
     del cat

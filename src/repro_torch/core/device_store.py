@@ -65,12 +65,44 @@ it device to device (``device_pads`` counts these). During that re-pad
 the old tensor and the new one are both held: peak device memory is their
 sum.
 
-Not ported yet
---------------
-The reference store also carries the reports and cube planes (ROADMAP.md
-queue 1 item 5), the permissions plane and ``subject=`` scoping (item 6)
-and tiered residency under ``hbm_budget_rows`` (item 7). Their entry
-points here raise ``NotImplementedError`` naming the item;
+Analytics planes (resident reports + profile cube)
+--------------------------------------------------
+Beyond the kernel columns, each group's block can carry four **analytics
+rows** (``(D, C+1+4, Rp)`` once either plane is on), maintained by the
+very same upload/scatter paths:
+
+* **reports plane** (:meth:`DeviceColumnStore.enable_reports_plane`):
+  one ``ord`` row — each row's rank in its group's *sorted-path* order.
+  ``rbh-du`` becomes two host binary searches into the group's sorted
+  path mirror plus one range aggregate on the device
+  (:func:`~repro_torch.kernels.policy_scan.ops.mesh_range_aggregate`);
+  ``rbh-find`` is one lean store-form launch whose winners translate to
+  paths through the mirror; top-N listings run a two-pass top-k on the
+  device (:func:`~repro_torch.kernels.policy_scan.ops.mesh_column_topk`
+  finds the exact k-th-best threshold, a threshold mask then recovers
+  every boundary tie). A *rename* (path change on a pure update) shifts
+  the sorted order, so it degrades that group to a full re-upload exactly
+  like a structural change.
+* **cube plane** (:meth:`DeviceColumnStore.enable_cube_plane`): three
+  rows — dense profile group id (``core.profiles.GroupIndex``), size
+  bucket and age bucket (bucketized exactly on the host at scatter
+  time). The store additionally keeps a flat **partial profile cube** a
+  group, ``(D, 3, bp*S*A)`` on the device, built by
+  :func:`~repro_torch.kernels.profile_cube.ops.mesh_profile_cube` (one
+  ``profile_cube`` launch a group writing its exact sums as f64) and
+  maintained by O(dirty) *signed* ``index_add_`` scatter-adds (exact in
+  f64, so a cell that shrinks keeps no rounding of its past size) from
+  the same delta batches that refresh the columns; queries sum the
+  partials on the device
+  (:func:`~repro_torch.kernels.profile_cube.ops.mesh_cube_combine`) —
+  after the cold build no profile query re-reads host columns. Age
+  buckets reference the store-wide ``_cube_ref`` instant; per-row flip
+  schedules (mirroring ``core.profiles._ShardCube``) advance only the due
+  rows when queries move ``now`` forward.
+
+Not ported yet: the permissions plane and ``subject=`` scoping (ROADMAP.md
+queue 1 item 6) and tiered residency under ``hbm_budget_rows`` (item 7).
+Their entry points raise ``NotImplementedError`` naming the item;
 :meth:`DeviceColumnStore.tiering_counters` reports every group resident.
 
 Shared delta fan-out contract
@@ -82,7 +114,13 @@ per-group dirty sets, and a refresh drains a dirty *set* (duplicate
 updates to one fid collapse) in one scatter. The policy engine's
 incremental state consumes the same deltas via ``note_touched``; a full
 scan over the store primes that cache through
-:meth:`MeshMatch.cache_arrays` (mirror-served, no catalog re-read).
+:meth:`MeshMatch.cache_arrays` (mirror-served, no catalog re-read). The
+column scatter, the analytics-row scatter and the signed cube move happen
+in the same drain; the cube's move subtracts the *mirror* state (what the
+resident cube holds) and adds the freshly gathered state, so collapsed
+multi-updates net out exactly. A
+:class:`~repro_torch.core.profiles.ProfileCube` that attached this store
+claims the cube's single delta feed and makes its own hook a no-op.
 
 f32 envelope
 ------------
@@ -92,7 +130,14 @@ in 16M — entries within one ulp of a size cutoff may flip vs the int64
 numpy path) and epoch-second timestamps carry ~64 s resolution. The host
 mirror keeps native dtypes, so fids, budget sizes and sort keys returned
 to the planner are exact; only predicate evaluation lives in the f32
-envelope. Differential tests pin the envelope with f32-exact catalogs.
+envelope. The analytics planes are exact where the reference's are
+(its partial cubes and ``du`` sums are f32: exact for integer sums below
+2**24 times the value granularity) and past that: partial-cube cells are
+f64 sums of the f32 block values, rebuilt and scatter-added exactly below
+2**53; ``du`` counts in integers and sums bytes in f64 on the device; path
+ranks are exact below 2**24 rows a group.
+Differential tests pin the envelope with f32-exact catalogs; the host
+folds remain the differential oracles.
 """
 from __future__ import annotations
 
@@ -108,6 +153,14 @@ from .policy import KERNEL_COLUMNS, PolicyError, compile_programs
 from .telemetry import counter_attr
 
 _VALID_COL = len(KERNEL_COLUMNS)          # trailing 0/1 row-validity column
+
+# analytics rows appended after the validity row when a plane is enabled
+# (all four are allocated together; a disabled plane's rows stay zero)
+_ORD_COL = _VALID_COL + 1                 # sorted-path rank (reports plane)
+_GID_COL = _VALID_COL + 2                 # dense profile group id (cube)
+_SB_COL = _VALID_COL + 3                  # size-profile bucket (cube)
+_AB_COL = _VALID_COL + 4                  # age bucket as of _cube_ref (cube)
+_N_ANALYTICS = 4
 
 # columns the host mirror serves to the planner (fids + kernel columns);
 # a policy sorting by anything else (e.g. parent_fid) cannot plan from the
@@ -234,10 +287,21 @@ class MeshMatch:
 
 
 class _ShardGroup:
-    """One shard group's slice of the catalog: host mirror + freshness."""
+    """One shard group's slice of the catalog: host mirror + freshness.
+
+    Beside the kernel-column mirror, a group carries the analytics-plane
+    mirrors: ``offsets`` (member-shard row starts — find/top-N results
+    re-emit in catalog ``arrays()`` order through them), the reports
+    plane's row-aligned ``paths`` / sorted ``spaths`` / rank ``ord``, and
+    the cube plane's per-row group id / size bucket / age bucket / next
+    flip instant (``cgid``/``csb``/``cab``/``cflip``, ``cmin_flip`` the
+    cheap due-rollover bound).
+    """
 
     __slots__ = ("gid", "shard_ids", "fids", "cols", "rows", "versions",
-                 "dirty", "structural", "uploaded", "_order")
+                 "dirty", "structural", "uploaded", "_order",
+                 "offsets", "paths", "spaths", "ord",
+                 "cgid", "csb", "cab", "cflip", "cmin_flip")
 
     def __init__(self, gid: int, shard_ids: List[int]) -> None:
         self.gid = gid
@@ -250,6 +314,15 @@ class _ShardGroup:
         self.structural = False
         self.uploaded = False
         self._order: Optional[np.ndarray] = None   # argsort(fids), lazy
+        self.offsets = np.zeros(1, np.int64)       # member-shard row starts
+        self.paths: Optional[list] = None          # row-aligned (reports)
+        self.spaths: Optional[np.ndarray] = None   # sorted paths (reports)
+        self.ord: Optional[np.ndarray] = None      # row -> sorted-path rank
+        self.cgid: Optional[np.ndarray] = None     # cube: dense group id
+        self.csb: Optional[np.ndarray] = None      # cube: size bucket
+        self.cab: Optional[np.ndarray] = None      # cube: age bucket @ ref
+        self.cflip: Optional[np.ndarray] = None    # cube: next flip instant
+        self.cmin_flip = np.inf
 
     def locate(self, fids: np.ndarray) -> Optional[np.ndarray]:
         """Local row index per fid; None when any fid is not in the mirror
@@ -289,6 +362,12 @@ class DeviceColumnStore:
         "store_rows_scattered", "rows moved by dirty scatters")
     device_pads = counter_attr(
         "store_device_pads", "on-device re-pads (no re-upload)")
+    cube_rebuilds = counter_attr(
+        "store_cube_rebuilds", "full partial-cube rebuilds")
+    rollovers = counter_attr(
+        "store_rollovers", "age-bucket moves served on-device")
+    store_queries = counter_attr(
+        "store_queries", "report queries served resident")
 
     def __init__(self, catalog: Catalog, groups: int = 1, device=None,
                  refresh_frac: float = 0.25, tile: int = 0,
@@ -318,8 +397,18 @@ class DeviceColumnStore:
                             if s % self.n_groups == g])
             for g in range(self.n_groups)]
         self._rp = 0                        # padded rows per group block
-        self._buf: Optional[torch.Tensor] = None   # (D, C+1, Rp) f32
+        self._buf: Optional[torch.Tensor] = None   # (D, C+1(+4), Rp) f32
         self._epoch = 0                     # bumped by every mirror mutation
+        # analytics planes (see module docstring): off until enabled
+        self._plane_reports = False
+        self._plane_cube = False
+        self._cube_groups = None            # shared core.profiles.GroupIndex
+        self._cube_clock = None
+        self._cube_ref = 0.0                # age reference of resident cab
+        self._cube_bp = 0                   # padded group capacity
+        self._cube_partials: Optional[torch.Tensor] = None  # (D, 3, bp*S*A) f64
+        self._cube_cache = None             # host int64 (3, bp, S, A) cache
+        self._cube_stale = True             # partials need a full rebuild
         # refresh counters: registry-backed series on the catalog's
         # telemetry plane (instance label keeps several stores sharing one
         # catalog distinct); the zeroing writes below create the series so
@@ -330,47 +419,51 @@ class DeviceColumnStore:
         self.delta_refreshes = 0
         self.rows_scattered = 0
         self.device_pads = 0                # device-to-device re-pads
+        self.cube_rebuilds = 0
+        self.rollovers = 0                  # age-bucket moves served on-device
+        self.store_queries = 0              # report queries served resident
         catalog.add_delta_hook(self._on_delta, batch=self._on_delta_batch)
 
-    # -- planes not ported yet -------------------------------------------------
+    # -- analytics planes ------------------------------------------------------
+    def _block_rows(self) -> int:
+        """Block row count: kernel columns + validity, plus the analytics
+        rows once any plane is enabled."""
+        extra = _N_ANALYTICS if (self._plane_reports or self._plane_cube) \
+            else 0
+        return len(KERNEL_COLUMNS) + 1 + extra
+
     def enable_reports_plane(self) -> None:
-        raise _not_ported("the reports plane", 5, "the store's reports and "
-                          "cube planes")
+        """Add the sorted-path-rank row + path mirrors to every block so
+        ``find``/``top_files``/``du`` serve from the resident tensor.
+        Idempotent; the next refresh pays one full re-upload."""
+        with self._lock:
+            if self._plane_reports:
+                return
+            self._plane_reports = True
+            self._drop_device_state()
 
     def enable_cube_plane(self, groups, clock) -> None:
-        raise _not_ported("the cube plane", 5, "the store's reports and "
-                          "cube planes")
+        """Add the gid/size-bucket/age-bucket rows plus the per-group
+        partial profile cubes. ``groups`` is the shared
+        :class:`~repro_torch.core.profiles.GroupIndex` (report masks read
+        its key columns) and ``clock`` supplies the age reference.
+        Idempotent for the same index; a different index raises."""
+        with self._lock:
+            if self._plane_cube:
+                if groups is not self._cube_groups:
+                    raise PolicyError(
+                        "cube plane already enabled with a different "
+                        "GroupIndex")
+                return
+            self._plane_cube = True
+            self._cube_groups = groups
+            self._cube_clock = clock
+            self._cube_ref = float(clock())
+            self._drop_device_state()
 
     def enable_permissions_plane(self, grants) -> None:
         raise _not_ported("the permissions plane", 6, "the permissions "
                           "plane")
-
-    def find_paths(self, expr, now: float, limit: int = 0,
-                   subject: Optional[str] = None):
-        raise _not_ported("find_paths", 5, "the store's reports and cube "
-                          "planes")
-
-    def top_files(self, by: str = "size", k: int = 10, desc: bool = True,
-                  subject: Optional[str] = None):
-        raise _not_ported("top_files", 5, "the store's reports and cube "
-                          "planes")
-
-    def du(self, path_prefix: str, subject: Optional[str] = None) -> dict:
-        raise _not_ported("du", 5, "the store's reports and cube planes")
-
-    def analytics_cube(self, now: Optional[float] = None,
-                       subject: Optional[str] = None):
-        raise _not_ported("analytics_cube", 5, "the store's reports and "
-                          "cube planes")
-
-    def invalidate_cube(self) -> None:
-        raise _not_ported("invalidate_cube", 5, "the store's reports and "
-                          "cube planes")
-
-    @property
-    def rollovers(self) -> int:
-        raise _not_ported("rollovers", 5, "the store's reports and cube "
-                          "planes")
 
     def drain_demotions(self, timeout: Optional[float] = None) -> None:
         raise _not_ported("drain_demotions", 7, "tiered residency")
@@ -391,9 +484,12 @@ class DeviceColumnStore:
             }
 
     def _drop_device_state(self) -> None:
-        """Invalidate every resident block: the next refresh re-uploads.
-        Lock held."""
+        """Invalidate every resident block (block layout changed): the
+        next refresh re-uploads at the new row count. Lock held."""
         self._buf = None
+        self._cube_partials = None
+        self._cube_cache = None
+        self._cube_stale = True
         self._epoch += 1
         for group in self._groups:
             group.uploaded = False
@@ -414,6 +510,10 @@ class DeviceColumnStore:
                 group.fids = np.zeros(0, np.int64)
                 group.cols = {}
                 group.rows = 0
+                group.offsets = np.zeros(1, np.int64)
+                group.paths = group.spaths = group.ord = None
+                group.cgid = group.csb = group.cab = group.cflip = None
+                group.cmin_flip = np.inf
             self._rp = 0
 
     # -- delta intake (catalog mutation hooks) --------------------------------
@@ -457,38 +557,88 @@ class DeviceColumnStore:
     # -- upload paths ----------------------------------------------------------
     def _snapshot_group(self, group: _ShardGroup
                         ) -> Tuple[Dict[int, int], np.ndarray,
-                                   Dict[str, np.ndarray]]:
-        """(versions-before, fids, native column dict) for a full upload:
-        the group's rows are the concat of its member-shard snapshots."""
+                                   Dict[str, np.ndarray], list, np.ndarray]:
+        """(versions-before, fids, native column dict, paths, offsets)
+        for a full upload. Paths are gathered only when the reports plane
+        is on; ``offsets`` records each member shard's row start (the
+        group's row order is the concat of member-shard snapshots, so
+        results re-emit in catalog ``arrays()`` order through it)."""
         versions = self._shard_versions(group)   # BEFORE the snapshot reads
         names = ("fid",) + KERNEL_COLUMNS
-        parts = []
+        with_paths = self._plane_reports
+        parts, paths, counts = [], [], []
         for s in group.shard_ids:
-            cols_s, _snap = self.catalog.shards[s].snapshot(
-                names=names, with_strings=False)
+            cols_s, snap = self.catalog.shards[s].snapshot(
+                names=names, with_strings=with_paths)
             parts.append(cols_s)
+            counts.append(cols_s["fid"].size)
+            if with_paths:
+                paths.extend(snap.gather("_paths"))
         if parts:
             cols = {n: np.concatenate([p[n] for p in parts]) for n in names}
         else:
             cols = {n: np.zeros(0, dtype=np.int64) for n in names}
         # fid stays IN the mirror dict (it is a valid plan sort key)
         cols["fid"] = fids = cols["fid"].astype(np.int64, copy=False)
-        return versions, fids, cols
+        offsets = np.concatenate([[0], np.cumsum(np.asarray(counts,
+                                                            np.int64))])
+        return versions, fids, cols, paths, offsets
+
+    def _cube_codes(self, cols) -> Tuple[np.ndarray, np.ndarray,
+                                         np.ndarray, np.ndarray]:
+        """(gid, size bucket, age bucket as of ``_cube_ref``, next flip
+        instant) of rows with native columns ``cols``, bucketized exactly
+        on the host."""
+        from .profiles import _FLIP_EDGES, age_buckets_np, size_buckets_np
+        gid = self._cube_groups.get_or_add_many(
+            cols["owner"], cols["group"], cols["type"], cols["hsm_state"])
+        sb = size_buckets_np(np.asarray(cols["size"], np.int64))
+        stamps = np.asarray(cols["atime"], np.float64)
+        ab = age_buckets_np(self._cube_ref - stamps)
+        return gid, sb, ab, stamps + _FLIP_EDGES[ab]
+
+    def _refresh_plane_mirrors(self, group: _ShardGroup,
+                               paths: list) -> None:
+        """Recompute a group's analytics mirrors after a full snapshot."""
+        n = group.rows
+        if self._plane_reports:
+            group.paths = paths
+            parr = np.asarray(paths) if paths else np.zeros(0, dtype="<U1")
+            order = np.argsort(parr, kind="stable")
+            group.spaths = parr[order]
+            rank = np.empty(n, np.int64)
+            rank[order] = np.arange(n)
+            group.ord = rank
+        if self._plane_cube:
+            group.cgid, group.csb, group.cab, group.cflip = \
+                self._cube_codes(group.cols)
+            finite = np.isfinite(group.cflip)
+            group.cmin_flip = float(group.cflip[finite].min()) \
+                if finite.any() else np.inf
 
     def _stack_f32(self, group: _ShardGroup, rp: int) -> np.ndarray:
-        """(n_cols+1, rp) f32 block staging from the host mirror."""
-        out = np.zeros((len(KERNEL_COLUMNS) + 1, rp), dtype=np.float32)
+        """(block rows, rp) f32 block staging from the host mirrors."""
+        out = np.zeros((self._block_rows(), rp), dtype=np.float32)
         for i, name in enumerate(KERNEL_COLUMNS):
             out[i, : group.rows] = group.cols[name]
         out[_VALID_COL, : group.rows] = 1.0
+        if self._plane_reports and group.ord is not None:
+            out[_ORD_COL, : group.rows] = group.ord
+        if self._plane_cube and group.cgid is not None:
+            out[_GID_COL, : group.rows] = group.cgid
+            out[_SB_COL, : group.rows] = group.csb
+            out[_AB_COL, : group.rows] = group.cab
         return out
 
     def _host_refresh(self, group: _ShardGroup) -> None:
-        """Bring a group's host mirror to the catalog's current state — the
-        snapshot half of a full upload. Lock held."""
-        versions, fids, cols = self._snapshot_group(group)
+        """Bring a group's host mirrors (columns + plane mirrors) to the
+        catalog's current state — the snapshot half of a full upload.
+        Lock held."""
+        versions, fids, cols, paths, offsets = self._snapshot_group(group)
         group.fids, group.cols, group.rows = fids, cols, fids.size
         group._order = None
+        group.offsets = offsets
+        self._refresh_plane_mirrors(group, paths)
         group.versions = versions
         group.dirty = set()
         group.structural = False
@@ -511,6 +661,11 @@ class DeviceColumnStore:
     def _full_upload(self, group: _ShardGroup, rp: int) -> None:
         self._host_refresh(group)
         self._stage_upload(group, rp)
+        if self._plane_cube:
+            # row positions changed: this group's resident partial cube
+            # no longer matches the block — rebuild on next cube query
+            self._cube_stale = True
+            self._cube_cache = None
 
     def _delta_refresh(self, group: _ShardGroup) -> bool:
         """Scatter just the dirty rows into the resident block; returns
@@ -527,29 +682,110 @@ class DeviceColumnStore:
         if rows is None:
             group.dirty |= dirty_set
             return False                    # unseen fid: rows shifted
-        cols, present = self.catalog.gather_rows(dirty.tolist(),
-                                                 with_strings=False)
+        cols, present = self.catalog.gather_rows(
+            dirty.tolist(), with_strings=self._plane_reports)
         if not bool(present.all()):
             group.dirty |= dirty_set
             return False                    # raced a remove: restack
-        vals = np.zeros((len(KERNEL_COLUMNS) + 1, dirty.size),
-                        dtype=np.float32)
+        if self._plane_reports:
+            # a rename shifts the group's sorted-path order (every rank
+            # after the move changes): degrade to a full re-upload, the
+            # same fallback as a structural change
+            if any(group.paths[r] != p
+                   for r, p in zip(rows.tolist(), cols["_paths"])):
+                group.dirty |= dirty_set
+                group.structural = True
+                return False
+        cube_live = (self._plane_cube and self._cube_partials is not None
+                     and not self._cube_stale)
+        if cube_live:
+            # capture the OLD cube cells before the mirror updates — the
+            # signed move subtracts exactly what the resident cube holds
+            old_cells = (group.cgid[rows].copy(), group.csb[rows].copy(),
+                         group.cab[rows].copy(),
+                         np.asarray(group.cols["size"][rows], np.float32),
+                         np.asarray(group.cols["blocks"][rows], np.float32))
+        vals = np.zeros((self._block_rows(), dirty.size), dtype=np.float32)
         for i, name in enumerate(KERNEL_COLUMNS):
             group.cols[name][rows] = cols[name]      # host mirror first
             vals[i] = cols[name]
         vals[_VALID_COL] = 1.0               # pure updates: rows stay valid
+        if self._plane_reports:
+            vals[_ORD_COL] = group.ord[rows]  # paths unchanged: ranks stay
+        if self._plane_cube:
+            ngid, nsb, nab, nflip = self._cube_codes(cols)
+            group.cgid[rows] = ngid
+            group.csb[rows] = nsb
+            group.cab[rows] = nab
+            group.cflip[rows] = nflip
+            finite = np.isfinite(nflip)
+            if finite.any():
+                group.cmin_flip = min(group.cmin_flip,
+                                      float(nflip[finite].min()))
+            vals[_GID_COL] = ngid
+            vals[_SB_COL] = nsb
+            vals[_AB_COL] = nab
         # one copy of the values up, one of the rows, one index_copy_ into
         # the group's slice (the rows are distinct: the dirty set is a set)
         dev = self._buf.device
         self._buf[group.gid].index_copy_(
             1, torch.from_numpy(rows.astype(np.int64)).to(dev),
             torch.from_numpy(vals).to(dev))
+        if cube_live:
+            if len(self._cube_groups) > self._cube_bp:
+                # a delta minted more groups than the partials can hold:
+                # full cube rebuild on the next query
+                self._cube_stale = True
+                self._cube_cache = None
+            else:
+                ogid, osb, oab, osize, oblocks = old_cells
+                ones = np.ones(dirty.size, np.float32)
+                self._cube_scatter(
+                    group, np.concatenate([self._cells(ogid, osb, oab),
+                                           self._cells(ngid, nsb, nab)]),
+                    np.stack([
+                        np.concatenate([-ones, ones]),
+                        np.concatenate([-osize, np.asarray(
+                            cols["size"], np.float32)]),
+                        np.concatenate([-oblocks, np.asarray(
+                            cols["blocks"], np.float32)])]))
         group.versions = versions
         self._epoch += 1
         self.delta_refreshes += 1
         self.rows_scattered += int(dirty.size)
         self._bytes_moved("scatter", vals.nbytes)
         return True
+
+    @staticmethod
+    def _cells(gid: np.ndarray, sb: np.ndarray, ab: np.ndarray
+               ) -> np.ndarray:
+        """Flat partial-cube cell index of each row: (gid * S + sb) * A +
+        ab."""
+        from .profiles import A, S
+        return ((np.asarray(gid, np.int64) * S + sb) * A + ab).astype(
+            np.int64)
+
+    def _scatter_row(self, group: _ShardGroup, row: int, rows: np.ndarray,
+                     vals: np.ndarray) -> None:
+        """Set ONE block row of one group at local rows ``rows`` (age-bucket
+        rollovers touch only the ``_AB_COL`` row): one ``index_copy_``."""
+        dev = self._buf.device
+        self._buf[group.gid, row].index_copy_(
+            0, torch.from_numpy(rows.astype(np.int64)).to(dev),
+            torch.from_numpy(vals.astype(np.float32)).to(dev))
+
+    def _cube_scatter(self, group: _ShardGroup, flat: np.ndarray,
+                      vals: np.ndarray) -> None:
+        """Signed scatter-add of (3, k) measure deltas into the group's
+        flat partial cube at cells ``flat``: one ``index_add_``. The deltas
+        are f32 values of whole counts and bytes and the partials f64, so
+        the adds are exact in any order below 2**53. Drops the host cube
+        cache."""
+        dev = self._cube_partials.device
+        self._cube_partials[group.gid].index_add_(
+            1, torch.from_numpy(flat).to(dev),
+            torch.from_numpy(np.asarray(vals, np.float64)).to(dev))
+        self._cube_cache = None
 
     def _bytes_moved(self, mode: str, nbytes: int) -> None:
         self.telemetry.counter(
@@ -567,13 +803,15 @@ class DeviceColumnStore:
         it grows, the wider tensor is allocated and every clean uploaded
         group is copied into it device to device instead of re-uploaded —
         only the grown group pays a full upload; groups already headed for
-        a full upload (structural / never uploaded) are left at zeros. Both
+        a full upload (structural / never uploaded) are left at zeros. The
+        copy carries every block row, the analytics rows included; the
+        partial cubes do not depend on row positions and stay. Both
         tensors are held during the copy. Returns the number of groups
         copied. Lock held."""
         old = self._buf
         if old is not None and old.shape[2] == self._rp:
             return 0
-        new = torch.zeros((self.n_groups, len(KERNEL_COLUMNS) + 1, self._rp),
+        new = torch.zeros((self.n_groups, self._block_rows(), self._rp),
                           dtype=torch.float32, device=self.device)
         padded = 0
         for group in self._groups:
@@ -706,3 +944,260 @@ class DeviceColumnStore:
         match = self.match([expr], now, use_kernel=use_kernel)
         fids, _sizes, _sort, _ridx = match.plan("size")
         return fids, match.agg
+
+    # -- resident profile cube -------------------------------------------------
+    def _advance_cube_ref(self, now: float,
+                          update_partials: bool = True) -> int:
+        """Advance the age reference: re-bucket only the rows whose next
+        flip instant passed (block ``_AB_COL`` scatter + mirror update;
+        when the partials are live, a signed cube move too). Mirrors
+        ``core.profiles._ShardCube.sweep``. Lock held."""
+        if now <= self._cube_ref:
+            return 0
+        from .profiles import _FLIP_EDGES, age_buckets_np
+        moved = 0
+        for group in self._groups:
+            if not group.rows or group.cflip is None \
+                    or group.cmin_flip > now:
+                continue
+            due = np.nonzero(group.cflip <= now)[0]
+            if due.size:
+                stamps = np.asarray(group.cols["atime"][due], np.float64)
+                new_ab = age_buckets_np(now - stamps)
+                if update_partials and self._cube_partials is not None \
+                        and not self._cube_stale:
+                    gid, sb = group.cgid[due], group.csb[due]
+                    ones = np.ones(due.size, np.float32)
+                    size = np.asarray(group.cols["size"][due], np.float32)
+                    blocks = np.asarray(group.cols["blocks"][due],
+                                        np.float32)
+                    self._cube_scatter(
+                        group, np.concatenate([
+                            self._cells(gid, sb, group.cab[due]),
+                            self._cells(gid, sb, new_ab)]),
+                        np.stack([np.concatenate([-ones, ones]),
+                                  np.concatenate([-size, size]),
+                                  np.concatenate([-blocks, blocks])]))
+                group.cab[due] = new_ab
+                group.cflip[due] = stamps + _FLIP_EDGES[new_ab]
+                # the new age buckets into the resident block, so a later
+                # full cube rebuild reads current codes
+                self._scatter_row(group, _AB_COL, due, new_ab)
+                moved += int(due.size)
+            finite = np.isfinite(group.cflip)
+            group.cmin_flip = float(group.cflip[finite].min()) \
+                if finite.any() else np.inf
+        self._cube_ref = now
+        self.rollovers += moved
+        return moved
+
+    def _cube_capacity(self) -> int:
+        # group-axis capacity: headroom, rounded up to a multiple of 8, so
+        # newly minted groups keep scatter-adding without a rebuild
+        b = max(len(self._cube_groups), 1)
+        return max(-(-int(b * self.headroom) // 8) * 8, 8)
+
+    def _rebuild_cube(self, now: float) -> None:
+        """Cold/fallback path: ``mesh_profile_cube`` rebuilds every group's
+        partial from its block (one ``profile_cube`` launch a group on the
+        card). Lock held; blocks must be fresh (call after
+        :meth:`refresh`)."""
+        from ..kernels.profile_cube.ops import mesh_profile_cube
+        self._advance_cube_ref(now, update_partials=False)
+        self._cube_bp = self._cube_capacity()
+        partials, combined = mesh_profile_cube(
+            self._buf, n_groups=self._cube_bp, gid_col=_GID_COL,
+            size_col=KERNEL_COLUMNS.index("size"),
+            blocks_col=KERNEL_COLUMNS.index("blocks"), sb_col=_SB_COL,
+            ab_col=_AB_COL, valid_col=_VALID_COL)
+        self._cube_partials = partials
+        self._cube_cache = np.rint(combined.cpu().numpy()).astype(np.int64)
+        self._cube_stale = False
+        self.cube_rebuilds += 1
+
+    def _ensure_cube(self, now: float) -> None:
+        if (self._cube_partials is None or self._cube_stale
+                or len(self._cube_groups) > self._cube_bp):
+            self._rebuild_cube(now)
+        else:
+            self._advance_cube_ref(now, update_partials=True)
+
+    def invalidate_cube(self) -> None:
+        """Force a full cube rebuild on the next query (the store-backed
+        analogue of ``ProfileCube.rebuild``)."""
+        with self._lock:
+            self._cube_stale = True
+            self._cube_cache = None
+
+    def analytics_cube(self, now: Optional[float] = None,
+                       subject: Optional[str] = None) -> np.ndarray:
+        """Merged (N_MEASURES, B, S, A) int64 cube as of ``now``, served
+        from the resident partials: refresh scatters churned rows, due
+        age rollovers move on the device, and only the summed cube
+        crosses to the host. ``subject=`` scoping is not ported yet."""
+        if subject is not None:
+            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        from ..kernels.profile_cube.ops import mesh_cube_combine
+        from ..kernels.profile_cube.ref import (A_BUCKETS, N_MEASURES,
+                                                S_BUCKETS)
+        with self._lock:
+            if not self._plane_cube:
+                raise PolicyError("cube plane not enabled "
+                                  "(DeviceColumnStore.enable_cube_plane)")
+            now = float(self._cube_clock()) if now is None else float(now)
+            self.refresh()
+            self._ensure_cube(now)
+            self.store_queries += 1
+            if self._cube_cache is None:
+                combined = mesh_cube_combine(self._cube_partials)
+                self._cube_cache = np.rint(combined.cpu().numpy()).astype(
+                    np.int64).reshape(N_MEASURES, self._cube_bp, S_BUCKETS,
+                                      A_BUCKETS)
+            b = min(len(self._cube_groups), self._cube_bp)
+            return self._cube_cache[:, :b]
+
+    # -- resident report queries (rbh-find / top-N / rbh-du) -------------------
+    def _require_reports_plane(self) -> None:
+        if not self._plane_reports:
+            raise PolicyError("reports plane not enabled "
+                              "(DeviceColumnStore.enable_reports_plane)")
+
+    def _arrays_positions(self, group: _ShardGroup,
+                          idx: np.ndarray) -> np.ndarray:
+        """Map group-local row indices to catalog ``arrays()`` positions
+        (the host oracle's row order) for tie-exact result ordering."""
+        counts = {}
+        for g in self._groups:
+            for p, sid in enumerate(g.shard_ids):
+                counts[sid] = int(g.offsets[p + 1] - g.offsets[p])
+        base = np.concatenate(
+            [[0], np.cumsum([counts.get(s, 0)
+                             for s in range(self.catalog.n_shards)])])
+        seg = np.searchsorted(group.offsets, idx, side="right") - 1
+        sids = np.asarray(group.shard_ids, np.int64)[seg]
+        return base[sids] + (idx - group.offsets[seg])
+
+    def find_paths(self, expr, now: float, limit: int = 0,
+                   subject: Optional[str] = None) -> List[str]:
+        """``rbh-find`` from the resident tensor: one lean store-form
+        launch, then the winning rows translate to paths through the host
+        path mirrors — emitted in catalog ``arrays()`` order
+        (byte-identical to the host fold). Raises PolicyError on glob
+        predicates (host fallback). ``subject=`` is not ported yet."""
+        if subject is not None:
+            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        with self._lock:
+            self._require_reports_plane()
+            match = self._match_locked([expr], now, None, False)
+            self.store_queries += 1
+            out: List[str] = []
+            for sid in range(self.catalog.n_shards):
+                group = self._groups[sid % self.n_groups]
+                p = sid // self.n_groups
+                lo = int(group.offsets[p])
+                hi = int(group.offsets[p + 1])
+                idx = match._group_idx[group.gid]
+                seg = idx[(idx >= lo) & (idx < hi)]
+                out.extend(str(group.paths[i]) for i in seg.tolist())
+                if limit and len(out) >= limit:
+                    return out[:limit]
+            return out
+
+    def top_files(self, by: str = "size", k: int = 10, desc: bool = True,
+                  now: float = 0.0,
+                  subject: Optional[str] = None) -> List[dict]:
+        """Top-N listing from the resident tensor, two passes: the groups'
+        top-k find the exact k-th-best value (the union of the groups'
+        top-k contains the global top-k), then a threshold mask recovers
+        every candidate, ties across groups included; the final order
+        sorts candidates by native mirror values with the host oracle's
+        exact tie semantics (stable argsort + reversal). ``now`` is not
+        read (kernel columns hold no relative ages); ``subject=`` is not
+        ported yet."""
+        if subject is not None:
+            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        from ..kernels.policy_scan.ops import (mesh_column_topk,
+                                               mesh_threshold_rows)
+        from .types import FsType
+        if by not in KERNEL_COLUMNS:
+            raise PolicyError(f"top_files by {by!r} is not a kernel column")
+        with self._lock:
+            self._require_reports_plane()
+            self.refresh()
+            self.store_queries += 1
+            if k <= 0 or not any(g.rows for g in self._groups):
+                return []
+            kw = dict(col=KERNEL_COLUMNS.index(by), valid_col=_VALID_COL,
+                      type_col=KERNEL_COLUMNS.index("type"),
+                      file_code=float(int(FsType.FILE)))
+            # pass 1: each group's top-k; the merged k-th best is an exact
+            # selection threshold for pass 2
+            vals, _idx = mesh_column_topk(self._buf, k=min(k, self._rp),
+                                          desc=desc, **kw)
+            merged = vals.cpu().numpy().ravel()
+            merged = merged[np.isfinite(merged)]
+            if merged.size == 0:
+                return []
+            merged.sort()                     # ascending
+            kk = min(k, merged.size)
+            thr = float(merged[-kk] if desc else merged[kk - 1])
+            # pass 2: the threshold mask recovers every candidate; only
+            # the (group, row) pairs of its hits cross to the host
+            hits = torch.nonzero(mesh_threshold_rows(
+                self._buf, thr, ge=desc, **kw)).cpu().numpy()
+            cand_vals, cand_pos, cand_paths, cand_fids = [], [], [], []
+            for group in self._groups:
+                rows = hits[hits[:, 0] == group.gid, 1]
+                if not rows.size:
+                    continue
+                cand_vals.append(np.asarray(group.cols[by])[rows])
+                cand_pos.append(self._arrays_positions(group, rows))
+                cand_fids.append(group.fids[rows])
+                cand_paths.extend(str(group.paths[i]) for i in rows.tolist())
+            if not cand_vals:
+                return []
+            values = np.concatenate(cand_vals)
+            pos = np.concatenate(cand_pos)
+            fids = np.concatenate(cand_fids)
+            # host tie semantics: stable ascending argsort (ties by
+            # arrays position), reversed wholesale for descending
+            order = np.lexsort((pos, values))
+            order = order[::-1][:kk] if desc else order[:kk]
+            return [{"path": cand_paths[o], by: float(values[o]),
+                     "fid": int(fids[o])} for o in order.tolist()]
+
+    def du(self, path_prefix: str, subject: Optional[str] = None) -> dict:
+        """``rbh-du -s`` from the resident tensor: two host binary searches
+        a group into the sorted path mirror give rank bounds; one range
+        aggregate on the device sums [count, files, volume, spc_used] over
+        the groups — no row leaves the device. ``subject=`` is not ported
+        yet."""
+        if subject is not None:
+            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        from ..kernels.policy_scan.ops import mesh_range_aggregate
+        from .types import FsType
+        with self._lock:
+            self._require_reports_plane()
+            self.refresh()
+            self.store_queries += 1
+            prefix = path_prefix.rstrip("/")
+            bounds = np.zeros((self.n_groups, 4), np.float32)
+            for group in self._groups:
+                sp = group.spaths if group.spaths is not None \
+                    else np.zeros(0, dtype="<U1")
+                bounds[group.gid] = (
+                    np.searchsorted(sp, prefix + "/", side="left"),
+                    np.searchsorted(sp, prefix + "0", side="left"),
+                    np.searchsorted(sp, prefix, side="left"),
+                    np.searchsorted(sp, prefix, side="right"))
+            total = mesh_range_aggregate(
+                self._buf, bounds, ord_col=_ORD_COL,
+                type_col=KERNEL_COLUMNS.index("type"),
+                size_col=KERNEL_COLUMNS.index("size"),
+                blocks_col=KERNEL_COLUMNS.index("blocks"),
+                valid_col=_VALID_COL,
+                file_code=float(int(FsType.FILE))).cpu().numpy()
+            return {"count": int(round(float(total[0]))),
+                    "files": int(round(float(total[1]))),
+                    "volume": int(round(float(total[2]))),
+                    "spc_used": int(round(float(total[3])))}

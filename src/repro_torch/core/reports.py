@@ -7,15 +7,14 @@ generate extra load on the filesystem"*.
 
 With :meth:`Reports.attach_device_store`, ``find``/``top_files``/``du``
 additionally go **store-resident**: predicates evaluate and top-k/range
-aggregates reduce over the device store's resident column blocks, and
-only the winning rows' paths come back through the store's host mirrors
-— a warm query never calls ``Catalog.arrays()`` (no store ships with
-this package yet; any object with the reference store's surface plugs
-in).
+aggregates reduce over the resident ``(D, C+1+4, Rp)`` tensor of a
+:class:`~repro_torch.core.device_store.DeviceColumnStore` on its device,
+and only the winning rows' paths come back through the store's host
+mirrors — a warm query never calls ``Catalog.arrays()``.
 Queries the resident plane cannot serve (glob predicates, non-kernel
 columns) raise :class:`~repro_torch.core.policy.PolicyError` inside the store
 and fall back to the host folds below, which also stay on as the
-byte-identical differential oracle (``tests/core/test_mesh_reports.py``).
+byte-identical differential oracle (``tests/test_torch_mesh_reports.py``).
 The fallback is recorded in :attr:`Reports.last_fallback_reason` —
 cleared again by the next store-served success, so the telemetry always
 describes the *most recent* query, not a sticky historical one.

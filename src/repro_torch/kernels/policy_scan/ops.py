@@ -21,10 +21,13 @@ launch over every group), and on the CPU the static-program evaluator
 (:func:`_unrolled_masks`) one group at a time, as the reference runs it off
 the TPU. :func:`policy_scan_multi` and :func:`policy_scan_batch_unrolled`
 have no kernel in the reference either: they are plain PyTorch on any
-device, and the card's main path never calls them.
+device, and the card's main path never calls them. Nor have the store's
+report ops, :func:`mesh_column_topk`, :func:`mesh_threshold_rows` and
+:func:`mesh_range_aggregate`: plain PyTorch on the store's device.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -218,6 +221,13 @@ def _program_tuples(ops: np.ndarray, colidx: np.ndarray
             tuple(tuple(int(c) for c in row) for row in np.asarray(colidx)))
 
 
+def _no_scoping(perm, subject) -> None:
+    if perm is not None or subject is not None:
+        raise NotImplementedError(
+            "subject scoping (perm=/subject=) is not ported yet: ROADMAP.md "
+            "queue 1 item 6, the permissions plane")
+
+
 def mesh_policy_scan_batch(global_cols: torch.Tensor,
                            operands: torch.Tensor, *,
                            ops_t: Tuple[Tuple[int, ...], ...],
@@ -247,10 +257,7 @@ def mesh_policy_scan_batch(global_cols: torch.Tensor,
 
     ``perm``/``subject`` (tenant scoping) are not ported yet.
     """
-    if perm is not None or subject is not None:
-        raise NotImplementedError(
-            "subject scoping (perm=/subject=) is not ported yet: ROADMAP.md "
-            "queue 1 item 6, the permissions plane")
+    _no_scoping(perm, subject)
     kernel = _kernel_for(global_cols, use_kernel)
     dev = global_cols.device
     if kernel:
@@ -276,6 +283,94 @@ def mesh_policy_scan_batch(global_cols: torch.Tensor,
     agg = combine_groups(parts) if with_agg else torch.zeros(
         (len(ops_t), N_AGG), dtype=torch.float32, device=dev)
     return torch.stack(mask0), torch.stack(rule), agg
+
+
+# -- the store's report ops (rbh-find / top-N / du over the store) -----------
+#
+# Plain PyTorch over the same resident (D, n_cols, Rp) tensor as
+# mesh_policy_scan_batch, on its device (the reference runs them as plain
+# jnp too): only per-group top-k candidates, the rows of a threshold mask,
+# or four aggregates leave the device.
+
+def _file_rows(global_cols: torch.Tensor, valid_col: int, type_col: int,
+               file_code: float) -> torch.Tensor:
+    """(D, Rp) bool: valid rows, of type ``file_code`` when ``type_col`` is
+    given."""
+    sel = global_cols[:, valid_col] > 0.5
+    if type_col >= 0:
+        sel &= global_cols[:, type_col] == file_code
+    return sel
+
+
+def mesh_column_topk(global_cols: torch.Tensor, *, col: int, k: int,
+                     desc: bool = True, valid_col: int = -1,
+                     type_col: int = -1, file_code: float = 0.0,
+                     perm=None, subject=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group top-k over one column, restricted to valid FILE rows.
+
+    Returns ``(vals (D, k) f32, idx (D, k) i64)``: each group's k best
+    (largest when ``desc``) values of column ``col`` and their local rows.
+    Rows failing the valid/type filter carry a -inf (+inf ascending)
+    sentinel; callers drop non-finite candidates. The global top-k is a
+    subset of the union of the groups' top-k, so the merged k-th best value
+    is an exact threshold for :func:`mesh_threshold_rows`, which recovers
+    the ties a per-group cut could hide (``torch.topk`` leaves the order of
+    ties unspecified; the caller orders the recovered rows itself).
+    ``perm``/``subject`` are not ported yet.
+    """
+    _no_scoping(perm, subject)
+    sel = _file_rows(global_cols, valid_col, type_col, file_code)
+    key = global_cols[:, col].masked_fill(
+        ~sel, -math.inf if desc else math.inf)
+    return torch.topk(key, k, dim=1, largest=desc, sorted=True)
+
+
+def mesh_threshold_rows(global_cols: torch.Tensor, thr: float, *, col: int,
+                        ge: bool = True, valid_col: int = -1,
+                        type_col: int = -1, file_code: float = 0.0,
+                        perm=None, subject=None) -> torch.Tensor:
+    """(D, Rp) bool mask of the valid FILE rows whose column ``col`` passes
+    ``thr`` (``>=`` with ``ge``, else ``<=``; ``thr`` is compared as f32):
+    the second pass of the two-pass top-k (see :func:`mesh_column_topk`).
+    ``perm``/``subject`` are not ported yet."""
+    _no_scoping(perm, subject)
+    sel = _file_rows(global_cols, valid_col, type_col, file_code)
+    c = global_cols[:, col]
+    t = torch.tensor(thr, dtype=c.dtype, device=c.device)
+    return sel & ((c >= t) if ge else (c <= t))
+
+
+def mesh_range_aggregate(global_cols: torch.Tensor, bounds, *, ord_col: int,
+                         type_col: int, size_col: int, blocks_col: int,
+                         valid_col: int, file_code: float = 0.0,
+                         perm=None, subject=None) -> torch.Tensor:
+    """Subtree aggregate over sorted-path rank ranges, summed over groups.
+
+    ``bounds`` is (D, 4): per group the half-open rank ranges
+    ``[lo, hi) | [lo2, hi2)`` (host binary searches into that group's
+    sorted path mirror; ``ord_col`` holds each row's rank in that order).
+    Returns the (4,) f64 ``[count, files, volume, spc_used]`` on the
+    columns' device: ``count`` and ``files`` are counted as integers (an
+    f32 sum of 2^27 ones is not exact), volume and spc_used summed in f64 —
+    equal to the reference's f32 sums wherever those are exact.
+    ``perm``/``subject`` are not ported yet.
+    """
+    _no_scoping(perm, subject)
+    dev = global_cols.device
+    b = torch.as_tensor(np.asarray(bounds, np.float32)).to(dev)
+    lo, hi, lo2, hi2 = (b[:, i, None] for i in range(4))
+    o = global_cols[:, ord_col]
+    m = (global_cols[:, valid_col] > 0.5) & (((o >= lo) & (o < hi))
+                                             | ((o >= lo2) & (o < hi2)))
+    f = m & (global_cols[:, type_col] == file_code)
+    zero = global_cols.new_zeros(())
+    return torch.stack([
+        m.sum().to(torch.float64), f.sum().to(torch.float64),
+        torch.where(f, global_cols[:, size_col], zero).sum(
+            dtype=torch.float64),
+        torch.where(f, global_cols[:, blocks_col], zero).sum(
+            dtype=torch.float64)])
 
 
 def column_stack(arrays, device=None) -> torch.Tensor:

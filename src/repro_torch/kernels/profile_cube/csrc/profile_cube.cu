@@ -26,7 +26,9 @@
 // once, at the end: float(double(u64 sum) + f64 side sum) (cast_kernel),
 // so wherever the f64 sums are exact the cube is the f64 plain version
 // cast to f32. (On the TPU the grid is sequential and carries an f32 sum
-// across steps.)
+// across steps.) profile_cube_launch_f64 writes double(u64 sum) + side sum
+// instead, for the column store's partial cubes: cells that later scatter-
+// adds shrink must not carry the rounding of their first size.
 //
 // On sm_90 only the u32 add is a native shared-memory atomic (ATOMS.ADD);
 // u64, f32 and f64 adds there are compare-and-swap loops. In global memory
@@ -35,7 +37,7 @@
 //     memory (B <= 138 on an H100: 24 B a cell): each block keeps each sum
 //     as a pair of u32 words, adds the low word natively and carries into
 //     the high one, and flushes its non-zero sums into the global cube;
-//   - the global design, for larger B (up to MAX_GROUPS = 4096): every row
+//   - the global design, for larger B (up to MAX_GROUPS = 2^24): every row
 //     adds straight into the global cube, whose cells are cell-major,
 //     (count, volume, spc_used, pad) in one 32 B sector; lanes 4q..4q+2 of
 //     a warp issue row q's three adds in one instruction, so a row costs
@@ -67,6 +69,16 @@ constexpr int WORDS = 2 * N_MEASURES;    // u32 words a cell in shared memory
 // the most groups one block's private cube holds (24 B a cell in 232,448 B
 // of opt-in shared memory): the shared design's limit
 constexpr int BAND_GROUPS = 138;
+// The most groups a launch takes. Group ids ride in an f32 row, which
+// holds every integer below 2^24 and no other, so a larger group could not
+// be named. The int ranges below hold at this limit: a cell index
+// (g * 10 + sb) * 7 + ab and k = n_groups * CELLS stay below 2^31
+// (1,174,405,120 at the limit), the cast kernel walks its cells with a
+// 64-bit index, and the u64 slot offsets are size_t. (The workspace, 4,480 B
+// a group, is the allocator's to refuse.)
+constexpr int MAX_GROUPS = 1 << 24;
+static_assert(static_cast<long long>(MAX_GROUPS) * CELLS < (1ll << 31),
+              "a cell index must fit an int");
 constexpr unsigned FULL = 0xffffffffu;
 constexpr double EXACT = 9007199254740992.0;    // 2^53
 constexpr double U64_RANGE = 18446744073709551616.0;  // 2^64
@@ -248,16 +260,24 @@ __global__ void __launch_bounds__(THREADS) shared_kernel(
   }
 }
 
-// out[m, cell] = float(double(cube[cell].m) + side[cell].m): one rounding
+__device__ __forceinline__ void put(float* p, double v) {
+  *p = __double2float_rn(v);
+}
+__device__ __forceinline__ void put(double* p, double v) { *p = v; }
+
+// out[m, cell] = T(double(cube[cell].m) + side[cell].m): one rounding to
+// f32 for T = float; exact below 2^53 for T = double
+template <typename T>
 __global__ void __launch_bounds__(THREADS) cast_kernel(
     const u64* __restrict__ cube, const double* __restrict__ side,
-    float* __restrict__ out, int k) {
-  for (int i = blockIdx.x * THREADS + threadIdx.x; i < k;
-       i += gridDim.x * THREADS) {
+    T* __restrict__ out, int k) {
+  for (long long i = static_cast<long long>(blockIdx.x) * THREADS +
+                     threadIdx.x;
+       i < k; i += static_cast<long long>(gridDim.x) * THREADS) {
 #pragma unroll
     for (int m = 0; m < N_MEASURES; ++m) {
       const size_t at = static_cast<size_t>(i) * SLOTS + m;
-      out[static_cast<size_t>(m) * k + i] = __double2float_rn(
+      put(out + static_cast<size_t>(m) * k + i,
           __ull2double_rn(cube[at]) + side[at]);
     }
   }
@@ -309,6 +329,9 @@ int profile_cube_design(int n_groups) {
 // limit.
 int profile_cube_band_groups() { return profile_cube::BAND_GROUPS; }
 
+// The most groups a launch takes (profile_cube::MAX_GROUPS).
+int profile_cube_max_groups() { return profile_cube::MAX_GROUPS; }
+
 // Bytes of the workspace profile_cube_launch takes for n rows and
 // n_groups: the u64 cube and the f64 side cube, cell-major.
 long long profile_cube_work_bytes(long long n, int n_groups) {
@@ -316,16 +339,18 @@ long long profile_cube_work_bytes(long long n, int n_groups) {
   return static_cast<long long>(2 * profile_cube::cube_bytes(n_groups));
 }
 
-// Zeroes the workspace (profile_cube_work_bytes(n, n_groups) bytes) and
-// launches the cube build and the cast to f32 into `out` (3 * n_groups * 70
-// floats) on `stream`. Returns 0 when every launch was accepted, else the
-// CUDA error.
-int profile_cube_launch(const float* cols, long long n, int n_groups,
-                        int gid_col, int size_col, int blocks_col,
-                        int age_col, int valid_col, int sb_col, int ab_col,
-                        void* work, float* out, int sms, void* stream) {
-  using namespace profile_cube;
+}  // extern "C"
+
+namespace profile_cube {
+
+template <typename T>
+int launch(const float* cols, long long n, int n_groups, int gid_col,
+           int size_col, int blocks_col, int age_col, int valid_col,
+           int sb_col, int ab_col, void* work, T* out, int sms,
+           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_groups < 1 || n_groups > MAX_GROUPS || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int shared = design(n_groups);
   if (shared < 0) return -shared;
   u64* cube = static_cast<u64*>(work);
@@ -359,9 +384,39 @@ int profile_cube_launch(const float* cols, long long n, int n_groups,
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int k = n_groups * CELLS;
-  cast_kernel<<<(k + THREADS - 1) / THREADS, THREADS, 0, s>>>(cube, side,
-                                                              out, k);
+  cast_kernel<T><<<(k + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      cube, side, out, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace profile_cube
+
+extern "C" {
+
+// Zeroes the workspace (profile_cube_work_bytes(n, n_groups) bytes) and
+// launches the cube build and the cast to f32 into `out` (3 * n_groups * 70
+// floats) on `stream`. Returns 0 when every launch was accepted, else the
+// CUDA error (cudaErrorInvalidValue when n_groups is outside
+// [1, MAX_GROUPS] or n < 1, before anything is launched).
+int profile_cube_launch(const float* cols, long long n, int n_groups,
+                        int gid_col, int size_col, int blocks_col,
+                        int age_col, int valid_col, int sb_col, int ab_col,
+                        void* work, float* out, int sms, void* stream) {
+  return profile_cube::launch(cols, n, n_groups, gid_col, size_col,
+                              blocks_col, age_col, valid_col, sb_col, ab_col,
+                              work, out, sms, stream);
+}
+
+// profile_cube_launch with each cell written as an f64, not rounded to f32
+// (3 * n_groups * 70 doubles in `out`).
+int profile_cube_launch_f64(const float* cols, long long n, int n_groups,
+                            int gid_col, int size_col, int blocks_col,
+                            int age_col, int valid_col, int sb_col,
+                            int ab_col, void* work, double* out, int sms,
+                            void* stream) {
+  return profile_cube::launch(cols, n, n_groups, gid_col, size_col,
+                              blocks_col, age_col, valid_col, sb_col, ab_col,
+                              work, out, sms, stream);
 }
 
 }  // extern "C"

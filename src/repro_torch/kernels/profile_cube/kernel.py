@@ -8,9 +8,10 @@ The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 size and age (or takes precomputed bucket rows) and sums the valid-weighted
 count, size and blocks of every row into its ``[gid, sb, ab]`` cell, as u64
 integers (f64 for a row that is not integer), rounding each cell to f32
-once. It counts its calls in a plain integer, takes CUDA tensors only and
-raises on anything else: there is no fallback here. The plain version
-lives in ``ref.py``.
+once (or writing it as f64, for the column store's cube plane). It
+counts its calls in a plain integer, takes CUDA tensors only and raises on
+anything else: there is no fallback here. The plain version lives in
+``ref.py``.
 """
 from __future__ import annotations
 
@@ -27,11 +28,14 @@ from .ref import A_BUCKETS, N_MEASURES, S_BUCKETS
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("profile_cube.cu",)
 
-# The group axis the cube takes on the card: at 4096 groups the global
-# design's u64 and f64 side cubes (2 x 9.2 MB, 32 B cells) still sit in the
-# H100's 50 MB L2; catalogs with more distinct (owner, group, type, hsm)
-# combinations take the host groupby path (see core.profiles).
-MAX_GROUPS = 4096
+# The most groups one launch takes: csrc's MAX_GROUPS (group ids ride in
+# an f32 row, exact below 2^24; the kernel's int cell indices hold there).
+# The store's cube plane reaches past the op's cap (``ops.MAX_GROUPS``,
+# 4096). The global design's u64 cube takes 2,240 B a group (9.2 MB at
+# 4096, 16.8 MB at 7504; the f64 side cube is touched only by rows that
+# are not integer): past about 22,000 groups it outgrows the H100's 50 MB
+# L2, and a launch stays exact and gets slower.
+KERNEL_MAX_GROUPS = 1 << 24
 
 # op-call counter: +1 per profile_cube_cuda call whose launches were all
 # accepted (each call launches a memset, the cube kernel and the cast),
@@ -63,13 +67,15 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.profile_cube_launch.argtypes = [
-                p, ll, i, i, i, i, i, i, i, i, p, p, i, p]
-            lib.profile_cube_launch.restype = i
+            for fn in (lib.profile_cube_launch, lib.profile_cube_launch_f64):
+                fn.argtypes = [p, ll, i, i, i, i, i, i, i, i, p, p, i, p]
+                fn.restype = i
             lib.profile_cube_design.argtypes = [i]
             lib.profile_cube_design.restype = i
             lib.profile_cube_band_groups.argtypes = []
             lib.profile_cube_band_groups.restype = i
+            lib.profile_cube_max_groups.argtypes = []
+            lib.profile_cube_max_groups.restype = i
             lib.profile_cube_work_bytes.argtypes = [ll, i]
             lib.profile_cube_work_bytes.restype = ll
             lib.profile_cube_error_string.argtypes = [i]
@@ -92,6 +98,12 @@ def band_groups() -> int:
     return _lib().profile_cube_band_groups()
 
 
+def max_groups() -> int:
+    """The most groups one launch takes, read from the library (equal to
+    :data:`KERNEL_MAX_GROUPS`)."""
+    return _lib().profile_cube_max_groups()
+
+
 def design(n_groups: int, device=None) -> str:
     """The kernel's design for ``n_groups`` on ``device`` (the current CUDA
     device by default): ``"shared"`` when each block keeps a private cube
@@ -108,12 +120,20 @@ def design(n_groups: int, device=None) -> str:
 
 def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
                       size_col: int, blocks_col: int, age_col: int,
-                      valid_col: int, sb_col: int, ab_col: int
+                      valid_col: int, sb_col: int, ab_col: int,
+                      out_dtype: torch.dtype = torch.float32
                       ) -> torch.Tensor:
     """cols: (n_cols, N) f32 contiguous CUDA, N > 0. Returns the
-    (N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS) f32 cube. ``valid_col``,
-    ``sb_col`` and ``ab_col`` may be -1 (all rows valid; bucketize size /
-    age from the raw rows); ``age_col`` is not read when ``ab_col`` >= 0."""
+    (N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS) cube, each cell its exact
+    sum rounded once to ``out_dtype`` (f32, or f64 for the column store's
+    partial cubes, which scatter-adds maintain). ``valid_col``, ``sb_col``
+    and ``ab_col`` may be -1 (all rows valid; bucketize size / age from the
+    raw rows); ``age_col`` is not read when ``ab_col`` >= 0. ``n_groups``
+    may reach :data:`KERNEL_MAX_GROUPS`."""
+    if not 1 <= n_groups <= KERNEL_MAX_GROUPS:
+        raise ValueError(f"n_groups={n_groups} outside [1, "
+                         f"{KERNEL_MAX_GROUPS}]: a group id past 2^24 is not "
+                         "exact in the f32 gid row")
     if not isinstance(cols, torch.Tensor):
         raise TypeError("cols must be a tensor")
     if cols.device.type != "cuda":
@@ -128,9 +148,6 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
     n_cols, n = cols.shape
     if n == 0:
         raise ValueError("the profile_cube kernel needs N > 0 rows")
-    if not 1 <= n_groups <= MAX_GROUPS:
-        raise ValueError(f"n_groups={n_groups} outside [1, {MAX_GROUPS}]: "
-                         "use the host groupby path")
     for name, c in (("gid_col", gid_col), ("size_col", size_col),
                     ("blocks_col", blocks_col)):
         if not 0 <= c < n_cols:
@@ -141,6 +158,9 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
             raise ValueError(f"{name}={c} outside [-1, {n_cols})")
     if ab_col < 0 and not 0 <= age_col < n_cols:
         raise ValueError(f"age_col={age_col} outside [0, {n_cols})")
+    if out_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"out_dtype must be torch.float32 or torch.float64, "
+                        f"got {out_dtype}")
     dev = cols.device
     lib = _lib()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -148,9 +168,11 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
         work = torch.empty((lib.profile_cube_work_bytes(n, n_groups),),
                            dtype=torch.uint8, device=dev)
         out = torch.empty((N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS),
-                          dtype=torch.float32, device=dev)
+                          dtype=out_dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.profile_cube_launch(
+        launch = lib.profile_cube_launch if out_dtype == torch.float32 \
+            else lib.profile_cube_launch_f64
+        err = launch(
             cols.data_ptr(), n, n_groups, gid_col, size_col, blocks_col,
             age_col if ab_col < 0 else -1, valid_col, sb_col, ab_col,
             work.data_ptr(), out.data_ptr(), sms, stream)

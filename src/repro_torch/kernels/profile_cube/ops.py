@@ -10,19 +10,33 @@ are padded.
 raises (there is no kernel to run there) and so does ``use_kernel=False``
 on a CUDA device: the plain version serves the CPU only here (call
 ``ref.profile_cube_ref`` directly to run it on the card).
+
+:func:`mesh_profile_cube` is the device column store's cube plane: one
+partial cube a shard group from the store's resident ``(D, n_cols, Rp)``
+tensor (the kernel on the card, one launch a group; the plain version on
+the CPU), exact in f64, and their sum over the groups.
+:func:`mesh_cube_combine` re-sums partials the store has kept up to date
+by scatter-adds.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
-from .kernel import MAX_GROUPS, profile_cube_cuda
+from .kernel import profile_cube_cuda
 from .ref import A_BUCKETS, N_MEASURES, S_BUCKETS, profile_cube_ref
 
-__all__ = ["MAX_GROUPS", "profile_cube"]
+__all__ = ["MAX_GROUPS", "mesh_cube_combine", "mesh_profile_cube",
+           "profile_cube"]
+
+# The op's cap, as the reference's: catalogs with more distinct (owner,
+# group, type, hsm) combinations take the host groupby path (see
+# core.profiles). The kernel itself takes up to kernel.KERNEL_MAX_GROUPS,
+# which the store's cube plane (mesh_profile_cube) reaches.
+MAX_GROUPS = 4096
 
 
 def _kernel_for(dev: torch.device, use_kernel: Optional[bool]) -> bool:
@@ -83,3 +97,53 @@ def profile_cube(gid, size, blocks, age, n_groups: int, valid=None,
     cube = profile_cube_cuda(cols, **kw) if kernel \
         else profile_cube_ref(cols, **kw)
     return cube.cpu().numpy()
+
+
+# -- the store's cube plane --------------------------------------------------
+
+def mesh_profile_cube(global_cols: torch.Tensor, *, n_groups: int,
+                      gid_col: int, size_col: int, blocks_col: int,
+                      sb_col: int, ab_col: int, valid_col: int,
+                      use_kernel: Optional[bool] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group partial cubes and their sum over the groups.
+
+    ``global_cols`` is the device store's ``(D, n_cols, Rp)`` f32 tensor:
+    each group's gid / size-bucket / age-bucket rows (bucketized exactly on
+    the host) beside its kernel columns and 0/1 validity row. Returns
+    ``(partials, combined)``:
+
+    * ``partials``: (D, N_MEASURES, n_groups * S * A) f64, one flat partial
+      cube a group, which the store keeps on the device and maintains by
+      signed scatter-adds;
+    * ``combined``: (N_MEASURES, n_groups, S, A) f64, their sum.
+
+    On a CUDA tensor the kernel runs once a group over ``global_cols[g]``
+    (a contiguous ``(n_cols, Rp)`` slice; ``age_col`` is not read, the age
+    bucket row is given) and writes its exact sums as f64: D launches, up
+    to ``kernel.KERNEL_MAX_GROUPS`` groups. On a CPU tensor the plain
+    version sums the group's columns cast to f64. Both are exact below
+    2**53, so they equal the reference's f32 cubes wherever those are
+    exact, and stay exact after a scatter-add shrinks a cell (an f32 cell
+    keeps the rounding of its first size). ``use_kernel`` as
+    :func:`profile_cube`.
+    """
+    kernel = _kernel_for(global_cols.device, use_kernel)
+    kw = dict(n_groups=n_groups, gid_col=gid_col, size_col=size_col,
+              blocks_col=blocks_col, age_col=size_col, valid_col=valid_col,
+              sb_col=sb_col, ab_col=ab_col)
+    if kernel:
+        parts = [profile_cube_cuda(g, out_dtype=torch.float64, **kw)
+                 for g in global_cols]
+    else:
+        parts = [profile_cube_ref(g.to(torch.float64), **kw)
+                 for g in global_cols]
+    partials = torch.stack([p.reshape(N_MEASURES, -1) for p in parts])
+    return partials, mesh_cube_combine(partials).reshape(
+        N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS)
+
+
+def mesh_cube_combine(partials: torch.Tensor) -> torch.Tensor:
+    """Sum the (D, N_MEASURES, B*S*A) f64 partial cubes over the groups on
+    their device: only the cube crosses to the host after."""
+    return partials.sum(dim=0)

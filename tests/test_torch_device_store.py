@@ -540,20 +540,17 @@ def test_refresh_repads_when_group_outgrows_capacity_mid_refresh():
 # -- store modes ----------------------------------------------------------------
 
 @pytest.mark.parametrize("call, item", [
-    (lambda s: s.enable_reports_plane(), 5),
-    (lambda s: s.enable_cube_plane(None, None), 5),
-    (lambda s: s.find_paths(parse_expr("size > 0"), NOW), 5),
-    (lambda s: s.top_files(), 5),
-    (lambda s: s.du("/p"), 5),
-    (lambda s: s.analytics_cube(NOW), 5),
-    (lambda s: s.invalidate_cube(), 5),
-    (lambda s: s.rollovers, 5),
     (lambda s: s.enable_permissions_plane(None), 6),
     (lambda s: s.match([parse_expr("size > 0")], NOW, subject="alice"), 6),
     (lambda s: s.drain_demotions(), 7),
-], ids=["reports", "cube", "find_paths", "top_files", "du",
-        "analytics_cube", "invalidate_cube", "rollovers", "permissions",
-        "match_subject", "drain_demotions"])
+    (lambda s: s.find_paths(parse_expr("size > 0"), NOW, subject="alice"),
+     6),
+    (lambda s: s.top_files(subject="alice"), 6),
+    (lambda s: s.du("/p", subject="alice"), 6),
+    (lambda s: s.analytics_cube(NOW, subject="alice"), 6),
+], ids=["permissions", "match_subject", "drain_demotions",
+        "find_paths_subject", "top_files_subject", "du_subject",
+        "analytics_cube_subject"])
 def test_planes_not_ported_raise_naming_their_item(call, item):
     cat = _random_catalog(np.random.default_rng(45), 40)
     store = DeviceColumnStore(cat, device="cpu")

@@ -97,17 +97,37 @@ failure:
    cube rebuild and no ``profile_cube`` launch (the signed scatter-adds
    and the age rollovers serve), ``Catalog.arrays`` flat across the store
    queries; and a rename round (5 paths of one shard: its group alone
-   re-uploads). The query walls are logged, store against host. Then at
+   re-uploads). The query walls are logged, store against host. Then the
+   permissions plane (``store_scoped_phase``): an eighth of the entries
+   moved to group g1, a fresh 4-group store with ``Reports`` and
+   ``ProfileCube`` under a ``GrantTable`` of five subjects (one uid, one
+   gid, two subtrees, a mixed one, one that sees nothing); for each, two
+   scoped ``find`` (each exactly one lean scoped store-form launch), a
+   scoped ``store.scan`` (one scoped launch with aggregates), ``top_files``,
+   ``du`` of three prefixes and the scoped cube (one scoped
+   ``profile_cube`` launch a group) with four reports from it, all equal
+   to the grant-filtered host folds; cold (one materialization a group),
+   warm (1% in-place churn moving owners to u3 and groups to g1: 0 full
+   uploads, 0 materializations, word scatters, ``Catalog.arrays`` flat)
+   and after a ``GrantTable`` change (a subtree granted, a sixth subject:
+   one materialization a group, no word scatter); warm scoped and
+   unscoped ``find`` / ``top_files`` walls in turns. Then at
    device scale, the store's ``(8, 21, 2^24)`` layout (11.27 GB, drawn on
    the card: ``ord`` a permutation a group, 6,000 profile groups, so a
    cube capacity of 7,504): (i) the store form on ``BATCH_CRITERIA``,
    both ways, identical to the 17-row layout of the same rows and timed
-   in turns with it; (ii) ``mesh_profile_cube``, 8 launches, counts
-   equal to the plain version and sums to the f64 plain version; (iii)
-   the two-pass top-k on size against a ``torch.sort`` of the filtered
-   column; (iv) ``mesh_range_aggregate`` on random rank bounds against
-   the same sums from a ``torch.sort`` of ``ord``; each timed beside the
-   rows it reads over the memory rate;
+   in turns with it; (i-s) with an ``(8, 8, 2^19)`` permissions plane
+   (134 MB), the scoped store form both ways for a subject that sees half
+   the rows (identical to the plain version), one that sees all
+   (identical to the unscoped form) and one that sees none (empty), timed
+   in turns with the unscoped form; (ii) ``mesh_profile_cube``, 8
+   launches, counts equal to the plain version and sums to the f64 plain
+   version; (ii-s) ``mesh_scoped_cube``, 8 scoped launches, equal to the
+   f64 plain version with the validity masked, timed in turns with (ii);
+   (iii) the two-pass top-k on size against a ``torch.sort`` of the
+   filtered column; (iv) ``mesh_range_aggregate`` on random rank bounds
+   against the same sums from a ``torch.sort`` of ``ord``; each timed
+   beside the rows it reads over the memory rate;
 9. collect (the paper's headline scenario, ``tests/test_system.py``): a
    ``LustreSim`` under load mirrored by a ``Scanner`` and two
    ``EventPipeline``s, ``HsmCoordinator`` policies run through
@@ -367,7 +387,12 @@ def kernel_device_ms(torch, fn, reps: int, flush=None) -> dict:
     ``torch.profiler`` trace of ``reps`` calls, each waited for (after a
     warm-up call; with ``flush`` zeroed before each call, as in
     :func:`cuda_times_ms`): kernel name -> (mean device ms a launch,
-    launches a call)."""
+    launches a call). Every caller's ``fn`` launches each of its kernels a
+    whole number of times a call, but a trace can lose kernel records (H100
+    runs showed 7-9 of 10 launches of one kernel, 78 of 80 of another, with
+    every output checked and every launch counted), so launches a call is
+    the trace's count over ``reps`` rounded to a whole number, and the mean
+    time of a launch is taken over the records the trace kept."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -378,7 +403,7 @@ def kernel_device_ms(torch, fn, reps: int, flush=None) -> dict:
                 flush.zero_()
             fn()
             torch.cuda.synchronize()
-    return {k: (us / count / 1e3, count / reps)
+    return {k: (us / count / 1e3, max(1, round(count / reps)))
             for k, us, count in device_rows(prof) if count}
 
 
@@ -1235,7 +1260,12 @@ def launch_window(fn):
                  "policy_scan_batch": K.policy_scan_batch_launches,
                  "policy_scan_store": K.policy_scan_store_launches,
                  "policy_scan_store_lean": K.policy_scan_store_lean_launches,
+                 "policy_scan_store_scoped":
+                     K.policy_scan_store_scoped_launches,
+                 "policy_scan_store_scoped_lean":
+                     K.policy_scan_store_scoped_lean_launches,
                  "profile_cube": PK.profile_cube_launches,
+                 "profile_cube_scoped": PK.profile_cube_scoped_launches,
                  "paged_attention": AK.paged_attention_launches,
                  "rglru_scan": RGK.rglru_scan_launches,
                  "rwkv6_step": RWK.rwkv6_step_launches}
@@ -1244,9 +1274,12 @@ def launch_window(fn):
 def only(**launches) -> dict:
     """The counts a window must show: these kernels so many times, every
     other kernel never (``policy_scan_store`` counts the store form with
-    aggregates, ``policy_scan_store_lean`` the lean form)."""
-    want = dict.fromkeys(list(TPU_KERNELS) + ["policy_scan_store",
-                                              "policy_scan_store_lean"], 0)
+    aggregates, ``policy_scan_store_lean`` the lean form, the ``_scoped``
+    counts their scoped forms, ``profile_cube_scoped`` the scoped cube)."""
+    want = dict.fromkeys(list(TPU_KERNELS) + [
+        "policy_scan_store", "policy_scan_store_lean",
+        "policy_scan_store_scoped", "policy_scan_store_scoped_lean",
+        "profile_cube_scoped"], 0)
     want.update(launches)
     return want
 
@@ -1837,7 +1870,248 @@ def store_reports_phase(torch, cat, device, results, seed: int):
     results["profile_cube"]["store_query_walls_s"] = med
     store.detach()
     del store, rs, pc
+    store_scoped_phase(torch, cat, device, results, seed)
     store_scale_phase(torch, device, results, seed)
+
+
+SCOPED_SUBJECTS = ("u3", "staff", "tree", "mixed", "nobody")
+
+
+def scoped_grants():
+    """A ``GrantTable`` of the shapes a site gives its tenants: one uid
+    (``u3``), one gid (``staff``: group g1), one subtree (``tree``: two of
+    the 97 directories), one mixed and one that sees nothing."""
+    from repro_torch.core import GrantTable
+    g = GrantTable()
+    g.add_subject("u3")
+    g.add_subject("staff", owners=(), groups=("g1",))
+    g.add_subject("tree", owners=(), subtrees=("/fs/d5", "/fs/d42"))
+    g.add_subject("mixed", owners=("u6",), groups=("g1",),
+                  subtrees=("/fs/d77",))
+    g.add_subject("nobody", owners=("ghost",))
+    return g
+
+
+def store_scoped_phase(torch, cat, device, results, seed: int):
+    """The permissions plane on the card: a fresh 4-group store with
+    ``Reports`` and ``ProfileCube`` under :func:`scoped_grants`, every
+    scoped query of every subject held to the grant-filtered host folds,
+    cold, warm (1% in-place churn that flips owners and groups) and after a
+    ``GrantTable`` change, with the launches and the plane's counters of
+    each round checked. See the module docstring."""
+    import numpy as np
+    from repro_torch.core import (DeviceColumnStore, ProfileCube, Reports,
+                                  parse_expr)
+    rng = np.random.default_rng(seed + 22)
+    t0 = time.perf_counter()
+    live = np.concatenate([s.fids() for s in cat.shards]).astype(np.int64)
+    g1 = rng.choice(live, size=len(live) // 8, replace=False)
+    cat.update_fields_batch(g1.tolist(), group="g1")
+    clock = MovingClock(NOW + 30 * 86400)
+    grants = scoped_grants()
+    store = DeviceColumnStore(cat, groups=STORE_ENGINE_GROUPS, device=device)
+    pc = ProfileCube(cat, clock=clock, device=device) \
+        .attach_device_store(store)
+    pc.attach_grants(grants)
+    rs = Reports(cat, clock=clock, profiles=pc).attach_device_store(store) \
+        .attach_grants(grants)
+    pc_h = ProfileCube(cat, clock=clock, device="cpu")
+    pc_h.attach_grants(grants)
+    rh = Reports(cat, clock=clock, profiles=pc_h).attach_grants(grants)
+    log(f"[store-scoped] {len(g1)} entries moved to group g1, the store and "
+        f"the host oracle set up in {time.perf_counter() - t0:.2f} s")
+    finds = ("size > 60G and type == file",
+             "last_access > 180d and owner == 'u3'")
+    scan_expr = "size > 30G"
+    prefixes = ("/fs", "/fs/d5", "/fs/d77")
+    windows, walls = {}, {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out, counts = launch_window(fn)
+        walls.setdefault(name, []).append(time.perf_counter() - t1)
+        return out, counts
+
+    def cube_reports(rep, s):
+        return {"types": rep.report_types(subject=s),
+                "top_users": rep.top_users(k=5, subject=s),
+                "age": rep.age_profile(subject=s),
+                "u6": rep.report_user("u6", subject=s)}
+
+    def queries(tag, subjects, cube_unscoped):
+        """Every scoped query of every subject on the store, each in a
+        window of its own, then the host oracle; all must agree."""
+        arrays0 = cat.arrays_calls
+        got = {}
+        for i, s in enumerate(subjects):
+            for crit in finds:
+                got["find", s, crit], counts = timed(
+                    "find (store, scoped)",
+                    lambda c=crit, q=s: rs.find(c, subject=q))
+                check(counts == only(policy_scan_store_scoped_lean=1),
+                      f"{tag}: scoped find {crit!r} for {s} launched "
+                      f"{counts}, not one lean scoped store form")
+                windows["DeviceColumnStore.find_paths(subject=)"] = counts
+            (fids, agg), counts = timed(
+                "scan (store, scoped)", lambda q=s: store.scan(
+                    parse_expr(scan_expr), clock(), subject=q))
+            check(counts == only(policy_scan_store_scoped=1), f"{tag}: "
+                  f"scoped scan for {s} launched {counts}, not one scoped "
+                  "store form with aggregates")
+            windows["DeviceColumnStore.scan(subject=)"] = counts
+            got["scan", s] = (np.sort(fids), agg["count"], agg["volume"])
+            got["top", s], counts = timed(
+                "top_files (store, scoped)",
+                lambda q=s: rs.top_files(by="size", k=10, subject=q))
+            check(counts == only(), f"{tag}: top_files launched {counts}")
+            for p_ in prefixes:
+                got["du", s, p_], counts = timed(
+                    "du (store, scoped)",
+                    lambda x=p_, q=s: rs.du(x, subject=q))
+                check(counts == only(), f"{tag}: du launched {counts}")
+            _, counts = timed("cube (store, scoped)",
+                              lambda q=s: pc.cube(clock(), subject=q))
+            want = only(profile_cube_scoped=STORE_ENGINE_GROUPS,
+                        profile_cube=STORE_ENGINE_GROUPS
+                        if cube_unscoped and i == 0 else 0)
+            check(counts == want, f"{tag}: the scoped cube for {s} launched "
+                  f"{counts}, expected {want}")
+            windows["DeviceColumnStore.analytics_cube(subject=)"] = counts
+            got["cube", s], counts = launch_window(
+                lambda q=s: cube_reports(rs, q))
+            check(counts == only(), f"{tag}: cube reports launched {counts}")
+        check(cat.arrays_calls == arrays0, f"{tag}: the scoped store "
+              f"queries called Catalog.arrays() "
+              f"{cat.arrays_calls - arrays0} times")
+        check(rs.last_fallback_reason is None and rs.host_served == 0,
+              f"{tag}: a scoped query fell back: {rs.last_fallback_reason}")
+        t1 = time.perf_counter()
+        pc_h.rebuild(now=clock())
+        arrays = cat.arrays()
+        for s in subjects:
+            vis = grants.visible_mask(s, arrays, cat.strings)
+            for crit in finds:
+                check(got["find", s, crit] == rh.find(crit, subject=s),
+                      f"{tag}: scoped find {crit!r} for {s} differs from "
+                      "the host fold")
+            m = parse_expr(scan_expr).mask(arrays, cat.strings, clock()) & vis
+            volume = float(arrays["size"][m].astype(np.float32).astype(
+                np.float64).sum())
+            check(np.array_equal(got["scan", s][0],
+                                 np.sort(arrays["fid"][m]))
+                  and got["scan", s][1] == float(m.sum())
+                  and math.isclose(got["scan", s][2], volume,
+                                   rel_tol=TOL["rtol"], abs_tol=TOL["atol"]),
+                  f"{tag}: scoped scan for {s} differs from the host mask "
+                  f"(count {got['scan', s][1]} / {m.sum()}, volume "
+                  f"{got['scan', s][2]} / {volume})")
+            check(got["top", s] == rh.top_files(by="size", k=10, subject=s),
+                  f"{tag}: scoped top_files for {s} differs")
+            for p_ in prefixes:
+                check(got["du", s, p_] == rh.du(p_, subject=s),
+                      f"{tag}: scoped du({p_!r}) for {s} differs")
+            check(got["cube", s] == cube_reports(rh, s), f"{tag}: the "
+                  f"scoped cube's reports for {s} differ from the host's")
+        walls.setdefault("host oracle, every subject", []).append(
+            time.perf_counter() - t1)
+        return got
+
+    # cold: 4 full uploads, the plane materialized once a group
+    cold = queries("cold", SCOPED_SUBJECTS, True)
+    check(store.full_uploads == STORE_ENGINE_GROUPS
+          and store.perm_materializations == STORE_ENGINE_GROUPS
+          and store.perm_word_scatters == 0, f"cold: "
+          f"{store.full_uploads} full uploads, "
+          f"{store.perm_materializations} materializations, "
+          f"{store.perm_word_scatters} word scatters")
+    n_found = {s: len(cold["find", s, finds[0]]) for s in SCOPED_SUBJECTS}
+    check(n_found["nobody"] == 0 and min(n_found[s] for s in
+                                         ("u3", "staff", "tree", "mixed"))
+          > 0, f"cold: scoped finds {n_found}")
+    log(f"[store-scoped] cold {CARD}: {len(SCOPED_SUBJECTS)} subjects x "
+        f"({len(finds)} finds, a scan, top_files, {len(prefixes)} du, the "
+        f"cube and 4 reports) equal to the host oracle; "
+        f"{store.perm_materializations} materializations, launches "
+        f"{json.dumps(windows)}; '{finds[0]}' paths {json.dumps(n_found)}")
+
+    # warm: 1% of the entries changed in place: owners and groups flip
+    fids = rng.choice(live, size=round(ENTRIES * CHURN), replace=False)
+    half = len(fids) // 2
+    cat.update_fields_batch(fids[:half].tolist(), owner="u3",
+                            atime=NOW - 40 * 86400)
+    cat.update_fields_batch(fids[half:].tolist(), group="g1", size=1 << 35)
+    before = (store.full_uploads, store.rows_scattered,
+              store.perm_materializations, store.perm_word_scatters)
+    queries("warm", SCOPED_SUBJECTS, False)
+    check(store.full_uploads == before[0] and store.rows_scattered
+          - before[1] == len(fids), f"warm: {store.full_uploads - before[0]}"
+          f" full uploads, {store.rows_scattered - before[1]} rows "
+          f"scattered for {len(fids)} changed entries")
+    check(store.perm_materializations == before[2]
+          and store.perm_word_scatters > before[3], f"warm: "
+          f"{store.perm_materializations - before[2]} materializations, "
+          f"{store.perm_word_scatters - before[3]} word scatters")
+    log(f"[store-scoped] warm {CARD}: {len(fids)} entries changed in place "
+        f"(owner -> u3, group -> g1): 0 full uploads, 0 materializations, "
+        f"{store.perm_word_scatters - before[3]} word scatters (groups "
+        "whose words changed), Catalog.arrays() flat; every answer equal "
+        "to the host oracle")
+    # the warm scoped and unscoped find / top_files, in turns
+    turn_walls = {}
+    for scoped in (False, True, True, False):
+        kw = dict(subject="mixed") if scoped else {}
+        for name, fn in (("find", lambda: rs.find(finds[0], **kw)),
+                         ("top_files", lambda: rs.top_files(
+                             by="size", k=10, **kw))):
+            t1 = time.perf_counter()
+            fn()
+            turn_walls.setdefault(f"{name} {'scoped' if scoped else ''}"
+                                  .strip(), []).append(
+                time.perf_counter() - t1)
+    log(f"[store-scoped] warm walls in turns (unscoped, mixed, mixed, "
+        f"unscoped) {CARD}: {json.dumps(turn_walls)}")
+
+    # a GrantTable change: a subtree granted, a subject added
+    grants.grant("tree", subtrees=("/fs/d13",))
+    grants.add_subject("late", owners=("u1",))
+    before = (store.full_uploads, store.perm_materializations,
+              store.perm_word_scatters)
+    queries("grants", SCOPED_SUBJECTS + ("late",), False)
+    check(store.full_uploads == before[0]
+          and store.perm_materializations - before[1] == STORE_ENGINE_GROUPS
+          and store.perm_word_scatters == before[2], f"grants: "
+          f"{store.full_uploads - before[0]} full uploads, "
+          f"{store.perm_materializations - before[1]} materializations, "
+          f"{store.perm_word_scatters - before[2]} word scatters")
+    log(f"[store-scoped] after a grant change {CARD}: 0 full uploads, "
+        f"{STORE_ENGINE_GROUPS} materializations (one a group), 0 word "
+        f"scatters; every answer of 6 subjects equal to the host oracle")
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[store-scoped] {CARD}: query walls, median s over the rounds: "
+        f"{json.dumps(med)}")
+    ps = results["policy_scan_batch"]
+    ps.setdefault("store_launches_by_path", {}).update({
+        k: {c: windows[k][c] for c in ("policy_scan_store_scoped",
+                                       "policy_scan_store_scoped_lean")}
+        for k in ("DeviceColumnStore.find_paths(subject=)",
+                  "DeviceColumnStore.scan(subject=)")})
+    ps["scoped_launches"] = {
+        "policy_scan_store_scoped": windows[
+            "DeviceColumnStore.scan(subject=)"]["policy_scan_store_scoped"],
+        "policy_scan_store_scoped_lean": windows[
+            "DeviceColumnStore.find_paths(subject=)"][
+                "policy_scan_store_scoped_lean"]}
+    ps["scoped_query_walls_s"] = med
+    ps["scoped_turn_walls_s"] = turn_walls
+    cube = results["profile_cube"]
+    cube.setdefault("launches_by_path", {})[
+        "DeviceColumnStore.analytics_cube(subject=)"] = windows[
+            "DeviceColumnStore.analytics_cube(subject=)"][
+                "profile_cube_scoped"]
+    cube["scoped_launches"] = cube["launches_by_path"][
+        "DeviceColumnStore.analytics_cube(subject=)"]
+    store.detach()
+    del store, rs, pc, pc_h, rh
 
 
 def store_scale_columns(torch, seed: int, device):
@@ -1957,6 +2231,8 @@ def store_scale_phase(torch, device, results, seed: int):
             f"{o['bound_by']}, staged {o['staged_cols']}")
     del narrow, calls
     torch.cuda.empty_cache()
+    perm = scale_perm(torch, seed, device, d, rp)
+    out.update(scoped_scale_forms(torch, K, R, buf, perm, prog, ops, kw))
 
     # (ii) the cube plane's rebuild: one profile_cube launch a group
     b = max(-(-int(SCALE_CUBE_GROUPS * 1.25) // 8) * 8, 8)
@@ -2006,6 +2282,10 @@ def store_scale_phase(torch, device, results, seed: int):
         f"{plain_ms!r} ms; bound {read_bound_ms(cube_bytes)!r} ms "
         f"({cube_bytes} B)")
     del partials, combined
+    torch.cuda.empty_cache()
+    out["mesh_scoped_cube"] = scoped_scale_cube(torch, CO, PR, buf, perm,
+                                                ckw, cube_call)
+    del perm
     torch.cuda.empty_cache()
 
     # (iii) the two-pass top-k on size, k = 10 largest
@@ -2080,12 +2360,172 @@ def store_scale_phase(torch, device, results, seed: int):
         f"{read_bound_ms(20 * n)!r})")
     results["policy_scan_batch"]["store_reports_scale"] = {
         k: out[k] for k in ("store", "store_lean")}
+    results["policy_scan_batch"]["store_scoped_scale"] = {
+        k: out[k] for k in ("store_scoped", "store_scoped_lean")}
     results["profile_cube"]["store_scale"] = out["mesh_profile_cube"]
+    results["profile_cube"]["store_scoped_scale"] = out["mesh_scoped_cube"]
     results["profile_cube"]["store_scale_ops"] = {
         k: out[k] for k in ("mesh_column_topk", "mesh_threshold_rows",
                             "mesh_range_aggregate")}
     del buf, valid
     torch.cuda.empty_cache()
+
+
+SCALE_SUBJECTS = 8               # store-scale: subjects in the plane
+
+
+def scale_perm(torch, seed: int, device, d: int, rp: int):
+    """The permissions plane at device scale, ``(d, 8, rp / 32)`` int32 on
+    the card (134 MB at 8 x 2^24 rows): subject 0 sees a random half of
+    the rows, subject 1 every row, subject 7 none, the rest random."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed * 100 + 77)
+    words = torch.randint(0, 1 << 32, (d, SCALE_SUBJECTS, rp // 32),
+                          generator=g, device=device, dtype=torch.int64)
+    words -= (words >= (1 << 31)).to(torch.int64) << 32
+    perm = words.to(torch.int32)
+    del words
+    perm[:, 1] = -1
+    perm[:, SCALE_SUBJECTS - 1] = 0
+    return perm
+
+
+def scoped_scale_forms(torch, K, R, buf, perm, prog, ops, kw) -> dict:
+    """(i-s) The scoped store form (subject 0) over the store-reports
+    layout, with aggregates and lean: mask 0 and rule identical to the
+    plain version, aggregates within TOL; subject 1 (every row) identical
+    to the unscoped form and subject 7 (none) empty; timed in turns with
+    the unscoped form (unscoped, scoped, scoped, unscoped) beside its
+    bound, the unscoped bytes and the plane's D * Rp / 8."""
+    d, _, rp = buf.shape
+    n = d * rp
+    out, calls = {}, {}
+    for with_agg in (True, False):
+        form = "store_scoped" if with_agg else "store_scoped_lean"
+        scoped = K.policy_scan_store_cuda(buf, *prog, with_agg=with_agg,
+                                          perm=perm, sid=0, **kw)
+        plain = R.policy_scan_store_ref(buf, *prog, with_agg=with_agg,
+                                        perm=perm, sid=0, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(scoped[0], plain[0])
+              and torch.equal(scoped[1], plain[1]), f"(i-s) {form}: mask 0 "
+              "or rule differ from the plain version")
+        if with_agg:
+            check(torch.allclose(scoped[2], plain[2], **TOL),
+                  f"(i-s) {form}: aggregates differ from the plain version")
+        err = (scoped[2].double() - plain[2].double()).abs().max().item()
+        visible = int((scoped[1] >= 0).sum().item())
+        del scoped, plain
+        every = K.policy_scan_store_cuda(buf, *prog, with_agg=with_agg,
+                                         perm=perm, sid=1, **kw)
+        unscoped = K.policy_scan_store_cuda(buf, *prog, with_agg=with_agg,
+                                            **kw)
+        check(all(torch.equal(a, b) for a, b in zip(every, unscoped)),
+              f"(i-s) {form}: a subject that sees every row differs from "
+              "the unscoped form")
+        none = K.policy_scan_store_cuda(buf, *prog, with_agg=with_agg,
+                                        perm=perm, sid=SCALE_SUBJECTS - 1,
+                                        **kw)
+        check(not bool(none[0].any()) and bool((none[1] == -1).all())
+              and not bool(none[2][:, 0].any()), f"(i-s) {form}: a subject "
+              "that sees no row matched rows")
+        del every, unscoped, none
+        shape = K.launch_shape(buf, prog[0], prog[1], with_agg=with_agg,
+                               scoped=True, **kw)
+        _, by, nbytes, operations = store_bound_ms(n, shape, ops, with_agg)
+        nbytes += n // 8                     # one subject's words
+        t_bytes = read_bound_ms(nbytes)
+        t_ops = operations / F32_OPS_PER_S * 1e3
+        out[form] = dict(bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops
+                         else "operations", bytes=nbytes, max_abs_err=err,
+                         rows_attributed=visible,
+                         blocks_per_sm=shape["blocks_per_sm"])
+        calls[form, True] = (lambda a=with_agg: K.policy_scan_store_cuda(
+            buf, *prog, with_agg=a, perm=perm, sid=0, **kw))
+        calls[form, False] = (lambda a=with_agg: K.policy_scan_store_cuda(
+            buf, *prog, with_agg=a, **kw))
+    turns = {key: [] for key in calls}
+    for form in ("store_scoped", "store_scoped_lean"):
+        for scoped in (False, True, True, False):
+            turns[form, scoped].append(cuda_times_ms(calls[form, scoped],
+                                                     REPS)[0])
+    for form in ("store_scoped", "store_scoped_lean"):
+        o = out[form]
+        o["ms"] = statistics.median(turns[form, True])
+        o["ms_unscoped"] = statistics.median(turns[form, False])
+        o["turns"] = turns[form, True]
+        o["turns_unscoped"] = turns[form, False]
+        log(f"[store-scale] (i-s) {form} R={ops.shape[0]} over "
+            f"{tuple(buf.shape)} with a {tuple(perm.shape)} plane {CARD}: "
+            f"mask 0 / rule identical to the plain version (agg max abs "
+            f"err {o['max_abs_err']!r}), every-row subject identical to "
+            f"the unscoped form, no-row subject empty; scoped "
+            f"{o['ms']!r} ms (turns {o['turns']}), unscoped "
+            f"{o['ms_unscoped']!r} ms (turns {o['turns_unscoped']}), "
+            f"{o['ms'] / o['ms_unscoped']:.4f}x; bound {o['bound_ms']!r} ms "
+            f"({o['bytes']} B)")
+    return out
+
+
+def scoped_scale_cube(torch, CO, PR, buf, perm, ckw, cube_call) -> dict:
+    """(ii-s) ``mesh_scoped_cube`` for subject 0: counts equal to the plain
+    version (the validity row masked by the subject's bits) and sums equal
+    to its f64 sums; subject 1 equal to the unscoped cube; timed in turns
+    with the unscoped store cube's 8 launches."""
+    from repro_torch.kernels.policy_scan.ref import subject_bits
+    from repro_torch.core.device_store import (_AB_COL, _GID_COL, _SB_COL,
+                                               _VALID_COL)
+    from repro_torch.core.policy import KERNEL_COLUMNS
+    d, _, rp = buf.shape
+    size, blocks = KERNEL_COLUMNS.index("size"), KERNEL_COLUMNS.index("blocks")
+    (got, counts) = launch_window(lambda: CO.mesh_scoped_cube(buf, perm, 0,
+                                                              **ckw))
+    check(counts == only(profile_cube_scoped=d), f"(ii-s) mesh_scoped_cube "
+          f"launched {counts}, not {d} scoped profile_cube")
+    pkw = dict(n_groups=ckw["n_groups"], gid_col=0, size_col=1, blocks_col=2,
+               age_col=1, sb_col=3, ab_col=4, valid_col=5)
+    rows = [_GID_COL, size, blocks, _SB_COL, _AB_COL, _VALID_COL]
+    want = None
+    n_visible = 0
+    for i in range(d):
+        sub = buf[i, rows].double()
+        sub[5] *= subject_bits(perm[i], 0).double()
+        n_visible += int(sub[5].sum().item())
+        cube = PR.profile_cube_ref(sub, **pkw)
+        want = cube if want is None else want + cube
+        del sub, cube
+    check(torch.equal(got, want), "(ii-s) the scoped cube differs from the "
+          "f64 plain version with the validity masked")
+    check(int(got[0].sum().item()) == n_visible, "(ii-s) the scoped counts "
+          "do not sum to the visible valid rows")
+    every = CO.mesh_scoped_cube(buf, perm, 1, **ckw)
+    _, unscoped = cube_call()
+    check(torch.equal(every, unscoped), "(ii-s) a subject that sees every "
+          "row differs from the unscoped cube")
+    del want, every, unscoped
+    scoped_call = lambda: CO.mesh_scoped_cube(buf, perm, 0, **ckw)  # noqa
+    turns = {True: [], False: []}
+    for scoped in (False, True, True, False):
+        turns[scoped].append(cuda_times_ms(scoped_call if scoped
+                                           else cube_call, REPS)[0])
+    n = d * rp
+    cube_bytes = 4 * n + n // 8 + 20 * n_visible + d * 3 * ckw[
+        "n_groups"] * 70 * 4
+    o = dict(launches=counts["profile_cube_scoped"],
+             ms=statistics.median(turns[True]),
+             ms_unscoped=statistics.median(turns[False]),
+             turns=turns[True], turns_unscoped=turns[False],
+             bound_ms=read_bound_ms(cube_bytes), bound_by="bytes",
+             bytes=cube_bytes, visible_rows=n_visible)
+    log(f"[store-scale] (ii-s) mesh_scoped_cube B={ckw['n_groups']} over "
+        f"{d} x {rp} rows, subject 0 ({n_visible} visible valid rows) "
+        f"{CARD}: {d} scoped launches; equal to the f64 plain version, the "
+        f"every-row subject equal to the unscoped cube; scoped {o['ms']!r} "
+        f"ms (turns {o['turns']}), unscoped {o['ms_unscoped']!r} ms (turns "
+        f"{o['turns_unscoped']}), {o['ms'] / o['ms_unscoped']:.4f}x; bound "
+        f"{o['bound_ms']!r} ms ({cube_bytes} B)")
+    return o
 
 
 def collect_phase(torch, device, results):
@@ -3378,6 +3818,12 @@ def main() -> None:
               f"{r['name']} was not launched on the main path")
     check(results["policy_scan_batch"]["store_lean_launches"] == 1,
           "the store form was not launched on the policy_scan_mesh path")
+    check(results["policy_scan_batch"]["scoped_launches"] == {
+        "policy_scan_store_scoped": 1, "policy_scan_store_scoped_lean": 1},
+          "the scoped store forms were not launched once on the scoped "
+          "scan / find paths")
+    check(results["profile_cube"]["scoped_launches"] == STORE_ENGINE_GROUPS,
+          "the scoped cube was not launched once a group")
     log(json.dumps({"card": card, "kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

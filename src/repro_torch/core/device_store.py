@@ -99,11 +99,33 @@ very same upload/scatter paths:
   buckets reference the store-wide ``_cube_ref`` instant; per-row flip
   schedules (mirroring ``core.profiles._ShardCube``) advance only the due
   rows when queries move ``now`` forward.
+* **permissions plane**
+  (:meth:`DeviceColumnStore.enable_permissions_plane`): per-subject
+  visibility pre-materialized as packed 32-bit bitsets over local row
+  ids — one ``(D, Sp, Rp/32)`` int32 tensor on the store's device beside
+  the column tensor (bit ``b`` of word ``w``, LSB first, covers local row
+  ``w*32+b``; the kernels read the words as u32). Visibility comes from a
+  :class:`~repro_torch.core.grants.GrantTable`: uid/gid ownership via the
+  interned owner/group codes, directory-subtree grants resolved through
+  the reports plane's sorted-path mirrors (the same rank-range shape as
+  ``du`` — enabling this plane forces the reports plane on). Scoped
+  queries (``subject=`` on :meth:`match` / :meth:`scan` /
+  :meth:`find_paths` / :meth:`top_files` / :meth:`du` /
+  :meth:`analytics_cube`) pass the plane and the subject's id to the ops:
+  on the card the store form's scoped variant and the scoped cube AND the
+  subject's bit into each row's validity inside the kernel — tenant
+  scoping is one fused AND, never a second scan. Maintenance follows the
+  column contract: pure updates re-derive only the dirty rows' visibility
+  and scatter just the *changed packed words* into the resident tensor
+  (one ``index_copy_`` along the word axis); structural churn / renames /
+  re-pads invalidate the group's bitset alongside its block, and any
+  :attr:`~repro_torch.core.grants.GrantTable.version` tick (new subject or
+  grant change) re-materializes on the next scoped query.
 
-Not ported yet: the permissions plane and ``subject=`` scoping (ROADMAP.md
-queue 1 item 6) and tiered residency under ``hbm_budget_rows`` (item 7).
-Their entry points raise ``NotImplementedError`` naming the item;
-:meth:`DeviceColumnStore.tiering_counters` reports every group resident.
+Not ported yet: tiered residency under ``hbm_budget_rows`` (ROADMAP.md
+queue 1 item 7). Its entry points raise ``NotImplementedError`` naming
+the item; :meth:`DeviceColumnStore.tiering_counters` reports every group
+resident.
 
 Shared delta fan-out contract
 -----------------------------
@@ -295,13 +317,15 @@ class _ShardGroup:
     plane's row-aligned ``paths`` / sorted ``spaths`` / rank ``ord``, and
     the cube plane's per-row group id / size bucket / age bucket / next
     flip instant (``cgid``/``csb``/``cab``/``cflip``, ``cmin_flip`` the
-    cheap due-rollover bound).
+    cheap due-rollover bound), and the permissions plane's per-subject row
+    visibility ``vis`` (``packed``: its words are in the resident tensor).
     """
 
     __slots__ = ("gid", "shard_ids", "fids", "cols", "rows", "versions",
                  "dirty", "structural", "uploaded", "_order",
                  "offsets", "paths", "spaths", "ord",
-                 "cgid", "csb", "cab", "cflip", "cmin_flip")
+                 "cgid", "csb", "cab", "cflip", "cmin_flip", "vis",
+                 "packed")
 
     def __init__(self, gid: int, shard_ids: List[int]) -> None:
         self.gid = gid
@@ -323,6 +347,8 @@ class _ShardGroup:
         self.cab: Optional[np.ndarray] = None      # cube: age bucket @ ref
         self.cflip: Optional[np.ndarray] = None    # cube: next flip instant
         self.cmin_flip = np.inf
+        self.vis: Optional[np.ndarray] = None      # perms: (Sp, rows) bool
+        self.packed = False                        # perms: words resident
 
     def locate(self, fids: np.ndarray) -> Optional[np.ndarray]:
         """Local row index per fid; None when any fid is not in the mirror
@@ -368,6 +394,10 @@ class DeviceColumnStore:
         "store_rollovers", "age-bucket moves served on-device")
     store_queries = counter_attr(
         "store_queries", "report queries served resident")
+    perm_materializations = counter_attr(
+        "store_perm_materializations", "per-group perm bitset (re)builds")
+    perm_word_scatters = counter_attr(
+        "store_perm_word_scatters", "warm packed perm-word scatters")
 
     def __init__(self, catalog: Catalog, groups: int = 1, device=None,
                  refresh_frac: float = 0.25, tile: int = 0,
@@ -409,6 +439,11 @@ class DeviceColumnStore:
         self._cube_partials: Optional[torch.Tensor] = None  # (D, 3, bp*S*A) f64
         self._cube_cache = None             # host int64 (3, bp, S, A) cache
         self._cube_stale = True             # partials need a full rebuild
+        self._plane_perm = False
+        self._grants = None                 # shared core.grants.GrantTable
+        self._grants_version = -1           # table version at materialization
+        self._perm_sp = 0                   # padded subject capacity
+        self._perm_buf: Optional[torch.Tensor] = None  # (D, Sp, Rp/32) i32
         # refresh counters: registry-backed series on the catalog's
         # telemetry plane (instance label keeps several stores sharing one
         # catalog distinct); the zeroing writes below create the series so
@@ -422,6 +457,8 @@ class DeviceColumnStore:
         self.cube_rebuilds = 0
         self.rollovers = 0                  # age-bucket moves served on-device
         self.store_queries = 0              # report queries served resident
+        self.perm_materializations = 0      # per-group bitset (re)builds
+        self.perm_word_scatters = 0         # warm packed-word scatters
         catalog.add_delta_hook(self._on_delta, batch=self._on_delta_batch)
 
     # -- analytics planes ------------------------------------------------------
@@ -462,8 +499,29 @@ class DeviceColumnStore:
             self._drop_device_state()
 
     def enable_permissions_plane(self, grants) -> None:
-        raise _not_ported("the permissions plane", 6, "the permissions "
-                          "plane")
+        """Add the per-subject packed visibility bitsets (multi-tenant
+        ``subject=`` scoping). ``grants`` is the shared
+        :class:`~repro_torch.core.grants.GrantTable`; subtree grants resolve
+        through the sorted-path mirrors, so this forces the reports plane
+        on. Idempotent for the same table; a different table raises, and so
+        does a tile that is not a multiple of 32 (rows pack into 32-bit
+        words)."""
+        with self._lock:
+            if self._plane_perm:
+                if grants is not self._grants:
+                    raise PolicyError(
+                        "permissions plane already enabled with a "
+                        "different GrantTable")
+                return
+            if self.tile % 32:
+                raise PolicyError(
+                    "permissions plane packs rows into 32-bit words; the "
+                    f"block tile must be a multiple of 32, got {self.tile}")
+            self._plane_perm = True
+            self._grants = grants
+            self._grants_version = -1
+            self._plane_reports = True
+            self._drop_device_state()
 
     def drain_demotions(self, timeout: Optional[float] = None) -> None:
         raise _not_ported("drain_demotions", 7, "tiered residency")
@@ -490,9 +548,12 @@ class DeviceColumnStore:
         self._cube_partials = None
         self._cube_cache = None
         self._cube_stale = True
+        self._perm_buf = None
         self._epoch += 1
         for group in self._groups:
             group.uploaded = False
+            group.vis = None
+            group.packed = False
 
     def detach(self) -> None:
         """Unregister from the catalog's delta hooks and drop the device
@@ -657,10 +718,17 @@ class DeviceColumnStore:
         self._epoch += 1
         self.full_uploads += 1
         self._bytes_moved("full", stack.nbytes)
+        if self._plane_perm:
+            # the group's packed words describe the old rows: repack
+            group.packed = False
 
     def _full_upload(self, group: _ShardGroup, rp: int) -> None:
         self._host_refresh(group)
         self._stage_upload(group, rp)
+        if self._plane_perm:
+            # row positions changed: the group's visibility indexes stale
+            # local rows — re-materialize on the next scoped query
+            group.vis = None
         if self._plane_cube:
             # row positions changed: this group's resident partial cube
             # no longer matches the block — rebuild on next cube query
@@ -749,6 +817,32 @@ class DeviceColumnStore:
                             cols["size"], np.float32)]),
                         np.concatenate([-oblocks, np.asarray(
                             cols["blocks"], np.float32)])]))
+        if self._plane_perm:
+            perm_live = (group.vis is not None and group.packed
+                         and self._perm_buf is not None
+                         and self._grants.version == self._grants_version)
+            if perm_live:
+                # pure updates keep row positions and paths, so only the
+                # ownership grants of the dirty rows can flip: re-derive
+                # just those rows' visibility and scatter the changed
+                # packed words (one index_copy_ along the word axis)
+                nvis = self._vis_rows(
+                    group.spaths, np.asarray(cols["owner"], np.int64),
+                    np.asarray(cols["group"], np.int64), group.ord[rows])
+                if not np.array_equal(nvis, group.vis[:, rows]):
+                    group.vis[:, rows] = nvis
+                    words = np.unique(rows // 32)
+                    wvals = self._pack_words(group, words)
+                    self._perm_buf[group.gid].index_copy_(
+                        1, torch.from_numpy(words.astype(np.int64)).to(dev),
+                        torch.from_numpy(wvals.view(np.int32)).to(dev))
+                    self.perm_word_scatters += 1
+            else:
+                # grants ticked (or the bitset never materialized): a
+                # row-granular patch could miss a new subject's row —
+                # drop the group's bitset, rebuilt on the next scoped
+                # query by _ensure_perms
+                group.vis = None
         group.versions = versions
         self._epoch += 1
         self.delta_refreshes += 1
@@ -805,9 +899,10 @@ class DeviceColumnStore:
         only the grown group pays a full upload; groups already headed for
         a full upload (structural / never uploaded) are left at zeros. The
         copy carries every block row, the analytics rows included; the
-        partial cubes do not depend on row positions and stay. Both
-        tensors are held during the copy. Returns the number of groups
-        copied. Lock held."""
+        partial cubes do not depend on row positions and stay; the
+        permissions words are repacked on the next scoped query (their
+        word axis widens). Both tensors are held during the copy. Returns
+        the number of groups copied. Lock held."""
         old = self._buf
         if old is not None and old.shape[2] == self._rp:
             return 0
@@ -818,6 +913,8 @@ class DeviceColumnStore:
             if old is None or not group.uploaded or group.structural:
                 continue
             new[group.gid, :, : old.shape[2]].copy_(old[group.gid])
+            # the word axis widened too: repack from the kept visibility
+            group.packed = False
             padded += 1
             self.device_pads += 1
         self._buf = new
@@ -876,6 +973,126 @@ class DeviceColumnStore:
                 "device store could not settle a refresh: the catalog "
                 "grew on every re-pad attempt")
 
+    # -- permissions plane (per-subject packed visibility bitsets) -------------
+    def _require_permissions_plane(self) -> None:
+        if not self._plane_perm:
+            raise PolicyError(
+                "permissions plane not enabled "
+                "(DeviceColumnStore.enable_permissions_plane)")
+
+    def _subject_id(self, subject: str) -> int:
+        # unknown subjects raise KeyError, NOT PolicyError: a host
+        # fallback would fail identically, so degrading serves nothing
+        return int(self._grants.subject_id(subject))
+
+    def _vis_rows(self, spaths: Optional[np.ndarray], owner: np.ndarray,
+                  grp: np.ndarray, rank: np.ndarray) -> np.ndarray:
+        """(Sp, k) bool visibility of k group rows (given the group's
+        sorted path mirror, the rows' interned owner/group codes and
+        sorted-path ranks) for every registered subject — rows past the
+        registry stay all-False pad. Mirrors
+        :meth:`GrantTable.visible_mask` exactly: ownership via code
+        membership, subtrees via the same rank-range searches ``du``
+        uses on the sorted-path mirror. Lock held."""
+        strings = self.catalog.strings
+        subjects = self._grants.subjects()
+        out = np.zeros((self._perm_sp, owner.size), dtype=bool)
+        sp = spaths if spaths is not None else np.zeros(0, dtype="<U1")
+        for sid, s in enumerate(subjects):
+            v = out[sid]
+            ocodes = [c for c in (strings.code_of(u) for u in s.owners)
+                      if c is not None]
+            if ocodes:
+                v |= np.isin(owner, ocodes)
+            gcodes = [c for c in (strings.code_of(g) for g in s.groups)
+                      if c is not None]
+            if gcodes:
+                v |= np.isin(grp, gcodes)
+            for pref in s.subtrees:
+                lo = np.searchsorted(sp, pref + "/", side="left")
+                hi = np.searchsorted(sp, pref + "0", side="left")
+                lo2 = np.searchsorted(sp, pref, side="left")
+                hi2 = np.searchsorted(sp, pref, side="right")
+                v |= ((rank >= lo) & (rank < hi)) \
+                    | ((rank >= lo2) & (rank < hi2))
+        return out
+
+    def _pack_group(self, group: _ShardGroup) -> np.ndarray:
+        """Pack a group's full (Sp, rows) visibility into the (Sp, Rp/32)
+        uint32 bit layout: bit b of word w (LSB first) = local row
+        w*32+b; pad rows read 0 (invisible, like the validity row)."""
+        full = np.zeros((self._perm_sp, self._rp), dtype=bool)
+        if group.rows:
+            full[:, : group.rows] = group.vis
+        return np.packbits(full, axis=1,
+                           bitorder="little").view(np.uint32)
+
+    def _pack_words(self, group: _ShardGroup,
+                    words: np.ndarray) -> np.ndarray:
+        """(Sp, k) packed uint32 values of k whole words re-read from the
+        group's visibility mirror (rows past ``group.rows`` pack to 0) —
+        the warm-scatter payload after a dirty-row visibility change."""
+        rows = (words[:, None] * 32 + np.arange(32)).reshape(-1)
+        sub = np.zeros((self._perm_sp, rows.size), dtype=bool)
+        inside = rows < group.rows
+        sub[:, inside] = group.vis[:, rows[inside]]
+        return np.packbits(sub, axis=1, bitorder="little").view(np.uint32)
+
+    def _ensure_perms(self) -> None:
+        """Materialize / refresh the resident bitsets. Lock held; call
+        AFTER :meth:`refresh` (full uploads invalidate group bitsets).
+        Any :attr:`GrantTable.version` tick or subject-capacity overflow
+        re-materializes every group; otherwise only groups whose bitset
+        was invalidated (structural churn, re-pad) rebuild. The words go
+        up as int32 (the same bits; the kernels read them as u32)."""
+        g = self._grants
+        if (g.version != self._grants_version or self._perm_buf is None
+                or len(g) > self._perm_sp):
+            # subject axis padded like the group axis of the cube plane:
+            # headroom + a multiple of 8, so new subjects keep landing
+            # without an immediate re-materialization
+            self._perm_sp = max(
+                -(-int(max(len(g), 1) * self.headroom) // 8) * 8, 8)
+            self._grants_version = g.version
+            self._perm_buf = None
+            for group in self._groups:
+                group.vis = None
+        if self._perm_buf is None or self._perm_buf.shape[2] * 32 != self._rp:
+            # (re)allocated at the block's row capacity: every group packs
+            self._perm_buf = torch.zeros(
+                (self.n_groups, self._perm_sp, self._rp // 32),
+                dtype=torch.int32, device=self.device)
+            for group in self._groups:
+                group.packed = False
+        changed = False
+        for group in self._groups:
+            if group.vis is not None and group.packed:
+                continue
+            if group.rows:
+                owner = np.asarray(group.cols["owner"], np.int64)
+                grp = np.asarray(group.cols["group"], np.int64)
+                rank = group.ord
+            else:
+                owner = grp = np.zeros(0, np.int64)
+                rank = np.zeros(0, np.int64)
+            group.vis = self._vis_rows(group.spaths, owner, grp, rank)
+            self._perm_buf[group.gid].copy_(torch.from_numpy(
+                self._pack_group(group).view(np.int32)))
+            group.packed = True
+            self.perm_materializations += 1
+            changed = True
+        if changed:
+            self._epoch += 1
+
+    def _resolve_subject(self, subject: Optional[str]) -> Optional[int]:
+        """Subject id for a scoped query (None unscoped), materializing
+        the resident bitsets. Lock held, AFTER refresh()."""
+        if subject is None:
+            return None
+        self._require_permissions_plane()
+        self._ensure_perms()
+        return self._subject_id(subject)
+
     # -- matching --------------------------------------------------------------
     def match(self, exprs: Sequence, now: float,
               use_kernel: Optional[bool] = None,
@@ -888,22 +1105,24 @@ class DeviceColumnStore:
         engine's match path needs only mask + attribution; ``.agg`` then
         reads all-zero). ``use_kernel`` as ``ops.mesh_policy_scan_batch``:
         None picks the kernel on the card and the plain version on the
-        CPU. ``subject=`` scoping is not ported yet."""
-        if subject is not None:
-            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        CPU. ``subject=`` ANDs that subject's permission bitset into the
+        match (permissions plane required; on the card one launch of the
+        scoped store form)."""
         # the lock is held for the WHOLE match (launch and readback): a
         # concurrent refresh would rewrite the resident blocks under the
         # in-flight launch and mutate the host mirrors this match
         # translates through — concurrent matches serialize instead
         with self._lock, \
                 self.telemetry.trace("store.match", **self._tlabels) as _sp:
-            m = self._match_locked(exprs, now, use_kernel, with_agg)
-            _sp.annotate(rows_revaluated=m.reval, scoped=False)
+            m = self._match_locked(exprs, now, use_kernel, with_agg,
+                                   subject)
+            _sp.annotate(rows_revaluated=m.reval,
+                         scoped=subject is not None)
             return m
 
     def _match_locked(self, exprs: Sequence, now: float,
-                      use_kernel: Optional[bool], with_agg: bool
-                      ) -> MeshMatch:
+                      use_kernel: Optional[bool], with_agg: bool,
+                      subject: Optional[str] = None) -> MeshMatch:
         from ..kernels.policy_scan.ops import (_agg_dict, _program_tuples,
                                                merge_agg_partials,
                                                mesh_policy_scan_batch)
@@ -911,6 +1130,7 @@ class DeviceColumnStore:
                                                  now)
         ops_t, colidx_t = _program_tuples(ops, colidx)
         self.refresh()
+        sid = self._resolve_subject(subject)
         with self.telemetry.trace("store.match.launch",
                                   groups=self.n_groups, **self._tlabels):
             mask, rule, agg = mesh_policy_scan_batch(
@@ -919,7 +1139,9 @@ class DeviceColumnStore:
                 size_col=KERNEL_COLUMNS.index("size"),
                 blocks_col=KERNEL_COLUMNS.index("blocks"),
                 valid_col=_VALID_COL, with_agg=with_agg,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel,
+                perm=self._perm_buf if sid is not None else None,
+                subject=sid)
         # only mask + attribution cross device→host, never the columns
         with self.telemetry.trace("store.match.combine", **self._tlabels):
             mask_np = mask.cpu().numpy()
@@ -937,11 +1159,13 @@ class DeviceColumnStore:
         return MeshMatch(self, self._epoch, mirrors, group_idx, group_rule,
                          _agg_dict(per_rule[0], per_rule), reval)
 
-    def scan(self, expr, now: float, use_kernel: Optional[bool] = None
-             ) -> Tuple[np.ndarray, dict]:
+    def scan(self, expr, now: float, use_kernel: Optional[bool] = None,
+             subject: Optional[str] = None) -> Tuple[np.ndarray, dict]:
         """Single-expression scan: (matching fids, aggregate dict) — the
-        device-resident analogue of ``ops.scan_catalog``."""
-        match = self.match([expr], now, use_kernel=use_kernel)
+        device-resident analogue of ``ops.scan_catalog``; ``subject=``
+        scopes it as :meth:`match` does."""
+        match = self.match([expr], now, use_kernel=use_kernel,
+                           subject=subject)
         fids, _sizes, _sort, _ridx = match.plan("size")
         return fids, match.agg
 
@@ -1034,9 +1258,12 @@ class DeviceColumnStore:
         """Merged (N_MEASURES, B, S, A) int64 cube as of ``now``, served
         from the resident partials: refresh scatters churned rows, due
         age rollovers move on the device, and only the summed cube
-        crosses to the host. ``subject=`` scoping is not ported yet."""
-        if subject is not None:
-            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        crosses to the host. ``subject=`` bins only rows that subject may
+        see — one :func:`mesh_scoped_cube` build over the resident tensor
+        and bitsets (one scoped ``profile_cube`` launch a group on the
+        card; no resident scoped partials: the rollover advance above
+        keeps the block's age codes exact as of ``now``, so the scoped
+        cube matches the host oracle)."""
         from ..kernels.profile_cube.ops import mesh_cube_combine
         from ..kernels.profile_cube.ref import (A_BUCKETS, N_MEASURES,
                                                 S_BUCKETS)
@@ -1048,12 +1275,21 @@ class DeviceColumnStore:
             self.refresh()
             self._ensure_cube(now)
             self.store_queries += 1
+            b = min(len(self._cube_groups), self._cube_bp)
+            if subject is not None:
+                from ..kernels.profile_cube.ops import mesh_scoped_cube
+                sid = self._resolve_subject(subject)
+                cube = mesh_scoped_cube(
+                    self._buf, self._perm_buf, sid, n_groups=self._cube_bp,
+                    gid_col=_GID_COL, size_col=KERNEL_COLUMNS.index("size"),
+                    blocks_col=KERNEL_COLUMNS.index("blocks"),
+                    sb_col=_SB_COL, ab_col=_AB_COL, valid_col=_VALID_COL)
+                return np.rint(cube.cpu().numpy()).astype(np.int64)[:, :b]
             if self._cube_cache is None:
                 combined = mesh_cube_combine(self._cube_partials)
                 self._cube_cache = np.rint(combined.cpu().numpy()).astype(
                     np.int64).reshape(N_MEASURES, self._cube_bp, S_BUCKETS,
                                       A_BUCKETS)
-            b = min(len(self._cube_groups), self._cube_bp)
             return self._cube_cache[:, :b]
 
     # -- resident report queries (rbh-find / top-N / rbh-du) -------------------
@@ -1083,12 +1319,11 @@ class DeviceColumnStore:
         launch, then the winning rows translate to paths through the host
         path mirrors — emitted in catalog ``arrays()`` order
         (byte-identical to the host fold). Raises PolicyError on glob
-        predicates (host fallback). ``subject=`` is not ported yet."""
-        if subject is not None:
-            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        predicates (host fallback). ``subject=`` lists only rows that
+        subject may see (one lean scoped launch)."""
         with self._lock:
             self._require_reports_plane()
-            match = self._match_locked([expr], now, None, False)
+            match = self._match_locked([expr], now, None, False, subject)
             self.store_queries += 1
             out: List[str] = []
             for sid in range(self.catalog.n_shards):
@@ -1112,10 +1347,8 @@ class DeviceColumnStore:
         every candidate, ties across groups included; the final order
         sorts candidates by native mirror values with the host oracle's
         exact tie semantics (stable argsort + reversal). ``now`` is not
-        read (kernel columns hold no relative ages); ``subject=`` is not
-        ported yet."""
-        if subject is not None:
-            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        read (kernel columns hold no relative ages); ``subject=`` ranks
+        only rows that subject may see (both passes)."""
         from ..kernels.policy_scan.ops import (mesh_column_topk,
                                                mesh_threshold_rows)
         from .types import FsType
@@ -1127,9 +1360,12 @@ class DeviceColumnStore:
             self.store_queries += 1
             if k <= 0 or not any(g.rows for g in self._groups):
                 return []
+            sid = self._resolve_subject(subject)
             kw = dict(col=KERNEL_COLUMNS.index(by), valid_col=_VALID_COL,
                       type_col=KERNEL_COLUMNS.index("type"),
-                      file_code=float(int(FsType.FILE)))
+                      file_code=float(int(FsType.FILE)),
+                      perm=self._perm_buf if sid is not None else None,
+                      subject=sid)
             # pass 1: each group's top-k; the merged k-th best is an exact
             # selection threshold for pass 2
             vals, _idx = mesh_column_topk(self._buf, k=min(k, self._rp),
@@ -1170,16 +1406,15 @@ class DeviceColumnStore:
         """``rbh-du -s`` from the resident tensor: two host binary searches
         a group into the sorted path mirror give rank bounds; one range
         aggregate on the device sums [count, files, volume, spc_used] over
-        the groups — no row leaves the device. ``subject=`` is not ported
-        yet."""
-        if subject is not None:
-            raise _not_ported("subject= scoping", 6, "the permissions plane")
+        the groups — no row leaves the device. ``subject=`` counts only
+        rows that subject may see."""
         from ..kernels.policy_scan.ops import mesh_range_aggregate
         from .types import FsType
         with self._lock:
             self._require_reports_plane()
             self.refresh()
             self.store_queries += 1
+            sid = self._resolve_subject(subject)
             prefix = path_prefix.rstrip("/")
             bounds = np.zeros((self.n_groups, 4), np.float32)
             for group in self._groups:
@@ -1195,8 +1430,9 @@ class DeviceColumnStore:
                 type_col=KERNEL_COLUMNS.index("type"),
                 size_col=KERNEL_COLUMNS.index("size"),
                 blocks_col=KERNEL_COLUMNS.index("blocks"),
-                valid_col=_VALID_COL,
-                file_code=float(int(FsType.FILE))).cpu().numpy()
+                valid_col=_VALID_COL, file_code=float(int(FsType.FILE)),
+                perm=self._perm_buf if sid is not None else None,
+                subject=sid).cpu().numpy()
             return {"count": int(round(float(total[0]))),
                     "files": int(round(float(total[1]))),
                     "volume": int(round(float(total[2]))),

@@ -72,6 +72,20 @@
 // partials and no reduce launch, stages size and blocks only when a compare
 // reads them, and writes mask 0 as one byte a row. The 2-D form (FLAT) is
 // the same code with the group fixed at 0.
+//
+// The scoped store forms (SSTORE, SLEAN) are STORE and LEAN for one tenant:
+// they also read the store's permissions plane, (D, sp, Rp / 32) u32 words
+// (perm_word in policy_scan.cuh), and a row whose bit for subject sid is 0
+// gets validity 0 before anything reads it, so its mask, rule (-1) and
+// aggregates come out as if the row were invalid, in the same launch: 4 B
+// a 32 rows on top of the unscoped form's bytes. The producer warp stages
+// a stage's words (at most 32, one coalesced load, a lane a word) into a
+// slot of shared memory beside the ring and arrives on the stage's full
+// barrier a second time once they are there, so the consumers read the
+// bits from shared memory like every column value (a consumer's own load
+// of the word from global memory cost each stage its latency: 1.17x the
+// unscoped time at 8 x 2^24 rows on an H100). Scoping is a template
+// switch, so the unscoped forms are compiled as before.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -89,14 +103,35 @@ constexpr int EXTRA_BYTES = 8 * 1024;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // What a launch computes and writes (see the top of the file).
-enum Form : int { FLAT = 0, STORE = 1, LEAN = 2 };
+enum Form : int { FLAT = 0, STORE = 1, LEAN = 2, SSTORE = 3, SLEAN = 4 };
 
 template <int F>
 struct FormOf {
   static constexpr bool store = F != FLAT;
-  static constexpr bool agg = F != LEAN;
-  using Mask = std::conditional_t<F == LEAN, uint8_t, float>;
+  static constexpr bool agg = F != LEAN && F != SLEAN;
+  static constexpr bool scoped = F == SSTORE || F == SLEAN;
+  using Mask = std::conditional_t<agg, float, uint8_t>;
 };
+
+// A scoped launch's permissions plane and subject (unread by the other
+// forms): perm holds n_groups * sp * (rows / 32) words.
+struct Scope {
+  const uint32_t* perm;
+  long long sp, sid;
+};
+
+// Words of the plane a stage covers, at most: a whole tile's rows / 32. A
+// scoped launch keeps a slot of them a stage after the Layout below, which
+// stays as it is for every form (the unscoped forms' code is unchanged).
+constexpr int STAGE_WORDS = TILE / 32;
+constexpr size_t WORDS_BYTES = sizeof(uint32_t) * STAGE_WORDS * MAX_STAGES;
+
+// The part-tile consumers take the staged words only in a scoped form, so
+// the other forms' out-of-line calls keep their arguments.
+__device__ __forceinline__ const uint32_t* words_of() { return nullptr; }
+__device__ __forceinline__ const uint32_t* words_of(const uint32_t* w) {
+  return w;
+}
 
 // The group of tile t (tile_group): FLAT has one group, so its rows start
 // at t * TILE exactly as they always have.
@@ -198,7 +233,8 @@ __device__ __forceinline__ void scan_stage(
     const int* s_final, int n_instr, int prog0, int size_at, int blocks_at,
     int valid_at, bool has_valid,
     typename FormOf<F>::Mask* __restrict__ masks, int* __restrict__ rule,
-    uint32_t (&hist)[R], double (&vol)[R], double (&spc)[R]) {
+    uint32_t (&hist)[R], double (&vol)[R], double (&spc)[R],
+    const uint32_t* words) {
   constexpr bool AGG = FormOf<F>::agg;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -214,6 +250,11 @@ __device__ __forceinline__ void scan_stage(
       blocks[j] = in[j] ? seg[blocks_at + local] : 0.f;
     }
     valid[j] = (in[j] && has_valid) ? seg[valid_at + local] : 1.f;
+    if constexpr (FormOf<F>::scoped) {
+      // the subject's bit (the stage's words start at row0, a multiple of
+      // 32): a row it may not see is invalid from here on
+      if (in[j] && !((words[local >> 5] >> lane) & 1u)) valid[j] = 0.f;
+    }
     if constexpr (AGG) {
       // lane k < 10 builds bucket k's mask from 4 ballots of the bucket's
       // bits (a row past n has bucket 15, in no lane's mask)
@@ -308,7 +349,8 @@ __device__ __forceinline__ void consume(
     const float* s_opr, const int* s_len, const int* s_final, int n_instr,
     int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
     typename FormOf<F>::Mask* __restrict__ masks, int* __restrict__ rule,
-    double* s_vol, double* s_spc, uint32_t* s_hist) {
+    double* s_vol, double* s_spc, uint32_t* s_hist,
+    const uint32_t* s_words) {
   const int tid = threadIdx.x;
   const long long per_group = tiles_per_group(n);
   const long long n_tiles = FormOf<F>::store ? per_group * n_groups
@@ -328,7 +370,9 @@ __device__ __forceinline__ void consume(
     mbar_wait(&full[s], phase);
     scan_stage<R, J, F>(n, grp, row0, ring + s * stage_floats, s_code, s_opr,
                         s_len, s_final, n_instr, prog0, size_at, blocks_at,
-                        valid_at, has_valid, masks, rule, hist, vol, spc);
+                        valid_at, has_valid, masks, rule, hist, vol, spc,
+                        FormOf<F>::scoped ? s_words + s * STAGE_WORDS
+                                          : nullptr);
     __syncwarp();                      // the warp is done with stage s
     if ((tid & 31) == 0) mbar_arrive(&empty[s]);
     if (++s == g.stages) {
@@ -353,18 +397,20 @@ __device__ __forceinline__ void consume(
 }
 
 // consume for part-tile stages (wide column sets), out of line: inlined
-// beside the whole-tile path it cost that path registers and spills.
-template <int R, int J, int F>
+// beside the whole-tile path it cost that path registers and spills. The
+// staged words come only in a scoped form (`words` empty otherwise).
+template <int R, int J, int F, typename... W>
 __device__ __noinline__ void consume_far(
     long long n, long long n_groups, const float* ring, const Ring& g,
     int n_stage, uint64_t* full, uint64_t* empty, const uint32_t* s_code,
     const float* s_opr, const int* s_len, const int* s_final, int n_instr,
     int prog0, int size_at, int blocks_at, int valid_at, bool has_valid,
     typename FormOf<F>::Mask* __restrict__ masks, int* __restrict__ rule,
-    double* s_vol, double* s_spc, uint32_t* s_hist) {
+    double* s_vol, double* s_spc, uint32_t* s_hist, W... words) {
   consume<R, J, F>(n, n_groups, ring, g, n_stage, full, empty, s_code, s_opr,
                    s_len, s_final, n_instr, prog0, size_at, blocks_at,
-                   valid_at, has_valid, masks, rule, s_vol, s_spc, s_hist);
+                   valid_at, has_valid, masks, rule, s_vol, s_spc, s_hist,
+                   words_of(words...));
 }
 
 // Programs prog0 .. prog0+R-1 of n_progs over all rows: n rows in FLAT, or
@@ -378,8 +424,9 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
     const int* __restrict__ g_colidx, const float* __restrict__ g_operands,
     int n_instr, int prog0, int n_progs, int size_col, int blocks_col,
     int valid_col, typename FormOf<F>::Mask* __restrict__ masks,
-    int* __restrict__ rule, uint32_t* __restrict__ partials) {
+    int* __restrict__ rule, uint32_t* __restrict__ partials, Scope scope) {
   constexpr bool AGG = FormOf<F>::agg;
+  constexpr bool SCOPED = FormOf<F>::scoped;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout lay(R, n_instr, AGG);
   float* ring = reinterpret_cast<float*>(smem);
@@ -396,6 +443,8 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
   float* s_opr = reinterpret_cast<float*>(smem + lay.opr);
   int* s_len = reinterpret_cast<int*>(smem + lay.len);
   int* s_final = reinterpret_cast<int*>(smem + lay.final_);
+  uint32_t* s_words = SCOPED ? reinterpret_cast<uint32_t*>(smem + lay.total)
+                             : nullptr;
   const int tid = threadIdx.x;
 
   // the plan: the columns the pass's live compares read, by every thread
@@ -425,7 +474,8 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
   }
   if (tid == THREADS) {
     for (int s = 0; s < g.stages; ++s) {
-      mbar_init(&full[s], 1);
+      // scoped: the bulk copies' arrival and the staged words'
+      mbar_init(&full[s], SCOPED ? 2 : 1);
       mbar_init(&empty[s], WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -442,7 +492,48 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
   __syncthreads();
 
   if (tid >= THREADS) {                          // the producer warp
-    if (tid == THREADS) {
+    if constexpr (SCOPED) {
+      // lane 0 issues the bulk copies, as below; every lane also stages a
+      // word of the plane (rows is a multiple of 32 here), then lane 0
+      // arrives a second time: __syncwarp orders the lanes' stores before
+      // its arrival
+      const int lane = tid - THREADS;
+      const long long per_group = tiles_per_group(n);
+      const long long n_tiles = per_group * n_groups;
+      const int rows_max = g.items * THREADS;
+      int s = 0;
+      uint32_t phase = 0;
+      bool wrapped = false;
+      FOR_EACH_STAGE(g.items) {
+        if (wrapped) mbar_wait(&empty[s], phase ^ 1u);
+        const int rows = n - row0 < rows_max ? static_cast<int>(n - row0)
+                                             : rows_max;
+        if (lane == 0) {
+          float* dst = ring + s * n_stage * g.seg;
+          uint32_t tx = 0;
+          for (int c = 0; c < n_stage; ++c)
+            tx += ((s_where[s_stage[c]] - c * g.seg + rows + 3) / 4) * 16;
+          mbar_expect_tx(&full[s], tx);
+          for (int c = 0; c < n_stage; ++c) {
+            const int shift = s_where[s_stage[c]] - c * g.seg;
+            bulk_load(dst + c * g.seg,
+                      cols + (grp * n_cols + s_stage[c]) * n + row0 - shift,
+                      static_cast<uint32_t>((shift + rows + 3) / 4) * 16,
+                      &full[s]);
+          }
+        }
+        if (lane < rows / 32)
+          s_words[s * STAGE_WORDS + lane] = scope.perm[
+              perm_word(grp, scope.sp, scope.sid, n, row0) + lane];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[s]);
+        if (++s == g.stages) {
+          s = 0;
+          phase ^= 1u;
+          wrapped = true;
+        }
+      }
+    } else if (tid == THREADS) {
       const long long per_group = tiles_per_group(n);
       const long long n_tiles = FormOf<F>::store ? per_group * n_groups
                                                  : per_group;
@@ -486,12 +577,20 @@ __global__ void __launch_bounds__(BLOCK, 2) scan_kernel(
   n, n_groups, ring, g, n_stage, full, empty, s_code, s_opr, s_len, s_final, \
       n_instr, prog0, size_at, blocks_at, valid_at, has_valid, masks, rule,  \
       s_vol, s_spc, s_hist
-    if (g.items == ITEMS)
-      consume<R, ITEMS, F>(PS_ARGS);
-    else if (g.items == ITEMS / 2)
-      consume_far<R, ITEMS / 2, F>(PS_ARGS);
-    else
-      consume_far<R, 1, F>(PS_ARGS);
+    if (g.items == ITEMS) {
+      consume<R, ITEMS, F>(PS_ARGS, s_words);
+    } else if constexpr (SCOPED) {
+      const uint32_t* words = s_words;
+      if (g.items == ITEMS / 2)
+        consume_far<R, ITEMS / 2, F>(PS_ARGS, words);
+      else
+        consume_far<R, 1, F>(PS_ARGS, words);
+    } else {
+      if (g.items == ITEMS / 2)
+        consume_far<R, ITEMS / 2, F>(PS_ARGS);
+      else
+        consume_far<R, 1, F>(PS_ARGS);
+    }
 #undef PS_ARGS
     __syncwarp();
   }
@@ -571,8 +670,10 @@ cudaError_t launch_pass(const float* cols, long long n, long long n_groups,
                         const float* operands, int n_instr, int prog0,
                         int n_progs, int size_col, int blocks_col,
                         int valid_col, void* masks, int* rule,
-                        uint32_t* partials, int grid, cudaStream_t s) {
-  const size_t smem = Layout(R, n_instr, FormOf<F>::agg).total;
+                        uint32_t* partials, const Scope& scope, int grid,
+                        cudaStream_t s) {
+  const size_t smem = Layout(R, n_instr, FormOf<F>::agg).total +
+                      (FormOf<F>::scoped ? WORDS_BYTES : 0);
   const cudaError_t e = cudaFuncSetAttribute(
       scan_kernel<R, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -580,14 +681,14 @@ cudaError_t launch_pass(const float* cols, long long n, long long n_groups,
   scan_kernel<R, F><<<grid, BLOCK, smem, s>>>(
       cols, n, n_groups, n_cols, ops, colidx, operands, n_instr, prog0,
       n_progs, size_col, blocks_col, valid_col,
-      static_cast<typename FormOf<F>::Mask*>(masks), rule, partials);
+      static_cast<typename FormOf<F>::Mask*>(masks), rule, partials, scope);
   return cudaGetLastError();
 }
 
 using PassFn = cudaError_t (*)(const float*, long long, long long, int,
                                const int*, const int*, const float*, int,
                                int, int, int, int, int, void*, int*,
-                               uint32_t*, int, cudaStream_t);
+                               uint32_t*, const Scope&, int, cudaStream_t);
 template <int F>
 constexpr PassFn PASSES[MAX_PASS] = {
     launch_pass<1, F>, launch_pass<2, F>, launch_pass<3, F>,
@@ -616,6 +717,9 @@ int occupancy(int r, size_t smem) {
   return blocks;
 }
 
+// The scope of an unscoped launch (its kernels never read it).
+inline Scope scope_none() { return Scope{nullptr, 0, 0}; }
+
 // The persistent grid over `tiles` tiles on a card of `sms` SMs: every
 // SM's resident blocks of the widest FLAT pass (MAX_PASS programs,
 // EXTRA_BYTES for its programs and sums), fewer when there are fewer
@@ -637,7 +741,8 @@ int launch_all(const float* cols, long long n, long long n_groups,
                int n_cols, const int* ops, const int* colidx,
                const float* operands, int n_progs, int n_instr, int size_col,
                int blocks_col, int valid_col, void* masks, int* rule,
-               float* partials, float* agg, int grid, void* stream) {
+               float* partials, float* agg, const Scope& scope, int grid,
+               void* stream) {
   if (n_cols < 1 || n_cols > MAX_COLS ||
       reinterpret_cast<uintptr_t>(cols) % sizeof(float) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -647,8 +752,8 @@ int launch_all(const float* cols, long long n, long long n_groups,
     const int r = n_progs - p0 < MAX_PASS ? n_progs - p0 : MAX_PASS;
     const cudaError_t e = PASSES<F>[r - 1](
         cols, n, n_groups, n_cols, ops, colidx, operands, n_instr, p0,
-        n_progs, size_col, blocks_col, valid_col, masks, rule, part, grid,
-        s);
+        n_progs, size_col, blocks_col, valid_col, masks, rule, part, scope,
+        grid, s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if constexpr (FormOf<F>::agg)
@@ -708,11 +813,15 @@ int policy_scan_occupancy(int n_progs, int n_instr) {
   return occupancy<FLAT>(r, Layout(r, n_instr).total);
 }
 
-// The same for the store form, with aggregates or lean.
-int policy_scan_store_occupancy(int with_agg, int n_progs, int n_instr) {
+// The same for the store form, with aggregates or lean, scoped or not.
+int policy_scan_store_occupancy(int with_agg, int scoped, int n_progs,
+                                int n_instr) {
   using namespace policy_scan;
   const int r = n_progs < MAX_PASS ? n_progs : MAX_PASS;
-  const size_t smem = Layout(r, n_instr, with_agg != 0).total;
+  const size_t smem =
+      Layout(r, n_instr, with_agg != 0).total + (scoped ? WORDS_BYTES : 0);
+  if (scoped)
+    return with_agg ? occupancy<SSTORE>(r, smem) : occupancy<SLEAN>(r, smem);
   return with_agg ? occupancy<STORE>(r, smem) : occupancy<LEAN>(r, smem);
 }
 
@@ -732,7 +841,8 @@ int policy_scan_launch(const float* cols, long long n, int n_cols,
   using namespace policy_scan;
   return launch_all<FLAT>(cols, n, 1, n_cols, ops, colidx, operands,
                           n_progs, n_instr, size_col, blocks_col, valid_col,
-                          masks, rule, partials, agg, grid, stream);
+                          masks, rule, partials, agg, scope_none(), grid,
+                          stream);
 }
 
 // The store form over cols (n_groups, n_cols, rp): mask0 (n_groups, rp),
@@ -741,26 +851,44 @@ int policy_scan_launch(const float* cols, long long n, int n_cols,
 // (grid from policy_scan_store_grid); without, neither is touched and no
 // reduction runs. rp must be a multiple of 4 (every group's columns then
 // start as column 0 of group 0 does, modulo 16 B) and valid_col a column.
+// With perm (not null) the launch is scoped to subject sid of the
+// permissions plane perm, (n_groups, sp, rp / 32) u32 words: rp must then
+// be a multiple of 32 and sid in [0, sp).
 int policy_scan_store_launch(const float* cols, long long n_groups,
                              long long rp, int n_cols, const int* ops,
                              const int* colidx, const float* operands,
                              int n_progs, int n_instr, int size_col,
                              int blocks_col, int valid_col, int with_agg,
                              void* mask0, int* rule, float* partials,
-                             float* agg, int grid, void* stream) {
+                             float* agg, const int* perm, long long sp,
+                             long long sid, int grid, void* stream) {
   using namespace policy_scan;
   if (n_groups < 1 || rp < 1 || rp % 4 != 0 || valid_col < 0 ||
       rule == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (perm != nullptr) {
+    if (rp % 32 != 0 || sp < 1 || sid < 0 || sid >= sp)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const Scope scope{reinterpret_cast<const uint32_t*>(perm), sp, sid};
+    return with_agg
+               ? launch_all<SSTORE>(cols, rp, n_groups, n_cols, ops, colidx,
+                                    operands, n_progs, n_instr, size_col,
+                                    blocks_col, valid_col, mask0, rule,
+                                    partials, agg, scope, grid, stream)
+               : launch_all<SLEAN>(cols, rp, n_groups, n_cols, ops, colidx,
+                                   operands, n_progs, n_instr, size_col,
+                                   blocks_col, valid_col, mask0, rule,
+                                   nullptr, nullptr, scope, grid, stream);
+  }
   return with_agg
              ? launch_all<STORE>(cols, rp, n_groups, n_cols, ops, colidx,
                                  operands, n_progs, n_instr, size_col,
                                  blocks_col, valid_col, mask0, rule,
-                                 partials, agg, grid, stream)
+                                 partials, agg, scope_none(), grid, stream)
              : launch_all<LEAN>(cols, rp, n_groups, n_cols, ops, colidx,
                                 operands, n_progs, n_instr, size_col,
                                 blocks_col, valid_col, mask0, rule, nullptr,
-                                nullptr, grid, stream);
+                                nullptr, scope_none(), grid, stream);
 }
 
 }  // extern "C"

@@ -15,9 +15,10 @@
 // same in every thread: its branches never diverge inside a warp.
 //
 // The staged column set of a launch (stage_plan) and the ring that holds it
-// (ring_shape), and the store form's tile walk (tile_group), are worked
-// out here too. The functions are __host__ __device__ so the staging plan,
-// tile walk, decoder and interpreter can be compiled for the host too.
+// (ring_shape), the store form's tile walk (tile_group) and the bit layout
+// of the store's permissions plane (perm_word), are worked out here too.
+// The functions are __host__ __device__ so the staging plan, tile walk,
+// bit layout, decoder and interpreter can be compiled for the host too.
 #pragma once
 
 #include <cstdint>
@@ -111,6 +112,17 @@ PS_HD long long tile_group(long long t, long long per_group) {
 
 PS_HD long long tile_row0(long long t, long long group, long long per_group) {
   return (t - group * per_group) * TILE;
+}
+
+// The store's permissions plane: (n_groups, sp, rows / 32) u32 words, one
+// packed bitset a (group, subject), bit b of word w (LSB first) covering
+// row w * 32 + b of the group (np.packbits(..., bitorder="little")).
+// perm_word is the word that holds row `row` of group `grp` for subject
+// `sid`, whose bit row & 31 is the row's. rows is a multiple of 32, so a
+// warp's 32 consecutive rows from a multiple of 32 share one word.
+PS_HD long long perm_word(long long grp, long long sp, long long sid,
+                          long long rows, long long row) {
+  return (grp * sp + sid) * (rows >> 5) + (row >> 5);
 }
 
 // How the ring holds n_stage columns: a stage is `items` rows a consumer

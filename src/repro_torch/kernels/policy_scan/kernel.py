@@ -15,7 +15,8 @@ Three wrappers, each counting its launches in a plain integer:
   0's mask + rule index, each ``(D, Rp)``, and the (R, 14) aggregates over
   every group, or the lean form without them (replaces
   ``policy_scan_batch_pallas`` as ``mesh_policy_scan_batch`` runs it once
-  per shard group).
+  per shard group); given the store's permissions plane and a subject, the
+  scoped store form, where a row the subject may not see counts as invalid.
 
 All take CUDA tensors only and raise on anything else: there is no
 fallback here. The plain version lives in ``ref.py``.
@@ -40,11 +41,15 @@ HEADERS = ("policy_scan.cuh",)
 
 # launch counters: +1 per kernel launch, nowhere else; the store form
 # counts in policy_scan_store_launches with aggregates and in
-# policy_scan_store_lean_launches without, never in both
+# policy_scan_store_lean_launches without, its scoped forms in
+# policy_scan_store_scoped_launches and policy_scan_store_scoped_lean_launches:
+# a launch adds to exactly one of the four
 policy_scan_launches = 0
 policy_scan_batch_launches = 0
 policy_scan_store_launches = 0
 policy_scan_store_lean_launches = 0
+policy_scan_store_scoped_launches = 0
+policy_scan_store_scoped_lean_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
@@ -53,10 +58,14 @@ _LIB_LOCK = threading.Lock()
 def reset_counters() -> None:
     global policy_scan_launches, policy_scan_batch_launches
     global policy_scan_store_launches, policy_scan_store_lean_launches
+    global policy_scan_store_scoped_launches
+    global policy_scan_store_scoped_lean_launches
     policy_scan_launches = 0
     policy_scan_batch_launches = 0
     policy_scan_store_launches = 0
     policy_scan_store_lean_launches = 0
+    policy_scan_store_scoped_launches = 0
+    policy_scan_store_scoped_lean_launches = 0
 
 
 def library_path() -> Path:
@@ -86,11 +95,12 @@ def _lib() -> ctypes.CDLL:
             lib.policy_scan_occupancy.argtypes = [i, i]
             lib.policy_scan_occupancy.restype = i
             lib.policy_scan_store_launch.argtypes = [
-                p, ll, ll, i, p, p, p, i, i, i, i, i, i, p, p, p, p, i, p]
+                p, ll, ll, i, p, p, p, i, i, i, i, i, i, p, p, p, p, p, ll,
+                ll, i, p]
             lib.policy_scan_store_launch.restype = i
             lib.policy_scan_store_grid.argtypes = [ll, ll, i]
             lib.policy_scan_store_grid.restype = i
-            lib.policy_scan_store_occupancy.argtypes = [i, i, i]
+            lib.policy_scan_store_occupancy.argtypes = [i, i, i, i]
             lib.policy_scan_store_occupancy.restype = i
             for name in ("policy_scan_tile_rows", "policy_scan_max_cols"):
                 getattr(lib, name).argtypes = []
@@ -145,14 +155,15 @@ def _store_grid(lib, cols: torch.Tensor) -> int:
 def launch_shape(cols: torch.Tensor, ops: torch.Tensor,
                  colidx: torch.Tensor, *, size_col: int = 0,
                  blocks_col: int = 1, valid_col: int = -1,
-                 with_agg: bool = True) -> dict:
+                 with_agg: bool = True, scoped: bool = False) -> dict:
     """How a launch over ``cols`` with (R, P) programs runs: its grid, and
     per pass of at most 8 programs the columns its blocks stage, the rows a
     stage holds (a tile of 1024, or a half or a quarter of one for wide
     column sets) and the ring's stages; and the resident blocks an SM of
     its widest pass. ``cols`` of 3 dims, ``(D, C, Rp)``, is the store
-    form's launch (``with_agg=False`` its lean form). It reads the programs
-    on the host (the launch itself does not). Launches nothing."""
+    form's launch (``with_agg=False`` its lean form, ``scoped`` its scoped
+    forms, which stage the same columns). It reads the programs on the host
+    (the launch itself does not). Launches nothing."""
     lib = _lib()
     store = cols.dim() == 3
     grid = _store_grid(lib, cols) if store else _grid(lib, cols)
@@ -173,7 +184,8 @@ def launch_shape(cols: torch.Tensor, ops: torch.Tensor,
         passes.append(dict(staged_cols=list(stage[:n_stage]),
                            stage_rows=rows.value,
                            stages=stages.value))
-    occ = (lib.policy_scan_store_occupancy(int(with_agg), n_progs, n_instr)
+    occ = (lib.policy_scan_store_occupancy(int(with_agg), int(scoped),
+                                           n_progs, n_instr)
            if store else lib.policy_scan_occupancy(n_progs, n_instr))
     return dict(grid=grid, passes=passes, blocks_per_sm=occ,
                 tile_rows=lib.policy_scan_tile_rows())
@@ -255,7 +267,9 @@ def policy_scan_cuda(cols: torch.Tensor, ops: torch.Tensor,
 def policy_scan_store_cuda(cols: torch.Tensor, ops: torch.Tensor,
                            colidx: torch.Tensor, operands: torch.Tensor, *,
                            size_col: int, blocks_col: int, valid_col: int,
-                           with_agg: bool
+                           with_agg: bool,
+                           perm: Optional[torch.Tensor] = None,
+                           sid: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """The store form, one launch over every shard group.
@@ -265,7 +279,13 @@ def policy_scan_store_cuda(cols: torch.Tensor, ops: torch.Tensor,
     (R, P) i32, operands (R, P) f32. Returns (mask0 (D, Rp), f32 with
     ``with_agg`` else bool; rule (D, Rp) i32; agg (R, 14) f32 summed over
     every group, zeros without ``with_agg``). The masks of programs 1..R-1
-    are not kept: only program 0's and the rule index leave the kernel."""
+    are not kept: only program 0's and the rule index leave the kernel.
+
+    ``perm`` (the store's permissions plane, (D, Sp, Rp / 32) i32 read as
+    u32 words, bit b of word w covering row w * 32 + b; Rp then a multiple
+    of 32) and ``sid`` (a subject in ``[0, Sp)``) scope the launch: a row
+    whose bit is 0 counts as invalid (mask 0, rule -1, outside the
+    aggregates), in the same launch."""
     dev = cols.device
     _check(cols, "cols", torch.float32, 3, dev)
     _check(ops, "ops", torch.int32, 2, dev)
@@ -285,6 +305,20 @@ def policy_scan_store_cuda(cols: torch.Tensor, ops: torch.Tensor,
                     ("valid_col", valid_col)):
         if not 0 <= c < n_cols:
             raise ValueError(f"{name}={c} outside [0, {n_cols})")
+    scoped = perm is not None
+    if scoped != (sid is not None):
+        raise ValueError("perm and sid go together: both scope a launch")
+    if scoped:
+        _check(perm, "perm", torch.int32, 3, dev)
+        if rp % 32:
+            raise ValueError(f"Rp={rp}: a scoped launch needs a multiple of "
+                             "32 rows a group (32 rows a permission word)")
+        if perm.shape[0] != n_groups or perm.shape[2] != rp // 32:
+            raise ValueError(f"perm {tuple(perm.shape)} does not cover "
+                             f"{n_groups} groups of {rp} rows: (D, Sp, "
+                             f"{rp // 32}) expected")
+        if not 0 <= int(sid) < perm.shape[1]:
+            raise ValueError(f"sid={int(sid)} outside [0, {perm.shape[1]})")
     lib = _lib()
     grid = _store_grid(lib, cols)
     mask0 = torch.empty((n_groups, rp), device=dev,
@@ -304,10 +338,14 @@ def policy_scan_store_cuda(cols: torch.Tensor, ops: torch.Tensor,
         colidx.data_ptr(), operands.data_ptr(), n_progs, n_instr, size_col,
         blocks_col, valid_col, int(bool(with_agg)), mask0.data_ptr(),
         rule.data_ptr(), partials.data_ptr() if with_agg else None,
-        agg.data_ptr() if with_agg else None, grid, stream)
+        agg.data_ptr() if with_agg else None,
+        perm.data_ptr() if scoped else None,
+        perm.shape[1] if scoped else 0, int(sid) if scoped else 0, grid,
+        stream)
     if err != 0:
         raise RuntimeError("policy_scan store launch failed: "
                            f"{lib.policy_scan_error_string(err).decode()}")
-    _launches.count(__name__, "policy_scan_store_launches" if with_agg
-                    else "policy_scan_store_lean_launches")
+    _launches.count(__name__, "policy_scan_store_"
+                    + ("scoped_" if scoped else "")
+                    + ("launches" if with_agg else "lean_launches"))
     return mask0, rule, agg

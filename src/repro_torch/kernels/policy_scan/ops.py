@@ -24,6 +24,14 @@ have no kernel in the reference either: they are plain PyTorch on any
 device, and the card's main path never calls them. Nor have the store's
 report ops, :func:`mesh_column_topk`, :func:`mesh_threshold_rows` and
 :func:`mesh_range_aggregate`: plain PyTorch on the store's device.
+
+Each store op takes ``perm``/``subject`` to scope it to one tenant: the
+store's permissions plane, ``(D, Sp, Rp / 32)`` packed words held as
+int32, and a subject id (see :func:`_subject_bits`). A row the subject may
+not see drops out as if it were invalid. :func:`mesh_policy_scan_batch`
+does that inside the kernel's scoped store form on the card (one launch,
+no second pass over the masks); the report ops AND the bits into their
+selection.
 """
 from __future__ import annotations
 
@@ -39,6 +47,8 @@ from .kernel import (policy_scan_batch_cuda, policy_scan_cuda,
 from .ref import (N_AGG, OP_AND, OP_NOP, OP_NOT, OP_OR, aggregate_multi,
                   attribute_ref, combine_groups, policy_scan_batch_ref,
                   policy_scan_multi_ref, policy_scan_ref)
+# one subject's (..., W * 32) bool rows of a packed (..., Sp, W) plane
+from .ref import subject_bits as _subject_bits
 
 
 def _kernel_for(cols: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -221,11 +231,29 @@ def _program_tuples(ops: np.ndarray, colidx: np.ndarray
             tuple(tuple(int(c) for c in row) for row in np.asarray(colidx)))
 
 
-def _no_scoping(perm, subject) -> None:
-    if perm is not None or subject is not None:
-        raise NotImplementedError(
-            "subject scoping (perm=/subject=) is not ported yet: ROADMAP.md "
-            "queue 1 item 6, the permissions plane")
+def _check_plane(global_cols: torch.Tensor, perm: torch.Tensor,
+                 subject) -> None:
+    """Raises unless ``perm`` is a (D, Sp, Rp / 32) plane over the D
+    groups of Rp rows of ``global_cols`` and ``subject`` one of its Sp."""
+    d, _, rp = global_cols.shape
+    if perm.dim() != 3 or perm.shape[0] != d or perm.shape[2] * 32 != rp:
+        raise ValueError(f"perm {tuple(perm.shape)} does not cover {d} "
+                         f"groups of {rp} rows: (D, Sp, {rp // 32}) expected")
+    if not 0 <= int(subject) < perm.shape[1]:
+        raise ValueError(f"subject={int(subject)} outside "
+                         f"[0, {perm.shape[1]})")
+
+
+def _scope(global_cols: torch.Tensor, perm, subject
+           ) -> Optional[torch.Tensor]:
+    """(D, Rp) bool visibility of subject ``subject`` in the (D, Sp,
+    Rp / 32) plane ``perm``, or None for an unscoped call."""
+    if (perm is None) != (subject is None):
+        raise ValueError("perm and subject go together: both scope a call")
+    if perm is None:
+        return None
+    _check_plane(global_cols, perm, subject)
+    return _subject_bits(perm, subject)
 
 
 def mesh_policy_scan_batch(global_cols: torch.Tensor,
@@ -255,9 +283,15 @@ def mesh_policy_scan_batch(global_cols: torch.Tensor,
     bool and agg zeros) — the policy engine's match path, which only
     consumes mask + attribution. ``use_kernel`` as :func:`policy_scan`.
 
-    ``perm``/``subject`` (tenant scoping) are not ported yet.
+    ``perm``/``subject`` scope the whole match to one tenant: ``perm`` is
+    the store's (D, Sp, Rp / 32) int32 permissions plane and ``subject`` a
+    subject id. Masks, rule_idx and the aggregates all come back
+    visibility-filtered, exactly as if invisible rows were invalid. On a
+    CUDA tensor that is one launch of the kernel's scoped store form; on a
+    CPU tensor the unrolled evaluator's masks are ANDed with the subject's
+    bits, the rule set to -1 where a bit is 0, and the aggregates taken
+    after, as the reference does off the TPU.
     """
-    _no_scoping(perm, subject)
     kernel = _kernel_for(global_cols, use_kernel)
     dev = global_cols.device
     if kernel:
@@ -267,12 +301,17 @@ def mesh_policy_scan_batch(global_cols: torch.Tensor,
             global_cols, ops, colidx,
             operands.to(device=dev, dtype=torch.float32).contiguous(),
             size_col=size_col, blocks_col=blocks_col, valid_col=valid_col,
-            with_agg=with_agg)
+            with_agg=with_agg, perm=perm,
+            sid=None if subject is None else int(subject))
+    bits = _scope(global_cols, perm, subject)
     operands = operands.to(device=dev, dtype=torch.float32)
     mask0, rule, parts = [], [], []
-    for c in global_cols:
+    for g, c in enumerate(global_cols):
         masks_b, r = _unrolled_masks(c, ops_t, colidx_t, operands,
                                      valid_col)
+        if bits is not None:
+            masks_b = [m & bits[g] for m in masks_b]
+            r = torch.where(bits[g], r, torch.full_like(r, -1))
         if with_agg:
             masks = torch.stack(masks_b).to(torch.float32)
             parts.append(aggregate_multi(masks, c[size_col], c[blocks_col]))
@@ -317,10 +356,13 @@ def mesh_column_topk(global_cols: torch.Tensor, *, col: int, k: int,
     is an exact threshold for :func:`mesh_threshold_rows`, which recovers
     the ties a per-group cut could hide (``torch.topk`` leaves the order of
     ties unspecified; the caller orders the recovered rows itself).
-    ``perm``/``subject`` are not ported yet.
+    ``perm``/``subject`` AND the subject's visibility bits into the row
+    filter: the scoped top-k ranks only rows the tenant may see.
     """
-    _no_scoping(perm, subject)
     sel = _file_rows(global_cols, valid_col, type_col, file_code)
+    bits = _scope(global_cols, perm, subject)
+    if bits is not None:
+        sel &= bits
     key = global_cols[:, col].masked_fill(
         ~sel, -math.inf if desc else math.inf)
     return torch.topk(key, k, dim=1, largest=desc, sorted=True)
@@ -333,9 +375,12 @@ def mesh_threshold_rows(global_cols: torch.Tensor, thr: float, *, col: int,
     """(D, Rp) bool mask of the valid FILE rows whose column ``col`` passes
     ``thr`` (``>=`` with ``ge``, else ``<=``; ``thr`` is compared as f32):
     the second pass of the two-pass top-k (see :func:`mesh_column_topk`).
-    ``perm``/``subject`` are not ported yet."""
-    _no_scoping(perm, subject)
+    ``perm``/``subject`` apply the same visibility AND as the top-k pass,
+    so both passes of a scoped query select from the same rows."""
     sel = _file_rows(global_cols, valid_col, type_col, file_code)
+    bits = _scope(global_cols, perm, subject)
+    if bits is not None:
+        sel &= bits
     c = global_cols[:, col]
     t = torch.tensor(thr, dtype=c.dtype, device=c.device)
     return sel & ((c >= t) if ge else (c <= t))
@@ -354,15 +399,18 @@ def mesh_range_aggregate(global_cols: torch.Tensor, bounds, *, ord_col: int,
     columns' device: ``count`` and ``files`` are counted as integers (an
     f32 sum of 2^27 ones is not exact), volume and spc_used summed in f64 —
     equal to the reference's f32 sums wherever those are exact.
-    ``perm``/``subject`` are not ported yet.
+    ``perm``/``subject`` AND the subject's visibility bits into the range
+    mask: a scoped ``du`` counts only rows the tenant may see.
     """
-    _no_scoping(perm, subject)
     dev = global_cols.device
     b = torch.as_tensor(np.asarray(bounds, np.float32)).to(dev)
     lo, hi, lo2, hi2 = (b[:, i, None] for i in range(4))
     o = global_cols[:, ord_col]
     m = (global_cols[:, valid_col] > 0.5) & (((o >= lo) & (o < hi))
                                              | ((o >= lo2) & (o < hi2)))
+    bits = _scope(global_cols, perm, subject)
+    if bits is not None:
+        m &= bits
     f = m & (global_cols[:, type_col] == file_code)
     zero = global_cols.new_zeros(())
     return torch.stack([

@@ -18,7 +18,7 @@ range, as the kernels do.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -177,19 +177,43 @@ def combine_groups(parts: List[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def subject_bits(perm: torch.Tensor, sid) -> torch.Tensor:
+    """One subject's row visibility from a packed permissions plane.
+
+    ``perm`` is (..., Sp, W): one packed bitset a subject, W 32-bit words
+    (held as int32, read as u32), bit ``b`` of word ``w`` (LSB first)
+    covering row ``w * 32 + b``, as ``np.packbits(..., bitorder="little")``
+    packs them. Returns the (..., W * 32) bool rows of subject ``sid``.
+    The words are widened to int64 and masked to their 32 bits before the
+    shifts, so no u32 arithmetic is needed (the CPU build of PyTorch has
+    none for shifts and ``arange``)."""
+    words = perm.select(-2, int(sid)).to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=perm.device)
+    return ((words.unsqueeze(-1) >> shifts) & 1).bool().flatten(-2)
+
+
 def policy_scan_store_ref(cols: torch.Tensor, ops: torch.Tensor,
                           colidx: torch.Tensor, operands: torch.Tensor, *,
                           size_col: int, blocks_col: int, valid_col: int,
-                          with_agg: bool
+                          with_agg: bool,
+                          perm: Optional[torch.Tensor] = None, sid=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The store form's plain version: :func:`policy_scan_batch_ref` on
     each shard group of ``cols`` (D, C, Rp), one group at a time.
 
     Returns (mask0 (D, Rp): program 0's f32 mask with ``with_agg``, else
     ``mask0 > 0.5`` as bool; rule (D, Rp) i32; agg (R, N_AGG) f32 over
-    every group (:func:`combine_groups`), zeros without ``with_agg``)."""
+    every group (:func:`combine_groups`), zeros without ``with_agg``).
+
+    ``perm`` (D, Sp, Rp / 32) and ``sid`` scope it to one subject (see
+    :func:`subject_bits`): each group runs on a copy of its columns whose
+    validity is 0 where the subject's bit is 0."""
     mask0, rule, parts = [], [], []
-    for c in cols:
+    for g, c in enumerate(cols):
+        if perm is not None:
+            c = c.clone()
+            c[valid_col] = torch.where(subject_bits(perm[g], sid),
+                                       c[valid_col], c.new_zeros(()))
         masks, r, agg = policy_scan_batch_ref(
             c, ops, colidx, operands, size_col=size_col,
             blocks_col=blocks_col, valid_col=valid_col)

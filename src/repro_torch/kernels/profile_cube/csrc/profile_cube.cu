@@ -51,6 +51,14 @@
 // One thread per row, ITEMS rows a thread per step of a grid-stride loop;
 // column c of row i is cols[c * n + i], so a warp's loads are coalesced;
 // the ragged last tile is masked here, so the caller pads nothing.
+//
+// The scoped launch (profile_cube_launch_scoped) bins only the rows one
+// subject may see: it also reads that subject's packed bitset over the
+// rows (one word per 32 rows, bit b of word w, LSB first, for row
+// w * 32 + b: the column store's permissions plane), and a row whose bit
+// is 0 weighs 0, as an invalid row does. A warp's 32 rows share one word.
+// Scoping is a template switch (SCOPED), so the unscoped kernels are
+// compiled as before.
 #include <cuda_runtime.h>
 
 namespace profile_cube {
@@ -88,6 +96,7 @@ struct Columns {
   long long n;
   int n_groups, gid_col, size_col, blocks_col, age_col, valid_col, sb_col,
       ab_col;
+  const unsigned* perm;   // scoped: the subject's words over the rows
 };
 
 __device__ __forceinline__ int clip(int v, int lo, int hi) {
@@ -111,7 +120,9 @@ __device__ __forceinline__ int age_bucket(float a) {
 }
 
 // Row i's weight (0: the row adds nothing), size, blocks and flat cell
-// (g * 10 + sb) * 7 + ab, with gid clipped into [0, n_groups).
+// (g * 10 + sb) * 7 + ab, with gid clipped into [0, n_groups). SCOPED: 0
+// too when the subject's bit of row i is 0.
+template <bool SCOPED>
 __device__ __forceinline__ float load_row(const Columns& c, long long i,
                                           float& size, float& blocks,
                                           int& cell) {
@@ -120,6 +131,9 @@ __device__ __forceinline__ float load_row(const Columns& c, long long i,
   if (i >= c.n) return 0.f;
   const float w = c.valid_col >= 0 ? c.cols[c.valid_col * c.n + i] : 1.f;
   if (w == 0.f) return 0.f;
+  if constexpr (SCOPED) {
+    if (!((c.perm[i >> 5] >> (i & 31)) & 1u)) return 0.f;
+  }
   const int g = clip(__float2int_rz(c.cols[c.gid_col * c.n + i]), 0,
                      c.n_groups - 1);
   size = c.cols[c.size_col * c.n + i];
@@ -181,6 +195,7 @@ __device__ __forceinline__ void shared_add(unsigned* word, u64 v) {
 // The global design: every row adds into the global cube; round r of a
 // step, lane 4q + m adds measure m of row q of the round (lane 8r + q), so
 // a row's three adds leave in one instruction, to one 32 B sector.
+template <bool SCOPED>
 __global__ void __launch_bounds__(THREADS) global_kernel(
     Columns c, double limit, u64* __restrict__ cube,
     double* __restrict__ side) {
@@ -192,8 +207,8 @@ __global__ void __launch_bounds__(THREADS) global_kernel(
     int cell[ITEMS];
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j)
-      w[j] = load_row(c, base + static_cast<long long>(j) * THREADS,
-                      size[j], blocks[j], cell[j]);
+      w[j] = load_row<SCOPED>(c, base + static_cast<long long>(j) * THREADS,
+                              size[j], blocks[j], cell[j]);
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
       u64 v0 = 0, v1 = 0, v2 = 0;
@@ -219,6 +234,7 @@ __global__ void __launch_bounds__(THREADS) global_kernel(
   }
 }
 
+template <bool SCOPED>
 __global__ void __launch_bounds__(THREADS) shared_kernel(
     Columns c, double limit, u64* __restrict__ cube,
     double* __restrict__ side) {
@@ -233,8 +249,8 @@ __global__ void __launch_bounds__(THREADS) shared_kernel(
     int cell[ITEMS];
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j)
-      w[j] = load_row(c, base + static_cast<long long>(j) * THREADS,
-                      size[j], blocks[j], cell[j]);
+      w[j] = load_row<SCOPED>(c, base + static_cast<long long>(j) * THREADS,
+                              size[j], blocks[j], cell[j]);
 #pragma unroll
     for (int j = 0; j < ITEMS; ++j) {
       if (w[j] == 0.f) continue;
@@ -343,11 +359,11 @@ long long profile_cube_work_bytes(long long n, int n_groups) {
 
 namespace profile_cube {
 
-template <typename T>
+template <typename T, bool SCOPED>
 int launch(const float* cols, long long n, int n_groups, int gid_col,
            int size_col, int blocks_col, int age_col, int valid_col,
-           int sb_col, int ab_col, void* work, T* out, int sms,
-           void* stream) {
+           int sb_col, int ab_col, const unsigned* perm, void* work, T* out,
+           int sms, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_groups < 1 || n_groups > MAX_GROUPS || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -358,29 +374,30 @@ int launch(const float* cols, long long n, int n_groups, int gid_col,
                                            cube_bytes(n_groups));
   cudaError_t e = cudaMemsetAsync(work, 0, 2 * cube_bytes(n_groups), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Columns c{cols, n, n_groups, gid_col, size_col, blocks_col,
-                  age_col, valid_col, sb_col, ab_col};
+  const Columns c{cols,      n,         n_groups, gid_col, size_col,
+                  blocks_col, age_col,   valid_col, sb_col, ab_col,
+                  perm};
   const double limit = int_limit(n);
   const long long tiles = (n + TILE - 1) / TILE;
   int per_sm = 2048 / THREADS;
   size_t smem = 0;
   if (shared) {
     smem = shared_bytes(n_groups);
-    e = cudaFuncSetAttribute(shared_kernel,
+    e = cudaFuncSetAttribute(shared_kernel<SCOPED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, shared_kernel, THREADS, smem);
+          &per_sm, shared_kernel<SCOPED>, THREADS, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm < 1) per_sm = 1;
   }
   const long long cap = static_cast<long long>(sms) * per_sm;
   const int grid = static_cast<int>(tiles < cap ? tiles : cap);
   if (shared)
-    shared_kernel<<<grid, THREADS, smem, s>>>(c, limit, cube, side);
+    shared_kernel<SCOPED><<<grid, THREADS, smem, s>>>(c, limit, cube, side);
   else
-    global_kernel<<<grid, THREADS, 0, s>>>(c, limit, cube, side);
+    global_kernel<SCOPED><<<grid, THREADS, 0, s>>>(c, limit, cube, side);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int k = n_groups * CELLS;
@@ -402,9 +419,9 @@ int profile_cube_launch(const float* cols, long long n, int n_groups,
                         int gid_col, int size_col, int blocks_col,
                         int age_col, int valid_col, int sb_col, int ab_col,
                         void* work, float* out, int sms, void* stream) {
-  return profile_cube::launch(cols, n, n_groups, gid_col, size_col,
-                              blocks_col, age_col, valid_col, sb_col, ab_col,
-                              work, out, sms, stream);
+  return profile_cube::launch<float, false>(
+      cols, n, n_groups, gid_col, size_col, blocks_col, age_col, valid_col,
+      sb_col, ab_col, nullptr, work, out, sms, stream);
 }
 
 // profile_cube_launch with each cell written as an f64, not rounded to f32
@@ -414,9 +431,33 @@ int profile_cube_launch_f64(const float* cols, long long n, int n_groups,
                             int age_col, int valid_col, int sb_col,
                             int ab_col, void* work, double* out, int sms,
                             void* stream) {
-  return profile_cube::launch(cols, n, n_groups, gid_col, size_col,
-                              blocks_col, age_col, valid_col, sb_col, ab_col,
-                              work, out, sms, stream);
+  return profile_cube::launch<double, false>(
+      cols, n, n_groups, gid_col, size_col, blocks_col, age_col, valid_col,
+      sb_col, ab_col, nullptr, work, out, sms, stream);
+}
+
+// profile_cube_launch (out_f64 0) or profile_cube_launch_f64 (out_f64 1)
+// over the rows subject sid may see: perm holds sp packed bitsets of
+// `words` u32 words each (the column store's permissions plane of one
+// group), words * 32 >= n, sid in [0, sp); cudaErrorInvalidValue
+// otherwise, before anything is launched.
+int profile_cube_launch_scoped(const float* cols, long long n, int n_groups,
+                               int gid_col, int size_col, int blocks_col,
+                               int age_col, int valid_col, int sb_col,
+                               int ab_col, const int* perm, long long sp,
+                               long long sid, long long words, int out_f64,
+                               void* work, void* out, int sms,
+                               void* stream) {
+  if (perm == nullptr || sp < 1 || sid < 0 || sid >= sp || words * 32 < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned* row = reinterpret_cast<const unsigned*>(perm) + sid * words;
+  if (out_f64)
+    return profile_cube::launch<double, true>(
+        cols, n, n_groups, gid_col, size_col, blocks_col, age_col, valid_col,
+        sb_col, ab_col, row, work, static_cast<double*>(out), sms, stream);
+  return profile_cube::launch<float, true>(
+      cols, n, n_groups, gid_col, size_col, blocks_col, age_col, valid_col,
+      sb_col, ab_col, row, work, static_cast<float*>(out), sms, stream);
 }
 
 }  // extern "C"

@@ -8,10 +8,11 @@ The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 size and age (or takes precomputed bucket rows) and sums the valid-weighted
 count, size and blocks of every row into its ``[gid, sb, ab]`` cell, as u64
 integers (f64 for a row that is not integer), rounding each cell to f32
-once (or writing it as f64, for the column store's cube plane). It
-counts its calls in a plain integer, takes CUDA tensors only and raises on
-anything else: there is no fallback here. The plain version lives in
-``ref.py``.
+once (or writing it as f64, for the column store's cube plane). Given a
+permissions plane and a subject it bins only the rows that subject may see
+(the store's scoped cube). It counts its calls in a plain integer, takes
+CUDA tensors only and raises on anything else: there is no fallback here.
+The plain version lives in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -37,18 +38,20 @@ SOURCES = ("profile_cube.cu",)
 # L2, and a launch stays exact and gets slower.
 KERNEL_MAX_GROUPS = 1 << 24
 
-# op-call counter: +1 per profile_cube_cuda call whose launches were all
+# op-call counters: +1 per profile_cube_cuda call whose launches were all
 # accepted (each call launches a memset, the cube kernel and the cast),
-# nowhere else
+# nowhere else; a scoped call counts in profile_cube_scoped_launches alone
 profile_cube_launches = 0
+profile_cube_scoped_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
 def reset_counters() -> None:
-    global profile_cube_launches
+    global profile_cube_launches, profile_cube_scoped_launches
     profile_cube_launches = 0
+    profile_cube_scoped_launches = 0
 
 
 def library_path() -> Path:
@@ -70,6 +73,9 @@ def _lib() -> ctypes.CDLL:
             for fn in (lib.profile_cube_launch, lib.profile_cube_launch_f64):
                 fn.argtypes = [p, ll, i, i, i, i, i, i, i, i, p, p, i, p]
                 fn.restype = i
+            lib.profile_cube_launch_scoped.argtypes = [
+                p, ll, i, i, i, i, i, i, i, i, p, ll, ll, ll, i, p, p, i, p]
+            lib.profile_cube_launch_scoped.restype = i
             lib.profile_cube_design.argtypes = [i]
             lib.profile_cube_design.restype = i
             lib.profile_cube_band_groups.argtypes = []
@@ -121,15 +127,21 @@ def design(n_groups: int, device=None) -> str:
 def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
                       size_col: int, blocks_col: int, age_col: int,
                       valid_col: int, sb_col: int, ab_col: int,
-                      out_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
+                      out_dtype: torch.dtype = torch.float32,
+                      perm: Optional[torch.Tensor] = None,
+                      sid: Optional[int] = None) -> torch.Tensor:
     """cols: (n_cols, N) f32 contiguous CUDA, N > 0. Returns the
     (N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS) cube, each cell its exact
     sum rounded once to ``out_dtype`` (f32, or f64 for the column store's
     partial cubes, which scatter-adds maintain). ``valid_col``, ``sb_col``
     and ``ab_col`` may be -1 (all rows valid; bucketize size / age from the
     raw rows); ``age_col`` is not read when ``ab_col`` >= 0. ``n_groups``
-    may reach :data:`KERNEL_MAX_GROUPS`."""
+    may reach :data:`KERNEL_MAX_GROUPS`.
+
+    ``perm`` ((Sp, ceil(N / 32)) i32 CUDA, one packed bitset a subject,
+    bit b of word w covering row w * 32 + b: one group's slice of the
+    column store's permissions plane) and ``sid`` (in ``[0, Sp)``) bin only
+    the rows subject ``sid`` may see; a row whose bit is 0 weighs 0."""
     if not 1 <= n_groups <= KERNEL_MAX_GROUPS:
         raise ValueError(f"n_groups={n_groups} outside [1, "
                          f"{KERNEL_MAX_GROUPS}]: a group id past 2^24 is not "
@@ -161,6 +173,21 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
     if out_dtype not in (torch.float32, torch.float64):
         raise TypeError(f"out_dtype must be torch.float32 or torch.float64, "
                         f"got {out_dtype}")
+    scoped = perm is not None
+    if scoped != (sid is not None):
+        raise ValueError("perm and sid go together: both scope a launch")
+    if scoped:
+        if not isinstance(perm, torch.Tensor) or perm.device != cols.device:
+            raise ValueError(f"perm must be a tensor on {cols.device}")
+        if perm.dtype != torch.int32 or perm.dim() != 2 \
+                or not perm.is_contiguous():
+            raise ValueError("perm must be a contiguous (Sp, W) int32 "
+                             "tensor")
+        if perm.shape[1] != -(-n // 32):
+            raise ValueError(f"perm {tuple(perm.shape)} does not cover {n} "
+                             f"rows: (Sp, {-(-n // 32)}) expected")
+        if not 0 <= int(sid) < perm.shape[0]:
+            raise ValueError(f"sid={int(sid)} outside [0, {perm.shape[0]})")
     dev = cols.device
     lib = _lib()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -170,13 +197,19 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
         out = torch.empty((N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS),
                           dtype=out_dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launch = lib.profile_cube_launch if out_dtype == torch.float32 \
-            else lib.profile_cube_launch_f64
-        err = launch(
-            cols.data_ptr(), n, n_groups, gid_col, size_col, blocks_col,
-            age_col if ab_col < 0 else -1, valid_col, sb_col, ab_col,
-            work.data_ptr(), out.data_ptr(), sms, stream)
+        args = (cols.data_ptr(), n, n_groups, gid_col, size_col, blocks_col,
+                age_col if ab_col < 0 else -1, valid_col, sb_col, ab_col)
+        if scoped:
+            err = lib.profile_cube_launch_scoped(
+                *args, perm.data_ptr(), perm.shape[0], int(sid),
+                perm.shape[1], int(out_dtype == torch.float64),
+                work.data_ptr(), out.data_ptr(), sms, stream)
+        else:
+            launch = lib.profile_cube_launch \
+                if out_dtype == torch.float32 else lib.profile_cube_launch_f64
+            err = launch(*args, work.data_ptr(), out.data_ptr(), sms, stream)
     if err != 0:
         raise RuntimeError(f"profile_cube launch failed: {_error(lib, err)}")
-    _launches.count(__name__, "profile_cube_launches")
+    _launches.count(__name__, "profile_cube_scoped_launches" if scoped
+                    else "profile_cube_launches")
     return out

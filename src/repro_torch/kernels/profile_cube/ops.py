@@ -16,7 +16,8 @@ partial cube a shard group from the store's resident ``(D, n_cols, Rp)``
 tensor (the kernel on the card, one launch a group; the plain version on
 the CPU), exact in f64, and their sum over the groups.
 :func:`mesh_cube_combine` re-sums partials the store has kept up to date
-by scatter-adds.
+by scatter-adds. :func:`mesh_scoped_cube` is one subject's cube from the
+same tensor and the store's permissions plane, built per query.
 """
 from __future__ import annotations
 
@@ -26,11 +27,13 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ..policy_scan.ops import _check_plane
+from ..policy_scan.ref import subject_bits
 from .kernel import profile_cube_cuda
 from .ref import A_BUCKETS, N_MEASURES, S_BUCKETS, profile_cube_ref
 
 __all__ = ["MAX_GROUPS", "mesh_cube_combine", "mesh_profile_cube",
-           "profile_cube"]
+           "mesh_scoped_cube", "profile_cube"]
 
 # The op's cap, as the reference's: catalogs with more distinct (owner,
 # group, type, hsm) combinations take the host groupby path (see
@@ -141,6 +144,45 @@ def mesh_profile_cube(global_cols: torch.Tensor, *, n_groups: int,
     partials = torch.stack([p.reshape(N_MEASURES, -1) for p in parts])
     return partials, mesh_cube_combine(partials).reshape(
         N_MEASURES, n_groups, S_BUCKETS, A_BUCKETS)
+
+
+def mesh_scoped_cube(global_cols: torch.Tensor, perm: torch.Tensor,
+                     subject, *, n_groups: int, gid_col: int, size_col: int,
+                     blocks_col: int, sb_col: int, ab_col: int,
+                     valid_col: int, use_kernel: Optional[bool] = None
+                     ) -> torch.Tensor:
+    """One subject's profile cube over the store's resident rows.
+
+    ``perm`` is the store's (D, Sp, Rp / 32) int32 permissions plane (one
+    packed bitset a group and subject, bit b of word w covering row
+    w * 32 + b) and ``subject`` a subject id. Returns the (N_MEASURES,
+    n_groups, S, A) f64 cube of the rows that subject may see, summed over
+    the groups on the columns' device. There are no resident scoped
+    partials: each query builds its cube.
+
+    On a CUDA tensor the kernel runs once a group, scoped (the subject's
+    bit ANDed into each row's validity weight, f64 cells); on a CPU tensor
+    the plain version bins each group's columns cast to f64 with the
+    validity row masked by the subject's bits, as the reference does. Both
+    are exact below 2**53. ``use_kernel`` as :func:`profile_cube`.
+    """
+    kernel = _kernel_for(global_cols.device, use_kernel)
+    _check_plane(global_cols, perm, subject)
+    kw = dict(n_groups=n_groups, gid_col=gid_col, size_col=size_col,
+              blocks_col=blocks_col, age_col=size_col, valid_col=valid_col,
+              sb_col=sb_col, ab_col=ab_col)
+    total = None
+    for g, cols in enumerate(global_cols):
+        if kernel:
+            cube = profile_cube_cuda(cols, out_dtype=torch.float64,
+                                     perm=perm[g], sid=int(subject), **kw)
+        else:
+            c = cols.to(torch.float64, copy=True)
+            c[valid_col] = torch.where(subject_bits(perm[g], subject),
+                                       c[valid_col], c.new_zeros(()))
+            cube = profile_cube_ref(c, **kw)
+        total = cube if total is None else total + cube
+    return total
 
 
 def mesh_cube_combine(partials: torch.Tensor) -> torch.Tensor:

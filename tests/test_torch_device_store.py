@@ -540,18 +540,13 @@ def test_refresh_repads_when_group_outgrows_capacity_mid_refresh():
 # -- store modes ----------------------------------------------------------------
 
 @pytest.mark.parametrize("call, item", [
-    (lambda s: s.enable_permissions_plane(None), 6),
-    (lambda s: s.match([parse_expr("size > 0")], NOW, subject="alice"), 6),
     (lambda s: s.drain_demotions(), 7),
-    (lambda s: s.find_paths(parse_expr("size > 0"), NOW, subject="alice"),
-     6),
-    (lambda s: s.top_files(subject="alice"), 6),
-    (lambda s: s.du("/p", subject="alice"), 6),
-    (lambda s: s.analytics_cube(NOW, subject="alice"), 6),
-], ids=["permissions", "match_subject", "drain_demotions",
-        "find_paths_subject", "top_files_subject", "du_subject",
-        "analytics_cube_subject"])
+    (lambda s: (s.enable_permissions_plane(T.GrantTable()),
+                s.drain_demotions()), 7),
+], ids=["drain_demotions", "drain_demotions_with_permissions"])
 def test_planes_not_ported_raise_naming_their_item(call, item):
+    """Tiered residency (queue 1 item 7) still raises, with or without the
+    permissions plane (item 6, ported: ``test_torch_tenant_scoping.py``)."""
     cat = _random_catalog(np.random.default_rng(45), 40)
     store = DeviceColumnStore(cat, device="cpu")
     with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
@@ -567,15 +562,6 @@ def test_tiering_arguments_raise_naming_item_7(kw):
     cat = _random_catalog(np.random.default_rng(46), 40)
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         DeviceColumnStore(cat, device="cpu", **kw)
-
-
-def test_perm_arguments_of_the_op_raise_naming_item_6():
-    cols = torch.zeros((1, N_COLS, 8))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tops.mesh_policy_scan_batch(cols, torch.zeros((1, 1)),
-                                    ops_t=((0,),), colidx_t=((0,),),
-                                    valid_col=VALID, perm=torch.zeros(1),
-                                    subject=0)
 
 
 def test_tiering_counters_report_every_group_resident():

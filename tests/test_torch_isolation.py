@@ -4,7 +4,8 @@
 module of the JAX package; a policy must run (through ``policy_scan`` and,
 over a ``DeviceColumnStore``, ``policy_scan_mesh``), a profile cube and its
 reports must build, and the paged serving engine must serve requests over
-its tiered KV cache, with both blocked; the default device must raise when
+its tiered KV cache, with both blocked (and a tenant's scoped queries
+served from the store); the default device must raise when
 CUDA is absent; and the kernel path must refuse CPU tensors instead of
 quietly running the plain version.
 """
@@ -78,6 +79,27 @@ assert rep.report_user("root")[0]["count"] == 200, rep.report_user("root")
 assert rep.du("/")["files"] == 200
 assert pc_kernel.profile_cube_launches == 0
 
+from repro_torch.core import GrantTable
+grants = GrantTable()
+grants.add_subject("half", owners=(), subtrees=("/f1",))
+store = DeviceColumnStore(cat, groups=2, device="cpu")
+pc_s = ProfileCube(cat, clock=lambda: 1e6, device="cpu").attach_device_store(store)
+pc_s.attach_grants(grants)
+rep_s = Reports(cat, profiles=pc_s, clock=lambda: 1e6).attach_device_store(
+    store).attach_grants(grants)
+pc_h = ProfileCube(cat, clock=lambda: 1e6, device="cpu")
+pc_h.attach_grants(grants)
+pc_h.rebuild()
+rep_h = Reports(cat, profiles=pc_h, clock=lambda: 1e6).attach_grants(grants)
+seen = rep_s.find("size >= 0", subject="half")
+assert seen == rep_h.find("size >= 0", subject="half") == ["/f1"]
+assert rep_s.top_files(k=3, subject="half") == rep_h.top_files(k=3, subject="half")
+assert rep_s.du("/", subject="half") == rep_h.du("/", subject="half")
+assert rep_s.report_types(subject="half") == rep_h.report_types(subject="half")
+assert rep_s.host_served == 0 and store.perm_materializations == 2
+assert kernel.policy_scan_store_scoped_lean_launches == 0
+assert pc_kernel.profile_cube_scoped_launches == 0
+
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.serve import PagedLMConfig, Request, ServingEngine
 cfg = PagedLMConfig(n_pages=4, page_size=4, n_layers=2, high_wm=70.0,
@@ -118,7 +140,9 @@ print("OK", r.matched)
 def test_policy_runs_with_jax_and_repro_blocked():
     """Also runs the policy through ``policy_scan_mesh`` over a
     ``DeviceColumnStore(groups=3, device="cpu")``, builds a
-    ``ProfileCube(use_kernel=True)`` and ``Reports``,
+    ``ProfileCube(use_kernel=True)`` and ``Reports``, runs a scoped
+    ``find``, ``top_files``, ``du`` and cube through a store with a
+    ``GrantTable``,
     serves requests through ``ServingEngine(device="cpu").run``, and runs a
     prefill and three decode steps of both recurrent smoke models."""
     env = dict(os.environ)

@@ -398,28 +398,6 @@ def test_mesh_reports_differential_on_eight_groups():
     assert rs.last_fallback_reason is None and rs.host_served == 0
 
 
-# -- subject= scoping stays out (ROADMAP queue 1 item 6) ----------------------
-
-@pytest.mark.parametrize("op", ["mesh_column_topk", "mesh_threshold_rows",
-                                "mesh_range_aggregate"])
-def test_subject_scoping_of_the_ops_raises_naming_item_6(op):
-    """(The store's own ``subject=`` cases are
-    ``test_planes_not_ported_raise_naming_their_item`` in
-    ``test_torch_device_store.py``.)"""
-    cols = torch.zeros((1, N_ROWS, 8))
-    calls = {
-        "mesh_column_topk": lambda: tops.mesh_column_topk(
-            cols, col=SIZE, k=1, valid_col=_VALID_COL, subject=0),
-        "mesh_threshold_rows": lambda: tops.mesh_threshold_rows(
-            cols, 0.0, col=SIZE, valid_col=_VALID_COL, perm=cols),
-        "mesh_range_aggregate": lambda: tops.mesh_range_aggregate(
-            cols, np.zeros((1, 4)), ord_col=_ORD_COL, type_col=TYPE,
-            size_col=SIZE, blocks_col=BLOCKS, valid_col=_VALID_COL,
-            subject=0)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        calls[op]()
-
-
 # -- 2. differential against the JAX package ----------------------------------
 
 def _jax():

@@ -212,6 +212,28 @@ int main() {
 """
 
 
+HOST_PERM = r"""
+#include <cstdio>
+#include <vector>
+#include "policy_scan.cuh"
+// stdin: groups sp rows, then groups * sp * rows / 32 words (u32);
+// stdout: the bit of every (group, subject, row) read through perm_word,
+// as 0/1 characters
+int main() {
+  long long groups, sp, rows;
+  if (scanf("%lld %lld %lld", &groups, &sp, &rows) != 3) return 1;
+  std::vector<uint32_t> perm(groups * sp * rows / 32);
+  for (auto& w : perm) scanf("%u", &w);
+  for (long long g = 0; g < groups; ++g)
+    for (long long s = 0; s < sp; ++s)
+      for (long long r = 0; r < rows; ++r)
+        putchar((perm[policy_scan::perm_word(g, sp, s, rows, r)] >>
+                 (r & 31)) & 1u ? '1' : '0');
+  return 0;
+}
+"""
+
+
 def host_build(tmp_path_factory, name, text):
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
@@ -326,6 +348,28 @@ def test_ring_holds_every_width(tmp_path_factory, n_stage):
     if stages < 2:
         assert items == 1
     assert (items == 4) == (n_stage <= 12)
+
+
+@pytest.mark.parametrize("groups, sp, rows", [(1, 8, 32), (3, 8, 1024),
+                                              (5, 16, 96)])
+def test_kernel_perm_bit_matches_packbits(tmp_path_factory, groups, sp,
+                                          rows):
+    """The scoped store form's word of a row of the permissions plane
+    (perm_word of policy_scan.cuh, built for the host) holds at bit
+    row & 31 every bit the store packs with np.packbits(bitorder=
+    "little"), and the plain version's subject_bits reads them too."""
+    exe = host_build(tmp_path_factory, "perm", HOST_PERM)
+    rng = np.random.default_rng(groups * 100 + sp + rows)
+    vis = rng.random((groups, sp, rows)) < 0.5
+    vis[0, 0, 31] = True                      # a word's sign bit
+    words = np.packbits(vis, axis=2, bitorder="little").view(np.uint32)
+    out = run_host(exe, [groups, sp, rows, *words.ravel().tolist()])
+    got = np.frombuffer(out.encode(), np.uint8) == ord("1")
+    np.testing.assert_array_equal(got.reshape(vis.shape), vis)
+    plane = torch.from_numpy(words.view(np.int32))
+    for s in range(sp):
+        np.testing.assert_array_equal(
+            tref.subject_bits(plane, s).numpy(), vis[:, s])
 
 
 def test_kernel_size_bucket_matches_plain_version(tmp_path_factory):

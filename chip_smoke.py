@@ -111,7 +111,31 @@ failure:
    uploads, 0 materializations, word scatters, ``Catalog.arrays`` flat)
    and after a ``GrantTable`` change (a subtree granted, a sixth subject:
    one materialization a group, no word scatter); warm scoped and
-   unscoped ``find`` / ``top_files`` walls in turns. Then at
+   unscoped ``find`` / ``top_files`` walls in turns. Then tiered
+   residency (``store_tiered_phase``): (a) on the same catalog a 4-group
+   store under ``hbm_budget_rows = 2·Rp + 2·D·Rw`` (Rp from the largest
+   group, the default 32-tile window slot), so 2 groups stay resident and
+   2 stream, with ``Reports`` and ``ProfileCube`` attached and two of the
+   subjects; cold, three rounds of 1% in-place churn on one demoted group
+   (it must promote and another demote), a round with ``demote_async``
+   and ``drain_demotions()``, and 1000 removes and 1000 inserts in one
+   shard; every round a ``policy_scan_mesh`` run actioning numpy's
+   (fid, rule params) sequence in ``1 + windows streamed`` lean store-form
+   launches, ``find`` (one lean launch a window beside the resident one),
+   ``top_files`` both ways, three ``du`` and the cube (unscoped: no
+   streaming; scoped: one scoped ``profile_cube`` launch a resident group
+   and a window), unscoped and scoped, equal to an unbudgeted store and
+   to the (grant-filtered) host folds, the cube's reports too; the
+   tensor holding exactly the resident groups, within the row budget,
+   and a streamed scoped ``find`` drawing no more device memory than its
+   two windows and outputs; (b) ``benchmarks/bench_tiering.py``'s full
+   setting (2,000,000 entries, 16 shards, budget 200,000) at 8 groups,
+   every group streamed: the streamed scan's fids identical to an
+   unbudgeted store's and the host mask's, count, size profile and
+   ``any_match`` equal, one store-form launch a window; streamed and
+   resident scans timed in turns, with the stage / copy / launch spans,
+   the stalls and the achieved host-to-device rate beside a pinned 256 MB
+   copy's. Then at
    device scale, the store's ``(8, 21, 2^24)`` layout (11.27 GB, drawn on
    the card: ``ord`` a permutation a group, 6,000 profile groups, so a
    cube capacity of 7,504): (i) the store form on ``BATCH_CRITERIA``,
@@ -1871,6 +1895,7 @@ def store_reports_phase(torch, cat, device, results, seed: int):
     store.detach()
     del store, rs, pc
     store_scoped_phase(torch, cat, device, results, seed)
+    store_tiered_phase(torch, cat, device, results, seed)
     store_scale_phase(torch, device, results, seed)
 
 
@@ -2112,6 +2137,395 @@ def store_scoped_phase(torch, cat, device, results, seed: int):
         "DeviceColumnStore.analytics_cube(subject=)"]
     store.detach()
     del store, rs, pc, pc_h, rh
+
+
+TIER_SUBJECTS = ("staff", "tree")   # tiered phase (a): two of scoped_grants
+TIER_ENTRIES = 2_000_000        # tiered phase (b): bench_tiering.py's full
+TIER_SHARDS = 16                # setting (benchmarks/bench_tiering.py:197,
+TIER_GROUPS = 8                 # :36), its 8-device mesh folded onto one
+TIER_BUDGET = 200_000           # card: every group demoted
+TIER_NOW = float(2 ** 20)       # bench_tiering's NOW and MATCH_EXPR
+TIER_EXPR = "type == file and size > 3900k and last_access > 1000s"
+TIER_REPS = 5                   # timed scans a turn
+
+
+def tiering_catalog(n: int, seed: int):
+    """``benchmarks/bench_tiering.py``'s ``_catalog`` recipe (its lines
+    36-51): n entries over 16 shards, 64 directories, one in ten a
+    directory, 4 KiB-granular sizes under 4 MiB, eight owners, four groups,
+    random HSM states, access and modify times within 10,000 s of
+    ``TIER_NOW``. The draws are taken a chunk at a time instead of an entry
+    at a time (the same distributions and seed, not the same values):
+    2,000,000 scalar draws of each column cost longer than the phase."""
+    import numpy as np
+    from repro_torch.core import Catalog, Entry, FsType, HsmState
+    rng = np.random.default_rng(seed)
+    cat = Catalog(n_shards=TIER_SHARDS)
+    states = list(HsmState)
+    for lo in range(0, n, 100_000):
+        m = min(lo + 100_000, n) - lo
+        size = (rng.integers(0, 2 ** 12, m) * 1024).tolist()
+        blocks = rng.integers(0, 2 ** 10, m).tolist()
+        hsm = rng.integers(0, 5, m).tolist()
+        atime = (TIER_NOW - rng.integers(0, 10_000, m)).tolist()
+        mtime = (TIER_NOW - rng.integers(0, 10_000, m)).tolist()
+        cat.upsert_batch([Entry(
+            fid=lo + j + 1, name=f"f{lo + j + 1}",
+            path=f"/fs/d{(lo + j) % 64}/f{lo + j + 1}",
+            type=FsType.FILE if (lo + j) % 10 else FsType.DIR,
+            size=size[j], blocks=blocks[j], owner=f"user{(lo + j) % 8}",
+            group=f"grp{(lo + j) % 4}", hsm_state=states[hsm[j]],
+            atime=atime[j], mtime=mtime[j]) for j in range(m)])
+    return cat
+
+
+def store_tiered_phase(torch, cat, device, results, seed: int):
+    """Tiered residency on the card: (a) the engine's catalog under a
+    budget that keeps 2 of 4 groups resident, through cold, three churn
+    rounds on one demoted group, an async-demotion round and a structural
+    round, every answer equal to an unbudgeted store and the host folds;
+    (b) bench_tiering's 2,000,000 entries at 8 groups, every group
+    streamed, timed against the resident store. See the module
+    docstring."""
+    import numpy as np
+    from repro_torch.core import (DeviceColumnStore, Entry, FsType,
+                                  PolicyDefinition, PolicyEngine,
+                                  ProfileCube, Reports, parse_expr)
+    from repro_torch.core.device_store import _TILE
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    d = STORE_ENGINE_GROUPS
+    clock = MovingClock(NOW + 30 * 86400)
+    grants = scoped_grants()
+    # the budget of two resident groups and the window: 2*Rp + 2*D*Rw,
+    # Rp from the largest group, the default window slot of 32 tiles
+    counts = [sum(cat.shards[s].count() for s in range(cat.n_shards)
+                  if s % d == g) for g in range(d)]
+    rp = -(-int(max(counts) * 1.25) // _TILE) * _TILE
+    rw = 32 * _TILE
+    budget = 2 * rp + 2 * d * rw
+    tier = DeviceColumnStore(cat, groups=d, device=device,
+                             hbm_budget_rows=budget)
+    pc = ProfileCube(cat, clock=clock, device=device) \
+        .attach_device_store(tier)
+    pc.attach_grants(grants)
+    rs = Reports(cat, clock=clock, profiles=pc).attach_device_store(tier) \
+        .attach_grants(grants)
+    ref = DeviceColumnStore(cat, groups=d, device=device)
+    ref.enable_reports_plane()
+    ref.enable_cube_plane(pc.groups, clock)
+    ref.enable_permissions_plane(grants)
+    pc_h = ProfileCube(cat, clock=clock, device="cpu")
+    pc_h.attach_grants(grants)
+    rh = Reports(cat, clock=clock, profiles=pc_h).attach_grants(grants)
+    rules = [("archive_big", "size > 16G", {"tier": "archive"}),
+             ("purge_old", "last_access > 90d", {"tier": "purge"})]
+    engines = {}
+    for name, store in (("mesh", tier), ("numpy", None)):
+        eng = PolicyEngine(cat, clock=clock, device=device)
+        if store is not None:
+            eng.attach_device_store(store)
+        rec = Recorder()
+        eng.register(PolicyDefinition.from_config(
+            name="lru", action=rec, scope="type == file", rules=rules,
+            sort_by="atime", mutates=False, batch_size=4096))
+        engines[name] = (eng, rec)
+    crit = "size > 60G and type == file"
+    prefixes = ("/fs", "/fs/d5", "/fs/d77")
+    log(f"[store-tiered] (a) {len(cat)} entries in {d} groups of {counts} "
+        f"rows: Rp {rp}, window slot {rw}, hbm_budget_rows {budget}; set up "
+        f"in {time.perf_counter() - t_phase:.2f} s")
+    tiered = dict(budget_rows=budget, rounds=[])
+
+    def counted(fn, want_fn):
+        """fn() in a launch window; want_fn(windows streamed, resident
+        groups before, cube rebuilds) gives the counts it must show."""
+        w0, r0 = tier.windows_streamed, tier.cube_rebuilds
+        out, c = launch_window(fn)
+        res = sum(g.resident for g in tier._groups)
+        want = want_fn(tier.windows_streamed - w0, res,
+                       tier.cube_rebuilds - r0)
+        check(c == want, f"launches {c}, expected {want}")
+        return out, tier.windows_streamed - w0
+
+    def round_(tag):
+        t0 = time.perf_counter()
+        now = clock()
+        # the engine: policy_scan_mesh over the tiered store against numpy
+        eng, rec = engines["mesh"]
+        rec.calls.clear()
+        rep, dw = counted(lambda: eng.run("lru", evaluator="policy_scan_mesh"),
+                          lambda w, r, c: only(
+                              policy_scan_store_lean=int(r > 0) + w))
+        check(rep.evaluator == "policy_scan_mesh" and not rep.fallback_reason,
+              f"{tag}: the engine ran {rep.evaluator!r}, fallback "
+              f"{rep.fallback_reason!r}")
+        twin, trec = engines["numpy"]
+        trec.calls.clear()
+        twin.run("lru", evaluator="numpy")
+        check(rec.calls == trec.calls and len(rec.calls) > 0, f"{tag}: "
+              f"actioned (fid, tier) pairs differ from numpy's "
+              f"({len(rec.calls)} vs {len(trec.calls)})")
+        match_launches = 1 + dw
+        got, want_ref, host = {}, {}, {}
+        for s in (None,) + TIER_SUBJECTS:
+            lean = "policy_scan_store_scoped_lean" if s else \
+                "policy_scan_store_lean"
+            got["find", s], _ = counted(
+                lambda: rs.find(crit, subject=s),
+                lambda w, r, c: only(**{lean: int(r > 0) + w}))
+            want_ref["find", s] = ref.find_paths(parse_expr(crit), now,
+                                                 subject=s)
+            host["find", s] = rh.find(crit, subject=s)
+            for desc in (True, False):
+                got["top", s, desc], _ = counted(
+                    lambda: rs.top_files(by="size", k=10, desc=desc,
+                                         subject=s),
+                    lambda w, r, c: only())
+                want_ref["top", s, desc] = ref.top_files(
+                    by="size", k=10, desc=desc, subject=s)
+                host["top", s, desc] = rh.top_files(by="size", k=10,
+                                                    desc=desc, subject=s)
+            for p in prefixes:
+                got["du", s, p], _ = counted(lambda: rs.du(p, subject=s),
+                                             lambda w, r, c: only())
+                want_ref["du", s, p] = ref.du(p, subject=s)
+                host["du", s, p] = rh.du(p, subject=s)
+            if s is None:
+                cube, _ = counted(lambda: tier.analytics_cube(now),
+                                  lambda w, r, c: only(profile_cube=r * c))
+            else:
+                cube, _ = counted(
+                    lambda: tier.analytics_cube(now, subject=s),
+                    lambda w, r, c: only(profile_cube_scoped=r + w,
+                                         profile_cube=r * c))
+            got["cube", s] = cube.tolist()
+            want_ref["cube", s] = ref.analytics_cube(now, subject=s).tolist()
+            got["reports", s] = (rs.report_types(subject=s),
+                                 rs.top_users(k=5, subject=s),
+                                 rs.age_profile(subject=s),
+                                 rs.report_user("u6", subject=s))
+        pc_h.rebuild(now=now)
+        for s in (None,) + TIER_SUBJECTS:
+            want_ref["reports", s] = got["reports", s]
+            host["reports", s] = (rh.report_types(subject=s),
+                                  rh.top_users(k=5, subject=s),
+                                  rh.age_profile(subject=s),
+                                  rh.report_user("u6", subject=s))
+        for key in got:
+            check(got[key] == want_ref[key], f"{tag}: {key} differs from "
+                  "the unbudgeted store's")
+            if key[0] != "cube":
+                check(got[key] == host[key], f"{tag}: {key} differs from "
+                      "the host fold")
+        check(rs.last_fallback_reason is None and rs.host_served == 0,
+              f"{tag}: a query fell back: {rs.last_fallback_reason}")
+        # budget honesty: the compact tensor holds the resident groups
+        tc = tier.tiering_counters()
+        br = tier._block_rows()
+        chunk = d * tier._window_rows()
+        check(tier._buf.shape[0] == tc["resident_groups"]
+              == len(tier._slots), f"{tag}: the tensor holds "
+              f"{tier._buf.shape[0]} groups, {tc['resident_groups']} are "
+              "resident")
+        check(tier._buf.shape[0] * tier._rp + 2 * chunk <= budget,
+              f"{tag}: {tier._buf.shape[0]} x {tier._rp} rows and the "
+              f"window reserve exceed the budget of {budget}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rs.find(crit, subject=TIER_SUBJECTS[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        res_rows = tier._buf.shape[0] * tier._rp
+        outputs = 5 * (res_rows + 2 * chunk)    # bool mask + i32 rule
+        windows = 2 * chunk * (br * 4 + tier._perm_sp // 8)
+        check(peak <= windows + outputs + (4 << 20), f"{tag}: a streamed "
+              f"scoped find drew {peak} B on top of the store, more than "
+              f"its two windows ({windows} B) and outputs ({outputs} B)")
+        store_bytes = tier._buf.nbytes + tier._perm_buf.nbytes + (
+            tier._cube_partials.nbytes if tier._cube_partials is not None
+            else 0)
+        check(tier._buf.nbytes + 2 * chunk * br * 4 <= budget * br * 4,
+              f"{tag}: the column tensor and windows exceed the budget")
+        wall = time.perf_counter() - t0
+        log(f"[store-tiered] (a) {tag} {CARD}: actions equal to numpy's "
+            f"({len(rec.calls)}); find, top_files both ways, "
+            f"{len(prefixes)} du and the cube, unscoped and for "
+            f"{', '.join(TIER_SUBJECTS)}, equal to the unbudgeted store "
+            f"and the host folds; a match {match_launches} store-form "
+            f"launches (1 + windows streamed); resident gids "
+            f"{[g.gid for g in tier._groups if g.resident]}; store tensors "
+            f"{store_bytes} B (columns {tier._buf.nbytes}), a streamed "
+            f"scoped find {peak} B more; tiering_counters "
+            f"{json.dumps(tc)}; round {wall:.2f} s")
+        tiered["rounds"].append(dict(tag=tag, tiering=tc,
+                                     match_launches=match_launches,
+                                     store_bytes=store_bytes,
+                                     streamed_peak_bytes=peak, wall_s=wall))
+        return tc
+
+    tc = round_("cold")
+    check(tc["resident_groups"] == 2 and tc["demoted_groups"] == 2,
+          f"cold: {tc['resident_groups']} of {d} groups resident, not 2")
+
+    def group_fids(gid):
+        live = np.concatenate([cat.shards[s].fids() for s in
+                               range(cat.n_shards) if s % d == gid])
+        return rng.choice(live, size=round(ENTRIES * CHURN), replace=False)
+
+    victim = [g.gid for g in tier._groups if not g.resident][0]
+    for i in range(3):
+        fids = group_fids(victim)
+        half = len(fids) // 2
+        cat.update_fields_batch(fids[:half].tolist(), atime=NOW)
+        cat.update_fields_batch(fids[half:].tolist(), size=1 << 35,
+                                atime=NOW - 100 * 86400)
+        round_(f"warm {i} (1% on group {victim})")
+    check(tier._groups[victim].resident and tier.promotions >= 1
+          and tier.demotions >= 3, f"after the churn rounds group "
+          f"{victim} is not resident: {tier.tiering_counters()}")
+    # async demotion: churn another demoted group; its promotion demotes
+    # a resident group on a worker thread
+    other = [g.gid for g in tier._groups if not g.resident][0]
+    fids = group_fids(other)
+    cat.update_fields_batch(fids.tolist(), atime=NOW - 7 * 86400)
+    tier.demote_async = True
+    d0 = tier.demotions
+    tier.refresh()
+    tier.drain_demotions()
+    tier.demote_async = False
+    check(tier.demotions + tier.demote_races > d0, "async: no demotion "
+          "was committed or raced")
+    round_(f"async (group {other} churned, demotions drained)")
+    # structural: 1000 removes and 1000 inserts in one shard of a
+    # demoted group (its segment repacks)
+    shard = [g for g in tier._groups if not g.resident][0].shard_ids[0]
+    live = [int(f) for f in cat.shards[shard].fids()][:1000]
+    cat.remove_batch(live)
+    new = [f for f in range(2 * ENTRIES + 1, 2 * ENTRIES + 200_000)
+           if cat._shard_id(f) == shard][:1000]
+    cat.upsert_batch([Entry(fid=f, name=f"t{f}", path=f"/fs/d5/t{f}",
+                            type=FsType.FILE, size=(f % 4096) << 24,
+                            atime=float(f % (1 << 24)), owner="u3")
+                      for f in new])
+    r0 = tier.segment_repacks + tier.full_uploads
+    round_(f"structural (shard {shard})")
+    check(tier.segment_repacks + tier.full_uploads > r0, "structural: "
+          "no repack and no upload")
+    log(f"[store-tiered] (a) {CARD}: demote_races "
+        f"{tier.demote_races}, promotions {tier.promotions}, demotions "
+        f"{tier.demotions}, segment_repacks {tier.segment_repacks}; phase "
+        f"(a) {time.perf_counter() - t_phase:.2f} s")
+    for store in (tier, ref):
+        store.detach()
+    del tier, ref, rs, pc, rh, pc_h, engines
+    results["policy_scan_batch"]["tiered"] = tiered
+    store_tiered_scale(torch, device, results, seed)
+    log(f"[store-tiered] {CARD}: phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def store_tiered_scale(torch, device, results, seed: int):
+    """Phase (b): bench_tiering's full setting, every group streamed."""
+    import numpy as np
+    from repro_torch.core import DeviceColumnStore, parse_expr
+    t0 = time.perf_counter()
+    cat = tiering_catalog(TIER_ENTRIES, seed)
+    t_cat = time.perf_counter() - t0
+    res = DeviceColumnStore(cat, groups=TIER_GROUPS, device=device)
+    tier = DeviceColumnStore(cat, groups=TIER_GROUPS, device=device,
+                             hbm_budget_rows=TIER_BUDGET)
+    walls = {}
+    for name, store in (("resident", res), ("tiered", tier)):
+        t1 = time.perf_counter()
+        store.refresh()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t1
+    tc = tier.tiering_counters()
+    check(tc["demoted_groups"] == TIER_GROUPS, f"(b): {tc}")
+    seg_bytes = sum(g.segment.nbytes for g in tier._groups)
+    expr = parse_expr(TIER_EXPR)
+    (f_res, a_res), c_res = launch_window(lambda: res.scan(expr, TIER_NOW))
+    check(c_res == only(policy_scan_store=1), f"(b): the resident scan "
+          f"launched {c_res}")
+    w0 = tier.windows_streamed
+    (f_t, a_t), c_t = launch_window(lambda: tier.scan(expr, TIER_NOW))
+    dw = tier.windows_streamed - w0
+    check(c_t == only(policy_scan_store=dw) and dw > 0, f"(b): the "
+          f"streamed scan launched {c_t} for {dw} windows")
+    arrays = cat.arrays()
+    mask = expr.mask(arrays, cat.strings, TIER_NOW)
+    check(np.array_equal(np.sort(f_t), np.sort(f_res))
+          and np.array_equal(np.sort(f_t), np.sort(arrays["fid"][mask])),
+          "(b): the streamed scan's fids differ from the resident store's "
+          "or the host mask's")
+    for key in ("count", "size_profile", "any_match"):
+        check(a_t[key] == a_res[key], f"(b): {key} {a_t[key]} differs from "
+              f"the resident store's {a_res[key]}")
+    check(a_t["count"] == int(mask.sum()), "(b): count differs from the "
+          "host mask")
+    # streamed and resident scans in turns (streamed, resident, resident,
+    # streamed), each a host clock ending in a synchronize
+    reg, labels = tier.telemetry, tier._tlabels
+    spans = ("store.window.stage", "store.window.copy", "store.window.launch")
+    hist = {n: reg.histogram("span_seconds", span=n) for n in spans}
+    moved = reg.counter("store_bytes_moved", mode="window", **labels)
+    for store in (tier, res):                   # one untimed scan each
+        store.scan(expr, TIER_NOW)
+    torch.cuda.synchronize()
+    before = {n: (h.sum, h.count) for n, h in hist.items()}
+    m0, s0 = moved.value, tier.window_stalls
+    times = {"streamed": [], "resident": []}
+    for kind in ("streamed", "resident", "resident", "streamed"):
+        store = tier if kind == "streamed" else res
+        for _ in range(TIER_REPS):
+            t1 = time.perf_counter()
+            store.scan(expr, TIER_NOW)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t1)
+    n_streamed = 2 * TIER_REPS
+    per_scan = {n: (hist[n].sum - before[n][0]) / n_streamed for n in spans}
+    calls = {n: (hist[n].count - before[n][1]) / n_streamed for n in spans}
+    bytes_scan = (moved.value - m0) / n_streamed
+    stalls = tier.window_stalls - s0
+    med = {k: statistics.median(v) for k, v in times.items()}
+    # the link's bound: one pinned -> device copy of 256 MB, CUDA events
+    host = torch.empty(1 << 26, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty(1 << 26, dtype=torch.float32, device=device)
+    copy_ms, _ = cuda_times_ms(lambda: dev.copy_(host, non_blocking=True),
+                               TIER_REPS)
+    link = host.nbytes / (copy_ms * 1e-3)
+    achieved = bytes_scan / med["streamed"]
+    log(f"[store-tiered] (b) {CARD}: {len(cat)} entries, {TIER_SHARDS} "
+        f"shards, {TIER_GROUPS} groups, hbm_budget_rows {TIER_BUDGET}: "
+        f"catalog built in {t_cat:.2f} s, resident refresh "
+        f"{walls['resident']!r} s, tiered refresh (placement, {TIER_GROUPS} "
+        f"packs, {seg_bytes} B of segments) {walls['tiered']!r} s; "
+        f"tiering_counters {json.dumps(tier.tiering_counters())}")
+    log(f"[store-tiered] (b) {CARD}: scan of {TIER_EXPR!r}: {len(f_t)} fids "
+        f"identical to the resident store's and the host mask's, count, "
+        f"size_profile and any_match equal; {dw} windows a scan, one "
+        f"store-form launch each")
+    log(f"[store-tiered] (b) {CARD}: scan wall, median of {2 * TIER_REPS} "
+        f"in turns (streamed, resident, resident, streamed): streamed "
+        f"{med['streamed']!r} s, resident {med['resident']!r} s (ratio "
+        f"{med['streamed'] / med['resident']!r}); all "
+        f"{json.dumps(times)}; per streamed scan: {dw} windows, "
+        f"{bytes_scan!r} B of windows (store_bytes_moved mode=window), "
+        f"window_stalls {stalls} in {n_streamed} scans, host seconds "
+        f"stage {per_scan[spans[0]]!r} copy {per_scan[spans[1]]!r} launch "
+        f"{per_scan[spans[2]]!r} ({calls[spans[0]]:.0f} windows); achieved "
+        f"H2D {achieved!r} B/s against a pinned 256 MB copy's "
+        f"{link!r} B/s ({copy_ms!r} ms, CUDA events)")
+    results["policy_scan_batch"]["tiered_scale"] = dict(
+        entries=len(cat), groups=TIER_GROUPS, budget_rows=TIER_BUDGET,
+        windows_a_scan=dw, streamed_s=med["streamed"],
+        resident_s=med["resident"], window_bytes_a_scan=bytes_scan,
+        window_stalls=stalls, span_s_a_scan=per_scan,
+        achieved_h2d_bytes_s=achieved, pinned_copy_bytes_s=link)
+    tier.detach()
+    res.detach()
+    del tier, res, cat, host, dev
 
 
 def store_scale_columns(torch, seed: int, device):
@@ -3743,6 +4157,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -3824,6 +4239,8 @@ def main() -> None:
           "scan / find paths")
     check(results["profile_cube"]["scoped_launches"] == STORE_ENGINE_GROUPS,
           "the scoped cube was not launched once a group")
+    log(f"[total] {card}: every phase held, "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"card": card, "kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,10 +122,52 @@ very same upload/scatter paths:
   :attr:`~repro_torch.core.grants.GrantTable.version` tick (new subject or
   grant change) re-materializes on the next scoped query.
 
-Not ported yet: tiered residency under ``hbm_budget_rows`` (ROADMAP.md
-queue 1 item 7). Its entry points raise ``NotImplementedError`` naming
-the item; :meth:`DeviceColumnStore.tiering_counters` reports every group
-resident.
+Tiered residency (out-of-core catalogs)
+---------------------------------------
+With ``hbm_budget_rows`` set, the whole column stack no longer needs to
+fit on the card. A placement pass at the top of every refresh ranks
+shard groups by decayed delta churn (``heat``) and the profile cube's
+hot-volume fraction, and keeps the hottest prefix resident under the
+budget (``m·Rp + 2·D·Rw <= hbm_budget_rows``: ``2·D·Rw`` rows are the
+double-buffered streaming window, reserved when anything is demoted;
+residents win exact ties, so placement has hysteresis). The resident
+groups are the slices of ONE compact ``(Dr, C+1(+4), Rp)`` tensor, in
+gid order (``_slots`` maps a gid to its slice; the permissions plane and
+the partial cubes follow the same map). A placement change allocates
+the new tensor and copies the kept groups into it device to device, as a
+re-pad does: both tensors are held during the copy, so the peak is their
+sum; only a promoted group pays an upload. The other groups **demote**:
+the group's columns are packed into a host
+:class:`~repro_torch.core.segments.PackedSegment` (exact round trip),
+saved beside the catalog's sqlite mirror when it has one, and its host
+mirrors dropped — the segment *is* the warm copy. ``demote_async=True``
+packs on a worker thread from a shadow snapshot without the store lock
+(the worker touches no CUDA tensor); the commit re-validates the catalog
+versions under the lock (a raced pack is discarded: ``demote_races``),
+and the next refresh frees the group's slices. A hot-again group
+**promotes**: its segment decodes back into the host mirrors and stages
+through the normal upload.
+
+Queries answer over the whole catalog, byte-identical to an unbudgeted
+store and the host folds. The resident groups run exactly the launches
+of an unbudgeted store. A demoted group **streams**: its segment decodes
+into a cached f32 row stack that goes up in windows of ``D·Rw`` rows,
+each a ``(1, C+1(+4), D·Rw)`` store-shaped tensor (the reference's
+``(D, ·, Rw)`` window with its D slots laid end to end as one group,
+so every op — the store form, the scoped cube — is one launch a window,
+and a window's rows are the group's rows ``[base, base + D·Rw)`` in
+order; rows past the group's end read ``valid = 0``). On the card two
+pinned host staging buffers feed two device window buffers by
+``copy_(non_blocking=True)`` on a side stream: window k's launch waits
+on its copy's event, window k+2's copy waits on window k's compute
+event, a staging buffer is rewritten only after its copy's event
+completed, and results are consumed one window behind
+(``window_stalls`` counts a consume whose compute had not finished). On
+the CPU the same generator stages into plain host buffers, no stream.
+Per-window partial aggregates merge with the resident ones (sum, max for
+``any_match``). Unscoped cube queries never stream: each demoted group
+keeps an exact int64 **frozen partial cube**, refrozen from the segment
+only when a scheduled age flip passes.
 
 Shared delta fan-out contract
 -----------------------------
@@ -164,6 +206,7 @@ folds remain the differential oracles.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -172,6 +215,7 @@ import torch
 from ..device import resolve_device
 from .catalog import Catalog, Delta
 from .policy import KERNEL_COLUMNS, PolicyError, compile_programs
+from .segments import PackedSegment
 from .telemetry import counter_attr
 
 _VALID_COL = len(KERNEL_COLUMNS)          # trailing 0/1 row-validity column
@@ -199,12 +243,6 @@ class _RepadNeeded(Exception):
     def __init__(self, rows: int) -> None:
         super().__init__(rows)
         self.rows = rows
-
-
-def _not_ported(what: str, item: int, plane: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item {item}, "
-        f"{plane}")
 
 
 class MeshMatch:
@@ -319,13 +357,18 @@ class _ShardGroup:
     flip instant (``cgid``/``csb``/``cab``/``cflip``, ``cmin_flip`` the
     cheap due-rollover bound), and the permissions plane's per-subject row
     visibility ``vis`` (``packed``: its words are in the resident tensor).
+    A demoted group keeps its ``offsets`` and versions; its warm copy is
+    the ``segment`` (see "Tiered residency" in the module doc).
     """
 
     __slots__ = ("gid", "shard_ids", "fids", "cols", "rows", "versions",
                  "dirty", "structural", "uploaded", "_order",
                  "offsets", "paths", "spaths", "ord",
                  "cgid", "csb", "cab", "cflip", "cmin_flip", "vis",
-                 "packed")
+                 "packed",
+                 "resident", "segment", "churn", "heat", "pending_demote",
+                 "frozen_cube", "frozen_min_flip", "frozen_ref",
+                 "sstack", "sstack_ref", "svis", "svis_ver", "sspaths")
 
     def __init__(self, gid: int, shard_ids: List[int]) -> None:
         self.gid = gid
@@ -349,6 +392,21 @@ class _ShardGroup:
         self.cmin_flip = np.inf
         self.vis: Optional[np.ndarray] = None      # perms: (Sp, rows) bool
         self.packed = False                        # perms: words resident
+        # tiered residency (see "Tiered residency" in the module doc)
+        self.resident = True               # on the card vs warm segment
+        self.segment: Optional[PackedSegment] = None
+        self.churn = 0                     # deltas since last placement pass
+        self.heat = 0.0                    # decayed churn score (placement)
+        self.pending_demote = False        # async pack in flight
+        self.frozen_cube: Optional[np.ndarray] = None  # (3,b,S,A) i64 @ ref
+        self.frozen_min_flip = np.inf      # first age flip that stales it
+        self.frozen_ref = 0.0              # age reference it was built at
+        # transient streaming caches (dropped on repack / promote)
+        self.sstack: Optional[np.ndarray] = None   # decoded f32 row stack
+        self.sstack_ref = np.nan                   # _cube_ref of sstack AB
+        self.svis: Optional[np.ndarray] = None     # (Sp, rows) bool
+        self.svis_ver = -1                         # grants version of svis
+        self.sspaths: Optional[np.ndarray] = None  # sorted decoded paths
 
     def locate(self, fids: np.ndarray) -> Optional[np.ndarray]:
         """Local row index per fid; None when any fid is not in the mirror
@@ -376,6 +434,10 @@ class DeviceColumnStore:
     lies on ``device`` (the CUDA card unless ``"cpu"`` is asked for, where
     the plain PyTorch matcher runs). On the card ``tile`` must be a
     multiple of 4 (the kernel's store form takes groups of 4k rows).
+    ``hbm_budget_rows``, ``window_rows`` and ``demote_async`` turn on
+    tiered residency (see the module docstring): the budget counts padded
+    group rows on the card, windows included; ``window_rows`` (0: 32
+    tiles, shrunk to fit the budget) rounds up to a tile multiple.
     """
 
     # refresh-mode counters (benchmarks / tests assert the mode taken) —
@@ -398,6 +460,22 @@ class DeviceColumnStore:
         "store_perm_materializations", "per-group perm bitset (re)builds")
     perm_word_scatters = counter_attr(
         "store_perm_word_scatters", "warm packed perm-word scatters")
+    # tiering counters (RunReport and the tiering phase read these, so a
+    # silently resident "streaming" run fails loudly)
+    demotions = counter_attr(
+        "store_demotions", "groups packed to warm segments")
+    promotions = counter_attr(
+        "store_promotions", "groups re-uploaded from segments")
+    segments_streamed = counter_attr(
+        "store_segments_streamed", "warm-segment sweeps executed")
+    windows_streamed = counter_attr(
+        "store_windows_streamed", "device-window batches uploaded")
+    window_stalls = counter_attr(
+        "store_window_stalls", "window consume blocked on compute")
+    segment_repacks = counter_attr(
+        "store_segment_repacks", "stale segments re-encoded")
+    demote_races = counter_attr(
+        "store_demote_races", "async packs discarded (raced)")
 
     def __init__(self, catalog: Catalog, groups: int = 1, device=None,
                  refresh_frac: float = 0.25, tile: int = 0,
@@ -405,10 +483,6 @@ class DeviceColumnStore:
                  hbm_budget_rows: Optional[int] = None,
                  window_rows: int = 0,
                  demote_async: bool = False) -> None:
-        if hbm_budget_rows is not None or window_rows or demote_async:
-            raise _not_ported("tiered residency (hbm_budget_rows, "
-                              "window_rows, demote_async)", 7,
-                              "tiered residency")
         if int(groups) < 1:
             raise PolicyError(f"device store needs groups >= 1, got "
                               f"{groups}")
@@ -421,13 +495,31 @@ class DeviceColumnStore:
             raise ValueError(f"tile={self.tile}: on the card the store "
                              "pads groups to a multiple of 4 rows")
         self.headroom = headroom
+        # tiered residency: total padded group rows the card may hold
+        # (None = unlimited, everything stays resident); when any group is
+        # demoted, 2*D*window_rows of the budget are reserved for the
+        # double-buffered streaming window
+        self.hbm_budget_rows = hbm_budget_rows
+        # streaming window rows per group slot: 0 -> sized lazily from the
+        # budget; explicit values round up to a tile multiple (the perm
+        # window packing also needs a multiple of 32, which tile is)
+        self._rw = (-(-window_rows // self.tile) * self.tile
+                    if window_rows else 0)
+        self.demote_async = demote_async
+        self._demote_workers: List[threading.Thread] = []
         self._lock = threading.RLock()
         self._groups = [
             _ShardGroup(g, [s for s in range(catalog.n_shards)
                             if s % self.n_groups == g])
             for g in range(self.n_groups)]
         self._rp = 0                        # padded rows per group block
-        self._buf: Optional[torch.Tensor] = None   # (D, C+1(+4), Rp) f32
+        # (Dr, C+1(+4), Rp) f32: the resident groups in gid order; _slots
+        # maps a gid to its slice (and to its slices of _perm_buf and
+        # _cube_partials)
+        self._buf: Optional[torch.Tensor] = None
+        self._slots: Dict[int, int] = {}
+        self._staging: Dict[tuple, list] = {}   # pinned window buffers
+        self._copy_stream = None            # side stream of window copies
         self._epoch = 0                     # bumped by every mirror mutation
         # analytics planes (see module docstring): off until enabled
         self._plane_reports = False
@@ -436,15 +528,15 @@ class DeviceColumnStore:
         self._cube_clock = None
         self._cube_ref = 0.0                # age reference of resident cab
         self._cube_bp = 0                   # padded group capacity
-        self._cube_partials: Optional[torch.Tensor] = None  # (D, 3, bp*S*A) f64
+        self._cube_partials: Optional[torch.Tensor] = None  # (Dr, 3, bp*S*A) f64
         self._cube_cache = None             # host int64 (3, bp, S, A) cache
         self._cube_stale = True             # partials need a full rebuild
         self._plane_perm = False
         self._grants = None                 # shared core.grants.GrantTable
         self._grants_version = -1           # table version at materialization
         self._perm_sp = 0                   # padded subject capacity
-        self._perm_buf: Optional[torch.Tensor] = None  # (D, Sp, Rp/32) i32
-        # refresh counters: registry-backed series on the catalog's
+        self._perm_buf: Optional[torch.Tensor] = None  # (Dr, Sp, Rp/32) i32
+        # refresh/tiering counters: registry-backed series on the catalog's
         # telemetry plane (instance label keeps several stores sharing one
         # catalog distinct); the zeroing writes below create the series so
         # they export as 0 before first use
@@ -459,6 +551,13 @@ class DeviceColumnStore:
         self.store_queries = 0              # report queries served resident
         self.perm_materializations = 0      # per-group bitset (re)builds
         self.perm_word_scatters = 0         # warm packed-word scatters
+        self.demotions = 0                  # groups packed to warm segments
+        self.promotions = 0                 # groups re-uploaded from segments
+        self.segments_streamed = 0          # warm-segment sweeps executed
+        self.windows_streamed = 0           # window batches uploaded
+        self.window_stalls = 0              # consume blocked on compute
+        self.segment_repacks = 0            # stale segments re-encoded
+        self.demote_races = 0               # async packs discarded (raced)
         catalog.add_delta_hook(self._on_delta, batch=self._on_delta_batch)
 
     # -- analytics planes ------------------------------------------------------
@@ -523,28 +622,11 @@ class DeviceColumnStore:
             self._plane_reports = True
             self._drop_device_state()
 
-    def drain_demotions(self, timeout: Optional[float] = None) -> None:
-        raise _not_ported("drain_demotions", 7, "tiered residency")
-
-    def tiering_counters(self) -> Dict[str, int]:
-        """The reference's tiering counters with every group resident, so
-        ``RunReport.tiering`` reads alike. Nothing demotes, promotes or
-        streams until tiered residency is ported, so those keys read 0."""
-        with self._lock:
-            return {
-                **dict.fromkeys(("demotions", "promotions",
-                                 "segments_streamed", "windows_streamed",
-                                 "window_stalls", "segment_repacks",
-                                 "demote_races"), 0),
-                "device_pads": self.device_pads,
-                "resident_groups": self.n_groups,
-                "demoted_groups": 0,
-            }
-
     def _drop_device_state(self) -> None:
         """Invalidate every resident block (block layout changed): the
         next refresh re-uploads at the new row count. Lock held."""
         self._buf = None
+        self._slots = {}
         self._cube_partials = None
         self._cube_cache = None
         self._cube_stale = True
@@ -575,7 +657,18 @@ class DeviceColumnStore:
                 group.paths = group.spaths = group.ord = None
                 group.cgid = group.csb = group.cab = group.cflip = None
                 group.cmin_flip = np.inf
+                group.resident = True
+                group.segment = None
+                group.pending_demote = False
+                group.churn = 0
+                group.heat = 0.0
+                group.frozen_cube = None
+                group.frozen_min_flip = np.inf
+                group.sstack = group.svis = group.sspaths = None
+                group.sstack_ref = np.nan
+                group.svis_ver = -1
             self._rp = 0
+            self._staging = {}
 
     # -- delta intake (catalog mutation hooks) --------------------------------
     def _on_delta(self, old: Optional[Delta], new: Optional[Delta]) -> None:
@@ -584,6 +677,7 @@ class DeviceColumnStore:
             return
         fid = int(ref[0])
         group = self._groups[self.catalog._shard_id(fid) % self.n_groups]
+        group.churn += 1                    # placement heat (resident or not)
         if old is None or new is None:      # insert / remove: rows shift
             group.structural = True
         else:
@@ -601,6 +695,7 @@ class DeviceColumnStore:
             if ref is None:
                 continue
             group = groups[shard_id(int(ref[0])) % n_groups]
+            group.churn += 1
             if old is None or new is None:
                 group.structural = True
             else:
@@ -693,8 +788,9 @@ class DeviceColumnStore:
 
     def _host_refresh(self, group: _ShardGroup) -> None:
         """Bring a group's host mirrors (columns + plane mirrors) to the
-        catalog's current state — the snapshot half of a full upload.
-        Lock held."""
+        catalog's current state — the snapshot half of a full upload,
+        shared with segment packing. Lock held (or a thread-private
+        shadow group)."""
         versions, fids, cols, paths, offsets = self._snapshot_group(group)
         group.fids, group.cols, group.rows = fids, cols, fids.size
         group._order = None
@@ -704,16 +800,30 @@ class DeviceColumnStore:
         group.dirty = set()
         group.structural = False
 
+    def _mirror_fresh(self, group: _ShardGroup) -> bool:
+        """True when the host mirrors already match the catalog (and hold
+        every enabled plane's arrays), so an upload can stage straight
+        from them without re-snapshotting. Lock held."""
+        if group.dirty or group.structural or not group.cols:
+            return False
+        if self._plane_reports and group.ord is None:
+            return False
+        if self._plane_cube and group.cgid is None:
+            return False
+        return self._shard_versions(group) == group.versions
+
     def _stage_upload(self, group: _ShardGroup, rp: int) -> None:
         """Stack the (fresh) host mirror and copy the block into the
-        group's slice of the tensor, one host->device copy."""
+        group's slice of the tensor, one host->device copy. Row positions
+        are whatever the mirrors hold, so callers that changed them must
+        invalidate vis/cube themselves."""
         if group.rows > rp:
             # a concurrent insert grew the group past the capacity check
             # at the top of refresh(): re-pad and retry instead of serving
             # a truncated block (or crashing the stack staging)
             raise _RepadNeeded(group.rows)
         stack = self._stack_f32(group, rp)
-        self._buf[group.gid].copy_(torch.from_numpy(stack))
+        self._buf[self._slots[group.gid]].copy_(torch.from_numpy(stack))
         group.uploaded = True
         self._epoch += 1
         self.full_uploads += 1
@@ -796,7 +906,8 @@ class DeviceColumnStore:
         # one copy of the values up, one of the rows, one index_copy_ into
         # the group's slice (the rows are distinct: the dirty set is a set)
         dev = self._buf.device
-        self._buf[group.gid].index_copy_(
+        slot = self._slots[group.gid]
+        self._buf[slot].index_copy_(
             1, torch.from_numpy(rows.astype(np.int64)).to(dev),
             torch.from_numpy(vals).to(dev))
         if cube_live:
@@ -833,7 +944,7 @@ class DeviceColumnStore:
                     group.vis[:, rows] = nvis
                     words = np.unique(rows // 32)
                     wvals = self._pack_words(group, words)
-                    self._perm_buf[group.gid].index_copy_(
+                    self._perm_buf[slot].index_copy_(
                         1, torch.from_numpy(words.astype(np.int64)).to(dev),
                         torch.from_numpy(wvals.view(np.int32)).to(dev))
                     self.perm_word_scatters += 1
@@ -864,7 +975,7 @@ class DeviceColumnStore:
         """Set ONE block row of one group at local rows ``rows`` (age-bucket
         rollovers touch only the ``_AB_COL`` row): one ``index_copy_``."""
         dev = self._buf.device
-        self._buf[group.gid, row].index_copy_(
+        self._buf[self._slots[group.gid], row].index_copy_(
             0, torch.from_numpy(rows.astype(np.int64)).to(dev),
             torch.from_numpy(vals.astype(np.float32)).to(dev))
 
@@ -876,7 +987,7 @@ class DeviceColumnStore:
         the adds are exact in any order below 2**53. Drops the host cube
         cache."""
         dev = self._cube_partials.device
-        self._cube_partials[group.gid].index_add_(
+        self._cube_partials[self._slots[group.gid]].index_add_(
             1, torch.from_numpy(flat).to(dev),
             torch.from_numpy(np.asarray(vals, np.float64)).to(dev))
         self._cube_cache = None
@@ -893,39 +1004,89 @@ class DeviceColumnStore:
         return sum(self.catalog.shards[s].count() for s in group.shard_ids)
 
     def _pad_resident(self) -> int:
-        """Bring the tensor to the current ``self._rp`` rows a group. When
-        it grows, the wider tensor is allocated and every clean uploaded
-        group is copied into it device to device instead of re-uploaded —
-        only the grown group pays a full upload; groups already headed for
-        a full upload (structural / never uploaded) are left at zeros. The
-        copy carries every block row, the analytics rows included; the
-        partial cubes do not depend on row positions and stay; the
-        permissions words are repacked on the next scoped query (their
-        word axis widens). Both tensors are held during the copy. Returns
-        the number of groups copied. Lock held."""
-        old = self._buf
-        if old is not None and old.shape[2] == self._rp:
+        """Bring the tensor to the resident groups (gid order) at the
+        current ``self._rp`` rows a group. When it widens, or the resident
+        set changed (placement), the new tensor is allocated and every
+        clean uploaded group is copied into it device to device instead of
+        re-uploaded — only a grown or promoted group pays a full upload;
+        groups already headed for a full upload (structural / never
+        uploaded) are left at zeros, and a demoted group's slices are
+        freed. The copy carries every block row, the analytics rows
+        included. The partial cubes do not depend on row positions: they
+        stay, compacted the same way when the resident set changed. The
+        permissions words follow a compaction; after a widening they are
+        repacked on the next scoped query (their word axis widens). Both
+        tensors are held during the copy. Returns the number of groups
+        widened. Lock held."""
+        old, old_slots = self._buf, self._slots
+        slots = {g.gid: i for i, g in enumerate(self._resident())}
+        if old is not None and old.shape[2] == self._rp \
+                and slots == old_slots:
             return 0
-        new = torch.zeros((self.n_groups, self._block_rows(), self._rp),
+        if not slots:
+            # nothing resident: every slice freed
+            self._buf = None
+            self._slots = {}
+            self._compact_planes(old_slots, slots, False)
+            return 0
+        widen = old is not None and old.shape[2] != self._rp
+        new = torch.zeros((len(slots), self._block_rows(), self._rp),
                           dtype=torch.float32, device=self.device)
         padded = 0
-        for group in self._groups:
-            if old is None or not group.uploaded or group.structural:
+        for gid, slot in slots.items():
+            group = self._groups[gid]
+            if old is None or gid not in old_slots or not group.uploaded \
+                    or group.structural:
                 continue
-            new[group.gid, :, : old.shape[2]].copy_(old[group.gid])
-            # the word axis widened too: repack from the kept visibility
-            group.packed = False
-            padded += 1
-            self.device_pads += 1
+            src = old[old_slots[gid]]
+            new[slot, :, : src.shape[1]].copy_(src)
+            if widen:
+                # the word axis widened too: repack from the kept visibility
+                group.packed = False
+                padded += 1
+                self.device_pads += 1
         self._buf = new
+        self._slots = slots
+        if slots != old_slots:
+            self._compact_planes(old_slots, slots, widen)
         if padded:
             self._epoch += 1
         return padded
 
+    def _compact_planes(self, old_slots: Dict[int, int],
+                        slots: Dict[int, int], widen: bool) -> None:
+        """Follow a resident-set change in the permissions plane and the
+        partial cubes: the kept groups' slices are copied device to device
+        into tensors of the new group count; a group with no old slice
+        (promoted) repacks its words and forces a cube rebuild. Lock
+        held."""
+        kept = [(old_slots[g], s) for g, s in slots.items() if g in old_slots]
+        parts = self._cube_partials
+        if parts is not None:
+            new = parts.new_zeros((len(slots),) + tuple(parts.shape[1:]))
+            for o, s in kept:
+                new[s].copy_(parts[o])
+            self._cube_partials = new
+            self._cube_cache = None
+            if len(kept) < len(slots):
+                self._cube_stale = True
+        perm = self._perm_buf
+        if perm is not None and not widen:
+            new = perm.new_zeros((len(slots),) + tuple(perm.shape[1:]))
+            for o, s in kept:
+                new[s].copy_(perm[o])
+            self._perm_buf = new
+            for gid in slots:
+                if gid not in old_slots:
+                    self._groups[gid].packed = False
+
     def refresh(self) -> Dict[str, int]:
         """Bring every stale shard group up to date; returns counters of
-        the refresh modes taken: ``full``/``delta``/``fresh`` groups, plus
-        ``padded`` blocks widened on the device by a grown sibling."""
+        the refresh modes taken: ``full``/``delta``/``fresh`` resident
+        groups, plus ``padded`` blocks widened on the device by a grown
+        sibling. Placement (demote/promote under ``hbm_budget_rows``) and
+        warm-segment freshness run first, so after a refresh both the
+        resident blocks and the warm segments reflect the catalog."""
         with self.telemetry.trace("store.refresh", **self._tlabels) as _sp:
             stats = self._refresh_locked()
             _sp.annotate(**stats)
@@ -933,16 +1094,20 @@ class DeviceColumnStore:
 
     def _refresh_locked(self) -> Dict[str, int]:
         with self._lock:
+            self._reap_demote_workers()
+            self._placement_pass()
+            self._ensure_segments()
             stats = {"full": 0, "delta": 0, "fresh": 0, "padded": 0}
-            stale = [g for g in self._groups if self._stale(g)]
-            stats["fresh"] = len(self._groups) - len(stale)
+            resident = self._resident()
+            stale = [g for g in resident if self._stale(g)]
+            stats["fresh"] = len(resident) - len(stale)
             if not stale:
+                self._pad_resident()        # frees a demoted group's slices
                 return stats
             # a grown group re-pads the capacity, but siblings keep their
             # blocks: clean groups are copied on the device
             # (_pad_resident), only the grown group re-uploads
-            need = max((self._group_count(g) for g in self._groups),
-                       default=1)
+            need = max((self._group_count(g) for g in resident), default=1)
             if need > self._rp or self._rp == 0:
                 self._rp = self._round_up(int(need * self.headroom))
             stats["padded"] += self._pad_resident()
@@ -961,6 +1126,11 @@ class DeviceColumnStore:
                                     * max(1, group.rows))
                         if churn_ok and self._delta_refresh(group):
                             stats["delta"] += 1
+                        elif self._mirror_fresh(group):
+                            # fresh mirrors, no block (promotion from a
+                            # warm segment): stage without re-snapshotting
+                            self._stage_upload(group, self._rp)
+                            stats["full"] += 1
                         else:
                             self._full_upload(group, self._rp)
                             stats["full"] += 1
@@ -972,6 +1142,589 @@ class DeviceColumnStore:
             raise PolicyError(
                 "device store could not settle a refresh: the catalog "
                 "grew on every re-pad attempt")
+
+    # -- tiered residency: placement, packing, promotion -----------------------
+    def _resident(self) -> List[_ShardGroup]:
+        """Resident groups in gid order — the slice order of ``_buf``."""
+        return [g for g in self._groups if g.resident]
+
+    def _demoted(self) -> List[_ShardGroup]:
+        return [g for g in self._groups if not g.resident]
+
+    def _window_rows(self) -> int:
+        """Rows of one slot of the streaming window (tile multiple); a
+        window holds ``D`` slots. Under a budget the two window buffers
+        must fit the reserve, so the default 32-tile slot shrinks to
+        budget/(2*D) when the budget is tighter."""
+        if not self._rw:
+            rw = 32 * self.tile
+            if self.hbm_budget_rows:
+                cap = max(self.hbm_budget_rows // (2 * self.n_groups), 1)
+                rw = min(rw, cap)
+            self._rw = max((rw // self.tile) * self.tile, self.tile)
+        return self._rw
+
+    def _hot_fraction(self, group: _ShardGroup) -> float:
+        """Volume fraction of the group's young age buckets — the
+        ProfileCube side of the placement signal (recently-accessed data
+        predicts upcoming policy work). Served from the resident cube
+        mirrors or the demoted group's frozen partial; 0 when the cube
+        plane is off."""
+        if not self._plane_cube:
+            return 0.0
+        from .profiles import HOT_AGE_BUCKETS, hot_volume_fraction
+        if group.resident and group.cab is not None and group.rows:
+            return hot_volume_fraction(
+                group.cab, np.asarray(group.cols["size"], np.float64))
+        if group.frozen_cube is not None:
+            vol_ab = group.frozen_cube[1].sum(axis=(0, 1)).astype(np.float64)
+            total = float(vol_ab.sum())
+            if total <= 0.0:
+                return 0.0
+            return float(vol_ab[:HOT_AGE_BUCKETS].sum()) / total
+        return 0.0
+
+    def _placement_pass(self) -> None:
+        """Decide the resident set under ``hbm_budget_rows``: groups rank
+        by decayed churn heat, then cube hot-volume fraction (residents
+        win exact ties — hysteresis), and the largest prefix whose padded
+        blocks + window reserve fit the budget stays resident. Quiet
+        groups demote to packed segments; hot-again groups promote.
+        Lock held (start of refresh)."""
+        budget = self.hbm_budget_rows
+        if budget is None:
+            for group in self._groups:
+                if not group.resident:
+                    self._promote(group)
+            return
+        for group in self._groups:
+            group.heat = 0.5 * group.heat + group.churn
+            group.churn = 0
+        order = sorted(self._groups,
+                       key=lambda g: (-g.heat, -self._hot_fraction(g),
+                                      0 if g.resident else 1, g.gid))
+        rw = self._window_rows()
+        m = len(order)
+        while m > 0:
+            need = max((self._group_count(g) for g in order[:m]),
+                       default=1)
+            rp = self._round_up(int(need * self.headroom))
+            reserve = 0 if m == len(order) else 2 * self.n_groups * rw
+            if m * rp + reserve <= budget:
+                break
+            m -= 1
+        desired = {g.gid for g in order[:m]}
+        for group in self._groups:
+            if group.resident and group.gid not in desired \
+                    and not group.pending_demote:
+                self._demote(group)
+        for group in self._groups:
+            if not group.resident and group.gid in desired:
+                self._promote(group)
+            elif group.resident and group.gid in desired:
+                group.pending_demote = False   # placement changed its mind
+
+    def _seg_fresh(self, group: _ShardGroup) -> bool:
+        """True when the group's packed segment still matches the catalog
+        and carries every enabled plane's columns. Lock held."""
+        seg = group.segment
+        if seg is None or group.dirty or group.structural:
+            return False
+        if self._plane_reports and "ord" not in seg.names:
+            return False
+        if self._plane_cube and "cgid" not in seg.names:
+            return False
+        return self._shard_versions(group) == group.versions
+
+    def _ensure_segments(self) -> None:
+        """Re-encode any demoted group whose segment went stale (churn on
+        warm data): snapshot, repack, refreeze its cube partial. The
+        churn counters feeding :meth:`_placement_pass` promote a group
+        that keeps doing this. Lock held."""
+        for group in self._groups:
+            if group.resident or self._seg_fresh(group):
+                continue
+            self._commit_demote(group, self._pack_segment(group),
+                                repack=True)
+
+    def _pack_segment(self, group: _ShardGroup) -> PackedSegment:
+        """Encode the group's columns into a PackedSegment (host mirrors
+        refreshed first if stale), saved beside the sqlite mirror and
+        mapped back read-only when the catalog has one. Lock held."""
+        if not self._mirror_fresh(group):
+            self._host_refresh(group)
+        return self._pack_segment_from(group)
+
+    def _pack_segment_from(self, group: _ShardGroup) -> PackedSegment:
+        """Encode from already-fresh mirrors (the async demote path packs
+        a thread-private shadow group, without the store lock)."""
+        cols: Dict[str, np.ndarray] = {
+            n: np.asarray(group.cols[n]) for n in PLAN_COLUMNS}
+        if self._plane_reports:
+            cols["path"] = np.asarray(
+                group.paths if group.paths is not None else [],
+                dtype="<U1" if not group.rows else None)
+            cols["ord"] = group.ord
+        if self._plane_cube:
+            cols["cgid"] = group.cgid
+            cols["csb"] = group.csb
+        seg = PackedSegment.pack(
+            cols, meta={"gid": group.gid, "rows": group.rows,
+                        "versions": {str(k): int(v)
+                                     for k, v in group.versions.items()}})
+        path = self.catalog.sidecar_path(f"seg{group.gid}.npz")
+        if path:
+            seg.save(path)
+            seg = PackedSegment.load(path, mmap=True)
+        return seg
+
+    def _freeze_cube(self, group: _ShardGroup) -> None:
+        """Capture the demoted group's exact int64 partial cube at the
+        current ``_cube_ref`` (host bincount over the cube mirrors) so
+        unscoped profile queries never stream: merged cube = resident
+        partials + frozen partials. Stale once an age flip passes
+        ``frozen_min_flip`` (then :meth:`_refreeze` recomputes from the
+        segment). Lock held, mirrors fresh."""
+        from .profiles import A, S, _bincount_i64
+        b = max(len(self._cube_groups), 1)
+        k = b * S * A
+        flat = self._cells(group.cgid, group.csb, group.cab)
+        counts = np.bincount(flat, minlength=k)
+        group.frozen_cube = np.stack([
+            counts.astype(np.int64),
+            _bincount_i64(flat, np.asarray(group.cols["size"], np.int64), k,
+                          counts),
+            _bincount_i64(flat, np.asarray(group.cols["blocks"], np.int64),
+                          k, counts)]).reshape(3, b, S, A)
+        group.frozen_min_flip = group.cmin_flip
+        group.frozen_ref = self._cube_ref
+
+    def _refreeze(self, group: _ShardGroup, now: float) -> int:
+        """Recompute a demoted group's frozen partial cube at ``now``
+        (decoding the segment) after an age-bucket flip passed. Returns
+        the number of rows that moved buckets. Lock held."""
+        from .profiles import (_FLIP_EDGES, A, S, _bincount_i64,
+                               age_buckets_np)
+        dec = group.segment.columns()
+        stamps = np.asarray(dec["atime"], np.float64)
+        old_ab = age_buckets_np(group.frozen_ref - stamps)
+        new_ab = age_buckets_np(now - stamps)
+        b = max(len(self._cube_groups), 1)
+        k = b * S * A
+        flat = self._cells(dec["cgid"], np.asarray(dec["csb"], np.int64),
+                           new_ab)
+        counts = np.bincount(flat, minlength=k)
+        group.frozen_cube = np.stack([
+            counts.astype(np.int64),
+            _bincount_i64(flat, np.asarray(dec["size"], np.int64), k,
+                          counts),
+            _bincount_i64(flat, np.asarray(dec["blocks"], np.int64), k,
+                          counts)]).reshape(3, b, S, A)
+        flips = stamps + _FLIP_EDGES[new_ab]
+        finite = np.isfinite(flips)
+        group.frozen_min_flip = float(flips[finite].min()) \
+            if finite.any() else np.inf
+        group.frozen_ref = now
+        group.sstack_ref = np.nan           # AB row of the stack is stale
+        return int((new_ab != old_ab).sum())
+
+    def _frozen_total(self) -> np.ndarray:
+        """Sum of every demoted group's frozen partial, padded to the
+        current ``_cube_bp`` group capacity. Lock held."""
+        from .profiles import A, S
+        out = np.zeros((3, self._cube_bp, S, A), np.int64)
+        for group in self._groups:
+            fz = group.frozen_cube
+            if group.resident or fz is None:
+                continue
+            out[:, : fz.shape[1]] += fz
+        return out
+
+    def _commit_demote(self, group: _ShardGroup, seg: PackedSegment,
+                       repack: bool = False) -> None:
+        """Install a packed segment and drop the group's host mirrors; the
+        next refresh frees its slices of the card's tensors (this may run
+        on a demote worker: it touches no CUDA tensor). Lock held."""
+        group.segment = seg
+        group.sstack = group.svis = group.sspaths = None
+        group.sstack_ref = np.nan
+        group.svis_ver = -1
+        if self._plane_cube:
+            self._freeze_cube(group)
+        group.resident = False
+        group.uploaded = False
+        group.pending_demote = False
+        group.packed = False
+        self._cube_cache = None
+        # host mirrors dropped: the packed segment IS the warm copy
+        group.fids = np.zeros(0, np.int64)
+        group.cols = {}
+        group._order = None
+        group.paths = group.spaths = group.ord = None
+        group.cgid = group.csb = group.cab = group.cflip = None
+        group.cmin_flip = np.inf
+        group.vis = None
+        # deliberately NOT an epoch bump: the commit is content-preserving
+        # (version-revalidated against the catalog), and in-flight
+        # MeshMatch handles hold their own mirror-array references — an
+        # async commit landing between match() and plan() must not stale
+        # them
+        if repack:
+            self.segment_repacks += 1
+        else:
+            self.demotions += 1
+
+    def _demote(self, group: _ShardGroup) -> None:
+        """Demote a resident group to a packed warm segment. With
+        ``demote_async`` the encode runs on a worker thread against its
+        own catalog snapshot (the group keeps serving resident); the
+        commit re-validates versions under the lock and discards the pack
+        if the group churned meanwhile. Lock held."""
+        if not self.demote_async:
+            self._commit_demote(group, self._pack_segment(group))
+            return
+        group.pending_demote = True
+
+        def worker() -> None:
+            shadow = _ShardGroup(group.gid, group.shard_ids)
+            with self._lock:
+                if not (group.pending_demote and group.resident):
+                    return
+            # snapshot + encode WITHOUT the store lock (queries keep
+            # serving the still-resident blocks meanwhile); host work only
+            self._host_refresh(shadow)
+            seg = self._pack_segment_from(shadow)
+            with self._lock:
+                if (group.pending_demote and group.resident
+                        and not group.dirty and not group.structural
+                        and self._shard_versions(group) == shadow.versions):
+                    # adopt the shadow's fresh mirrors so _freeze_cube
+                    # inside the commit reads consistent state
+                    for slot in ("fids", "cols", "rows", "versions",
+                                 "offsets", "paths", "spaths", "ord",
+                                 "cgid", "csb", "cab", "cflip",
+                                 "cmin_flip"):
+                        setattr(group, slot, getattr(shadow, slot))
+                    self._commit_demote(group, seg)
+                else:
+                    group.pending_demote = False
+                    self.demote_races += 1
+
+        t = threading.Thread(target=worker, daemon=True)
+        self._demote_workers.append(t)
+        t.start()
+
+    def _reap_demote_workers(self) -> None:
+        self._demote_workers = [t for t in self._demote_workers
+                                if t.is_alive()]
+
+    def drain_demotions(self, timeout: Optional[float] = None) -> None:
+        """Join any in-flight async demotions (tests / shutdown). Must be
+        called WITHOUT the store lock held."""
+        for t in list(self._demote_workers):
+            t.join(timeout)
+        with self._lock:
+            self._reap_demote_workers()
+
+    def _promote(self, group: _ShardGroup) -> None:
+        """Bring a demoted group back resident: decode the segment into
+        host mirrors (exact round trip — no catalog re-read when the
+        segment is fresh) and let the refresh loop stage the block.
+        Lock held."""
+        seg = group.segment
+        if seg is not None and self._seg_fresh(group):
+            dec = seg.columns()
+            group.fids = np.asarray(dec["fid"], np.int64)
+            # mirrors must be writable (delta refresh patches in place);
+            # decoded arrays may be read-only mmap views, so copy
+            group.cols = {n: np.array(dec[n]) for n in PLAN_COLUMNS}
+            group.rows = int(group.fids.size)
+            group._order = None
+            if self._plane_reports:
+                parr = np.asarray(dec["path"])
+                group.paths = parr.tolist()
+                group.ord = np.asarray(dec["ord"], np.int64)
+                sp = np.empty_like(parr)
+                sp[group.ord] = parr
+                group.spaths = sp
+            if self._plane_cube:
+                from .profiles import _FLIP_EDGES, age_buckets_np
+                group.cgid = np.asarray(dec["cgid"], np.int64)
+                group.csb = np.asarray(dec["csb"], np.int64)
+                stamps = np.asarray(dec["atime"], np.float64)
+                group.cab = age_buckets_np(self._cube_ref - stamps)
+                group.cflip = stamps + _FLIP_EDGES[group.cab]
+                finite = np.isfinite(group.cflip)
+                group.cmin_flip = float(group.cflip[finite].min()) \
+                    if finite.any() else np.inf
+        # else: stale/absent segment — mirrors stay empty and the refresh
+        # loop takes the full snapshot+upload path
+        group.segment = None
+        group.sstack = group.svis = group.sspaths = None
+        group.frozen_cube = None
+        group.frozen_min_flip = np.inf
+        group.resident = True
+        group.uploaded = False
+        group.pending_demote = False
+        group.packed = False
+        if self._plane_cube:
+            self._cube_stale = True         # its partial must rebuild
+            self._cube_cache = None
+        self._epoch += 1
+        self.promotions += 1
+
+    def tiering_counters(self) -> Dict[str, int]:
+        """Snapshot of the tiering counters (surfaced per run in
+        :attr:`RunReport.tiering`)."""
+        with self._lock:
+            return {
+                "demotions": self.demotions,
+                "promotions": self.promotions,
+                "segments_streamed": self.segments_streamed,
+                "windows_streamed": self.windows_streamed,
+                "window_stalls": self.window_stalls,
+                "segment_repacks": self.segment_repacks,
+                "demote_races": self.demote_races,
+                "device_pads": self.device_pads,
+                "resident_groups": sum(g.resident for g in self._groups),
+                "demoted_groups": sum(not g.resident
+                                      for g in self._groups),
+            }
+
+    # -- warm-segment streaming ------------------------------------------------
+    def _segment_stack(self, group: _ShardGroup) -> np.ndarray:
+        """(block rows, n) f32 staging stack decoded from the group's warm
+        segment — the streaming analogue of :meth:`_stack_f32`, cached on
+        the group until the segment repacks. The age-bucket row
+        re-derives (from the exact float64 stamps) whenever the cube
+        reference moved, so streamed windows carry the same AB codes the
+        resident blocks do. Lock held."""
+        dec = group.segment.columns()
+        if group.sstack is None:
+            n = int(group.segment.n_rows)
+            out = np.zeros((self._block_rows(), n), np.float32)
+            for i, name in enumerate(KERNEL_COLUMNS):
+                out[i] = dec[name]
+            out[_VALID_COL] = 1.0
+            if self._plane_reports:
+                out[_ORD_COL] = dec["ord"]
+            if self._plane_cube:
+                out[_GID_COL] = dec["cgid"]
+                out[_SB_COL] = dec["csb"]
+            group.sstack = out
+            group.sstack_ref = np.nan       # AB row filled below
+        if self._plane_cube and group.sstack_ref != self._cube_ref:
+            from .profiles import age_buckets_np
+            stamps = np.asarray(dec["atime"], np.float64)
+            group.sstack[_AB_COL] = age_buckets_np(self._cube_ref - stamps)
+            group.sstack_ref = self._cube_ref
+        return group.sstack
+
+    def _segment_spaths(self, group: _ShardGroup) -> np.ndarray:
+        """Sorted path mirror of a demoted group (du rank bounds, subtree
+        grants) — decoded once per segment."""
+        if group.sspaths is None:
+            group.sspaths = np.sort(
+                np.asarray(group.segment.decode("path")), kind="stable")
+        return group.sspaths
+
+    def _segment_vis(self, group: _ShardGroup) -> np.ndarray:
+        """(Sp, n) bool subject visibility over a demoted group's rows,
+        cached per grants version — the host source the streamed
+        permission windows pack from. Lock held, after
+        :meth:`_ensure_perms` (sizes ``_perm_sp``)."""
+        if (group.svis is not None
+                and group.svis_ver == self._grants.version
+                and group.svis.shape[0] == self._perm_sp):
+            return group.svis
+        dec = group.segment.columns()
+        group.svis = self._vis_rows(
+            self._segment_spaths(group),
+            np.asarray(dec["owner"], np.int64),
+            np.asarray(dec["group"], np.int64),
+            np.asarray(dec["ord"], np.int64))
+        group.svis_ver = self._grants.version
+        return group.svis
+
+    def _stage_window(self, stack: np.ndarray, vis: Optional[np.ndarray],
+                      base: int, nrows: int, buf: np.ndarray,
+                      pbuf: Optional[np.ndarray]) -> None:
+        """Write rows ``[base, base + nrows)`` of a demoted group into the
+        (block rows, D·Rw) host staging buffer ``buf`` (rows past
+        ``nrows`` zeroed: they read ``valid = 0``) and, for a scoped
+        query, their visibility packed into the (Sp, D·Rw/32) int32
+        buffer ``pbuf`` (bit b of word w = window row w*32+b, LSB first;
+        rows past ``nrows`` pack to 0 — invisible). ``np.copyto`` writes
+        into the buffer's own memory: read-only mmap decodes are copied,
+        never wrapped."""
+        np.copyto(buf[:, :nrows], stack[:, base:base + nrows])
+        buf[:, nrows:] = 0.0
+        if pbuf is not None:
+            sub = np.zeros((self._perm_sp, buf.shape[1]), dtype=bool)
+            sub[:, :nrows] = vis[:, base:base + nrows]
+            np.copyto(pbuf, np.packbits(sub, axis=1, bitorder="little")
+                      .view(np.int32))
+
+    def _pinned_pair(self, shape: Tuple[int, int], dtype) -> list:
+        """Two pinned host staging buffers of ``shape``, kept on the store
+        between sweeps (pinning is slow) and replaced when the window's
+        shape changes."""
+        key = (shape, dtype)
+        if key not in self._staging:
+            self._staging = {k: v for k, v in self._staging.items()
+                             if k[1] != dtype}
+            self._staging[key] = [torch.empty(shape, dtype=dtype,
+                                              pin_memory=True)
+                                  for _ in range(2)]
+        return self._staging[key]
+
+    def _copy_window(self, side, host, dev, phost, pdev, free) -> None:
+        """Enqueue the host→device copies of one window on the side
+        stream ``side``, after the event ``free`` (the last launch that
+        read these device buffers) when there is one."""
+        with torch.cuda.stream(side):
+            if free is not None:
+                side.wait_event(free)
+            dev.copy_(host, non_blocking=True)
+            if pdev is not None:
+                pdev.copy_(phost, non_blocking=True)
+
+    def _stream_windows(self, group: _ShardGroup, launch, want_perm: bool):
+        """Drive one demoted group's packed segment through the
+        double-buffered streaming window.
+
+        The segment decodes into the cached f32 row stack, which goes up
+        in windows of ``D·Rw`` rows: the window at ``base`` is a ``(1,
+        block rows, D·Rw)`` tensor holding the group's rows ``[base, base
+        + D·Rw)`` in order. ``launch(window, perm_window)`` returns
+        tensor(s) (``perm_window`` the ``(1, Sp, D·Rw/32)`` int32 words
+        when ``want_perm``, else None); yields ``(base, nrows, result)``
+        in row order, consumed one window behind. Lock held for the whole
+        sweep (same discipline as match).
+
+        On the card: two pinned staging buffers and two device window
+        buffers; window k's copy runs on a side stream after window k-2's
+        launch finished with its device buffer, window k's launch waits on
+        its copy's event, and staging buffer k % 2 is rewritten only after
+        window k-2's copy completed. On the CPU the staging buffer is the
+        window itself: no stream, no pinning.
+        """
+        D = self.n_groups
+        chunk = D * self._window_rows()
+        stack = self._segment_stack(group)
+        n = stack.shape[1]
+        if not n:
+            return
+        br = self._block_rows()
+        vis = self._segment_vis(group) if want_perm else None
+        self.segments_streamed += 1
+        card = self.device.type == "cuda"
+        trace, labels = self.telemetry.trace, self._tlabels
+        if card:
+            host = self._pinned_pair((br, chunk), torch.float32)
+            phost = self._pinned_pair((self._perm_sp, chunk // 32),
+                                      torch.int32) \
+                if want_perm else [None, None]
+            dev = [torch.empty((1, br, chunk), dtype=torch.float32,
+                               device=self.device) for _ in range(2)]
+            pdev = [torch.empty((1, self._perm_sp, chunk // 32),
+                                dtype=torch.int32, device=self.device)
+                    for _ in range(2)] if want_perm else [None, None]
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            side = self._copy_stream
+            cur = torch.cuda.current_stream(self.device)
+            # the window buffers were allocated on the current stream:
+            # their memory may still be read by its earlier work, and the
+            # side stream writes them, so it starts after that work and the
+            # allocator holds them until the side stream is done
+            side.wait_stream(cur)
+            for t in dev + pdev:
+                if t is not None:
+                    t.record_stream(side)
+            copied = [None, None]           # event: copy out of staging j
+            computed = [None, None]         # event: launch that read dev j
+        else:
+            host = [np.empty((br, chunk), np.float32) for _ in range(2)]
+            phost = [np.empty((self._perm_sp, chunk // 32), np.int32)
+                     for _ in range(2)] if want_perm else [None, None]
+        pending = None
+        try:
+            for k, base in enumerate(range(0, n, chunk)):
+                nrows = min(chunk, n - base)
+                j = k % 2
+                with trace("store.window.stage", **labels):
+                    if card:
+                        if copied[j] is not None:
+                            copied[j].synchronize()
+                        buf = host[j].numpy()
+                        pbuf = phost[j].numpy() if want_perm else None
+                    else:
+                        buf, pbuf = host[j], phost[j]
+                    self._stage_window(stack, vis, base, nrows, buf, pbuf)
+                with trace("store.window.copy", **labels):
+                    if card:
+                        self._copy_window(
+                            side, host[j], dev[j][0], phost[j],
+                            pdev[j][0] if want_perm else None, computed[j])
+                        copied[j] = torch.cuda.Event()
+                        copied[j].record(side)
+                        cur.wait_event(copied[j])
+                        win, pwin = dev[j], pdev[j]
+                    else:
+                        win = torch.from_numpy(buf)[None]
+                        pwin = torch.from_numpy(pbuf)[None] \
+                            if want_perm else None
+                with trace("store.window.launch", **labels):
+                    res = launch(win, pwin)
+                    done = None
+                    if card:
+                        done = computed[j] = torch.cuda.Event()
+                        done.record(cur)
+                self.windows_streamed += 1
+                self._bytes_moved("window", buf.nbytes)
+                if pending is not None:
+                    yield self._consume_window(pending)
+                pending = (base, nrows, res, done)
+            if pending is not None:
+                yield self._consume_window(pending)
+        finally:
+            if card:
+                # the pinned buffers outlive the sweep: no copy out of
+                # them may still be in flight when the next sweep writes
+                for ev in copied:
+                    if ev is not None:
+                        ev.synchronize()
+
+    def _consume_window(self, pending):
+        base, nrows, res, done = pending
+        if done is not None and not done.query():
+            # the overlapped copy did not hide this window's compute: the
+            # consumer blocks on it; the wait is timed so the stall shows
+            # in the telemetry export, not just as a count
+            self.window_stalls += 1
+            t0 = time.perf_counter()
+            done.synchronize()
+            self.telemetry.histogram(
+                "store_window_stall_seconds",
+                help="streaming-window consume blocked on compute",
+                **self._tlabels).observe(time.perf_counter() - t0)
+        return base, nrows, res
+
+    def _group_paths(self, group: _ShardGroup):
+        """Row-aligned paths: the host mirror list for a resident group,
+        the cached segment decode for a demoted one."""
+        if group.resident:
+            return group.paths
+        return group.segment.decode("path")
+
+    def _group_arrays(self, group: _ShardGroup):
+        """(fids, columns, row-aligned paths) for result gathering —
+        host mirrors resident, cached segment decode demoted."""
+        if group.resident:
+            return group.fids, group.cols, group.paths
+        dec = group.segment.columns()
+        return np.asarray(dec["fid"], np.int64), dec, dec.get("path")
 
     # -- permissions plane (per-subject packed visibility bitsets) -------------
     def _require_permissions_plane(self) -> None:
@@ -1057,15 +1810,20 @@ class DeviceColumnStore:
             self._perm_buf = None
             for group in self._groups:
                 group.vis = None
-        if self._perm_buf is None or self._perm_buf.shape[2] * 32 != self._rp:
-            # (re)allocated at the block's row capacity: every group packs
+                group.svis = None          # streaming bitsets stale too
+                group.svis_ver = -1
+        res = self._resident()
+        if (self._perm_buf is None or self._perm_buf.shape[2] * 32 != self._rp
+                or self._perm_buf.shape[0] != len(res)):
+            # (re)allocated at the block's row capacity, one slice a
+            # resident group: every group packs
             self._perm_buf = torch.zeros(
-                (self.n_groups, self._perm_sp, self._rp // 32),
+                (len(res), self._perm_sp, self._rp // 32),
                 dtype=torch.int32, device=self.device)
             for group in self._groups:
                 group.packed = False
         changed = False
-        for group in self._groups:
+        for group in res:                  # demoted: _segment_vis on demand
             if group.vis is not None and group.packed:
                 continue
             if group.rows:
@@ -1076,7 +1834,7 @@ class DeviceColumnStore:
                 owner = grp = np.zeros(0, np.int64)
                 rank = np.zeros(0, np.int64)
             group.vis = self._vis_rows(group.spaths, owner, grp, rank)
-            self._perm_buf[group.gid].copy_(torch.from_numpy(
+            self._perm_buf[self._slots[group.gid]].copy_(torch.from_numpy(
                 self._pack_group(group).view(np.int32)))
             group.packed = True
             self.perm_materializations += 1
@@ -1131,31 +1889,63 @@ class DeviceColumnStore:
         ops_t, colidx_t = _program_tuples(ops, colidx)
         self.refresh()
         sid = self._resolve_subject(subject)
-        with self.telemetry.trace("store.match.launch",
-                                  groups=self.n_groups, **self._tlabels):
-            mask, rule, agg = mesh_policy_scan_batch(
-                self._buf, torch.from_numpy(operands).to(self.device),
-                ops_t=ops_t, colidx_t=colidx_t,
-                size_col=KERNEL_COLUMNS.index("size"),
-                blocks_col=KERNEL_COLUMNS.index("blocks"),
-                valid_col=_VALID_COL, with_agg=with_agg,
-                use_kernel=use_kernel,
-                perm=self._perm_buf if sid is not None else None,
-                subject=sid)
-        # only mask + attribution cross device→host, never the columns
-        with self.telemetry.trace("store.match.combine", **self._tlabels):
-            mask_np = mask.cpu().numpy()
-            rule_np = rule.cpu().numpy()
-            agg_np = agg.cpu().numpy()
-        mirrors, group_idx, group_rule = [], [], []
+        kw = dict(ops_t=ops_t, colidx_t=colidx_t,
+                  size_col=KERNEL_COLUMNS.index("size"),
+                  blocks_col=KERNEL_COLUMNS.index("blocks"),
+                  valid_col=_VALID_COL, with_agg=with_agg,
+                  use_kernel=use_kernel)
+        operands_t = torch.from_numpy(operands).to(self.device)
+        res = self._resident()
+        mirrors: List[Tuple[np.ndarray, Dict[str, np.ndarray]]] = \
+            [(np.zeros(0, np.int64), {})] * self.n_groups
+        group_idx = [np.zeros(0, np.int64)] * self.n_groups
+        group_rule = [np.zeros(0, np.int32)] * self.n_groups
+        agg_parts = []
         reval = 0
-        for i, g in enumerate(self._groups):
-            idx = np.nonzero(mask_np[i, : g.rows] > 0.5)[0]
-            mirrors.append((g.fids, g.cols))
-            group_idx.append(idx)
-            group_rule.append(rule_np[i, idx].astype(np.int32))
-            reval += g.rows
-        per_rule = merge_agg_partials([agg_np], len(ops_t))
+        if res:
+            with self.telemetry.trace("store.match.launch",
+                                      groups=len(res), **self._tlabels):
+                mask, rule, agg = mesh_policy_scan_batch(
+                    self._buf, operands_t,
+                    perm=self._perm_buf if sid is not None else None,
+                    subject=sid, **kw)
+            # only mask + attribution cross device→host, never the columns
+            with self.telemetry.trace("store.match.combine",
+                                      **self._tlabels):
+                mask_np = mask.cpu().numpy()
+                rule_np = rule.cpu().numpy()
+                agg_parts.append(agg.cpu().numpy())
+            for i, g in enumerate(res):
+                idx = np.nonzero(mask_np[i, : g.rows] > 0.5)[0]
+                mirrors[g.gid] = (g.fids, g.cols)
+                group_idx[g.gid] = idx
+                group_rule[g.gid] = rule_np[i, idx].astype(np.int32)
+                reval += g.rows
+
+        def launch(win, pwin):
+            return mesh_policy_scan_batch(
+                win, operands_t, perm=pwin,
+                subject=sid if pwin is not None else None, **kw)
+        for g in self._demoted():
+            idx_parts, rule_parts = [], []
+            for base, nrows, (mask, rule, agg) in self._stream_windows(
+                    g, launch, want_perm=sid is not None):
+                m = mask.cpu().numpy().reshape(-1)[:nrows]
+                r = rule.cpu().numpy().reshape(-1)[:nrows]
+                hit = np.nonzero(m > 0.5)[0]
+                idx_parts.append(base + hit)
+                rule_parts.append(r[hit].astype(np.int32))
+                if with_agg:
+                    agg_parts.append(agg.cpu().numpy())
+            dec = g.segment.columns()
+            mirrors[g.gid] = (np.asarray(dec["fid"], np.int64),
+                              {n: dec[n] for n in PLAN_COLUMNS})
+            group_idx[g.gid] = (np.concatenate(idx_parts) if idx_parts
+                                else np.zeros(0, np.int64))
+            group_rule[g.gid] = (np.concatenate(rule_parts) if rule_parts
+                                 else np.zeros(0, np.int32))
+            reval += int(g.segment.n_rows)
+        per_rule = merge_agg_partials(agg_parts, len(ops_t))
         return MeshMatch(self, self._epoch, mirrors, group_idx, group_rule,
                          _agg_dict(per_rule[0], per_rule), reval)
 
@@ -1240,11 +2030,26 @@ class DeviceColumnStore:
         self.cube_rebuilds += 1
 
     def _ensure_cube(self, now: float) -> None:
-        if (self._cube_partials is None or self._cube_stale
-                or len(self._cube_groups) > self._cube_bp):
-            self._rebuild_cube(now)
+        if self._resident():
+            if (self._cube_partials is None or self._cube_stale
+                    or len(self._cube_groups) > self._cube_bp):
+                self._rebuild_cube(now)
+            else:
+                self._advance_cube_ref(now, update_partials=True)
         else:
-            self._advance_cube_ref(now, update_partials=True)
+            # nothing resident: only the frozen partials and streamed
+            # windows serve, but the reference still advances so their
+            # age buckets stay exact as of ``now``
+            if self._cube_bp < len(self._cube_groups) \
+                    or self._cube_bp == 0:
+                self._cube_bp = self._cube_capacity()
+            self._advance_cube_ref(now, update_partials=False)
+        # demoted partials whose first scheduled age flip passed refreeze
+        # from their segments at the advanced reference
+        for g in self._demoted():
+            if g.frozen_cube is not None \
+                    and g.frozen_min_flip <= self._cube_ref:
+                self.rollovers += self._refreeze(g, self._cube_ref)
 
     def invalidate_cube(self) -> None:
         """Force a full cube rebuild on the next query (the store-backed
@@ -1263,8 +2068,16 @@ class DeviceColumnStore:
         and bitsets (one scoped ``profile_cube`` launch a group on the
         card; no resident scoped partials: the rollover advance above
         keeps the block's age codes exact as of ``now``, so the scoped
-        cube matches the host oracle)."""
-        from ..kernels.profile_cube.ops import mesh_cube_combine
+        cube matches the host oracle).
+
+        Under tiering, demoted groups contribute without re-residency: the
+        unscoped cube adds their exact int64 frozen partials (refrozen
+        from the segment when an age flip passed); a scoped cube streams
+        their windows through :func:`mesh_scoped_cube` (one scoped launch
+        a window on the card) and sums the window cubes with the resident
+        one in f64 on the device."""
+        from ..kernels.profile_cube.ops import (mesh_cube_combine,
+                                                mesh_scoped_cube)
         from ..kernels.profile_cube.ref import (A_BUCKETS, N_MEASURES,
                                                 S_BUCKETS)
         with self._lock:
@@ -1275,22 +2088,38 @@ class DeviceColumnStore:
             self.refresh()
             self._ensure_cube(now)
             self.store_queries += 1
+            res = self._resident()
+            demoted = self._demoted()
+            shape = (N_MEASURES, self._cube_bp, S_BUCKETS, A_BUCKETS)
             b = min(len(self._cube_groups), self._cube_bp)
             if subject is not None:
-                from ..kernels.profile_cube.ops import mesh_scoped_cube
                 sid = self._resolve_subject(subject)
-                cube = mesh_scoped_cube(
-                    self._buf, self._perm_buf, sid, n_groups=self._cube_bp,
-                    gid_col=_GID_COL, size_col=KERNEL_COLUMNS.index("size"),
-                    blocks_col=KERNEL_COLUMNS.index("blocks"),
-                    sb_col=_SB_COL, ab_col=_AB_COL, valid_col=_VALID_COL)
-                return np.rint(cube.cpu().numpy()).astype(np.int64)[:, :b]
-            if self._cube_cache is None:
+                kw = dict(n_groups=self._cube_bp, gid_col=_GID_COL,
+                          size_col=KERNEL_COLUMNS.index("size"),
+                          blocks_col=KERNEL_COLUMNS.index("blocks"),
+                          sb_col=_SB_COL, ab_col=_AB_COL,
+                          valid_col=_VALID_COL)
+                total = torch.zeros(shape, dtype=torch.float64,
+                                    device=self.device)
+                if res:
+                    total += mesh_scoped_cube(self._buf, self._perm_buf, sid,
+                                              **kw)
+
+                def launch(win, pwin):
+                    return mesh_scoped_cube(win, pwin, sid, **kw)
+                for g in demoted:
+                    for _b, _n, cube in self._stream_windows(g, launch,
+                                                             True):
+                        total += cube
+                return np.rint(total.cpu().numpy()).astype(np.int64)[:, :b]
+            if res and self._cube_cache is None:
                 combined = mesh_cube_combine(self._cube_partials)
                 self._cube_cache = np.rint(combined.cpu().numpy()).astype(
-                    np.int64).reshape(N_MEASURES, self._cube_bp, S_BUCKETS,
-                                      A_BUCKETS)
-            return self._cube_cache[:, :b]
+                    np.int64).reshape(shape)
+            cube = self._cube_cache if res else np.zeros(shape, np.int64)
+            if any(g.frozen_cube is not None for g in demoted):
+                cube = cube + self._frozen_total()
+            return cube[:, :b]
 
     # -- resident report queries (rbh-find / top-N / rbh-du) -------------------
     def _require_reports_plane(self) -> None:
@@ -1320,7 +2149,9 @@ class DeviceColumnStore:
         path mirrors — emitted in catalog ``arrays()`` order
         (byte-identical to the host fold). Raises PolicyError on glob
         predicates (host fallback). ``subject=`` lists only rows that
-        subject may see (one lean scoped launch)."""
+        subject may see (one lean scoped launch). A demoted group's rows
+        stream (one lean launch a window) and translate through its
+        segment's decoded paths."""
         with self._lock:
             self._require_reports_plane()
             match = self._match_locked([expr], now, None, False, subject)
@@ -1333,7 +2164,8 @@ class DeviceColumnStore:
                 hi = int(group.offsets[p + 1])
                 idx = match._group_idx[group.gid]
                 seg = idx[(idx >= lo) & (idx < hi)]
-                out.extend(str(group.paths[i]) for i in seg.tolist())
+                paths = self._group_paths(group)
+                out.extend(str(paths[i]) for i in seg.tolist())
                 if limit and len(out) >= limit:
                     return out[:limit]
             return out
@@ -1348,7 +2180,9 @@ class DeviceColumnStore:
         sorts candidates by native mirror values with the host oracle's
         exact tie semantics (stable argsort + reversal). ``now`` is not
         read (kernel columns hold no relative ages); ``subject=`` ranks
-        only rows that subject may see (both passes)."""
+        only rows that subject may see (both passes). A demoted group's
+        windows stream through both passes (each window's top-k joins the
+        candidates)."""
         from ..kernels.policy_scan.ops import (mesh_column_topk,
                                                mesh_threshold_rows)
         from .types import FsType
@@ -1358,38 +2192,78 @@ class DeviceColumnStore:
             self._require_reports_plane()
             self.refresh()
             self.store_queries += 1
-            if k <= 0 or not any(g.rows for g in self._groups):
+            res = self._resident()
+            demoted = self._demoted()
+            if k <= 0 or not (any(g.rows for g in res)
+                              or any(g.segment.n_rows for g in demoted)):
                 return []
             sid = self._resolve_subject(subject)
+            want_perm = sid is not None
             kw = dict(col=KERNEL_COLUMNS.index(by), valid_col=_VALID_COL,
                       type_col=KERNEL_COLUMNS.index("type"),
-                      file_code=float(int(FsType.FILE)),
-                      perm=self._perm_buf if sid is not None else None,
-                      subject=sid)
-            # pass 1: each group's top-k; the merged k-th best is an exact
-            # selection threshold for pass 2
-            vals, _idx = mesh_column_topk(self._buf, k=min(k, self._rp),
-                                          desc=desc, **kw)
-            merged = vals.cpu().numpy().ravel()
+                      file_code=float(int(FsType.FILE)))
+            perm = self._perm_buf if want_perm else None
+            # pass 1: each group's and each window's top-k; the global
+            # top-k is a subset of their union, so the merged k-th best is
+            # an exact selection threshold for pass 2
+            cand_thr = []
+            if res:
+                vals, _idx = mesh_column_topk(
+                    self._buf, k=min(k, self._rp), desc=desc, perm=perm,
+                    subject=sid, **kw)
+                cand_thr.append(vals.cpu().numpy().ravel())
+            kwin = min(k, self.n_groups * self._window_rows())
+
+            def launch_topk(win, pwin):
+                return mesh_column_topk(
+                    win, k=kwin, desc=desc, perm=pwin,
+                    subject=sid if pwin is not None else None, **kw)
+            for g in demoted:
+                for _b, _n, (vals, _i) in self._stream_windows(
+                        g, launch_topk, want_perm):
+                    cand_thr.append(vals.cpu().numpy().ravel())
+            merged = np.concatenate(cand_thr)
             merged = merged[np.isfinite(merged)]
             if merged.size == 0:
                 return []
             merged.sort()                     # ascending
             kk = min(k, merged.size)
             thr = float(merged[-kk] if desc else merged[kk - 1])
-            # pass 2: the threshold mask recovers every candidate; only
-            # the (group, row) pairs of its hits cross to the host
-            hits = torch.nonzero(mesh_threshold_rows(
-                self._buf, thr, ge=desc, **kw)).cpu().numpy()
+            # pass 2: the threshold mask recovers every candidate, ties
+            # across groups and windows included; only the rows of its
+            # hits cross to the host
             cand_vals, cand_pos, cand_paths, cand_fids = [], [], [], []
-            for group in self._groups:
-                rows = hits[hits[:, 0] == group.gid, 1]
-                if not rows.size:
-                    continue
-                cand_vals.append(np.asarray(group.cols[by])[rows])
+
+            def collect(group, rows):
+                fids, gcols, paths = self._group_arrays(group)
+                cand_vals.append(np.asarray(gcols[by])[rows])
                 cand_pos.append(self._arrays_positions(group, rows))
-                cand_fids.append(group.fids[rows])
-                cand_paths.extend(str(group.paths[i]) for i in rows.tolist())
+                cand_fids.append(np.asarray(fids)[rows])
+                cand_paths.extend(str(paths[i]) for i in rows.tolist())
+
+            if res:
+                hits = torch.nonzero(mesh_threshold_rows(
+                    self._buf, thr, ge=desc, perm=perm, subject=sid,
+                    **kw)).cpu().numpy()
+                for i, group in enumerate(res):
+                    rows = hits[hits[:, 0] == i, 1]
+                    if rows.size:
+                        collect(group, rows)
+
+            def launch_thr(win, pwin):
+                return mesh_threshold_rows(
+                    win, thr, ge=desc, perm=pwin,
+                    subject=sid if pwin is not None else None, **kw)
+            for g in demoted:
+                parts = []
+                for base, nrows, mask in self._stream_windows(
+                        g, launch_thr, want_perm):
+                    hit = np.nonzero(mask.cpu().numpy().reshape(-1)
+                                     [:nrows])[0]
+                    if hit.size:
+                        parts.append(base + hit)
+                if parts:
+                    collect(g, np.concatenate(parts))
             if not cand_vals:
                 return []
             values = np.concatenate(cand_vals)
@@ -1407,7 +2281,9 @@ class DeviceColumnStore:
         a group into the sorted path mirror give rank bounds; one range
         aggregate on the device sums [count, files, volume, spc_used] over
         the groups — no row leaves the device. ``subject=`` counts only
-        rows that subject may see."""
+        rows that subject may see. A demoted group streams: its windows'
+        rows carry their rank in the GROUP's sorted-path order, so one
+        bounds row serves every window."""
         from ..kernels.policy_scan.ops import mesh_range_aggregate
         from .types import FsType
         with self._lock:
@@ -1415,24 +2291,43 @@ class DeviceColumnStore:
             self.refresh()
             self.store_queries += 1
             sid = self._resolve_subject(subject)
+            want_perm = sid is not None
             prefix = path_prefix.rstrip("/")
-            bounds = np.zeros((self.n_groups, 4), np.float32)
-            for group in self._groups:
-                sp = group.spaths if group.spaths is not None \
-                    else np.zeros(0, dtype="<U1")
-                bounds[group.gid] = (
-                    np.searchsorted(sp, prefix + "/", side="left"),
-                    np.searchsorted(sp, prefix + "0", side="left"),
-                    np.searchsorted(sp, prefix, side="left"),
-                    np.searchsorted(sp, prefix, side="right"))
-            total = mesh_range_aggregate(
-                self._buf, bounds, ord_col=_ORD_COL,
-                type_col=KERNEL_COLUMNS.index("type"),
-                size_col=KERNEL_COLUMNS.index("size"),
-                blocks_col=KERNEL_COLUMNS.index("blocks"),
-                valid_col=_VALID_COL, file_code=float(int(FsType.FILE)),
-                perm=self._perm_buf if sid is not None else None,
-                subject=sid).cpu().numpy()
+
+            def rank_bounds(sp):
+                return (np.searchsorted(sp, prefix + "/", side="left"),
+                        np.searchsorted(sp, prefix + "0", side="left"),
+                        np.searchsorted(sp, prefix, side="left"),
+                        np.searchsorted(sp, prefix, side="right"))
+
+            kw = dict(ord_col=_ORD_COL,
+                      type_col=KERNEL_COLUMNS.index("type"),
+                      size_col=KERNEL_COLUMNS.index("size"),
+                      blocks_col=KERNEL_COLUMNS.index("blocks"),
+                      valid_col=_VALID_COL, file_code=float(int(FsType.FILE)))
+            res = self._resident()
+            total = np.zeros(4, np.float64)
+            if res:
+                bounds = np.zeros((len(res), 4), np.float32)
+                for i, group in enumerate(res):
+                    sp = group.spaths if group.spaths is not None \
+                        else np.zeros(0, dtype="<U1")
+                    bounds[i] = rank_bounds(sp)
+                total += mesh_range_aggregate(
+                    self._buf, bounds,
+                    perm=self._perm_buf if want_perm else None,
+                    subject=sid, **kw).cpu().numpy()
+            for g in self._demoted():
+                gb = np.asarray([rank_bounds(self._segment_spaths(g))],
+                                np.float32)
+
+                def launch(win, pwin):
+                    return mesh_range_aggregate(
+                        win, gb, perm=pwin,
+                        subject=sid if pwin is not None else None, **kw)
+                for _b, _n, agg in self._stream_windows(g, launch,
+                                                        want_perm):
+                    total += agg.cpu().numpy()
             return {"count": int(round(float(total[0]))),
                     "files": int(round(float(total[1]))),
                     "volume": int(round(float(total[2]))),

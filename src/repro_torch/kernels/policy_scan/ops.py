@@ -35,6 +35,8 @@ selection.
 """
 from __future__ import annotations
 
+import functools
+
 import math
 from typing import List, Optional, Tuple
 
@@ -256,6 +258,17 @@ def _scope(global_cols: torch.Tensor, perm, subject
     return _subject_bits(perm, subject)
 
 
+@functools.lru_cache(maxsize=64)
+def _program_tensors(ops_t: Tuple[Tuple[int, ...], ...],
+                     colidx_t: Tuple[Tuple[int, ...], ...],
+                     dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (R, P) i32 program arrays on ``dev``, uploaded once per program
+    set: an upload from pageable memory waits for the stream, which would
+    hold each launch of a streamed window behind that window's copy."""
+    return (torch.tensor(ops_t, dtype=torch.int32).to(dev),
+            torch.tensor(colidx_t, dtype=torch.int32).to(dev))
+
+
 def mesh_policy_scan_batch(global_cols: torch.Tensor,
                            operands: torch.Tensor, *,
                            ops_t: Tuple[Tuple[int, ...], ...],
@@ -295,8 +308,7 @@ def mesh_policy_scan_batch(global_cols: torch.Tensor,
     kernel = _kernel_for(global_cols, use_kernel)
     dev = global_cols.device
     if kernel:
-        ops = torch.tensor(ops_t, dtype=torch.int32).to(dev)
-        colidx = torch.tensor(colidx_t, dtype=torch.int32).to(dev)
+        ops, colidx = _program_tensors(ops_t, colidx_t, dev)
         return policy_scan_store_cuda(
             global_cols, ops, colidx,
             operands.to(device=dev, dtype=torch.float32).contiguous(),
@@ -382,7 +394,7 @@ def mesh_threshold_rows(global_cols: torch.Tensor, thr: float, *, col: int,
     if bits is not None:
         sel &= bits
     c = global_cols[:, col]
-    t = torch.tensor(thr, dtype=c.dtype, device=c.device)
+    t = torch.full((), thr, dtype=c.dtype, device=c.device)   # no upload
     return sel & ((c >= t) if ge else (c <= t))
 
 

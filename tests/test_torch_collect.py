@@ -2,7 +2,8 @@
 
 ``repro_torch.fs`` and ``repro_torch.core.{scanner,pipeline,hsm,alerts,
 plugins}`` are copies of the JAX package's modules with their imports
-rewritten; ``test_copies_differ_only_in_imports`` holds them to that. The
+rewritten; ``test_copies_differ_only_in_imports`` holds them to that, and
+``repro_torch.core.segments`` (the column store's warm tier) too. The
 cases of ``tests/core/test_scanner.py``, ``test_pipeline.py`` and
 ``test_hsm.py`` follow, on the port's modules (engines on the CPU), then
 the paper's headline scenario of ``tests/test_system.py``
@@ -39,7 +40,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 COPIES = ["fs/__init__.py", "fs/base.py", "fs/posixfs.py", "fs/lustrefs.py",
           "fs/hsm_backend.py", "core/scanner.py", "core/pipeline.py",
-          "core/hsm.py", "core/alerts.py", "core/plugins.py"]
+          "core/hsm.py", "core/alerts.py", "core/plugins.py",
+          "core/segments.py"]
 
 
 @pytest.mark.parametrize("name", COPIES)

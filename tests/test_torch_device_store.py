@@ -539,29 +539,35 @@ def test_refresh_repads_when_group_outgrows_capacity_mid_refresh():
 
 # -- store modes ----------------------------------------------------------------
 
-@pytest.mark.parametrize("call, item", [
-    (lambda s: s.drain_demotions(), 7),
-    (lambda s: (s.enable_permissions_plane(T.GrantTable()),
-                s.drain_demotions()), 7),
-], ids=["drain_demotions", "drain_demotions_with_permissions"])
-def test_planes_not_ported_raise_naming_their_item(call, item):
-    """Tiered residency (queue 1 item 7) still raises, with or without the
-    permissions plane (item 6, ported: ``test_torch_tenant_scoping.py``)."""
-    cat = _random_catalog(np.random.default_rng(45), 40)
-    store = DeviceColumnStore(cat, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        call(store)
-
-
-@pytest.mark.parametrize("kw", [dict(hbm_budget_rows=1024),
+@pytest.mark.parametrize("kw", [dict(hbm_budget_rows=256),
                                 dict(window_rows=128),
                                 dict(demote_async=True)],
                          ids=["hbm_budget_rows", "window_rows",
                               "demote_async"])
-def test_tiering_arguments_raise_naming_item_7(kw):
-    cat = _random_catalog(np.random.default_rng(46), 40)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        DeviceColumnStore(cat, device="cpu", **kw)
+def test_tiering_arguments_behave_as_the_reference(kw):
+    """Each tiering keyword is accepted, and a groups=1 store given it
+    answers and counts as the JAX store given it on a 1-device mesh (a
+    budget under one block demotes the group and streams it; a window or
+    async demotion without a budget changes nothing)."""
+    J, make_mesh, cats = _both(46, 400)
+    stores = {"jax": J.DeviceColumnStore(cats["jax"], make_mesh(), tile=128,
+                                         **kw),
+              "port": T.DeviceColumnStore(cats["port"], device="cpu",
+                                          tile=128, **kw)}
+    out = {}
+    for name, store in stores.items():
+        fids, agg = store.scan(parse_expr("size > 4M"), NOW)
+        store.drain_demotions()
+        tc = store.tiering_counters()
+        tc.pop("window_stalls")           # timing-dependent on JAX's CPU
+        out[name] = (sorted(fids.tolist()), agg, tc)
+    assert out["port"] == out["jax"]
+    arrays = cats["port"].arrays()
+    want = arrays["fid"][parse_expr("size > 4M").mask(
+        arrays, cats["port"].strings, NOW)]
+    assert out["port"][0] == sorted(want.tolist())
+    demoted = out["port"][2]["demoted_groups"]
+    assert demoted == (1 if "hbm_budget_rows" in kw else 0)
 
 
 def test_tiering_counters_report_every_group_resident():

@@ -5,7 +5,8 @@ module of the JAX package; a policy must run (through ``policy_scan`` and,
 over a ``DeviceColumnStore``, ``policy_scan_mesh``), a profile cube and its
 reports must build, and the paged serving engine must serve requests over
 its tiered KV cache, with both blocked (and a tenant's scoped queries
-served from the store); the default device must raise when
+served from the store, and a policy run over a store whose groups are
+demoted to packed segments and streamed); the default device must raise when
 CUDA is absent; and the kernel path must refuse CPU tensors instead of
 quietly running the plain version.
 """
@@ -99,6 +100,17 @@ assert rep_s.report_types(subject="half") == rep_h.report_types(subject="half")
 assert rep_s.host_served == 0 and store.perm_materializations == 2
 assert kernel.policy_scan_store_scoped_lean_launches == 0
 assert pc_kernel.profile_cube_scoped_launches == 0
+
+tiered = DeviceColumnStore(cat, groups=2, device="cpu", tile=32,
+                           hbm_budget_rows=200, window_rows=32)
+eng.attach_device_store(tiered)
+acted.clear()
+rt = eng.run("p", evaluator="policy_scan_mesh")
+assert rt.evaluator == "policy_scan_mesh" and rt.fallback_reason == "", rt
+assert acted == list(range(102, 201)), acted[:5]
+assert rt.tiering["demoted_groups"] >= 1, rt.tiering
+assert rt.tiering["windows_streamed"] > 0, rt.tiering
+assert kernel.policy_scan_store_lean_launches == 0
 
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.serve import PagedLMConfig, Request, ServingEngine

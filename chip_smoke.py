@@ -213,7 +213,7 @@ failure:
     (see ``attn_agrees``); a
     second run with the same seed must give the same tokens, and is timed
     with the host seconds of each cache and op call kind;
-14. recurrent-model serving (last), one model after the other, each at
+14. recurrent-model serving, one model after the other, each at
     full width and depth with parameters drawn on the card from the seed,
     through ``make_prefill`` and a decode step: rwkv6-1.6b, 8 prompts of
     512 seeded tokens and 64 new (exactly 24 x 63 = 1,512 ``rwkv6_step``
@@ -235,7 +235,30 @@ failure:
     device time against reading the weights once), then 8 eager steps are
     timed, and four graphed and four eager decode steps run under
     ``torch.profiler`` for the card's busy share and device operations a
-    step, eager and graphed side by side.
+    step, eager and graphed side by side;
+15. training (last), three parts, each logged as ``[train]`` lines: (a)
+    the ``rglru_scan`` gradient kernel at the training path's shape
+    (2, 2560, 4096) and at (8, 4096, 4096), with and without ``h0``:
+    dlog_a, db and dh0 equal to ``rglru_bwd_ref`` on the card
+    (``torch.equal``) on two calls, the forward at the same shapes equal
+    to ``rglru_ref``, timed from an idle card beside its bound and the
+    plain version; (b) recurrentgemma-9b at its published widths cut to 5
+    layers (one (rec, rec, local) superblock and 2 tail recurrent layers,
+    2.17 B parameters) trained 8 steps through ``launch.train.run``
+    (``DataPipeline`` of 4 x 2560 tokens in 2 microbatches,
+    ``cosine_warmup(3e-4, 1, 8)``, weight decay 0.01): every loss finite,
+    the mean of the last three below the first, exactly 16 forward and 8
+    gradient launches a step (4 recurrent layers x 2 microbatches, the
+    forward again in the remat recompute) and no other kernel; the step
+    wall, tokens/s, peak memory and, from one more step under
+    ``torch.profiler``, the kernels' share of the card's time; (c)
+    ``tests/test_system.py``'s restart scenario with recurrentgemma-9b
+    smoke on the card (40 steps, a ``SimulatedFailure`` at 17,
+    checkpoints every 10, ``keep_last=2``): one restart, the mean of the
+    last 5 losses below the first 5, checkpoints retained, exact launches
+    (the replayed steps included), the artifact catalog's usage logged,
+    and the first 5 steps run again on the CPU from the same weights
+    within 1e-2 of the card's losses.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -1292,6 +1315,7 @@ def launch_window(fn):
                  "profile_cube_scoped": PK.profile_cube_scoped_launches,
                  "paged_attention": AK.paged_attention_launches,
                  "rglru_scan": RGK.rglru_scan_launches,
+                 "rglru_scan_bwd": RGK.rglru_scan_bwd_launches,
                  "rwkv6_step": RWK.rwkv6_step_launches}
 
 
@@ -1299,11 +1323,12 @@ def only(**launches) -> dict:
     """The counts a window must show: these kernels so many times, every
     other kernel never (``policy_scan_store`` counts the store form with
     aggregates, ``policy_scan_store_lean`` the lean form, the ``_scoped``
-    counts their scoped forms, ``profile_cube_scoped`` the scoped cube)."""
+    counts their scoped forms, ``profile_cube_scoped`` the scoped cube,
+    ``rglru_scan_bwd`` the gradient of ``rglru_scan``)."""
     want = dict.fromkeys(list(TPU_KERNELS) + [
         "policy_scan_store", "policy_scan_store_lean",
         "policy_scan_store_scoped", "policy_scan_store_scoped_lean",
-        "profile_cube_scoped"], 0)
+        "profile_cube_scoped", "rglru_scan_bwd"], 0)
     want.update(launches)
     return want
 
@@ -4153,6 +4178,349 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
     torch.cuda.empty_cache()
 
 
+# the training phase: the gradient kernel at the training path's shape
+# (microbatch 2 x 2560 tokens of recurrentgemma-9b's d_rnn) and at the
+# kernel phase's; recurrentgemma-9b at full width cut to 5 layers (one
+# (rec, rec, local) superblock and 2 tail recurrent layers, the smoke
+# twin's layout) trained 8 steps through launch/train; then
+# tests/test_system.py's restart scenario with recurrentgemma-9b smoke
+RG_BWD_SHAPES = ((2, 2560, 4096), (8, 4096, 4096))
+TRAIN_LAYERS = 5
+TRAIN_ARGV = ["--arch", "recurrentgemma-9b", "--steps", "8", "--batch", "4",
+              "--seq", "2560", "--accum", "2", "--lr", "3e-4",
+              "--log-interval", "1", "--ckpt-interval", "50"]
+RESTART_STEPS = 40
+RESTART_FAIL_AT = 17
+RESTART_CPU_STEPS = 5
+RESTART_LOSS_TOL = 1e-2         # card vs CPU, first 5 losses (absolute)
+
+
+def rglru_bwd_bound_ms(shape, with_h0: bool):
+    """log_a, h and gh read once, dlog_a and db written once (20 B an
+    element; h0 read and dh0 written once, 8 B a (b, r)) over the memory
+    rate; or 4 f32 operations an element (exp, an add, two multiplies) over
+    the f32 peak. Returns (ms, by, bytes, ops)."""
+    B, S, R = shape
+    nbytes = 20 * B * S * R + (8 * B * R if with_h0 else 0)
+    ops = 4 * B * S * R
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def train_kernel_phase(torch, seed, device, results):
+    """The gradient kernel at RG_BWD_SHAPES, with and without h0: dlog_a,
+    db and dh0 equal to ``rglru_bwd_ref`` on the card (``torch.equal``) and
+    again on a second call; the forward at the same shape equal to
+    ``rglru_ref`` too; timed from an idle card beside its bound and the
+    plain version."""
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rglru_scan import ref as RGR
+    configs = {}
+    for i, shape in enumerate(RG_BWD_SHAPES):
+        la, b, h0 = rglru_inputs(torch, shape, seed + 50 + i, device)
+        g = torch.Generator(device=device)
+        g.manual_seed(seed + 60 + i)
+        gh = torch.randn(shape, generator=g, device=device)
+        zeros = torch.zeros_like(h0)
+        for with_h0 in (True, False):
+            h0_arg = h0 if with_h0 else None
+            name = f"B{shape[0]} S{shape[1]} R{shape[2]} " + (
+                "h0" if with_h0 else "no h0")
+            h = RGK.rglru_scan_cuda(la, b, h0_arg)
+            check(torch.equal(h, RGR.rglru_ref(la, b, h0 if with_h0
+                                               else zeros)),
+                  f"rglru_scan {name}: the forward differs from the plain "
+                  "version")
+            got = RGK.rglru_scan_bwd_cuda(la, h, gh, h0_arg)
+            again = RGK.rglru_scan_bwd_cuda(la, h, gh, h0_arg)
+            want = RGR.rglru_bwd_ref(la, h, gh, h0 if with_h0 else zeros)
+            torch.cuda.synchronize()
+            for part, x, y, w in zip(("dlog_a", "db", "dh0"), got, again,
+                                     want):
+                check(bool(torch.isfinite(x).all()), f"rglru_scan backward "
+                      f"{name}: a non-finite {part}")
+                check(torch.equal(x, y), f"rglru_scan backward {name}: "
+                      f"{part} differs from run to run")
+                check(torch.equal(x, w), f"rglru_scan backward {name}: "
+                      f"{part} differs from rglru_bwd_ref: max abs err "
+                      f"{float((x - w).abs().max())!r}")
+            entry = dict(max_abs_err=0.0, bit_identical=True)
+            if with_h0:
+                entry["ms"], times = cuda_times_ms(
+                    lambda: RGK.rglru_scan_bwd_cuda(la, h, gh, h0), REPS)
+                entry["plain_ms"], _ = cuda_times_ms(
+                    lambda: RGR.rglru_bwd_ref(la, h, gh, h0), 3, warmup=1)
+                (entry["bound_ms"], entry["bound_by"], entry["bytes"],
+                 entry["ops"]) = rglru_bwd_bound_ms(shape, True)
+                log(f"[train] rglru_scan backward {name} {CARD}: kernel "
+                    f"{entry['ms']!r} ms (median of {len(times)}, min "
+                    f"{min(times)!r}, max {max(times)!r}); plain "
+                    f"{entry['plain_ms']!r} ms (median of 3); bound "
+                    f"{entry['bound_ms']!r} ms by {entry['bound_by']} "
+                    f"({entry['bytes']} B, {entry['ops']} f32 ops); "
+                    f"{entry['bound_ms'] / entry['ms']:.3f} of the bound; "
+                    "dlog_a, db, dh0 equal to rglru_bwd_ref bit for bit, "
+                    "twice; the forward equal to rglru_ref")
+            else:
+                log(f"[train] rglru_scan backward {name}: dlog_a, db equal "
+                    "to rglru_bwd_ref bit for bit, twice; the forward "
+                    "equal to rglru_ref")
+            configs[name] = entry
+            del h, got, again, want
+        del la, b, h0, gh, zeros
+        torch.cuda.empty_cache()
+    path = configs[f"B{RG_BWD_SHAPES[0][0]} S{RG_BWD_SHAPES[0][1]} "
+                   f"R{RG_BWD_SHAPES[0][2]} h0"]
+    results["rglru_scan"]["backward"] = {
+        "name": "rglru_scan_bwd", "route": "cuda", "source": RG_SOURCE,
+        "replaces": TPU_KERNELS["rglru_scan"] + " (its gradient: XLA's "
+                    "autodiff of jax.lax.associative_scan in the reference)",
+        "launches": None, "max_abs_err": 0.0,
+        "ms": path["ms"], "plain_ms": path["plain_ms"],
+        "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "error_against": "rglru_bwd_ref on the same tensors (torch.equal)",
+        "shape": list(RG_BWD_SHAPES[0]), "configs": configs}
+
+
+def train_full_phase(torch, seed, device, results):
+    """recurrentgemma-9b at its published widths, cut to TRAIN_LAYERS
+    layers, trained through ``launch.train.run`` (TRAIN_ARGV): every loss
+    finite, the mean of the last three below the first, each step exactly
+    16 forward and 8 gradient launches of ``rglru_scan`` and no other
+    kernel; the step wall, tokens/s, peak memory and, from one profiled
+    step, the kernels' share of the card's time."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.launch import train as LT
+    from repro_torch.models.config import MIX_RGLRU
+    from repro_torch.optim import AdamW, cosine_warmup
+    from repro_torch.train import make_train_step
+    from torch.profiler import ProfilerActivity, profile
+    full = get_config("recurrentgemma_9b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    n_rec = sum(s.mix == MIX_RGLRU for s in cfg.layers)
+    per_step = []               # (forward, gradient) launches of each step
+
+    def counted_step(model, opt):
+        """The launcher's train step, its launches read around each call
+        (a wrapper counts on the host as it launches)."""
+        step = make_train_step(model, opt)
+
+        def call(state, batch):
+            before = (RGK.rglru_scan_launches, RGK.rglru_scan_bwd_launches)
+            out = step(state, batch)
+            per_step.append((RGK.rglru_scan_launches - before[0],
+                             RGK.rglru_scan_bwd_launches - before[1]))
+            return out
+        return call
+    with tempfile.TemporaryDirectory() as ck:
+        args = LT.parse_args(TRAIN_ARGV + ["--device", "cuda", "--seed",
+                                           str(seed), "--ckpt-dir", ck])
+        accum, steps = args.accum, args.steps
+        want_fwd = n_rec * accum * 2 * steps    # forward + remat recompute
+        want_bwd = n_rec * accum * steps
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        LT.make_train_step = counted_step
+        try:
+            out, counts = launch_window(lambda: LT.run(args, cfg))
+        finally:
+            LT.make_train_step = make_train_step
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+    hist, step_s = out["history"], out["step_s"]
+    check(out["restarts"] == 0 and len(hist) == steps,
+          f"full-width training: {len(hist)} losses, {out['restarts']} "
+          "restarts")
+    check(all(math.isfinite(x) for x in hist), f"full-width training: a "
+          f"non-finite loss in {hist}")
+    check(statistics.mean(hist[-3:]) < hist[0], f"full-width training: the "
+          f"last three losses {hist[-3:]} do not fall below the first "
+          f"{hist[0]!r}")
+    check(counts == only(rglru_scan=want_fwd, rglru_scan_bwd=want_bwd),
+          f"full-width training launched {counts}, expected {want_fwd} "
+          f"rglru_scan and {want_bwd} rglru_scan_bwd ({n_rec} recurrent "
+          f"layers x {accum} microbatches x {steps} steps)")
+    check(per_step == [(want_fwd // steps, want_bwd // steps)] * steps,
+          f"full-width training: launches a step {per_step}, expected "
+          f"{want_fwd // steps} forward and {want_bwd // steps} gradient "
+          "in each")
+    model, state = out["model"], out["state"]
+    n_params = sum(p.numel() for p in model.parameters())
+    med = statistics.median(step_s[1:])
+    tokens = args.batch * args.seq
+    # one more step under the profiler: the kernels' share of the card
+    pipe = DataPipeline(vocab=cfg.vocab, seq_len=args.seq,
+                        global_batch=args.batch, seed=args.seed)
+    opt = AdamW(lr=cosine_warmup(args.lr, steps // 10 + 1, steps),
+                weight_decay=0.01)
+    step = make_train_step(model, opt)
+    b = pipe.batch_for(steps)
+    batch = {k: torch.from_numpy(v).to(device).reshape(
+        accum, args.batch // accum, args.seq) for k, v in b.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    dev_us = sum(r[1] for r in rows)
+    kern = {k: (us, c) for k, us, c in rows if "rglru_scan" in k}
+    kern_us = sum(us for us, _ in kern.values())
+    share = kern_us / dev_us if dev_us else None
+    log(f"[train] recurrentgemma-9b full width {CARD}: {cfg.n_layers} of "
+        f"{full.n_layers} layers (d_model {cfg.d_model}, d_rnn "
+        f"{cfg.rnn_width}, {cfg.n_heads} heads x {cfg.head_dim}, n_kv "
+        f"{cfg.n_kv}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+        f"{cfg.window}), {n_params} parameters; {steps} steps of "
+        f"{args.batch} x {args.seq} tokens in {accum} microbatches through "
+        f"launch.train.run: losses {hist}; step walls {step_s} s, median of "
+        f"steps 2-{steps} {med!r} s, {tokens / med!r} tokens/s; peak memory "
+        f"{peak} B (torch.cuda.max_memory_allocated); {wall!r} s for the "
+        f"run (init included); launches {json.dumps(counts)}, (forward, "
+        f"gradient) a step {per_step}")
+    log(f"[train] one profiled step {CARD}: {sum(r[2] for r in rows)} device "
+        f"operations, {dev_us / 1e3!r} ms of device time; rglru_scan "
+        f"kernels {json.dumps(kern)} (us, count) = {kern_us / 1e3!r} ms, "
+        f"{share!r} of the device time; top by device time (us) "
+        f"{json.dumps([[k[:60], us, c] for k, us, c in rows[:6]])}")
+    entry = results["rglru_scan"]
+    entry["train"] = dict(
+        arch="recurrentgemma_9b", layers=cfg.n_layers,
+        reduced="n_layers 38 -> 5", params=n_params, steps=steps,
+        batch=args.batch, seq=args.seq, accum=accum, losses=hist,
+        step_s=step_s, median_step_s=med, tokens_per_s=tokens / med,
+        peak_bytes=peak, launches_per_step={
+            "rglru_scan": counts["rglru_scan"] // steps,
+            "rglru_scan_bwd": counts["rglru_scan_bwd"] // steps},
+        kernel_share=share, profiled_device_ms=dev_us / 1e3)
+    entry["backward"]["launches"] = counts["rglru_scan_bwd"]
+    entry.setdefault("launches_by_path", {})[
+        f"recurrentgemma-9b training, {steps} steps (forward)"] = \
+        counts["rglru_scan"]
+    del out, model, state, step, metrics, prof
+    torch.cuda.empty_cache()
+
+
+def train_restart_phase(torch, seed, device, results):
+    """``tests/test_system.py::test_train_loop_end_to_end`` on the card with
+    recurrentgemma-9b smoke (its RG-LRU layers run both kernels):
+    RESTART_STEPS steps, a ``SimulatedFailure`` at RESTART_FAIL_AT,
+    checkpoints every 10 with ``keep_last=2``; one restart, the mean of the
+    last 5 losses below the first 5, checkpoints retained, exact launches;
+    then the first RESTART_CPU_STEPS steps on the CPU (plain versions) from
+    the same weights, each loss within RESTART_LOSS_TOL of the card's."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models import Model
+    from repro_torch.models.config import MIX_RGLRU
+    from repro_torch.optim import AdamW, cosine_warmup
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault import SimulatedFailure, run_with_restarts
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = get_config("recurrentgemma_9b", smoke=True)
+    n_rec = sum(s.mix == MIX_RGLRU for s in cfg.layers)
+
+    def drawn():
+        """The initial weights, drawn on the CPU from the seed."""
+        m = Model(cfg).init(torch.Generator().manual_seed(seed), "cpu")
+        return {k: p.detach() for k, p in m.named_parameters()}
+
+    def loop(dev, n_steps, failures, ck):
+        model = Model(cfg, kv_chunk=16)
+        opt = AdamW(lr=cosine_warmup(3e-3, 10, 60), weight_decay=0.0)
+        pipe = DataPipeline(vocab=cfg.vocab, seq_len=32, global_batch=8,
+                            seed=3)
+        step_fn = make_train_step(model, opt)
+        cm = CheckpointManager(ck, keep_last=2)
+        losses = []
+        weights = drawn()
+
+        def init_state():
+            pipe.state.next_step = 0
+            gen = torch.Generator(device=dev)
+            state = init_train_state(model, opt, gen)
+            model.bind_params(weights)
+            return state
+
+        def step(state, i):
+            if i in failures:
+                failures.discard(i)
+                raise SimulatedFailure(host=1, step=i)
+            b = pipe.batch_for(i)
+            batch = {k: torch.from_numpy(v).to(dev)[None]
+                     for k, v in b.items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            return state
+
+        final, restarts, replayed = run_with_restarts(
+            train_steps=n_steps, step_fn=step, init_state=init_state,
+            ckpt=cm, ckpt_interval=10)
+        return dict(losses=losses, restarts=restarts, replayed=replayed,
+                    steps=cm.steps(), cold=cm.steps(True),
+                    usage=cm.store.usage(), final_step=int(final["step"]))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck:
+        card, counts = launch_window(lambda: loop(
+            device, RESTART_STEPS, {RESTART_FAIL_AT}, ck))
+    card_s = time.perf_counter() - t0
+    losses = card["losses"]
+    ran = RESTART_STEPS + card["replayed"]
+    check(card["restarts"] == 1 and card["final_step"] == RESTART_STEPS,
+          f"restart loop: {card['restarts']} restarts, final step "
+          f"{card['final_step']}")
+    check(all(math.isfinite(x) for x in losses), f"restart loop: a "
+          f"non-finite loss in {losses}")
+    check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+          f"restart loop: the last 5 losses {losses[-5:]} do not fall below "
+          f"the first 5 {losses[:5]}")
+    check(bool(card["steps"]), "restart loop: no checkpoint retained")
+    check(counts == only(rglru_scan=2 * n_rec * ran,
+                         rglru_scan_bwd=n_rec * ran),
+          f"restart loop launched {counts}, expected {2 * n_rec * ran} "
+          f"rglru_scan and {n_rec * ran} rglru_scan_bwd ({ran} steps run)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ck:
+        cpu = loop(torch.device("cpu"), RESTART_CPU_STEPS, set(), ck)
+    cpu_s = time.perf_counter() - t0
+    diffs = [abs(a - b) for a, b in zip(losses, cpu["losses"])]
+    check(len(diffs) == RESTART_CPU_STEPS and max(diffs) <= RESTART_LOSS_TOL,
+          f"restart loop: the card's first losses {losses[:5]} differ from "
+          f"the CPU's {cpu['losses']} by {diffs} (> {RESTART_LOSS_TOL})")
+    log(f"[train] restart loop, recurrentgemma-9b smoke on the card {CARD}: "
+        f"{RESTART_STEPS} steps, a failure at {RESTART_FAIL_AT}, "
+        f"{card['restarts']} restart, {card['replayed']} steps replayed, "
+        f"{card_s!r} s; first 5 losses {losses[:5]}, last 5 "
+        f"{losses[-5:]}; checkpoints {card['steps']} (+cold "
+        f"{card['cold']}); artifact catalog {json.dumps(card['usage'])}; "
+        f"launches {json.dumps(counts)}; the CPU's first {RESTART_CPU_STEPS} "
+        f"losses {cpu['losses']} ({cpu_s!r} s), max abs difference "
+        f"{max(diffs)!r} <= {RESTART_LOSS_TOL}")
+    results["rglru_scan"]["restart_loop"] = dict(
+        losses=losses, restarts=card["restarts"], replayed=card["replayed"],
+        checkpoints=card["steps"], usage=card["usage"], launches=counts,
+        cpu_losses=cpu["losses"], max_cpu_diff=max(diffs))
+
+
+def train_phase(torch, seed, device, results):
+    t0 = time.perf_counter()
+    train_kernel_phase(torch, seed, device, results)
+    train_full_phase(torch, seed, device, results)
+    train_restart_phase(torch, seed, device, results)
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4206,7 +4574,7 @@ def main() -> None:
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
     # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
     # paged attention and 12. the recurrent kernels at device scale, 13.
-    # paged serving, 14. recurrent-model serving
+    # paged serving, 14. recurrent-model serving, 15. training
     results: dict = {}
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
@@ -4226,6 +4594,7 @@ def main() -> None:
     for arch, batch, prompt_len, new, cache_len in RECURRENT_SERVE:
         recurrent_serve_phase(torch, args.seed, device, results, arch, batch,
                               prompt_len, new, cache_len)
+    train_phase(torch, args.seed, device, results)
     check(sorted(results) == sorted(TPU_KERNELS), f"kernels {sorted(results)}"
           f" are not those of {sorted(TPU_KERNELS)}")
     for r in results.values():
@@ -4239,6 +4608,8 @@ def main() -> None:
           "scan / find paths")
     check(results["profile_cube"]["scoped_launches"] == STORE_ENGINE_GROUPS,
           "the scoped cube was not launched once a group")
+    check(results["rglru_scan"]["backward"]["launches"] > 0,
+          "the rglru_scan gradient was not launched on the training path")
     log(f"[total] {card}: every phase held, "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"card": card, "kernels": list(results.values())}))

@@ -21,7 +21,9 @@ which torch cannot reproduce: :func:`paged_lm_state_dict` carries them over
 :func:`model_state_dict` carries the model zoo's ``Model.init`` parameters
 into a ``state_dict`` for the port's ``models.Model``; :func:`model_cache`
 maps the reference's decode caches the same way, so the two can be compared
-layer by layer.
+layer by layer. :func:`train_state` maps a reference train state
+(parameters, AdamW moments, counts) onto the port's, so both packages can
+train from one state.
 """
 from __future__ import annotations
 
@@ -165,3 +167,19 @@ def model_cache(cache: Mapping, cfg) -> List[Dict[str, torch.Tensor]]:
     numpy leaves, as CPU tensors of the reference's dtypes."""
     return [{k: _tensor(v) for k, v in layer.items()}
             for layer in _per_layer(cache, cfg)]
+
+
+def train_state(state: Mapping, cfg) -> Dict[str, Any]:
+    """The port's train state from the reference's
+    ``{"params", "opt": {"m", "v", "count"}, "step"}`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``): ``params``, ``m`` and ``v``
+    through :func:`model_state_dict` (the moments have the parameters'
+    layout), ``count`` and ``step`` as 0-d int32 tensors, all on the
+    CPU. ``Model.bind_params`` (the train step) copies ``params`` into a
+    model."""
+    opt = state["opt"]
+    return {"params": model_state_dict(state["params"], cfg),
+            "opt": {"m": model_state_dict(opt["m"], cfg),
+                    "v": model_state_dict(opt["v"], cfg),
+                    "count": _tensor(opt["count"])},
+            "step": _tensor(state["step"])}

@@ -10,8 +10,9 @@ thread per (batch, channel) walking time in order. It takes any B, S and
 R (S = 1 is a decode step), counts its launches in a plain integer (a
 launch captured into a CUDA graph counts on each replay, see
 :mod:`repro_torch.kernels._launches`), takes CUDA tensors only and raises
-on anything else: there is no fallback here. The plain version lives in
-``ref.py``.
+on anything else: there is no fallback here. :func:`rglru_scan_bwd_cuda`
+is its gradient, the same thread layout walking time backwards, counted
+in ``rglru_scan_bwd_launches``. The plain versions live in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -28,16 +29,18 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rglru_scan.cu",)
 MAX_BATCH = 65535                   # the grid's y extent
 
-# launch counter: +1 per kernel launch, nowhere else
+# launch counters: +1 per kernel launch, nowhere else
 rglru_scan_launches = 0
+rglru_scan_bwd_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
 
 
 def reset_counters() -> None:
-    global rglru_scan_launches
+    global rglru_scan_launches, rglru_scan_bwd_launches
     rglru_scan_launches = 0
+    rglru_scan_bwd_launches = 0
 
 
 def library_path() -> Path:
@@ -60,6 +63,9 @@ def _lib() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, p]
             lib.rglru_scan_launch.restype = i
+            lib.rglru_scan_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                  i, p]
+            lib.rglru_scan_bwd_launch.restype = i
             lib.rglru_scan_threads.argtypes = []
             lib.rglru_scan_threads.restype = i
             lib.rglru_scan_error_string.argtypes = [i]
@@ -74,10 +80,14 @@ def threads() -> int:
 
 
 def _check(log_a: torch.Tensor, b: torch.Tensor,
-           h0: Optional[torch.Tensor]) -> Tuple[int, int, int]:
+           h0: Optional[torch.Tensor], b_name: str = "b",
+           more: Tuple[Tuple[str, torch.Tensor], ...] = ()
+           ) -> Tuple[int, int, int]:
     """Raises unless the arguments are what the kernel takes; returns
-    (B, S, R)."""
-    named = [("log_a", log_a, 3), ("b", b, 3)]
+    (B, S, R). ``b`` (named ``b_name``) and each tensor of ``more`` must
+    have log_a's shape."""
+    named = [("log_a", log_a, 3), (b_name, b, 3)]
+    named += [(name, t, 3) for name, t in more]
     if h0 is not None:
         named.append(("h0", h0, 2))
     for name, t, dim in named:
@@ -97,9 +107,10 @@ def _check(log_a: torch.Tensor, b: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, S, R = log_a.shape
-    if b.shape != log_a.shape:
-        raise ValueError(f"b {tuple(b.shape)} differs from log_a "
-                         f"{tuple(log_a.shape)}")
+    for name, t, dim in named[1:]:
+        if dim == 3 and t.shape != log_a.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} differs from log_a "
+                             f"{tuple(log_a.shape)}")
     if h0 is not None and h0.shape != (B, R):
         raise ValueError(f"h0 must be ({B}, {R}), got {tuple(h0.shape)}")
     if B > MAX_BATCH:
@@ -125,3 +136,36 @@ def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
                            f"{lib.rglru_scan_error_string(err).decode()}")
     _launches.count(__name__, "rglru_scan_launches")
     return out
+
+
+def rglru_scan_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
+                        gh: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                        want_dh0: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Optional[torch.Tensor]]:
+    """The gradient of :func:`rglru_scan_cuda`. log_a, h (its output) and
+    gh (the gradient of h): (B, S, R) f32; h0: (B, R) f32 or None (zeros);
+    all contiguous on one CUDA device. Returns (dlog_a, db, dh0), dh0
+    (B, R) f32, or None when ``want_dh0`` is false."""
+    B, S, R = _check(log_a, h, h0, "h", (("gh", gh),))
+    dlog_a = torch.empty_like(log_a)
+    db = torch.empty_like(gh)
+    dh0 = torch.empty((B, R), dtype=torch.float32,
+                      device=log_a.device) if want_dh0 else None
+    if B == 0 or R == 0:
+        return dlog_a, db, dh0
+    if S == 0:
+        if dh0 is not None:
+            dh0.zero_()
+        return dlog_a, db, dh0
+    lib = _lib()
+    err = _launches.launch(
+        lib.rglru_scan_bwd_launch, log_a.device.index, log_a.data_ptr(),
+        h.data_ptr(), gh.data_ptr(), None if h0 is None else h0.data_ptr(),
+        dlog_a.data_ptr(), db.data_ptr(),
+        None if dh0 is None else dh0.data_ptr(), B, S, R)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan backward launch failed: "
+                           f"{lib.rglru_scan_error_string(err).decode()}")
+    _launches.count(__name__, "rglru_scan_bwd_launches")
+    return dlog_a, db, dh0

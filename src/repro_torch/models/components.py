@@ -4,7 +4,9 @@ Numerics policy, as in the reference: parameters and activations are bf16;
 softmax, norms and recurrences accumulate in f32. Attention is a chunked
 online softmax (flash-style) in plain PyTorch, as the reference's is plain
 JAX. The RG-LRU recurrence runs through the port's ``rglru_scan`` op: the
-hand-written CUDA kernel on the card, its plain version on the CPU. The
+hand-written CUDA kernel on the card, its plain version on the CPU; under
+autograd its gradient is the hand-written gradient kernel (its plain
+version on the CPU), where the reference differentiates its own scan. The
 reference scans with ``jax.lax.associative_scan`` (folding ``h0`` into the
 first step) and steps with ``exp(log_a) h + b``; the op walks time in order,
 so the two agree to f32 rounding. f32 products here need TF32 off on the
@@ -214,7 +216,7 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     """Diagonal linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t.
 
     log_a, b: (B, S, R) f32; h0: (B, R) or None (zeros). One ``rglru_scan``
-    op call, walking time in order.
+    op call, walking time in order (differentiable: ``ops.RGLRUScan``).
     """
     return rglru_ops.rglru_scan(log_a, b, h0)
 

@@ -12,18 +12,28 @@ in ``cfg.layers`` order and a decode cache is a list of per-layer dicts.
 ``repro_torch.convert.model_state_dict`` maps the reference's stacked
 parameters (and ``model_cache`` its caches) onto that order.
 
+Training: :meth:`Model.train_params` makes the parameters require
+gradients; :meth:`Model.forward` then records autograd and, as the
+reference does (``remat_policy="full"``), rematerializes one
+``torch.utils.checkpoint`` region a superblock of ``cfg.pattern`` layers
+and one a tail layer. :meth:`Model.loss` is the reference's CE over
+``labels >= 0``. :meth:`Model.decay_names` carries the reference's weight
+decay layout over (its stacked superblock leaves are 2-D or more).
+``prefill`` and the decode steps run under ``no_grad``.
+
 Not ported yet (ROADMAP.md queue 1 item 11): MoE FFNs, cross-attention,
-the whisper encoder with its layer norms and learned positions, the int8
-KV cache and ``loss``; each raises ``NotImplementedError``.
+the whisper encoder with its layer norms and learned positions and the
+int8 KV cache; each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import rwkv6 as rk
@@ -35,6 +45,7 @@ from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL, FFN_MOE,
 
 Cache = List[Dict[str, torch.Tensor]]
 _TODO = "not ported yet (ROADMAP.md queue 1 item 11)"
+_MOE_AUX_COEF = 0.01
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
@@ -505,29 +516,122 @@ class Model(nn.Module):
         logits = (x @ head).float()
         return softcap(logits, cfg.final_softcap)
 
+    def train_params(self) -> Dict[str, nn.Parameter]:
+        """Every parameter by name (the ``state_dict`` names), each made to
+        require gradients: the train state's ``params``."""
+        self._params()
+        params = dict(self.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        return params
+
     @torch.no_grad()
+    def bind_params(self, params: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, nn.Parameter]:
+        """The model's own parameters holding ``params``' values: a tensor
+        that is not the model's own (a restored checkpoint's, a converted
+        state's) is copied in. Returns :meth:`train_params`."""
+        own = self.train_params()
+        if set(params) != set(own):
+            raise ValueError(f"parameter names differ: "
+                             f"{sorted(set(params) ^ set(own))[:6]}")
+        for name, p in own.items():
+            if params[name] is not p:
+                p.copy_(params[name])
+        return own
+
+    def decay_names(self) -> Set[str]:
+        """The parameters the reference's AdamW decays (``ndim >= 2`` of
+        its leaf): every parameter of a superblock layer (its leaves carry
+        the stacking axis, so 1-D weights are 2-D there) and the others
+        with ``ndim >= 2``."""
+        self._params()
+        scanned = self.cfg.n_super * len(self.cfg.pattern)
+        out = set()
+        for name, p in self.named_parameters():
+            parts = name.split(".")
+            if (parts[0] == "layers" and int(parts[1]) < scanned) \
+                    or p.dim() >= 2:
+                out.add(name)
+        return out
+
+    def _blocks(self) -> List[Tuple[int, ...]]:
+        """The reference's remat regions as layer indices: one superblock
+        of ``cfg.pattern`` layers each, then one tail layer each."""
+        cfg = self.cfg
+        period = len(cfg.pattern)
+        return ([tuple(range(i * period, (i + 1) * period))
+                 for i in range(cfg.n_super)]
+                + [(n,) for n in range(cfg.n_super * period, cfg.n_layers)])
+
+    def _run_block(self, x: torch.Tensor, positions: torch.Tensor,
+                   layers: Tuple[int, ...], want_cache: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        blobs: Cache = []
+        for n in layers:
+            x, a, blob = apply_layer_seq(self.cfg, self.cfg.layers[n],
+                                         self.layers[n], x, positions,
+                                         self.kv_chunk, want_cache)
+            aux = aux + a
+            blobs.append(blob)
+        return x, aux, blobs
+
     def forward(self, tokens: torch.Tensor, want_cache: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
         """Full-sequence forward. Returns (logits, aux_loss, caches), the
         caches one dict a layer. The reference's ``extras`` (encoder
         frames, image tokens) and ``positions`` are for the archs not
-        ported yet."""
+        ported yet.
+
+        It records autograd when the caller's grad mode is on and the
+        parameters require gradients (:meth:`train_params`); each remat
+        region (:meth:`_blocks`) then runs under a non-reentrant
+        ``torch.utils.checkpoint`` and is recomputed in the backward."""
         self._params()
-        cfg = self.cfg
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(S, device=x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches: Cache = []
-        for spec, lp in zip(cfg.layers, self.layers):
-            x, aux, blob = apply_layer_seq(cfg, spec, lp, x, positions,
-                                           self.kv_chunk, want_cache)
+        remat = torch.is_grad_enabled() and self.embed.requires_grad \
+            and not want_cache
+        for layers in self._blocks():
+            if remat:
+                # the layers draw no random numbers: no RNG state to keep
+                x, aux, blobs = checkpoint(
+                    self._run_block, x, positions, layers,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux, blobs = self._run_block(x, positions, layers,
+                                                want_cache)
             aux_total = aux_total + aux
-            caches.append(blob)
+            caches += blobs
         return self._logits(x), aux_total, caches
 
-    def loss(self, batch: dict):
-        raise NotImplementedError(f"the training loss is {_TODO}")
+    def loss(self, batch: Mapping[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens (B, S), labels (B, S) with -100 (any negative) =
+        ignore, on the model's device. The reference's mask-sum CE: the
+        label's logit is taken by a gather, which picks the same f32 value
+        as its masked sum over the vocabulary (every other term is an
+        exact 0) without a (B, S, V) mask. Returns (ce + 0.01 aux,
+        {"ce", "aux", "tokens"})."""
+        if batch.get("extras") is not None:
+            raise NotImplementedError(f"extras (encoder frames, image "
+                                      f"tokens) are {_TODO}")
+        logits, aux, _ = self.forward(batch["tokens"])
+        labels = batch["labels"].long()
+        valid = labels >= 0
+        safe = torch.clamp(labels, min=0)
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+        nll = lse - label_logit
+        denom = torch.clamp(valid.sum(), min=1)
+        ce = torch.where(valid, nll, 0.0).sum() / denom
+        total = ce + _MOE_AUX_COEF * aux
+        return total, {"ce": ce, "aux": aux,
+                       "tokens": denom.to(torch.float32)}
 
     # -- decode ----------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> Cache:

@@ -6,7 +6,8 @@ over a ``DeviceColumnStore``, ``policy_scan_mesh``), a profile cube and its
 reports must build, and the paged serving engine must serve requests over
 its tiered KV cache, with both blocked (and a tenant's scoped queries
 served from the store, and a policy run over a store whose groups are
-demoted to packed segments and streamed); the default device must raise when
+demoted to packed segments and streamed, and three steps of the training
+launcher with a checkpoint restored); the default device must raise when
 CUDA is absent; and the kernel path must refuse CPU tensors instead of
 quietly running the plain version.
 """
@@ -143,6 +144,24 @@ for arch in ("rwkv6_1p6b", "recurrentgemma_9b"):
     assert len(cache) == cfg.n_layers
 assert rg_kernel.rglru_scan_launches == 0
 assert rw_kernel.rwkv6_step_launches == 0
+
+import contextlib, io, tempfile
+from repro_torch.launch import train as launch_train
+printed = io.StringIO()
+with tempfile.TemporaryDirectory() as ck, contextlib.redirect_stdout(printed):
+    out = launch_train.main(["--arch", "recurrentgemma-9b", "--smoke",
+                             "--steps", "3", "--batch", "4", "--seq", "16",
+                             "--accum", "2", "--device", "cpu",
+                             "--ckpt-dir", ck, "--ckpt-interval", "2"])
+    assert len(out["history"]) == 3 and out["restarts"] == 0
+    assert all(l == l for l in out["history"])
+    assert out["ckpt"].steps() == [2]
+    restored, step = out["ckpt"].restore(like=out["state"])
+    assert step == 2 and int(restored["step"]) == 2
+assert printed.getvalue().startswith("step     0 loss"), printed.getvalue()
+assert "done: 3 steps, restarts=0" in printed.getvalue()
+assert rg_kernel.rglru_scan_launches == 0
+assert rg_kernel.rglru_scan_bwd_launches == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("OK", r.matched)
@@ -155,8 +174,10 @@ def test_policy_runs_with_jax_and_repro_blocked():
     ``ProfileCube(use_kernel=True)`` and ``Reports``, runs a scoped
     ``find``, ``top_files``, ``du`` and cube through a store with a
     ``GrantTable``,
-    serves requests through ``ServingEngine(device="cpu").run``, and runs a
-    prefill and three decode steps of both recurrent smoke models."""
+    serves requests through ``ServingEngine(device="cpu").run``, runs a
+    prefill and three decode steps of both recurrent smoke models, and
+    trains recurrentgemma smoke three steps through ``launch.train.main``
+    (a checkpoint saved and restored)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
@@ -198,6 +219,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from repro_torch.models import Model
     with pytest.raises(RuntimeError):
         Model(get_config("rwkv6_1p6b", smoke=True)).init(torch.Generator())
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError):
+        launch_train.main(["--smoke", "--steps", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -242,6 +266,8 @@ def test_kernel_path_refuses_cpu_tensors():
         rg_ops.rglru_scan(la, la, use_kernel=True)
     with pytest.raises(ValueError):
         rg_kernel.rglru_scan_cuda(la, la)
+    with pytest.raises(ValueError):
+        rg_kernel.rglru_scan_bwd_cuda(la, la, la)
     with pytest.raises(ValueError):
         rw_ops.rwkv6_step(vec, vec, vec, vec, u, s, use_kernel=True)
     with pytest.raises(ValueError):

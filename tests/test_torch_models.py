@@ -416,8 +416,9 @@ def test_unported_parts_raise():
         with pytest.raises(NotImplementedError, match="queue 1 item 11"):
             Model(torch_config(arch, smoke=True))
     m = _pair("rwkv6_1p6b").port
-    with pytest.raises(NotImplementedError):
-        m.loss({})
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        m.loss({"tokens": toks, "labels": toks, "extras": {"img": toks}})
     import dataclasses
     q = Model(dataclasses.replace(torch_config("chatglm3_6b", smoke=True),
                                   kv_cache_dtype="int8")).init(

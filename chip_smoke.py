@@ -9,10 +9,12 @@ failure:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
-   ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, and
-   the first ``policy_scan`` design (``v0`` of
-   ``tools/policy_scan_designs.cu``), one ``nvcc`` each, started together,
-   with each build time;
+   ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, the
+   first ``policy_scan`` design (``v0`` of
+   ``tools/policy_scan_designs.cu``) and the first ``rglru_scan`` design
+   (``tools/rglru_scan_designs.cu``, through ``tools/rglru_variants.py``
+   with ``-Xptxas -v``: registers, spills, shared memory), one ``nvcc``
+   each, started together, with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
@@ -190,8 +192,12 @@ failure:
 12. recurrent kernels at device scale (after the attention phase), seeded
     inputs drawn on the card with the models' decay distributions:
     ``rglru_scan`` at recurrentgemma-9b's width (B 8, S 4096, R 4096, f32,
-    1.6 GB) and at S 1, S 2016 and R 100, each with and without ``h0``,
-    within ``rtol=1e-5, atol=1e-6`` of its plain version; ``rwkv6_step`` at
+    1.6 GB), at S 1, S 2016, R 100 and the training path's (2, 2560,
+    4096), each with and without ``h0``, equal to its plain version bit for
+    bit (``torch.equal``), and at (2, 2560, 4096), (4, 2016, 4096) and
+    (8, 4096, 4096) timed in turns with the first design (both launched
+    through their C entry points, each equal to the plain version), its
+    decode step too, graph-launched; ``rwkv6_step`` at
     rwkv6-1.6b's heads (B 256, H 32, hd 64: a 134 MB state), at hd 16 and
     at B 1, y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| +
     |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
@@ -242,9 +248,10 @@ failure:
     dlog_a, db and dh0 equal to ``rglru_bwd_ref`` on the card
     (``torch.equal``) on two calls, the forward at the same shapes equal
     to ``rglru_ref``, timed from an idle card beside its bound and the
-    plain version; (b) recurrentgemma-9b at its published widths cut to 5
-    layers (one (rec, rec, local) superblock and 2 tail recurrent layers,
-    2.17 B parameters) trained 8 steps through ``launch.train.run``
+    plain version, and in turns with the first design; (b)
+    recurrentgemma-9b at its published widths cut to 5 layers (one (rec,
+    rec, local) superblock and 2 tail recurrent layers, 2.17 B
+    parameters) trained 8 steps through ``launch.train.run``
     (``DataPipeline`` of 4 x 2560 tokens in 2 microbatches,
     ``cosine_warmup(3e-4, 1, 8)``, weight decay 0.01): every loss finite,
     the mean of the last three below the first, exactly 16 forward and 8
@@ -359,12 +366,15 @@ SERVE_NEW = 32
 SERVE_CHECK_EVERY = 29          # the checker's sampling stride
 RG_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
 RW_SOURCE = "src/repro_torch/kernels/rwkv6_step/csrc/rwkv6_step.cu"
-RG_TOL = dict(rtol=1e-5, atol=1e-6)
 # recurrent kernels: rglru_scan (B, S, R) at recurrentgemma-9b's d_rnn and
 # the ragged shapes (a decode step, its prefill length, an odd width);
 # rwkv6_step (B, H, hd) at rwkv6-1.6b's heads, hd 16 and B = 1
 RG_SHAPE = (8, 4096, 4096)
 RG_RAGGED = ((8, 1, 4096), (4, 2016, 4096), (8, 4096, 100))
+RG_TRAIN = (2, 2560, 4096)      # the training path's forward and gradient
+# forward shapes timed in turns with the first design: training, serving
+# prefill, the kernel phase's
+RG_TURN_SHAPES = (RG_TRAIN, (4, 2016, 4096), RG_SHAPE)
 RW_SHAPE = (256, 32, 64)
 RW_RAGGED = ((256, 32, 16), (1, 32, 64))
 # the serving paths' shapes: a recurrentgemma-9b decode step (4 prompts)
@@ -524,6 +534,61 @@ def build_first_scan():
     built = sv.build("first", sv.sources(["v0"])["v0"],
                      os.path.join(ROOT, "build", "scan_variants"))
     return sv.Variant("first", built["lib"]), built["ptxas"]
+
+
+def rglru_variants():
+    """``tools/rglru_variants.py`` as a module."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import rglru_variants as rv
+    return rv
+
+
+def build_first_rglru() -> dict:
+    """The first ``rglru_scan`` design (``tools/rglru_scan_designs.cu``)
+    built by ``tools/rglru_variants.py`` with ``-Xptxas -v`` under
+    ``build/``: its library and ptxas report."""
+    return rglru_variants().build("first", os.path.join(ROOT, "build",
+                                                        "rglru_variants"))
+
+
+def rglru_designs(first=None) -> dict:
+    """The first design (built first unless ``first`` holds it) and the
+    package's own library as ``kernel._lib()`` loaded it ("current"), each
+    launched through its C entry points: name ->
+    (``rglru_variants.Variant``, the first's ptxas report or None; the
+    package's registers and spills are in ``kernel.ring_shape``)."""
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    rv = rglru_variants()
+    first = first or build_first_rglru()
+    return {"first": (rv.Variant("first", first["lib"]), first["ptxas"]),
+            "current": (rv.Variant("current", RGK._lib()), None)}
+
+
+def rglru_design_calls(torch, designs: dict, what: str, want, launch):
+    """For each design, ``launch(variant, outs)`` into new outputs shaped
+    as ``want`` (a tensor, or a tuple of them), which must then equal
+    ``want`` bit for bit: name -> that call, with no arguments, for
+    timing."""
+    want = want if isinstance(want, tuple) else (want,)
+    calls = {}
+    for s, (v, _) in designs.items():
+        outs = tuple(torch.empty_like(w) for w in want)
+        launch(v, outs)
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, w) for o, w in zip(outs, want)),
+              f"rglru_scan design {s!r} {what}: differs from the plain "
+              "version")
+        calls[s] = lambda v=v, outs=outs: launch(v, outs)
+    return calls
+
+
+def rglru_turns(designs: dict, calls: dict) -> dict:
+    """Each design's call timed in turns, first, current, current, first,
+    ``REPS // 2`` calls from an idle card each time (CUDA events): name ->
+    (median of the ``REPS`` times, the times)."""
+    times = rglru_variants().in_turns(
+        calls, 2, REPS // 2, lambda fn, n: cuda_times_ms(fn, n)[1])
+    return {s: (statistics.median(t), t) for s, t in times.items()}
 
 
 def kernel_phase(torch, seed, device, results, first=None):
@@ -3583,18 +3648,17 @@ def rglru_inputs(torch, shape, seed: int, device):
 
 
 def rglru_agrees(torch, args, out):
-    """The kernel's ``out`` against the plain version on the same tensors
-    (``RG_TOL``). Returns (ok, max abs err, bit-identical)."""
+    """The kernel's ``out`` against the plain version on the same tensors.
+    Returns (bit-identical, max abs err)."""
     from repro_torch.kernels.rglru_scan import ref as RGR
     la, b, h0 = args
     if h0 is None:
         h0 = torch.zeros((la.shape[0], la.shape[2]), device=la.device)
     want = RGR.rglru_ref(la, b, h0)
     if want.numel() == 0:
-        return out.shape == want.shape, 0.0, True
-    err = float((out - want).abs().max().item())
-    return (bool(torch.allclose(out, want, **RG_TOL)), err,
-            bool(torch.equal(out, want)))
+        return out.shape == want.shape, 0.0
+    return (bool(torch.equal(out, want)),
+            float((out - want).abs().max().item()))
 
 
 def rglru_bound_ms(shape, with_h0: bool):
@@ -3700,15 +3764,55 @@ def path_shape_times(torch, name: str, shape, call) -> dict:
                 graph_call_ms=graph_ms)
 
 
-def recurrent_kernel_phase(torch, seed, device, results):
+def rglru_fwd_turns(torch, designs, name, shape, la, b, h0) -> dict:
+    """The forward at ``shape`` (with h0) through each design's C entry
+    point: equal to ``rglru_ref`` bit for bit, then timed in turns
+    (``rglru_turns``) beside its bound, with the package kernel's own
+    device time (``torch.profiler``)."""
+    from repro_torch.kernels.rglru_scan import kernel as RGK
+    from repro_torch.kernels.rglru_scan import ref as RGR
+    turns = rglru_turns(designs, rglru_design_calls(
+        torch, designs, name, RGR.rglru_ref(la, b, h0),
+        lambda v, o: v.fwd(la, b, h0, *o)))
+    part = ("rglru_ring_kernel" if RGK.uses_ring(shape[1], shape[2])
+            else "rglru_scan_kernel")
+    dev = one_kernel_ms(kernel_device_ms(
+        torch, lambda: RGK.rglru_scan_cuda(la, b, h0), REPS), part,
+        f"rglru_scan {name}")
+    bound, by, nbytes, ops = rglru_bound_ms(shape, True)
+    out = dict(turns={s: dict(ms=ms, times=t) for s, (ms, t) in
+                      turns.items()},
+               device_ms=dev, bound_ms=bound, bound_by=by, bytes=nbytes,
+               ops=ops)
+    log(f"[recurrent] rglru_scan {name} {CARD}, in turns (first, current, "
+        f"current, first; C entry point, median of {REPS} each): "
+        + "; ".join(f"{s} {ms!r} ms ({bound / ms:.3f} of the bound, min "
+                    f"{min(t)!r}, max {max(t)!r})"
+                    for s, (ms, t) in turns.items())
+        + f"; bound {bound!r} ms by {by} ({nbytes} B, {ops} f32 ops); the "
+        f"package kernel's own device time {dev!r} ms (torch.profiler, mean "
+        f"of {REPS}); every design equal to rglru_ref bit for bit")
+    return out
+
+
+def recurrent_kernel_phase(torch, seed, device, results, designs=None):
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rglru_scan import ref as RGR
     from repro_torch.kernels.rwkv6_step import kernel as RWK
     from repro_torch.kernels.rwkv6_step import ref as RWR
+    designs = designs or rglru_designs()
+    rings = {"forward": RGK.ring_shape(False),
+             "gradient": RGK.ring_shape(True)}
+    log(f"[recurrent] rglru_scan first design (-Xptxas -v; its kernels are "
+        f"the package's direct kernels line for line): {json.dumps(designs['first'][1])}")
+    log(f"[recurrent] rglru_scan ring kernels on {CARD} (registers and "
+        f"local bytes a thread from cudaFuncGetAttributes): "
+        f"{json.dumps(rings)}")
 
-    # rglru_scan at recurrentgemma-9b's width, then the ragged shapes
+    # rglru_scan at recurrentgemma-9b's width, then the ragged shapes and
+    # the training path's
     configs = {}
-    for i, shape in enumerate((RG_SHAPE,) + RG_RAGGED):
+    for i, shape in enumerate((RG_SHAPE,) + RG_RAGGED + (RG_TRAIN,)):
         la, b, h0 = rglru_inputs(torch, shape, seed + 20 + i, device)
         for with_h0 in (True, False):
             args = (la, b, h0 if with_h0 else None)
@@ -3721,31 +3825,27 @@ def recurrent_kernel_phase(torch, seed, device, results):
                   "non-finite output")
             check(torch.equal(got, again), f"rglru_scan {name}: the kernel "
                   "differs from run to run")
-            ok, err, same = rglru_agrees(torch, args, got)
-            check(ok, f"rglru_scan {name}: the kernel differs from the plain "
-                  f"version: max abs err {err!r} ({RG_TOL})")
-            entry = dict(max_abs_err=err, bit_identical=same)
+            same, err = rglru_agrees(torch, args, got)
+            check(same, f"rglru_scan {name}: the kernel differs from the "
+                  f"plain version: max abs err {err!r}")
+            entry = dict(max_abs_err=err, bit_identical=same,
+                         ring=RGK.uses_ring(shape[1], shape[2]))
             if shape == RG_SHAPE and with_h0:
                 entry["ms"], times = cuda_times_ms(
                     lambda: RGK.rglru_scan_cuda(*args), REPS)
                 entry["plain_ms"], _ = cuda_times_ms(
-                    lambda: RGR.rglru_ref(la, b, h0 if with_h0 else
-                                          torch.zeros_like(h0)), REPS)
-                (entry["bound_ms"], entry["bound_by"], entry["bytes"],
-                 entry["ops"]) = rglru_bound_ms(shape, with_h0)
+                    lambda: RGR.rglru_ref(la, b, h0), REPS)
                 log(f"[recurrent] rglru_scan {name} {CARD}: kernel "
-                    f"{entry['ms']!r} ms (median of {len(times)}, min "
-                    f"{min(times)!r}, max {max(times)!r}); plain "
-                    f"{entry['plain_ms']!r} ms; bound {entry['bound_ms']!r} "
-                    f"ms by {entry['bound_by']} ({entry['bytes']} B, "
-                    f"{entry['ops']} f32 ops); "
-                    f"{entry['bound_ms'] / entry['ms']:.3f} of the bound; "
-                    f"max abs err {err!r}, bit-identical {same}; grid "
-                    f"{-(-shape[2] // RGK.threads()) * shape[0]} blocks of "
-                    f"{RGK.threads()} threads")
+                    f"{entry['ms']!r} ms through rglru_scan_cuda (median of "
+                    f"{len(times)}, min {min(times)!r}, max {max(times)!r}); "
+                    f"plain {entry['plain_ms']!r} ms")
+            if shape in RG_TURN_SHAPES and with_h0:
+                entry.update(rglru_fwd_turns(torch, designs, name, shape, la,
+                                             b, h0))
             else:
-                log(f"[recurrent] rglru_scan {name}: max abs err {err!r}, "
-                    f"bit-identical {same}")
+                log(f"[recurrent] rglru_scan {name}: equal to the plain "
+                    f"version bit for bit, twice (ring kernel: "
+                    f"{entry['ring']})")
             configs[name] = entry
             del got, again
         del la, b, h0
@@ -3754,6 +3854,16 @@ def recurrent_kernel_phase(torch, seed, device, results):
     la, b, h0 = rglru_inputs(torch, RG_PATH, seed + 25, device)
     path = path_shape_times(torch, "rglru_scan", RG_PATH,
                             lambda: RGK.rglru_scan_cuda(la, b, h0))
+    # the decode step graph-launched, the first design and csrc/ in turns
+    graphed = rglru_variants().in_turns(rglru_design_calls(
+        torch, designs, f"decode step {RG_PATH}", RGR.rglru_ref(la, b, h0),
+        lambda v, o: v.fwd(la, b, h0, *o)), 2, 1,
+        lambda fn, _: [graph_call_ms(torch, fn)[0]])
+    path["graph_turns"] = {s: dict(ms=statistics.median(t), each_turn=t)
+                           for s, t in graphed.items()}
+    log(f"[recurrent] rglru_scan decode {RG_PATH} {CARD}, in turns (first, "
+        f"current, current, first), graph-launched ms a call: "
+        f"{json.dumps(path['graph_turns'])}")
     del la, b, h0
     results["rglru_scan"] = {
         "name": "rglru_scan", "route": "cuda", "source": RG_SOURCE,
@@ -3763,7 +3873,9 @@ def recurrent_kernel_phase(torch, seed, device, results):
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "library": "none: no single PyTorch call computes it",
-        "error_against": "the plain version on the same tensors",
+        "error_against": "the plain version on the same tensors "
+                         "(torch.equal)",
+        "first_design": designs["first"][1], "rings": rings,
         "configs": configs, "decode_shape": path}
 
     # rwkv6_step at rwkv6-1.6b's heads, then hd 16 and B = 1
@@ -3847,7 +3959,8 @@ class OpChecker:
     kernel's result; for the first ``first`` calls (the layers call the op
     in order, so one a layer) and every ``every``-th call after, it also
     runs the plain version on the same device tensors and fails the run on
-    a mismatch (``agrees``)."""
+    a mismatch (``agrees``: (ok, max abs err, ...), its last value whether
+    the outputs were bit-identical where ok is not that already)."""
 
     def __init__(self, op, agrees, first: int, every: int):
         self.op, self.agrees = op, agrees
@@ -3865,7 +3978,7 @@ class OpChecker:
                   f"plain version at call {self.calls}: max abs err "
                   f"{err!r} {rest}")
             self.max_err = max(self.max_err, err)
-            self.bit_identical += bool(rest[-1])
+            self.bit_identical += bool(rest[-1] if rest else ok)
             self.checked += 1
         self.shapes[tuple(args[0].shape)] = args
         self.calls += 1
@@ -4209,14 +4322,16 @@ def rglru_bwd_bound_ms(shape, with_h0: bool):
             else "operations", nbytes, ops)
 
 
-def train_kernel_phase(torch, seed, device, results):
+def train_kernel_phase(torch, seed, device, results, designs=None):
     """The gradient kernel at RG_BWD_SHAPES, with and without h0: dlog_a,
     db and dh0 equal to ``rglru_bwd_ref`` on the card (``torch.equal``) and
     again on a second call; the forward at the same shape equal to
     ``rglru_ref`` too; timed from an idle card beside its bound and the
-    plain version."""
+    plain version, and in turns with the first design (``rglru_turns``,
+    each design's C entry point, each equal to ``rglru_bwd_ref``)."""
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rglru_scan import ref as RGR
+    designs = designs or rglru_designs()
     configs = {}
     for i, shape in enumerate(RG_BWD_SHAPES):
         la, b, h0 = rglru_inputs(torch, shape, seed + 50 + i, device)
@@ -4254,6 +4369,17 @@ def train_kernel_phase(torch, seed, device, results):
                     lambda: RGR.rglru_bwd_ref(la, h, gh, h0), 3, warmup=1)
                 (entry["bound_ms"], entry["bound_by"], entry["bytes"],
                  entry["ops"]) = rglru_bwd_bound_ms(shape, True)
+                turns = rglru_turns(designs, rglru_design_calls(
+                    torch, designs, f"backward {name}", tuple(want),
+                    lambda v, o: v.bwd(la, h, gh, h0, *o)))
+                entry["turns"] = {s: dict(ms=ms, times=t)
+                                  for s, (ms, t) in turns.items()}
+                log(f"[train] rglru_scan backward {name} {CARD}, in turns "
+                    f"(first, current, current, first; C entry point, "
+                    f"median of {REPS} each): " + "; ".join(
+                        f"{s} {ms!r} ms ({entry['bound_ms'] / ms:.3f} of the "
+                        f"bound, min {min(t)!r}, max {max(t)!r})"
+                        for s, (ms, t) in turns.items()))
                 log(f"[train] rglru_scan backward {name} {CARD}: kernel "
                     f"{entry['ms']!r} ms (median of {len(times)}, min "
                     f"{min(times)!r}, max {max(times)!r}); plain "
@@ -4513,9 +4639,9 @@ def train_restart_phase(torch, seed, device, results):
         cpu_losses=cpu["losses"], max_cpu_diff=max(diffs))
 
 
-def train_phase(torch, seed, device, results):
+def train_phase(torch, seed, device, results, designs=None):
     t0 = time.perf_counter()
-    train_kernel_phase(torch, seed, device, results)
+    train_kernel_phase(torch, seed, device, results, designs)
     train_full_phase(torch, seed, device, results)
     train_restart_phase(torch, seed, device, results)
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
@@ -4561,15 +4687,20 @@ def main() -> None:
     def timed_build(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=8) as pool:
         first_fut = pool.submit(timed_build, build_first_scan)
+        rg_fut = pool.submit(timed_build, build_first_rglru)
         builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
                                              RGK.build, RWK.build)))
         (first, first_ptxas), first_secs = first_fut.result()
+        rg_first, rg_secs = rg_fut.result()
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
     log(f"[build] the first policy_scan design (tools/policy_scan_designs.cu"
         f" v0) in {first_secs:.2f} s: {json.dumps(first_ptxas)}")
+    log(f"[build] the first rglru_scan design (tools/rglru_scan_designs.cu)"
+        f" in {rg_secs:.2f} s")
+    rg_designs = rglru_designs(rg_first)
 
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
     # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
@@ -4579,7 +4710,7 @@ def main() -> None:
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
     attn_phase(torch, args.seed, device, results)
-    recurrent_kernel_phase(torch, args.seed, device, results)
+    recurrent_kernel_phase(torch, args.seed, device, results, rg_designs)
     t0 = time.perf_counter()
     cat = build_catalog(ENTRIES, args.seed)
     log(f"[engine] catalog of {len(cat)} entries built in "
@@ -4594,7 +4725,7 @@ def main() -> None:
     for arch, batch, prompt_len, new, cache_len in RECURRENT_SERVE:
         recurrent_serve_phase(torch, args.seed, device, results, arch, batch,
                               prompt_len, new, cache_len)
-    train_phase(torch, args.seed, device, results)
+    train_phase(torch, args.seed, device, results, rg_designs)
     check(sorted(results) == sorted(TPU_KERNELS), f"kernels {sorted(results)}"
           f" are not those of {sorted(TPU_KERNELS)}")
     for r in results.values():

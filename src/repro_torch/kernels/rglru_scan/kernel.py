@@ -1,25 +1,29 @@
-"""Build, bind and launch the hand-written ``rglru_scan`` CUDA kernel.
+"""Build, bind and launch the hand-written ``rglru_scan`` CUDA kernels.
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes`` (see :mod:`repro_torch.kernels._build`).
 
 :func:`rglru_scan_cuda` replaces the Pallas ``rglru_pallas``: the RG-LRU
-recurrence ``h_t = exp(log_a_t) h_{t-1} + b_t`` over (B, S, R) f32, one
-thread per (batch, channel) walking time in order. It takes any B, S and
-R (S = 1 is a decode step), counts its launches in a plain integer (a
-launch captured into a CUDA graph counts on each replay, see
-:mod:`repro_torch.kernels._launches`), takes CUDA tensors only and raises
-on anything else: there is no fallback here. :func:`rglru_scan_bwd_cuda`
-is its gradient, the same thread layout walking time backwards, counted
-in ``rglru_scan_bwd_launches``. The plain versions live in ``ref.py``.
+recurrence ``h_t = exp(log_a_t) h_{t-1} + b_t`` over (B, S, R) f32. The
+library picks the kernel by shape inside one launch: a block of 32
+channels fed by a ring of time tiles in shared memory (S of a tile or
+more, R a multiple of 4, 16 B-aligned tensors), else one thread per
+(batch, channel) loading straight from device memory (a decode step).
+Either walks time in order, one thread a channel. It takes any B, S and
+R, counts its launches in a plain integer (a launch captured into a CUDA
+graph counts on each replay, see :mod:`repro_torch.kernels._launches`),
+takes CUDA tensors only and raises on anything else: there is no
+fallback here. :func:`rglru_scan_bwd_cuda` is its gradient, the same
+kernels walking time backwards, counted in ``rglru_scan_bwd_launches``.
+The plain versions live in ``ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 
@@ -35,6 +39,7 @@ rglru_scan_bwd_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_LOCK = threading.Lock()
+_PREPARED: Set[int] = set()         # devices whose ring kernels are set up
 
 
 def reset_counters() -> None:
@@ -53,30 +58,68 @@ def build() -> Path:
     return _build.build("rglru_scan", CSRC, SOURCES)
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(index: Optional[int] = None) -> ctypes.CDLL:
+    """The library, loaded once, with its ring kernels prepared (their
+    dynamic shared memory allowed) on device ``index``, the current one
+    by default: once a device, at its first use, so never while a graph
+    is being captured (a capture follows an eager warm-up)."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, p]
-            lib.rglru_scan_launch.restype = i
-            lib.rglru_scan_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                  i, p]
-            lib.rglru_scan_bwd_launch.restype = i
-            lib.rglru_scan_threads.argtypes = []
-            lib.rglru_scan_threads.restype = i
-            lib.rglru_scan_error_string.argtypes = [i]
-            lib.rglru_scan_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+    if _LIB is None:
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                p, i = ctypes.c_void_p, ctypes.c_int
+                lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, p]
+                lib.rglru_scan_launch.restype = i
+                lib.rglru_scan_bwd_launch.argtypes = [p, p, p, p, p, p, p,
+                                                      i, i, i, p]
+                lib.rglru_scan_bwd_launch.restype = i
+                lib.rglru_scan_prepare.argtypes = []
+                lib.rglru_scan_prepare.restype = i
+                lib.rglru_scan_uses_ring.argtypes = [i, i]
+                lib.rglru_scan_uses_ring.restype = i
+                lib.rglru_scan_ring_shape.argtypes = [i, ctypes.POINTER(i)]
+                lib.rglru_scan_ring_shape.restype = i
+                lib.rglru_scan_error_string.argtypes = [i]
+                lib.rglru_scan_error_string.restype = ctypes.c_char_p
+                _LIB = lib
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _PREPARED:
+        with _LIB_LOCK:
+            if index not in _PREPARED:
+                with torch.cuda.device(index):
+                    err = _LIB.rglru_scan_prepare()
+                if err != 0:
+                    raise RuntimeError(
+                        "rglru_scan: setting up the ring kernels failed: "
+                        f"{_LIB.rglru_scan_error_string(err).decode()}")
+                _PREPARED.add(index)
+    return _LIB
 
 
-def threads() -> int:
-    """Threads a block (one thread per channel of one batch row)."""
-    return _lib().rglru_scan_threads()
+def uses_ring(S: int, R: int) -> bool:
+    """Whether a call of this S and R (on 16 B-aligned tensors) runs the
+    ring kernels rather than the direct ones."""
+    return bool(_lib().rglru_scan_uses_ring(S, R))
+
+
+RING_FIELDS = ("threads", "group", "steps", "stages", "smem_bytes",
+               "blocks_per_sm", "registers", "local_bytes")
+
+
+def ring_shape(backward: bool = False) -> Dict[str, int]:
+    """The forward's (or the gradient's) ring kernel on the current
+    device: threads a block, channels a block, time steps a tile, stages,
+    dynamic shared bytes a block, resident blocks an SM, registers a thread
+    and local (spilled) bytes a thread."""
+    lib = _lib()
+    out = (ctypes.c_int * len(RING_FIELDS))()
+    err = lib.rglru_scan_ring_shape(int(backward), out)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan_ring_shape failed: "
+                           f"{lib.rglru_scan_error_string(err).decode()}")
+    return dict(zip(RING_FIELDS, out))
 
 
 def _check(log_a: torch.Tensor, b: torch.Tensor,
@@ -126,7 +169,7 @@ def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(b)
     if B == 0 or S == 0 or R == 0:
         return out
-    lib = _lib()
+    lib = _lib(log_a.device.index)
     err = _launches.launch(
         lib.rglru_scan_launch, log_a.device.index, log_a.data_ptr(),
         b.data_ptr(), None if h0 is None else h0.data_ptr(), out.data_ptr(),
@@ -158,7 +201,7 @@ def rglru_scan_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
         if dh0 is not None:
             dh0.zero_()
         return dlog_a, db, dh0
-    lib = _lib()
+    lib = _lib(log_a.device.index)
     err = _launches.launch(
         lib.rglru_scan_bwd_launch, log_a.device.index, log_a.data_ptr(),
         h.data_ptr(), gh.data_ptr(), None if h0 is None else h0.data_ptr(),

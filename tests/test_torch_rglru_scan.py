@@ -156,3 +156,134 @@ def test_cuda_kernel_checks_its_inputs(cuda_device):
         tk.rglru_scan_cuda(la.transpose(1, 2), b.transpose(1, 2), h0)
     with pytest.raises(ValueError):
         tops.rglru_scan(la, b, h0, use_kernel=False)
+
+
+# The ring kernels' shape in csrc/rglru_scan.cu: tiles of RING_STEPS time
+# steps, rings of FWD_STAGES (forward) and BWD_STAGES (gradient) tiles; a
+# shorter S, a width that is no multiple of 4 or an unaligned tensor takes
+# the direct kernels. The sweep crosses each of those edges, a channel
+# group's tail (R = 33, 100) and both rings' wrap.
+RING_STEPS, FWD_STAGES, BWD_STAGES = 32, 6, 4
+EDGE_R = [1, 31, 33, 100, 4096]
+EDGE_S = [1, RING_STEPS - 1, RING_STEPS, RING_STEPS + 1,
+          BWD_STAGES * RING_STEPS + 1, FWD_STAGES * RING_STEPS + 1, 2016]
+EDGE_B = [1, 3]
+
+
+def _grad_inputs(seed, B, S, R, device):
+    """log_a, b, h0 of :func:`_inputs` and a standard normal gh."""
+    la, b, h0 = _inputs(seed, B, S, R)
+    gh = np.random.default_rng(seed + 1).standard_normal(
+        (B, S, R)).astype(np.float32)
+    return _torch((la, b, h0, gh), device)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_shape_is_the_sweeps(cuda_device):
+    fwd, bwd = tk.ring_shape(False), tk.ring_shape(True)
+    assert (fwd["steps"], fwd["stages"], bwd["steps"], bwd["stages"]) == (
+        RING_STEPS, FWD_STAGES, RING_STEPS, BWD_STAGES)
+    assert fwd["blocks_per_sm"] >= 1 and bwd["blocks_per_sm"] >= 1
+    assert tk.uses_ring(RING_STEPS, 4096)
+    assert not tk.uses_ring(RING_STEPS - 1, 4096)
+    assert tk.uses_ring(2016, 100) and not tk.uses_ring(2016, 33)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("S", EDGE_S)
+@pytest.mark.parametrize("R", EDGE_R)
+def test_cuda_forward_bit_for_bit_at_every_edge(cuda_device, B, S, R):
+    la, b, h0, _ = _grad_inputs(7 * B + S + R, B, S, R, cuda_device)
+    for h0_arg in (h0, None):
+        want = tref.rglru_ref(la, b, h0 if h0_arg is not None
+                              else torch.zeros_like(h0))
+        before = tk.rglru_scan_launches
+        got = tk.rglru_scan_cuda(la, b, h0_arg)
+        again = tk.rglru_scan_cuda(la, b, h0_arg)
+        torch.cuda.synchronize()
+        assert tk.rglru_scan_launches == before + 2
+        assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", EDGE_B)
+@pytest.mark.parametrize("S", EDGE_S)
+@pytest.mark.parametrize("R", EDGE_R)
+def test_cuda_gradient_bit_for_bit_at_every_edge(cuda_device, B, S, R):
+    la, b, h0, gh = _grad_inputs(5 * B + S + R, B, S, R, cuda_device)
+    h = tref.rglru_ref(la, b, h0)
+    for h0_arg in (h0, None):
+        want = tref.rglru_bwd_ref(la, h, gh, h0 if h0_arg is not None
+                                  else torch.zeros_like(h0))
+        before = tk.rglru_scan_bwd_launches
+        got = tk.rglru_scan_bwd_cuda(la, h, gh, h0_arg)
+        again = tk.rglru_scan_bwd_cuda(la, h, gh, h0_arg)
+        torch.cuda.synchronize()
+        assert tk.rglru_scan_bwd_launches == before + 2
+        for x, y, w in zip(got, again, want):
+            assert torch.equal(x, w) and torch.equal(y, w)
+
+
+@pytest.mark.cuda
+def test_cuda_unaligned_tensors_take_the_direct_kernels(cuda_device):
+    """Contiguous views that start 4 B past a 16 B boundary: 16 B copies
+    cannot read them, so the launch takes the direct kernel, and the
+    results are the same bits."""
+    B, S, R = 2, 3 * RING_STEPS + 5, 64
+    la, b, h0, gh = _grad_inputs(9, B, S, R, cuda_device)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+
+    assert tk.uses_ring(S, R)
+    h = tref.rglru_ref(la, b, h0)
+    got = tk.rglru_scan_cuda(shifted(la), shifted(b), h0)
+    dgot = tk.rglru_scan_bwd_cuda(shifted(la), shifted(h), shifted(gh), h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, h)
+    for x, w in zip(dgot, tref.rglru_bwd_ref(la, h, gh, h0)):
+        assert torch.equal(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1, 4096), (2, 2 * RING_STEPS + 3, 100),
+                                   (2, 300, 4096)])
+def test_cuda_graph_replay_equals_eager_one_launch_a_call(cuda_device,
+                                                          shape):
+    """Forward and gradient captured into one CUDA graph (after an eager
+    warm-up on a side stream, as ``GraphedServeStep`` captures): the
+    capture records one launch of each, a replay adds one to each counter
+    and gives the eager call's bits."""
+    from repro_torch.kernels import _launches
+    la, b, h0, gh = _grad_inputs(sum(shape), *shape, cuda_device)
+    h_eager = tk.rglru_scan_cuda(la, b, h0)
+    g_eager = tk.rglru_scan_bwd_cuda(la, h_eager, gh, h0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.rglru_scan_bwd_cuda(la, tk.rglru_scan_cuda(la, b, h0), gh, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = (tk.rglru_scan_launches, tk.rglru_scan_bwd_launches)
+    with _launches.capturing() as tally:
+        with torch.cuda.graph(graph):
+            h = tk.rglru_scan_cuda(la, b, h0)
+            g = tk.rglru_scan_bwd_cuda(la, h, gh, h0)
+    assert dict(tally) == {(tk.__name__, "rglru_scan_launches"): 1,
+                           (tk.__name__, "rglru_scan_bwd_launches"): 1}
+    assert (tk.rglru_scan_launches, tk.rglru_scan_bwd_launches) == before
+    for n in (1, 2):
+        graph.replay()
+        _launches.replayed(tally)
+        torch.cuda.synchronize()
+        assert (tk.rglru_scan_launches, tk.rglru_scan_bwd_launches) == (
+            before[0] + n, before[1] + n)
+        assert torch.equal(h, h_eager)
+        for x, w in zip(g, g_eager):
+            assert torch.equal(x, w)

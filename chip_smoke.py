@@ -242,7 +242,7 @@ failure:
     timed, and four graphed and four eager decode steps run under
     ``torch.profiler`` for the card's busy share and device operations a
     step, eager and graphed side by side;
-15. training (last), three parts, each logged as ``[train]`` lines: (a)
+15. training, three parts, each logged as ``[train]`` lines: (a)
     the ``rglru_scan`` gradient kernel at the training path's shape
     (2, 2560, 4096) and at (8, 4096, 4096), with and without ``h0``:
     dlog_a, db and dh0 equal to ``rglru_bwd_ref`` on the card
@@ -265,11 +265,41 @@ failure:
     last 5 losses below the first 5, checkpoints retained, exact launches
     (the replayed steps included), the artifact catalog's usage logged,
     and the first 5 steps run again on the CPU from the same weights
-    within 1e-2 of the card's losses.
+    within 1e-2 of the card's losses;
+16. the rest of the model zoo served (``[zoo-serve]``), one config after
+    the other at published widths, parameters drawn on the card from the
+    seed, every cross-attention gate set to 1.0 (drawn 0), MoE capacity
+    dropless (E / k, as the reference's decode-consistency test): mixtral
+    8x22b cut to 4 of 56 layers, 2 prompts of 4,160 tokens + 32 new (the
+    4,096-slot ring wraps); llama4-maverick cut to 2 of 48 layers (one
+    dense and one MoE layer), 2 x (512 + 32); llama3.2-vision-11b at its
+    40 layers, 2 x (512 + 32) with (2, 1,600, 4,096) bf16 image tokens,
+    then the same with ``kv_cache_dtype="int8"``; whisper-large-v3 at its
+    32 + 32 layers, 4 x (64 + 64) with (4, 1,500, 1,280) bf16 frames.
+    Each through ``make_prefill`` (with its ``extras``) and a decode step:
+    run (a) eager, its logits within ``0.05 * scale + 0.05`` of one
+    forward over prompt and generated tokens; run (b) the graphed
+    ``make_serve_step``, timed: (a)'s tokens, (a)'s final caches bit for
+    bit, its logits within the same bound; neither launches a repo kernel.
+    The int8 cache is also decoded teacher-forced over the bf16 run's
+    tokens, its logits within the bound of that run's, and its K bytes a
+    (token, head) printed against the bf16 cache's. Each prints decode ms
+    a step eager and graphed, prefill seconds, peak memory and parameter
+    bytes;
+17. the rest of the model zoo trained (``[zoo-train]``):
+    ``make_train_step`` with AdamW (lr 3e-4, weight decay 0.01), accum 2,
+    the same batch (next-token labels) for 4 steps: whisper-large-v3 at
+    its published width and depth, microbatch 2 x 448 tokens with (2,
+    1,500, 1,280) frames; mixtral-8x22b at its published width cut to 1
+    layer (2.9 B parameters), microbatch 1 x 2,048 at its published
+    capacity factor 1.25. Every loss finite, the last below the first,
+    mixtral's aux loss nonzero, no repo kernel launched; step walls,
+    tokens/s and peak memory printed.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
-the repository beside this file, it exits non-zero and prints no result.
+The zoo phases' records go on a ``[zoo]`` line; the line before the last
+is a JSON object with one entry per kernel; the last line is ``{"ok":
+true, "device": {...}}``. Without CUDA, or without the repository beside
+this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -387,6 +417,25 @@ RECURRENT_SERVE = (("rwkv6_1p6b", 8, 512, 64, 576),
                    ("recurrentgemma_9b", 4, 2016, 64, 2080))
 PROFILED_STEPS = 4              # decode steps under the profiler
 EAGER_STEPS = 8                 # eager decode steps timed after run (b)
+# the rest of the model zoo at published widths (src/repro/configs/), depth
+# cut where one card cannot hold the model: arch, layers (None: published),
+# prompts, prompt tokens, new tokens, int8 KV cache. mixtral's 4160-token
+# prompt wraps its 4096-slot ring; the int8 row follows the bf16 row before
+# it (its logits are held to that run's)
+ZOO_SERVE = (("mixtral_8x22b", 4, 2, 4160, 32, False),
+             ("llama4_maverick_400b_a17b", 2, 2, 512, 32, False),
+             ("llama3p2_vision_11b", None, 2, 512, 32, False),
+             ("llama3p2_vision_11b", None, 2, 512, 32, True),
+             ("whisper_large_v3", None, 4, 64, 64, False))
+ZOO_GATE = 1.0                  # every cross-attention gate (drawn 0)
+ZOO_EXTRAS_STD = 0.1            # image tokens and encoder frames, N(0, 0.1)
+# training: arch, layers, microbatch, tokens; accum 2, the same batch
+# every step, mixtral at its published capacity factor (1.25)
+ZOO_TRAIN = (("whisper_large_v3", None, 2, 448),
+             ("mixtral_8x22b", 1, 1, 2048))
+ZOO_TRAIN_STEPS = 4
+ZOO_TRAIN_ACCUM = 2
+ZOO_TRAIN_LR = 3e-4
 
 
 def fail(msg: str) -> None:
@@ -4647,6 +4696,433 @@ def train_phase(torch, seed, device, results, designs=None):
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
 
+ROUTE_TIE = 2.0 ** -4           # a routing flip's gap: 8 bf16 steps of
+                                # the k-th logit at most
+
+
+class RouteRecorder:
+    """Wraps the models' MoE dispatch (``transformer.moe_forward``) and
+    keeps each call's routing, recomputed from the call's own inputs with
+    the dispatch's own operations: the top-k experts of every token (T, k)
+    and the gap between the k-th and the (k+1)-th router logit (T,), with
+    the k-th logit's magnitude (T,)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import transformer as T
+        self.mod, self.real = T, T.moe_forward
+
+        def dispatch(x, router_w, *args, **kw):
+            k = args[3].top_k                      # (w1, w3, w2, moe, ...)
+            logits = (x.reshape(-1, x.shape[-1]) @ router_w).float()
+            vals, idx = torch.sort(logits, dim=-1, descending=True,
+                                   stable=True)
+            self.calls.append((idx[:, :k].clone(),
+                               (vals[:, k - 1] - vals[:, k]).clone(),
+                               vals[:, k - 1].abs().clone()))
+            return self.real(x, router_w, *args, **kw)
+        T.moe_forward = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_forward = self.real
+
+
+def route_flips(decode_calls, forward_calls, n_moe: int, batch: int,
+                prompt_len: int, seq_len: int) -> dict:
+    """Decode step i (i >= 1, the token at position prompt_len + i - 1)
+    against the consistency forward's routing of that position, MoE layer
+    by layer: step -> [(layer, row, forward gap, decode gap, |k-th
+    logit|)] for every token routed to another set of experts (the order
+    within the top k does not change the output: each weight follows its
+    expert), in layer order (a row's first flip moves its hidden state, so
+    its later layers may route it otherwise by any margin).
+    ``decode_calls`` are the decode steps' calls in order (n_moe a step),
+    ``forward_calls`` the forward's n_moe calls over (batch, seq_len)
+    tokens."""
+    flips = {}
+    for c, (idx, gap, mag) in enumerate(decode_calls):
+        i, layer = divmod(c, n_moe)
+        fidx, fgap, _ = forward_calls[layer]
+        for b in range(batch):
+            row = b * seq_len + prompt_len + i
+            if not bool((idx[b].sort().values
+                         == fidx[row].sort().values).all()):
+                flips.setdefault(i + 1, []).append(
+                    (layer, b, float(fgap[row]), float(gap[b]),
+                     float(mag[b])))
+    return flips
+
+
+def zoo_config(arch: str, layers, int8: bool = False, dropless=False):
+    """The published config of ``arch``, cut to ``layers`` layers, with an
+    int8 KV cache or a dropless MoE capacity (E / k) if asked."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    if dropless and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    return cfg
+
+
+def zoo_extras(torch, cfg, batch: int, gen, device):
+    """Image tokens or encoder frames, N(0, ZOO_EXTRAS_STD) in bf16."""
+    n = cfg.n_img_tokens or (cfg.encoder.n_frames if cfg.encoder else 0)
+    if not n:
+        return None
+    x = (torch.randn((batch, n, cfg.d_model), generator=gen, device=device)
+         * ZOO_EXTRAS_STD).to(torch.bfloat16)
+    return {"img" if cfg.n_img_tokens else "frames": x}
+
+
+def set_gates(torch, model, value: float) -> int:
+    """Every cross-attention gate to ``value``; returns how many."""
+    gates = [p for name, p in model.named_parameters()
+             if name.endswith("xattn.gate")]
+    with torch.no_grad():
+        for p in gates:
+            p.fill_(value)
+    return len(gates)
+
+
+def zoo_serve_arch(torch, seed, device, arch, layers, batch, prompt_len,
+                   new, int8, bf16_run=None) -> dict:
+    """Serve one config of ZOO_SERVE through ``make_prefill`` and a decode
+    step: run (a) eager (``make_eager_serve_step``, its logits recorded),
+    held to one forward over prompt and generated tokens within the
+    decode-consistency bound; run (b) the graphed ``make_serve_step``,
+    timed: (a)'s tokens, (a)'s final caches bit for bit, its logits within
+    the bound; neither launches a repo kernel. With ``bf16_run`` (the bf16
+    row's result) the int8 cache is also driven teacher-forced over that
+    run's tokens and its logits held to that run's within the bound."""
+    from repro_torch.models import Model
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.serve.serve_step import (GraphedServeStep,
+                                              make_eager_serve_step)
+    cfg = zoo_config(arch, layers, int8, dropless=True)
+    tag = f"{arch}{' int8 KV' if int8 else ''}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = Model(cfg).init(gen, device)
+    n_gates = set_gates(torch, model, ZOO_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 70)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                           device=device)
+    extras = zoo_extras(torch, cfg, batch, g, device)
+    cache_len = prompt_len + new
+    prefill = make_prefill(model, cache_len)
+    out = dict(arch=arch, int8=int8, layers=cfg.n_layers,
+               published_layers=zoo_config(arch, None).n_layers,
+               batch=batch, prompt=prompt_len, new=new, params=n_params,
+               param_bytes=param_bytes, init_s=init_s, gates=n_gates)
+
+    routes = RouteRecorder()
+
+    def serve(step, graphed: bool):
+        toks = torch.empty((batch, new), dtype=torch.int32, device=device)
+        logits = torch.empty((new, batch, cfg.vocab), dtype=torch.float32,
+                             device=device)
+        rec = LogitRecorder(model)
+        times = {}
+
+        def run():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            last, cache = prefill(prompt, extras)
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            toks[:, :1].copy_(nxt)
+            logits[0].copy_(last)
+            for i in range(new - 1):
+                nxt, cache = step(cache, nxt, prompt_len + i)
+                toks[:, i + 1:i + 2].copy_(nxt)
+                if graphed:
+                    logits[i + 1].copy_(step.logits)
+            torch.cuda.synchronize()
+            times["prefill_s"] = t2 - t1
+            times["decode_ms"] = (time.perf_counter() - t2) / (new - 1) * 1e3
+            return cache
+
+        if graphed:
+            cache, counts = launch_window(run)
+        else:
+            with rec, routes:
+                cache, counts = launch_window(run)
+            for i, lg in enumerate(rec.logits[1:]):
+                logits[i + 1].copy_(lg)
+        check(counts == only(), f"[zoo-serve] {tag}: the run launched "
+              f"{counts}; the model zoo's path has no repo kernel")
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"[zoo-serve] {tag}: tokens outside [0, vocab)")
+        return toks, logits, cache, times
+
+    a_toks, a_logits, a_cache, a_times = serve(
+        make_eager_serve_step(model), graphed=False)
+    # decode consistency: one forward over the prompt and the generated
+    # tokens, against the served logits
+    seq = torch.cat([prompt, a_toks.long()], dim=1)
+    n_moe = sum(s.ffn == "moe" for s in cfg.layers)
+    decode_calls = routes.calls[n_moe:]            # after prefill's
+    routes.calls = []
+    with torch.no_grad(), routes:
+        full = model(seq, extras)[0]
+    scale = float(torch.maximum(full.amax(), -full.amin()).item()) + 1e-6
+    want = full[:, prompt_len - 1:prompt_len - 1 + new].transpose(0, 1)
+    del full
+    bound = 0.05 * scale + 0.05
+    errs = (a_logits - want).abs().amax(dim=(1, 2)).tolist()
+    # an MoE token whose decode step routes it to other experts than the
+    # forward does (its bf16 router logits tie within the two paths'
+    # rounding) is not held to the bound; a row's first flip must be a
+    # near tie in both paths, and at most a quarter of the steps may have
+    # one
+    flips = route_flips(decode_calls, routes.calls, n_moe, batch,
+                        prompt_len, seq.shape[1]) if n_moe else {}
+    for i, fl in flips.items():
+        for b in {row for _, row, *_ in fl}:
+            layer, _, fgap, dgap, mag = next(f for f in fl if f[1] == b)
+            check(max(fgap, dgap) <= ROUTE_TIE * mag, f"[zoo-serve] {tag}: "
+                  f"step {i} routes row {b} of MoE layer {layer} (its first "
+                  f"flip) to other experts than the forward, with router "
+                  f"logit gaps {fgap!r} (forward) and {dgap!r} (decode) > "
+                  f"{ROUTE_TIE} x {mag!r}: not a near tie; the step's flips "
+                  f"{fl}")
+    check(len(flips) <= new // 4, f"[zoo-serve] {tag}: {len(flips)} of "
+          f"{new} steps route a token to other experts than the forward")
+    held = [e for i, e in enumerate(errs) if i not in flips]
+    check(max(held) < bound, f"[zoo-serve] {tag}: decode consistency "
+          f"failed: max err {max(held)!r} >= {bound!r} (scale {scale!r}); "
+          f"per step {errs}; steps with a routing flip {sorted(flips)}")
+    del decode_calls, routes.calls
+    step = make_serve_step(model)
+    check(isinstance(step, GraphedServeStep), f"[zoo-serve] {tag}: "
+          "make_serve_step on the card is not the graphed step")
+    t0 = time.perf_counter()
+    step.capture(batch, cache_len)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    b_toks, b_logits, b_cache, b_times = serve(step, graphed=True)
+    check(torch.equal(a_toks, b_toks), f"[zoo-serve] {tag}: the graphed run "
+          "gave other tokens than the eager run")
+    caches_equal = all(torch.equal(x[k], y[k]) for x, y in
+                       zip(a_cache, b_cache) for k in x)
+    check(caches_equal, f"[zoo-serve] {tag}: the graphed run's final caches "
+          "differ from the eager run's")
+    errs_b = (b_logits - want).abs().amax(dim=(1, 2)).tolist()
+    held_b = [e for i, e in enumerate(errs_b) if i not in flips]
+    check(max(held_b) < bound, f"[zoo-serve] {tag}: the graphed run's "
+          f"decode consistency failed: max err {max(held_b)!r} >= "
+          f"{bound!r}")
+    del want, b_logits
+    full_layer = next(i for i, s in enumerate(cfg.layers)
+                      if s.mix in ("full", "bidir")) if any(
+        s.mix in ("full", "bidir") for s in cfg.layers) else None
+    kv_bytes = None
+    if full_layer is not None:
+        c = a_cache[full_layer]
+        kv_bytes = c["k"].element_size() * cfg.head_dim + (
+            c["kscale"].element_size() if "kscale" in c else 0)
+    out.update(a_prefill_s=a_times["prefill_s"],
+               eager_decode_ms=a_times["decode_ms"],
+               prefill_s=b_times["prefill_s"],
+               graphed_decode_ms=b_times["decode_ms"], capture_s=capture_s,
+               decode_consistency_err=max(held),
+               graphed_decode_consistency_err=max(held_b),
+               route_flips={i: dict(err=errs[i], flips=fl)
+                            for i, fl in flips.items()},
+               bound=bound, kv_bytes_a_token_head=kv_bytes,
+               weights_read_ms=param_bytes / HBM_BYTES_PER_S * 1e3,
+               tokens=a_toks[0, :8].tolist())
+    if bf16_run is not None:
+        # teacher-forced over the bf16 run's tokens: its logits within the
+        # bound of that run's
+        ref_toks, ref_logits = bf16_run["tok_tensor"], bf16_run["logits"]
+        ref_scale = float(ref_logits.abs().max().item()) + 1e-6
+        ref_bound = 0.05 * ref_scale + 0.05
+        with torch.no_grad():
+            last, cache = prefill(prompt, extras)
+            tf = [float((last - ref_logits[0]).abs().max().item())]
+            for i in range(new - 1):
+                lg, cache = model.decode_step(
+                    cache, ref_toks[:, i:i + 1], prompt_len + i)
+                tf.append(float((lg[:, -1] - ref_logits[i + 1]).abs()
+                                .max().item()))
+        check(max(tf) < ref_bound, f"[zoo-serve] {tag}: the int8 cache's "
+              f"logits differ from the bf16 run's by {max(tf)!r} >= "
+              f"{ref_bound!r}; per step {tf}")
+        out.update(int8_vs_bf16_err=max(tf), int8_vs_bf16_bound=ref_bound,
+                   bf16_kv_bytes_a_token_head=bf16_run[
+                       "kv_bytes_a_token_head"])
+        del cache
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    log(f"[zoo-serve] {tag} {CARD}: {cfg.n_layers} of "
+        f"{out['published_layers']} layers (d {cfg.d_model}, "
+        f"{cfg.n_heads} heads x {cfg.head_dim}, n_kv {cfg.n_kv}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+           f"{' + shared' if cfg.moe.shared_expert else ''}, capacity "
+           f"factor {cfg.moe.capacity_factor} (dropless)" if cfg.moe else "")
+        + (f", {n_gates} cross-attention gates at {ZOO_GATE}"
+           if n_gates else "")
+        + (f", encoder {cfg.encoder.n_layers} layers" if cfg.encoder
+           else "")
+        + f"), {n_params} parameters ({param_bytes} B) drawn on the card in "
+        f"{init_s!r} s; {batch} prompts x ({prompt_len} + {new} new) tokens"
+        + (f", extras {next(iter(extras))} "
+           f"{tuple(next(iter(extras.values())).shape)} bf16"
+           if extras else "")
+        + f": prefill {b_times['prefill_s']!r} s (eager run "
+        f"{a_times['prefill_s']!r} s), decode {a_times['decode_ms']!r} ms a "
+        f"step eager, {b_times['decode_ms']!r} ms graphed (capture "
+        f"{capture_s!r} s before the run), against reading the weights once "
+        f"{out['weights_read_ms']!r} ms at {HBM_BYTES_PER_S / 1e12} TB/s; "
+        f"peak memory {out['peak_bytes']} B")
+    log(f"[zoo-serve] {tag}: decode consistency against one forward over "
+        f"{seq.shape[1]} tokens: eager max err {max(held)!r}, graphed "
+        f"{max(held_b)!r} < {bound!r} (scale {scale!r})"
+        + (f"; {sum(len(f) for f in flips.values())} routing flips in "
+           f"steps {sorted(flips)} (layer, row, forward gap, decode gap, "
+           f"|k-th logit|: {json.dumps(flips)}; their errs "
+           f"{[errs[i] for i in sorted(flips)]}, not held)" if n_moe else "")
+        + "; tokens equal, final caches equal bit for bit; no repo kernel "
+        "launched" + (f"; KV {kv_bytes} B a (token, head) for k"
+                      if kv_bytes else "") + (
+            f"; teacher-forced over the bf16 run's tokens the int8 cache's "
+            f"logits within {max(tf)!r} < {ref_bound!r} of the bf16 "
+            f"run's; KV {kv_bytes} B a (token, head) against "
+            f"{bf16_run['kv_bytes_a_token_head']} B in bf16"
+            if bf16_run is not None else "")
+        + f"; first prompt's tokens {out['tokens']}")
+    out["tok_tensor"], out["logits"] = a_toks, a_logits
+    del model, step, a_cache, b_cache, prefill
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_serve_phase(torch, seed, device, zoo: dict):
+    """Every ZOO_SERVE row through ``zoo_serve_arch``; an int8 row holds
+    its logits to the bf16 row of the same arch before it."""
+    t0 = time.perf_counter()
+    runs = []
+    for arch, layers, batch, prompt_len, new, int8 in ZOO_SERVE:
+        prev = runs[-1] if runs and int8 else None
+        check(not int8 or (prev is not None and prev["arch"] == arch
+                           and not prev["int8"]),
+              f"[zoo-serve] the int8 row of {arch} needs its bf16 row first")
+        runs.append(zoo_serve_arch(torch, seed, device, arch, layers, batch,
+                                   prompt_len, new, int8, prev))
+    for r in runs:
+        del r["tok_tensor"], r["logits"]
+    zoo["serve"] = runs
+    torch.cuda.empty_cache()
+    log(f"[zoo-serve] phase {time.perf_counter() - t0:.1f} s")
+
+
+def zoo_train_phase(torch, seed, device, zoo: dict):
+    """``make_train_step`` with AdamW (weight decay 0.01) at accum
+    ZOO_TRAIN_ACCUM on each ZOO_TRAIN config, the same batch (next-token
+    labels; whisper's frames too) for ZOO_TRAIN_STEPS steps: every loss
+    finite, the last below the first, mixtral's aux loss nonzero at its
+    published capacity, no repo kernel launched."""
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    runs = []
+    for arch, layers, mb, seq in ZOO_TRAIN:
+        cfg = zoo_config(arch, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        model = Model(cfg)
+        opt = AdamW(lr=ZOO_TRAIN_LR, weight_decay=0.01)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        state = init_train_state(model, opt, gen)
+        n_gates = set_gates(torch, model, ZOO_GATE)
+        n_params = sum(p.numel() for p in model.parameters())
+        g = torch.Generator(device=device)
+        g.manual_seed(seed + 80)
+        tokens = torch.randint(0, cfg.vocab, (ZOO_TRAIN_ACCUM, mb, seq),
+                               generator=g, device=device)
+        labels = torch.full_like(tokens, -100)
+        labels[..., :-1] = tokens[..., 1:]
+        batch = {"tokens": tokens, "labels": labels}
+        ex = zoo_extras(torch, cfg, ZOO_TRAIN_ACCUM * mb, g, device)
+        if ex is not None:
+            batch["extras"] = {k: v.reshape(ZOO_TRAIN_ACCUM, mb,
+                                            *v.shape[1:])
+                               for k, v in ex.items()}
+        step = make_train_step(model, opt)
+        losses, auxes, walls = [], [], []
+
+        def train():
+            nonlocal state
+            for _ in range(ZOO_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+                auxes.append(float(metrics["aux"]))
+                walls.append(time.perf_counter() - t1)
+        _, counts = launch_window(train)
+        peak = torch.cuda.max_memory_allocated(device)
+        tag = f"[zoo-train] {arch}"
+        check(counts == only(), f"{tag}: the run launched {counts}; the "
+              "model zoo's path has no repo kernel")
+        check(all(math.isfinite(x) for x in losses), f"{tag}: a non-finite "
+              f"loss in {losses}")
+        check(losses[-1] < losses[0], f"{tag}: the losses {losses} do not "
+              "fall")
+        if cfg.moe is not None:
+            check(all(a > 0 for a in auxes), f"{tag}: an aux loss of 0 in "
+                  f"{auxes}")
+        med = statistics.median(walls[1:])
+        n_tok = ZOO_TRAIN_ACCUM * mb * seq
+        runs.append(dict(arch=arch, layers=cfg.n_layers,
+                         published_layers=zoo_config(arch, None).n_layers,
+                         params=n_params, microbatch=mb, seq=seq,
+                         accum=ZOO_TRAIN_ACCUM, losses=losses, aux=auxes,
+                         step_s=walls, median_step_s=med,
+                         tokens_per_s=n_tok / med, peak_bytes=peak))
+        log(f"{tag} {CARD}: {cfg.n_layers} of "
+            f"{runs[-1]['published_layers']} layers (d {cfg.d_model}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}"
+            + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} at "
+               f"capacity factor {cfg.moe.capacity_factor}" if cfg.moe
+               else "")
+            + (f", encoder {cfg.encoder.n_layers} layers over "
+               f"{cfg.encoder.n_frames} frames, {n_gates} gates at "
+               f"{ZOO_GATE}" if cfg.encoder else "")
+            + f"), {n_params} parameters; {ZOO_TRAIN_STEPS} steps of "
+            f"{ZOO_TRAIN_ACCUM} microbatches x {mb} x {seq} tokens, AdamW lr "
+            f"{ZOO_TRAIN_LR} weight decay 0.01, the same batch: losses "
+            f"{losses}, aux {auxes}; step walls {walls} s, median of steps "
+            f"2-{ZOO_TRAIN_STEPS} {med!r} s, {n_tok / med!r} tokens/s; peak "
+            f"memory {peak} B; no repo kernel launched")
+        del model, state, step, batch, opt
+        torch.cuda.empty_cache()
+    zoo["train"] = runs
+    log(f"[zoo-train] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4705,7 +5181,8 @@ def main() -> None:
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
     # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
     # paged attention and 12. the recurrent kernels at device scale, 13.
-    # paged serving, 14. recurrent-model serving, 15. training
+    # paged serving, 14. recurrent-model serving, 15. training, 16. the
+    # rest of the model zoo served, 17. and trained
     results: dict = {}
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
@@ -4726,6 +5203,9 @@ def main() -> None:
         recurrent_serve_phase(torch, args.seed, device, results, arch, batch,
                               prompt_len, new, cache_len)
     train_phase(torch, args.seed, device, results, rg_designs)
+    zoo: dict = {}
+    zoo_serve_phase(torch, args.seed, device, zoo)
+    zoo_train_phase(torch, args.seed, device, zoo)
     check(sorted(results) == sorted(TPU_KERNELS), f"kernels {sorted(results)}"
           f" are not those of {sorted(TPU_KERNELS)}")
     for r in results.values():
@@ -4743,6 +5223,7 @@ def main() -> None:
           "the rglru_scan gradient was not launched on the training path")
     log(f"[total] {card}: every phase held, "
         f"{time.perf_counter() - t_start:.1f} s")
+    log("[zoo] " + json.dumps({"card": card, **zoo}))
     log(json.dumps({"card": card, "kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

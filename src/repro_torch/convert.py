@@ -122,6 +122,21 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, Any]) -> None:
             out[f"{prefix}{key}"] = val
 
 
+def _row(stacked: Mapping, i: int) -> Dict[str, Any]:
+    """Row ``i`` of every leaf of a stacked subtree, as a nested dict (a
+    0-d leaf where the stacked one was 1-D, e.g. a cross-attention gate)."""
+    flat: Dict[str, Any] = {}
+    _flatten(stacked, "", flat)
+    layer: Dict[str, Any] = {}
+    for key, val in flat.items():
+        node = layer
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(val)[i]
+    return layer
+
+
 def _per_layer(tree: Mapping, cfg) -> List[Mapping]:
     """The reference's ``scan``/``tail`` grouping as one entry a layer:
     ``tree["scan"][j]`` row ``i`` is layer ``i * period + j`` and
@@ -131,16 +146,7 @@ def _per_layer(tree: Mapping, cfg) -> List[Mapping]:
     for n in range(cfg.n_layers):
         i, j = divmod(n, period)
         if i < cfg.n_super:
-            flat: Dict[str, Any] = {}
-            _flatten(tree["scan"][j], "", flat)
-            layer: Dict[str, Any] = {}
-            for key, val in flat.items():
-                node = layer
-                *path, leaf = key.split(".")
-                for part in path:
-                    node = node.setdefault(part, {})
-                node[leaf] = np.asarray(val)[i]
-            layers.append(layer)
+            layers.append(_row(tree["scan"][j], i))
         else:
             layers.append(tree[f"tail{n - cfg.n_super * period}"])
     return layers
@@ -150,21 +156,33 @@ def model_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for the port's :class:`~repro_torch.models.Model`
     from the reference ``Model(cfg).init(key)`` pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``). Keys: ``embed``, ``final.<n>``,
-    ``lm_head``, ``pos_embed`` where the reference has them, and
-    ``layers.<l>.<group>.<name>`` for every layer in ``cfg.layers`` order;
-    values keep the reference's dtypes (bf16 or f32) on the CPU."""
+    ``lm_head``, ``pos_embed`` where the reference has them,
+    ``layers.<l>.<group>.<name>`` for every layer in ``cfg.layers`` order,
+    and for an encoder ``encoder.pos``, ``encoder.final.<n>`` and
+    ``encoder.layers.<i>.<group>.<name>`` (row ``i`` of the reference's
+    stacked ``encoder.layers``); values keep the reference's dtypes (bf16
+    or f32) on the CPU."""
     flat: Dict[str, Any] = {}
     _flatten({k: v for k, v in params.items()
-              if k != "scan" and not k.startswith("tail")}, "", flat)
+              if k not in ("scan", "encoder") and not k.startswith("tail")},
+             "", flat)
     for n, layer in enumerate(_per_layer(params, cfg)):
         _flatten(layer, f"layers.{n}.", flat)
+    if "encoder" in params:
+        enc = params["encoder"]
+        _flatten({k: v for k, v in enc.items() if k != "layers"},
+                 "encoder.", flat)
+        for i in range(cfg.encoder.n_layers):
+            _flatten(_row(enc["layers"], i), f"encoder.layers.{i}.", flat)
     return {k: _tensor(v) for k, v in flat.items()}
 
 
 def model_cache(cache: Mapping, cfg) -> List[Dict[str, torch.Tensor]]:
     """The port's cache layout (one dict a layer, in ``cfg.layers`` order)
     from a reference ``init_cache``/``prefill``/``decode_step`` cache with
-    numpy leaves, as CPU tensors of the reference's dtypes."""
+    numpy leaves, as CPU tensors of the reference's dtypes, bit for bit
+    (cross-attention ``xk``/``xv`` and the int8 ``k``/``v`` with their f32
+    ``kscale``/``vscale`` too)."""
     return [{k: _tensor(v) for k, v in layer.items()}
             for layer in _per_layer(cache, cfg)]
 

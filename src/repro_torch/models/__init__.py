@@ -1,5 +1,5 @@
-"""Model zoo: the reference's backbone for the dense and recurrent
-architectures (``transformer.Model``), in PyTorch."""
+"""Model zoo: the reference's backbone for all 10 architectures
+(``transformer.Model``), in PyTorch."""
 from .config import (ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K,
                      TRAIN_4K, LayerSpec, ModelConfig, MoeSpec, ShapeSpec,
                      is_subquadratic, shapes_for)

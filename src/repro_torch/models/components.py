@@ -12,8 +12,10 @@ first step) and steps with ``exp(log_a) h + b``; the op walks time in order,
 so the two agree to f32 rounding. f32 products here need TF32 off on the
 card (PyTorch's default for matrix products).
 
-Not ported yet (ROADMAP queue 1 item 11): ``moe_forward`` and
-``_positions_in_expert``.
+The MoE dispatch (``moe_forward``) is the reference's capacity dispatch in
+plain PyTorch, as the reference's is plain JAX: the expert products are
+``torch.einsum``. It reads nothing back to the host (every shape follows
+from the input's), so a CUDA graph can capture a decode step through it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru_scan import ops as rglru_ops
+from .config import MoeSpec
 
 _NEG_INF = -1e30
 
@@ -173,6 +176,101 @@ def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def gelu_ffn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
              ) -> torch.Tensor:
     return F.gelu(x @ w1, approximate="tanh") @ w2
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts — capacity-based sort-free dispatch
+# ---------------------------------------------------------------------------
+
+def _positions_in_expert(flat_e: torch.Tensor, num_experts: int
+                         ) -> torch.Tensor:
+    """Rank of each routed token within its expert, via one stable sort
+    along the last axis (leading axes are independent dispatch groups).
+    int32, the shape of ``flat_e``."""
+    tk = flat_e.shape[-1]
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order)
+    experts = torch.arange(num_experts, dtype=sorted_e.dtype,
+                           device=flat_e.device)
+    seg_start = torch.searchsorted(
+        sorted_e, experts.expand(*sorted_e.shape[:-1],
+                                 num_experts).contiguous(), side="left")
+    pos_sorted = torch.arange(tk, device=flat_e.device) - torch.gather(
+        seg_start, -1, sorted_e)
+    return torch.zeros_like(flat_e, dtype=torch.int32).scatter_(
+        -1, order, pos_sorted.to(torch.int32))
+
+
+def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
+                w3: torch.Tensor, w2: torch.Tensor, moe: MoeSpec,
+                shared: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]] = None,
+                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity-factor dispatch (tokens over capacity drop).
+
+    x: (B, S, D); router_w: (D, E); experts w1/w3: (E, D, F), w2: (E, F, D).
+    Returns (out, aux_loss). ``groups``: dispatch groups, each with its own
+    capacity (1 unless it divides the B*S tokens).
+
+    The top k come from a stable descending sort of the bf16-rounded router
+    logits, so ties go to the lower expert index as ``jax.lax.top_k``
+    gives them. A dropped token is written to slot ``cap - 1`` of its
+    expert with a zero contribution, as the reference's ``.at[].add``
+    does; the scatter adds, so that slot keeps its one kept token exactly.
+    """
+    B, S, D = x.shape
+    E, k = moe.num_experts, moe.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    logits = (xt @ router_w).float()                       # (T, E)
+    top_logits, top_idx = torch.sort(logits, dim=-1, descending=True,
+                                     stable=True)
+    top_logits, top_idx = top_logits[:, :k], top_idx[:, :k]  # (T, k)
+    if k == 1:
+        weights = torch.sigmoid(top_logits)                # llama4-style
+    else:
+        weights = torch.softmax(top_logits, dim=-1)        # mixtral-style
+
+    # load-balancing aux loss (Switch/Mixtral form); the one-hot is a
+    # comparison, not F.one_hot (which reads its input's range back)
+    probs = torch.softmax(logits, dim=-1)
+    density = probs.mean(dim=0)                            # (E,)
+    experts = torch.arange(E, device=x.device)
+    usage = (top_idx[:, :1] == experts).float().mean(dim=0)
+    aux = E * torch.sum(density * usage)
+
+    G = groups if T % groups == 0 else 1
+    Tg = T // G
+    cap = int(math.ceil(moe.capacity_factor * Tg * k / E))
+    cap = max(8, (cap + 7) // 8 * 8)
+
+    flat_e = top_idx.reshape(G, Tg * k)
+    pos = _positions_in_expert(flat_e, E)
+    keep = pos < cap
+    pos_c = torch.clamp(pos, max=cap - 1).long()
+
+    # token-major, k-minor: each token's row repeated k times
+    xg = xt.reshape(G, Tg, 1, D).expand(G, Tg, k, D).reshape(G, Tg * k, D)
+    contrib = torch.where(keep[..., None], xg, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+    slot = ((torch.arange(G, device=x.device)[:, None] * E + flat_e) * cap
+            + pos_c).reshape(-1)                           # (G * Tg * k,)
+    buf = torch.zeros((G * E * cap, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, slot, contrib.reshape(-1, D)).reshape(G, E, cap, D)
+
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * \
+        torch.einsum("gecd,edf->gecf", buf, w3)
+    y = torch.einsum("gecf,efd->gecd", h, w2)              # (G, E, cap, D)
+
+    gathered = y.reshape(G * E * cap, D)[slot].reshape(G, Tg * k, D)
+    wk = (weights.reshape(G, Tg * k, 1) * keep[..., None]).to(x.dtype)
+    out = (gathered * wk).reshape(G, Tg, k, D).sum(dim=2)
+
+    out = out.reshape(T, D)
+    if shared is not None:
+        s1, s3, s2 = shared
+        out = out + swiglu(xt, s1, s3, s2)
+    return out.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------------------

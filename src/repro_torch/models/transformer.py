@@ -1,11 +1,14 @@
 """The model zoo's single backbone in PyTorch (the reference's
 ``models/transformer.py``).
 
-One implementation covers the dense and recurrent architectures of
+One implementation covers all 10 architectures of
 :class:`~repro_torch.models.config.ModelConfig`: full, local (sliding
 window, ring-buffer decode cache) and bidirectional attention, RG-LRU and
-RWKV6 sequence mixing, swiglu and gelu FFNs, with the reference's dtypes
-(bf16 weights and activations, f32 norms and recurrences). The reference
+RWKV6 sequence mixing, swiglu and gelu FFNs, top-k MoE FFNs with a shared
+expert, gated cross-attention to image tokens or to the whisper encoder's
+output, RMS and layer norms, learned positions and the int8 KV cache,
+with the reference's dtypes (bf16 weights and activations, f32 norms and
+recurrences). The reference
 scans complete pattern repetitions over stacked parameters and unrolls a
 tail; PyTorch runs eagerly, so :class:`Model` holds one submodule per layer
 in ``cfg.layers`` order and a decode cache is a list of per-layer dicts.
@@ -17,13 +20,16 @@ gradients; :meth:`Model.forward` then records autograd and, as the
 reference does (``remat_policy="full"``), rematerializes one
 ``torch.utils.checkpoint`` region a superblock of ``cfg.pattern`` layers
 and one a tail layer. :meth:`Model.loss` is the reference's CE over
-``labels >= 0``. :meth:`Model.decay_names` carries the reference's weight
-decay layout over (its stacked superblock leaves are 2-D or more).
-``prefill`` and the decode steps run under ``no_grad``.
+``labels >= 0`` plus ``0.01`` times the MoE aux loss. The whisper encoder
+runs one ``torch.utils.checkpoint`` region a layer when training.
+:meth:`Model.decay_names` carries the reference's weight decay layout over
+(a leaf decays iff its ``ndim >= 2``, and the leaves of the reference's
+superblocks and encoder layers carry a stacking axis). ``prefill`` and the
+decode steps run under ``no_grad``.
 
-Not ported yet (ROADMAP.md queue 1 item 11): MoE FFNs, cross-attention,
-the whisper encoder with its layer norms and learned positions and the
-int8 KV cache; each raises ``NotImplementedError``.
+``extras`` (the reference's): ``{"frames": (B, n_frames, D)}`` for an
+encoder model, ``{"img": (B, n_img_tokens, D)}`` for a vision model, both
+bf16 on the model's device; the cross-attention layers read them.
 """
 from __future__ import annotations
 
@@ -38,24 +44,19 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import rwkv6 as rk
 from .components import (_rglru_gates, attention, causal_conv1d, gelu_mlp,
-                         rglru_scan, rglru_step, rms_norm, rope, softcap,
-                         swiglu)
-from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL, FFN_MOE,
-                     MIX_RGLRU, MIX_RWKV6, LayerSpec, ModelConfig)
+                         layer_norm, moe_forward, rglru_scan, rglru_step,
+                         rms_norm, rope, softcap, swiglu)
+from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL, FFN_DENSE,
+                     FFN_MOE, MIX_RGLRU, MIX_RWKV6, LayerSpec, ModelConfig)
 
 Cache = List[Dict[str, torch.Tensor]]
-_TODO = "not ported yet (ROADMAP.md queue 1 item 11)"
 _MOE_AUX_COEF = 0.01
+_ENCODER_SPEC = LayerSpec(mix=ATTN_NONCAUSAL, ffn=FFN_DENSE)
 
 
-def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.moe is not None or any(s.ffn == FFN_MOE for s in cfg.layers):
-        return "MoE FFNs"
-    if any(s.cross_attn for s in cfg.layers) or cfg.n_img_tokens:
-        return "cross-attention"
-    if cfg.encoder is not None or cfg.norm == "ln":
-        return "the whisper encoder and its learned positions"
-    return None
+def _learned_positions(cfg: ModelConfig) -> bool:
+    """Whisper's decoder adds learned positions (``pos_embed``)."""
+    return bool(cfg.max_position) and cfg.norm == "ln"
 
 
 # ===========================================================================
@@ -87,20 +88,26 @@ class _Init:
 
 
 def _norm_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    if cfg.norm == "ln":
+        return nn.ParameterDict({"w": ini.full((cfg.d_model,), 1.0),
+                                 "b": ini.full((cfg.d_model,), 0.0)})
     return nn.ParameterDict({"w": ini.full((cfg.d_model,), 0.0)})
 
 
-def _attn_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+def _attn_params(cfg: ModelConfig, ini: _Init, cross: bool = False
+                 ) -> nn.ParameterDict:
     D = cfg.d_model
     qk = cfg.n_heads * cfg.head_dim
     kv = cfg.n_kv * cfg.head_dim
     p = {"wq": ini.dense((D, qk)), "wk": ini.dense((D, kv)),
          "wv": ini.dense((D, kv)),
          "wo": ini.dense((qk, D), scale=1.0 / math.sqrt(qk))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = ini.full((qk,), 0.0)
         p["bk"] = ini.full((kv,), 0.0)
         p["bv"] = ini.full((kv,), 0.0)
+    if cross:
+        p["gate"] = ini.full((), 0.0)      # llama3.2-vision gating
     return nn.ParameterDict(p)
 
 
@@ -114,6 +121,18 @@ def _ffn_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
                                  "wr": ini.dense((D, D)),
                                  "wk": ini.dense((D, F_)),
                                  "wv": ini.dense((F_, D))})
+    if spec.ffn == FFN_MOE:
+        # the reference's scales: _Init.dense would take them from E
+        E = cfg.moe.num_experts
+        p = {"router": ini.dense((D, E), scale=0.02),
+             "w1": ini.dense((E, D, F_), scale=1.0 / math.sqrt(D)),
+             "w3": ini.dense((E, D, F_), scale=1.0 / math.sqrt(D)),
+             "w2": ini.dense((E, F_, D), scale=1.0 / math.sqrt(F_))}
+        if cfg.moe.shared_expert:
+            p["s1"] = ini.dense((D, F_))
+            p["s3"] = ini.dense((D, F_))
+            p["s2"] = ini.dense((F_, D))
+        return nn.ParameterDict(p)
     if cfg.ffn_act == "gelu":
         return nn.ParameterDict({"w1": ini.dense((D, F_)),
                                  "b1": ini.full((F_,), 0.0),
@@ -175,8 +194,25 @@ def _layer_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
         p["rglru"] = _rglru_params(cfg, ini)
     elif spec.mix == MIX_RWKV6:
         p["rwkv"] = _rwkv_params(cfg, ini)
+    if spec.cross_attn:
+        p["lnx"] = _norm_params(cfg, ini)
+        p["xattn"] = _attn_params(cfg, ini, cross=True)
     p["ffn"] = _ffn_params(cfg, spec, ini)
     return nn.ModuleDict(p)
+
+
+class _Encoder(nn.Module):
+    """The whisper-style encoder's parameters: learned frame positions
+    ``pos`` (n_frames, D), one layer module each in ``layers`` (the
+    reference stacks them), and the final norm."""
+
+    def __init__(self, cfg: ModelConfig, ini: _Init) -> None:
+        super().__init__()
+        enc = cfg.encoder
+        self.layers = nn.ModuleList(_layer_params(cfg, _ENCODER_SPEC, ini)
+                                    for _ in range(enc.n_layers))
+        self.pos = ini.normal((enc.n_frames, cfg.d_model), 0.01)
+        self.final = _norm_params(cfg, ini)
 
 
 # ===========================================================================
@@ -184,6 +220,8 @@ def _layer_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
 # ===========================================================================
 
 def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "ln":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
@@ -216,6 +254,31 @@ def _self_attn_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
+def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
+                xv: torch.Tensor, kv_chunk: int) -> torch.Tensor:
+    """Cross attention to precomputed source K/V (no positions, no mask)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    src_len = xk.shape[1]
+    kv_pos = torch.arange(src_len, device=x.device)
+    q_pos = torch.full((S,), src_len, dtype=torch.int64,
+                       device=x.device)            # attend to everything
+    out = attention(q, xk, xv, q_pos=q_pos, kv_pos=kv_pos, causal=False,
+                    kv_chunk=kv_chunk)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    if "gate" in p:
+        out = torch.tanh(p["gate"].float()).to(out.dtype) * out
+    return out
+
+
+def _source_kv(cfg: ModelConfig, p, src: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, T, _ = src.shape
+    xk = (src @ p["wk"]).reshape(B, T, cfg.n_kv, cfg.head_dim)
+    xv = (src @ p["wv"]).reshape(B, T, cfg.n_kv, cfg.head_dim)
+    return xk, xv
+
+
 def _rwkv_channel_mix(p, x: torch.Tensor, xprev: torch.Tensor
                       ) -> torch.Tensor:
     mr = x + p["mu_r"] * (xprev - x)
@@ -231,7 +294,9 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor
     if spec.mix == MIX_RWKV6:
         return _rwkv_channel_mix(p, x, rk.token_shift(x)), zero
     if spec.ffn == FFN_MOE:
-        raise NotImplementedError(f"MoE FFNs are {_TODO}")
+        shared = (p["s1"], p["s3"], p["s2"]) if "s1" in p else None
+        return moe_forward(x, p["router"], p["w1"], p["w3"], p["w2"],
+                           cfg.moe, shared, groups=cfg.moe_groups)
     if cfg.ffn_act == "gelu":
         return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"]), zero
     return swiglu(x, p["w1"], p["w3"], p["w2"]), zero
@@ -273,10 +338,13 @@ def _rwkv_out(cfg: ModelConfig, p, y: torch.Tensor, g: torch.Tensor,
 
 def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                     positions: torch.Tensor, kv_chunk: int = 1024,
-                    want_cache: bool = False
+                    want_cache: bool = False,
+                    extras: Optional[Dict[str, torch.Tensor]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
-    """One layer over a full sequence. Returns (x, aux_loss, cache_blob)."""
+    """One layer over a full sequence. Returns (x, aux_loss, cache_blob).
+    A cross-attention layer reads ``extras["src"]`` (B, T, D), the
+    source its K/V come from (:meth:`Model._extras`)."""
     B, S, D = x.shape
     blob: Dict[str, torch.Tensor] = {}
     h = _norm(cfg, p["ln1"], x)
@@ -314,6 +382,15 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
         out = _norm(cfg, p["ln1p"], out)
     x = x + out
 
+    if spec.cross_attn:
+        if extras is None or "src" not in extras:
+            raise ValueError("a cross-attention layer needs extras['src']")
+        hx = _norm(cfg, p["lnx"], x)
+        xk, xv = _source_kv(cfg, p["xattn"], extras["src"])
+        x = x + _cross_attn(cfg, p["xattn"], hx, xk, xv, kv_chunk)
+        if want_cache:
+            blob["xk"], blob["xv"] = xk, xv
+
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6 and want_cache:
         blob["shift_c"] = h2[:, -1, :]
@@ -331,19 +408,30 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      cache_len: int, device: torch.device
                      ) -> Dict[str, torch.Tensor]:
-    """Cache blob for one layer. cache_len caps local windows."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(f"the int8 KV cache is {_TODO}")
+    """Cache blob for one layer. cache_len caps local windows. With
+    ``cfg.kv_cache_dtype == "int8"`` a full-attention layer keeps int8
+    ``k``/``v`` and f32 ``kscale``/``vscale`` (B, L, K, 1); a local layer
+    then raises ``ValueError``, as the reference asserts."""
 
     def mk(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     hd = cfg.head_dim
+    quant = cfg.kv_cache_dtype == "int8"
+    kv_dt = torch.int8 if quant else torch.bfloat16
     blob: Dict[str, torch.Tensor] = {}
     if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
-        blob["k"] = mk((batch, cache_len, cfg.n_kv, hd), torch.bfloat16)
-        blob["v"] = mk((batch, cache_len, cfg.n_kv, hd), torch.bfloat16)
+        blob["k"] = mk((batch, cache_len, cfg.n_kv, hd), kv_dt)
+        blob["v"] = mk((batch, cache_len, cfg.n_kv, hd), kv_dt)
+        if quant:
+            blob["kscale"] = mk((batch, cache_len, cfg.n_kv, 1),
+                                torch.float32)
+            blob["vscale"] = mk((batch, cache_len, cfg.n_kv, 1),
+                                torch.float32)
     elif spec.mix == ATTN_LOCAL:
+        if quant:
+            raise ValueError("int8 KV supports full caches only (no rings "
+                             "yet)")
         L = min(cache_len, cfg.window)
         blob["k"] = mk((batch, L, cfg.n_kv, hd), torch.bfloat16)
         blob["v"] = mk((batch, L, cfg.n_kv, hd), torch.bfloat16)
@@ -355,7 +443,27 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
         blob["s"] = mk((batch, cfg.n_heads, hd, hd), torch.float32)
         blob["shift_t"] = mk((batch, cfg.d_model), torch.bfloat16)
         blob["shift_c"] = mk((batch, cfg.d_model), torch.bfloat16)
+    if spec.cross_attn:
+        src_len = cfg.n_img_tokens or (cfg.encoder.n_frames if cfg.encoder
+                                       else 0)
+        blob["xk"] = mk((batch, src_len, cfg.n_kv, hd), torch.bfloat16)
+        blob["xv"] = mk((batch, src_len, cfg.n_kv, hd), torch.bfloat16)
     return blob
+
+
+def _quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization. t: (B, S, K, hd).
+    Returns (int8 values, f32 scales (B, S, K, 1)); rounds half to even."""
+    tf = t.float()
+    scale = torch.amax(tf.abs(), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The reference's order: both cast to bf16, then one bf16 product."""
+    return q.to(torch.bfloat16) * scale.to(torch.bfloat16)
 
 
 def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
@@ -381,8 +489,16 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         L = ck.shape[1]
         slot = (torch.remainder(posv, L) if spec.mix == ATTN_LOCAL
                 else torch.clamp(posv, max=L - 1))
-        ck.index_copy_(1, slot, k.to(ck.dtype))
-        cv.index_copy_(1, slot, v.to(cv.dtype))
+        if "kscale" in cache:                 # int8 quantized cache
+            for key, t in (("k", k), ("v", v)):
+                tq, sc = _quantize_kv(t)
+                cache[key].index_copy_(1, slot, tq)
+                cache[key + "scale"].index_copy_(1, slot, sc)
+            ck = _dequantize_kv(cache["k"], cache["kscale"])
+            cv = _dequantize_kv(cache["v"], cache["vscale"])
+        else:
+            ck.index_copy_(1, slot, k.to(ck.dtype))
+            cv.index_copy_(1, slot, v.to(cv.dtype))
         idx = torch.arange(L, device=x.device)
         if spec.mix == ATTN_LOCAL:
             kv_pos = posv - torch.remainder(posv - idx, L)
@@ -424,6 +540,11 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         out = _norm(cfg, p["ln1p"], out)
     x = x + out
 
+    if spec.cross_attn:
+        hx = _norm(cfg, p["lnx"], x)
+        x = x + _cross_attn(cfg, p["xattn"], hx, cache["xk"], cache["xv"],
+                            kv_chunk=1 << 16)
+
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6:
         xprev_c = cache["shift_c"][:, None, :].to(h2.dtype)
@@ -457,6 +578,31 @@ def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
 
 
 # ===========================================================================
+# Whisper-style encoder
+# ===========================================================================
+
+def encode(cfg: ModelConfig, enc: _Encoder, frames: torch.Tensor,
+           kv_chunk: int = 1024, remat: bool = False) -> torch.Tensor:
+    """frames: (B, n_frames, D) stubbed conv-frontend output. With
+    ``remat`` each layer is one non-reentrant ``torch.utils.checkpoint``
+    region (the reference's ``jax.checkpoint`` a layer)."""
+    x = frames + enc.pos[None]
+    positions = torch.arange(frames.shape[1], device=frames.device)
+
+    def body(x, lp):
+        return apply_layer_seq(cfg, _ENCODER_SPEC, lp, x, positions,
+                               kv_chunk)[0]
+
+    for lp in enc.layers:
+        if remat:
+            x = checkpoint(body, x, lp, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, lp)
+    return _norm(cfg, enc.final, x)
+
+
+# ===========================================================================
 # Model facade
 # ===========================================================================
 
@@ -468,9 +614,10 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, kv_chunk: int = 1024) -> None:
         super().__init__()
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(f"{cfg.name}: {missing} are {_TODO}")
+        if cfg.moe_pspec is not None:
+            raise ValueError("moe_pspec shards the MoE buffer over a mesh; "
+                             "the port runs on one card (ROADMAP.md queue 1 "
+                             "item 12: runtime/sharding.py)")
         self.cfg = cfg
         self.kv_chunk = kv_chunk
         self.device: Optional[torch.device] = None
@@ -494,6 +641,11 @@ class Model(nn.Module):
             self.lm_head = ini.dense((cfg.d_model, cfg.vocab), scale=0.02)
         self.layers = nn.ModuleList(_layer_params(cfg, spec, ini)
                                     for spec in cfg.layers)
+        if cfg.encoder is not None:
+            self.encoder = _Encoder(cfg, ini)
+        if _learned_positions(cfg):
+            self.pos_embed = ini.normal(
+                (min(cfg.max_position, 1 << 16), cfg.d_model), 0.01)
         return self
 
     def _params(self) -> None:
@@ -508,6 +660,22 @@ class Model(nn.Module):
         if cfg.embed_scale:
             x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
         return x
+
+    def _extras(self, extras: Optional[Mapping[str, torch.Tensor]],
+                remat: bool = False) -> Optional[Dict[str, torch.Tensor]]:
+        """The cross-attention source: the encoder's output over
+        ``extras["frames"]``, or ``extras["img"]`` as it is."""
+        cfg = self.cfg
+        if cfg.encoder is not None:
+            if extras is None or "frames" not in extras:
+                raise ValueError(f"{cfg.name} needs extras['frames']")
+            return {"src": encode(cfg, self.encoder, extras["frames"],
+                                  self.kv_chunk, remat)}
+        if cfg.n_img_tokens:
+            if extras is None or "img" not in extras:
+                raise ValueError(f"{cfg.name} needs extras['img']")
+            return {"src": extras["img"]}
+        return None
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -541,17 +709,19 @@ class Model(nn.Module):
         return own
 
     def decay_names(self) -> Set[str]:
-        """The parameters the reference's AdamW decays (``ndim >= 2`` of
-        its leaf): every parameter of a superblock layer (its leaves carry
-        the stacking axis, so 1-D weights are 2-D there) and the others
-        with ``ndim >= 2``."""
+        """The parameters the reference's AdamW decays: those whose leaf
+        there has ``ndim >= 2``. A parameter of a superblock layer or of an
+        encoder layer is a slice of a stacked leaf, one axis more than its
+        own; so its 1-D weights decay and its 0-d cross-attention gate
+        does not. Elsewhere a parameter decays iff it is 2-D or more."""
         self._params()
         scanned = self.cfg.n_super * len(self.cfg.pattern)
         out = set()
         for name, p in self.named_parameters():
             parts = name.split(".")
-            if (parts[0] == "layers" and int(parts[1]) < scanned) \
-                    or p.dim() >= 2:
+            stacked = (parts[0] == "layers" and int(parts[1]) < scanned) \
+                or parts[:2] == ["encoder", "layers"]
+            if p.dim() + stacked >= 2:
                 out.add(name)
         return out
 
@@ -565,46 +735,53 @@ class Model(nn.Module):
                 + [(n,) for n in range(cfg.n_super * period, cfg.n_layers)])
 
     def _run_block(self, x: torch.Tensor, positions: torch.Tensor,
-                   layers: Tuple[int, ...], want_cache: bool = False
+                   layers: Tuple[int, ...], want_cache: bool = False,
+                   src: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         blobs: Cache = []
         for n in layers:
             x, a, blob = apply_layer_seq(self.cfg, self.cfg.layers[n],
                                          self.layers[n], x, positions,
-                                         self.kv_chunk, want_cache)
+                                         self.kv_chunk, want_cache, src)
             aux = aux + a
             blobs.append(blob)
         return x, aux, blobs
 
-    def forward(self, tokens: torch.Tensor, want_cache: bool = False
+    def forward(self, tokens: torch.Tensor,
+                extras: Optional[Mapping[str, torch.Tensor]] = None,
+                want_cache: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
         """Full-sequence forward. Returns (logits, aux_loss, caches), the
-        caches one dict a layer. The reference's ``extras`` (encoder
-        frames, image tokens) and ``positions`` are for the archs not
-        ported yet.
+        caches one dict a layer. ``extras``: the encoder's frames or the
+        image tokens (module docstring); the reference's ``positions``
+        argument is not taken (its default, ``arange(S)``, is).
 
         It records autograd when the caller's grad mode is on and the
         parameters require gradients (:meth:`train_params`); each remat
         region (:meth:`_blocks`) then runs under a non-reentrant
-        ``torch.utils.checkpoint`` and is recomputed in the backward."""
+        ``torch.utils.checkpoint`` and is recomputed in the backward, and
+        so does each encoder layer."""
         self._params()
         B, S = tokens.shape
         x = self._embed(tokens)
+        if _learned_positions(self.cfg):
+            x = x + self.pos_embed[:S][None]
         positions = torch.arange(S, device=x.device)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        caches: Cache = []
         remat = torch.is_grad_enabled() and self.embed.requires_grad \
             and not want_cache
+        src = self._extras(extras, remat)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        caches: Cache = []
         for layers in self._blocks():
             if remat:
                 # the layers draw no random numbers: no RNG state to keep
                 x, aux, blobs = checkpoint(
-                    self._run_block, x, positions, layers,
+                    self._run_block, x, positions, layers, False, src,
                     use_reentrant=False, preserve_rng_state=False)
             else:
                 x, aux, blobs = self._run_block(x, positions, layers,
-                                                want_cache)
+                                                want_cache, src)
             aux_total = aux_total + aux
             caches += blobs
         return self._logits(x), aux_total, caches
@@ -612,15 +789,12 @@ class Model(nn.Module):
     def loss(self, batch: Mapping[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: tokens (B, S), labels (B, S) with -100 (any negative) =
-        ignore, on the model's device. The reference's mask-sum CE: the
-        label's logit is taken by a gather, which picks the same f32 value
-        as its masked sum over the vocabulary (every other term is an
-        exact 0) without a (B, S, V) mask. Returns (ce + 0.01 aux,
-        {"ce", "aux", "tokens"})."""
-        if batch.get("extras") is not None:
-            raise NotImplementedError(f"extras (encoder frames, image "
-                                      f"tokens) are {_TODO}")
-        logits, aux, _ = self.forward(batch["tokens"])
+        ignore, and ``extras`` where the model reads them, on the model's
+        device. The reference's mask-sum CE: the label's logit is taken by
+        a gather, which picks the same f32 value as its masked sum over the
+        vocabulary (every other term is an exact 0) without a (B, S, V)
+        mask. Returns (ce + 0.01 aux, {"ce", "aux", "tokens"})."""
+        logits, aux, _ = self.forward(batch["tokens"], batch.get("extras"))
         labels = batch["labels"].long()
         valid = labels >= 0
         safe = torch.clamp(labels, min=0)
@@ -650,6 +824,10 @@ class Model(nn.Module):
         self._params()
         cfg = self.cfg
         x = self._embed(tokens)
+        if _learned_positions(cfg):
+            L = self.pos_embed.shape[0]
+            at = torch.clamp(pos_t, max=L - 1).reshape(1)
+            x = x + self.pos_embed.index_select(0, at)[None]
         for spec, lp, cb in zip(cfg.layers, self.layers, cache):
             x = apply_layer_step_(cfg, spec, lp, cb, x, pos_t)
         return self._logits(x)
@@ -669,22 +847,30 @@ class Model(nn.Module):
         return logits, new_cache
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: int
+    def prefill(self, tokens: torch.Tensor, cache_len: int,
+                extras: Optional[Mapping[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process a prompt, building a decode cache. Returns (logits, cache).
 
         Attention K/V computed for the prompt are written into the cache
-        (ring-placed for local windows).
+        (ring-placed for local windows; quantized for an int8 cache), and a
+        cross-attention layer's source K/V too.
         """
         cfg = self.cfg
         B, S = tokens.shape
-        logits, _, blobs = self.forward(tokens, want_cache=True)
+        logits, _, blobs = self.forward(tokens, extras, want_cache=True)
         cache = self.init_cache(B, cache_len)
         for spec, blob, slot in zip(cfg.layers, blobs, cache):
             if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
                 take = min(S, slot["k"].shape[1])
                 for key in ("k", "v"):
-                    slot[key][:, :take] = blob[key][:, S - take:]
+                    seq = blob[key][:, S - take:]
+                    if "kscale" in slot:
+                        q, sc = _quantize_kv(seq)
+                        slot[key][:, :take] = q
+                        slot[key + "scale"][:, :take] = sc
+                    else:
+                        slot[key][:, :take] = seq
             elif spec.mix == ATTN_LOCAL:
                 L = slot["k"].shape[1]
                 take = min(S, L)
@@ -693,7 +879,7 @@ class Model(nn.Module):
                 for key in ("k", "v"):
                     slot[key][:, slots] = blob[key][:, S - take:].to(
                         slot[key].dtype)
-            for key in ("h", "conv", "s", "shift_t", "shift_c"):
+            for key in ("h", "conv", "s", "shift_t", "shift_c", "xk", "xv"):
                 if key in blob:
                     slot[key].copy_(blob[key])
         return logits, cache

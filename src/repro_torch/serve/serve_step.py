@@ -1,8 +1,10 @@
 """Serving steps: prefill (prompt -> cache) and decode (one token/step).
 
 The port's :class:`~repro_torch.models.Model` holds its parameters, so the
-steps take no ``params`` argument, and it serves no arch that needs the
-reference's ``extras``; otherwise they are the reference's.
+steps take no ``params`` argument; otherwise they are the reference's. The
+prefill takes the reference's ``extras`` (encoder frames, image tokens);
+the decode step reads the cross-attention K/V that prefill put in the
+cache.
 
 The reference compiles its decode step once, ``jax.jit(serve_step,
 donate_argnums=1)``: one program a step, the cache updated in place, the
@@ -47,10 +49,12 @@ def make_serve_step(model):
 
 
 def make_prefill(model, cache_len: int):
-    """prefill(tokens) -> (last-token logits (B, V), cache)."""
+    """prefill(tokens, extras=None) -> (last-token logits (B, V), cache)."""
 
-    def prefill(tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
-        logits, cache = model.prefill(tokens, cache_len)
+    def prefill(tokens: torch.Tensor,
+                extras: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        logits, cache = model.prefill(tokens, cache_len, extras)
         return logits[:, -1, :].clone(), cache
 
     return prefill

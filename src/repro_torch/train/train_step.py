@@ -1,13 +1,14 @@
 """Training step: microbatched gradient accumulation + AdamW update (the
 reference's ``train/train_step.py``).
 
-The batch carries a leading ``accum`` dimension; microbatches run one
-after the other, so activation memory is that of one microbatch (each
-model superblock is additionally rematerialized, see
-``models/transformer.py``). Each microbatch's gradients come out in the
-parameters' dtype (bf16 for bf16 weights, as ``jax.value_and_grad`` gives
-them) and are summed into f32 accumulators; the sum over ``accum`` is cast
-to bf16 before the optimizer, as in the reference.
+The batch carries a leading ``accum`` dimension (on every leaf, the
+``extras`` too); microbatches run one after the other, so activation
+memory is that of one microbatch (each model superblock is additionally
+rematerialized, see ``models/transformer.py``). Each microbatch's
+gradients come out in the parameters' dtype (bf16 for bf16 weights, as
+``jax.value_and_grad`` gives them) and are summed into f32 accumulators;
+the sum over ``accum`` is cast to bf16 before the optimizer, as in the
+reference.
 
 The train state is ``{"params", "opt", "step"}``. Its ``params`` are the
 model's own parameters (:meth:`~repro_torch.models.Model.train_params`),
@@ -47,6 +48,8 @@ def make_train_step(model, opt, grad_pspecs=None):
         device = model.device
         tokens, labels = (torch.as_tensor(batch[k], device=device)
                           for k in ("tokens", "labels"))
+        extras = {k: torch.as_tensor(v, device=device)
+                  for k, v in (batch.get("extras") or {}).items()}
         accum = tokens.shape[0]
         names = list(params)
         leaves = [params[k] for k in names]
@@ -54,8 +57,10 @@ def make_train_step(model, opt, grad_pspecs=None):
                 for k, p in params.items()}
         losses, ces, auxes = [], [], []
         for i in range(accum):
-            loss, metrics = model.loss({"tokens": tokens[i],
-                                        "labels": labels[i]})
+            mb = {"tokens": tokens[i], "labels": labels[i]}
+            if extras:
+                mb["extras"] = {k: v[i] for k, v in extras.items()}
+            loss, metrics = model.loss(mb)
             grads = torch.autograd.grad(loss, leaves)
             for k, g in zip(names, grads):
                 gsum[k].add_(g)

@@ -3,8 +3,9 @@
 ``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
 module of the JAX package; a policy must run (through ``policy_scan`` and,
 over a ``DeviceColumnStore``, ``policy_scan_mesh``), a profile cube and its
-reports must build, and the paged serving engine must serve requests over
-its tiered KV cache, with both blocked (and a tenant's scoped queries
+reports must build, the paged serving engine must serve requests over
+its tiered KV cache, and the model zoo's recurrent, MoE and encoder-decoder
+archs must prefill and decode, with both blocked (and a tenant's scoped queries
 served from the store, and a policy run over a store whose groups are
 demoted to packed segments and streamed, and three steps of the training
 launcher with a checkpoint restored); the default device must raise when
@@ -131,11 +132,15 @@ from repro_torch.kernels.rglru_scan import kernel as rg_kernel
 from repro_torch.kernels.rwkv6_step import kernel as rw_kernel
 from repro_torch.models import Model
 from repro_torch.serve import make_prefill, make_serve_step
-for arch in ("rwkv6_1p6b", "recurrentgemma_9b"):
+for arch in ("rwkv6_1p6b", "recurrentgemma_9b", "mixtral_8x22b",
+             "whisper_large_v3"):
     cfg = get_config(arch, smoke=True)
     model = Model(cfg).init(torch.Generator().manual_seed(1), device="cpu")
     prompt = torch.arange(12).reshape(2, 6) % cfg.vocab
-    last, cache = make_prefill(model, cache_len=9)(prompt)
+    extras = ({"frames": torch.ones((2, cfg.encoder.n_frames, cfg.d_model),
+                                    dtype=torch.bfloat16)}
+              if cfg.encoder is not None else None)
+    last, cache = make_prefill(model, cache_len=9)(prompt, extras)
     nxt = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     step = make_serve_step(model)
     for pos in range(6, 9):
@@ -175,7 +180,8 @@ def test_policy_runs_with_jax_and_repro_blocked():
     ``find``, ``top_files``, ``du`` and cube through a store with a
     ``GrantTable``,
     serves requests through ``ServingEngine(device="cpu").run``, runs a
-    prefill and three decode steps of both recurrent smoke models, and
+    prefill and three decode steps of both recurrent smoke models, of
+    mixtral smoke (MoE) and of whisper smoke (its encoder's frames), and
     trains recurrentgemma smoke three steps through ``launch.train.main``
     (a checkpoint saved and restored)."""
     env = dict(os.environ)

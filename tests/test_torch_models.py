@@ -411,19 +411,7 @@ def test_ring_cache_wraps_correctly():
         assert err < _bound(scale), (t, err)
 
 
-def test_unported_parts_raise():
-    for arch in ("mixtral_8x22b", "whisper_large_v3", "llama3p2_vision_11b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            Model(torch_config(arch, smoke=True))
-    m = _pair("rwkv6_1p6b").port
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        m.loss({"tokens": toks, "labels": toks, "extras": {"img": toks}})
-    import dataclasses
-    q = Model(dataclasses.replace(torch_config("chatglm3_6b", smoke=True),
-                                  kv_cache_dtype="int8")).init(
-        torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        q.init_cache(1, 8)
+def test_model_without_parameters_raises():
+    """A model holds no parameters until ``init`` draws them."""
     with pytest.raises(RuntimeError):
         Model(torch_config("rwkv6_1p6b", smoke=True)).init_cache(1, 8)

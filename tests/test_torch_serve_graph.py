@@ -9,8 +9,10 @@ a CUDA graph can capture it. Here, on the CPU:
 * teacher-forced from the same prefill, it follows the reference's
   ``decode_step`` within the reference's decode-consistency bound
   ``0.05 * scale + 0.05`` (the bf16 roundings of two frameworks compound
-  over depth), for the recurrent models and the dense ones with full and
-  local attention;
+  over depth), for the recurrent models, the dense ones with full and
+  local attention, the MoE ones and the cross-attention ones (their
+  ``extras`` through prefill, the gates at 0.5 as ``zoo_pairs`` sets
+  them);
 * the eager ``Model.decode_step`` (one copy of the cache, then the same
   body) equals it bit for bit and leaves its input cache bit for bit as it
   was;
@@ -35,7 +37,9 @@ from repro_torch.serve import make_prefill, make_serve_step
 from repro_torch.serve.serve_step import GraphedServeStep
 
 B, S, P = 2, 24, 20
-ARCHS = ["recurrentgemma_9b", "rwkv6_1p6b", "gemma2_9b", "chatglm3_6b"]
+ARCHS = ["recurrentgemma_9b", "rwkv6_1p6b", "gemma2_9b", "chatglm3_6b",
+         "mixtral_8x22b", "llama4_maverick_400b_a17b", "llama3p2_vision_11b",
+         "whisper_large_v3"]
 RECURRENT = ["recurrentgemma_9b", "rwkv6_1p6b"]
 
 
@@ -67,10 +71,12 @@ class Pair:
         import jax
         from repro.configs import get_config
         from repro.models import Model as JaxModel
+        from zoo_pairs import GATE, extras_np, with_gates
         key = jax.random.PRNGKey(3)
         self.cfg = get_config(arch, smoke=True)
         self.ref = JaxModel(self.cfg, kv_chunk=8)
-        self.params = self.ref.init(key)
+        self.params = with_gates(self.ref.init(key), GATE)
+        self.extras = extras_np(self.cfg)
         self.port = Model(torch_config(arch, smoke=True), kv_chunk=8).init(
             torch.Generator().manual_seed(0), device="cpu")
         self.port.load_state_dict(convert.model_state_dict(
@@ -104,12 +110,14 @@ def test_inplace_step_follows_reference_decode(arch):
     """Prefill P tokens in both packages, then decode the rest of the batch
     teacher-forced: the reference's step with a traced int32 position,
     the port's in-place body with a 0-d int64 tensor."""
+    from zoo_pairs import jx, tx
     import jax.numpy as jnp
     pair = _pair(arch)
     toks = pair.tokens
     lj, cj = pair.ref.prefill(pair.params, jnp.asarray(toks[:, :P]),
-                              cache_len=S)
-    lt, ct = pair.port.prefill(torch.from_numpy(toks[:, :P]), S)
+                              cache_len=S, extras=jx(pair.extras))
+    lt, ct = pair.port.prefill(torch.from_numpy(toks[:, :P]), S,
+                               tx(pair.extras))
     pairs = [(_np(lj[:, -1]), _np(lt[:, -1]))]
     for t in range(P, S):
         lgj, cj = pair.ref.decode_step(pair.params, cj,
@@ -128,9 +136,10 @@ def test_inplace_step_follows_reference_decode(arch):
 def test_eager_decode_equals_inplace_body(arch):
     """``decode_step`` (an int position) gives the in-place body's logits
     and cache bit for bit, and leaves the cache it was given as it was."""
+    from zoo_pairs import tx
     port = _pair(arch).port
     toks = torch.from_numpy(_pair(arch).tokens)
-    _, cache = port.prefill(toks[:, :P], S)
+    _, cache = port.prefill(toks[:, :P], S, tx(_pair(arch).extras))
     keep = _clone(cache)
     inplace = _clone(cache)
     for t in range(P, S):
@@ -223,10 +232,16 @@ def test_launch_tally_adds_captured_calls_on_replay(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def _cuda_model(arch: str, device):
+    """The smoke model drawn on the card, its cross-attention gates at 0.5,
+    and a seeded prompt."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     model = Model(torch_config(arch, smoke=True), kv_chunk=8).init(gen,
                                                                      device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("xattn.gate"):
+                p.fill_(0.5)
     rng = np.random.default_rng(11)
     prompt = torch.from_numpy(rng.integers(0, model.cfg.vocab,
                                            (B, P))).to(device)
@@ -234,15 +249,21 @@ def _cuda_model(arch: str, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", RECURRENT)
+@pytest.mark.parametrize("arch", RECURRENT + ["mixtral_8x22b",
+                                             "whisper_large_v3"])
 def test_cuda_graphed_step_equals_eager(arch, cuda_device):
-    """2 x window greedy steps (the recurrentgemma ring wraps): the graphed
-    step gives the eager step's tokens, logits and final cache bit for bit
-    (the same kernels on the same inputs in the same order)."""
+    """2 x 16 greedy steps (the recurrentgemma and mixtral rings wrap; the
+    MoE dispatch and whisper's cross-attention and learned positions are
+    captured too): the graphed step gives the eager step's tokens, logits
+    and final cache bit for bit (the same kernels on the same inputs in
+    the same order)."""
+    from zoo_pairs import extras_np
     model, prompt = _cuda_model(arch, cuda_device)
+    extras = {k: torch.from_numpy(v).to(cuda_device, torch.bfloat16)
+              for k, v in (extras_np(model.cfg) or {}).items()} or None
     n = 2 * 16
     cache_len = P + n
-    last, cache0 = make_prefill(model, cache_len)(prompt)
+    last, cache0 = make_prefill(model, cache_len)(prompt, extras)
     first = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
     cache, nxt, eager_toks, eager_lg = cache0, first, [], []
     for i in range(n):

@@ -54,7 +54,10 @@ from repro_torch.models import Model
 from repro_torch.optim import AdamW, cosine_warmup
 from repro_torch.train import init_train_state, make_train_step
 
-ARCHS = ["recurrentgemma_9b", "rwkv6_1p6b", "chatglm3_6b"]
+ARCHS = ["recurrentgemma_9b", "rwkv6_1p6b", "chatglm3_6b", "mixtral_8x22b",
+         "llama4_maverick_400b_a17b", "llama3p2_vision_11b",
+         "whisper_large_v3"]
+MOE = ("mixtral_8x22b", "llama4_maverick_400b_a17b")
 B, S = 2, 24
 BWD_SHAPE = (2, 37, 24)
 
@@ -168,16 +171,20 @@ def test_autograd_function_routes_to_plain_pair_on_cpu(monkeypatch):
 
 class Pair:
     """The reference model and the port's with the same parameters (the
-    reference's dtypes, or f32 copies of them) and one seeded batch."""
+    reference's dtypes, or f32 copies of them; cross-attention gates at
+    0.5, as ``zoo_pairs`` sets them) and one seeded batch, with
+    ``extras`` (bf16, or f32 with f32 weights) where the model reads
+    them."""
 
     def __init__(self, arch: str, f32: bool):
         import jax
         import jax.numpy as jnp
         from repro.configs import get_config
         from repro.models import Model as JaxModel
+        from zoo_pairs import GATE, extras_np, with_gates
         self.cfg = get_config(arch, smoke=True)
         self.ref = JaxModel(self.cfg, kv_chunk=8)
-        params = self.ref.init(jax.random.PRNGKey(3))
+        params = with_gates(self.ref.init(jax.random.PRNGKey(3)), GATE)
         if f32:
             params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
         self.params = params
@@ -195,13 +202,19 @@ class Pair:
             [toks[:, 1:], np.full((B, 1), -100, np.int32)], axis=1)
         labels[0, 3] = -100                 # an ignored label mid-row
         self.batch = {"tokens": toks, "labels": labels}
+        self.extras = extras_np(self.cfg)
+        self.f32 = f32
 
     def reference(self):
         import jax
         import jax.numpy as jnp
+        batch = {k: jnp.asarray(v) for k, v in self.batch.items()}
+        if self.extras is not None:
+            dt = jnp.float32 if self.f32 else jnp.bfloat16
+            batch["extras"] = {k: jnp.asarray(v, dt)
+                               for k, v in self.extras.items()}
         (loss, m), g = jax.jit(jax.value_and_grad(
-            self.ref.loss, has_aux=True))(
-            self.params, {k: jnp.asarray(v) for k, v in self.batch.items()})
+            self.ref.loss, has_aux=True))(self.params, batch)
         grads = convert.model_state_dict(jax.tree.map(np.asarray, g),
                                          self.cfg)
         return float(loss), {k: float(v) for k, v in m.items()}, grads
@@ -209,8 +222,12 @@ class Pair:
     def port_grads(self):
         params = self.port.train_params()
         names = list(params)
-        loss, m = self.port.loss({k: torch.from_numpy(v)
-                                  for k, v in self.batch.items()})
+        batch = {k: torch.from_numpy(v) for k, v in self.batch.items()}
+        if self.extras is not None:
+            dt = torch.float32 if self.f32 else torch.bfloat16
+            batch["extras"] = {k: torch.from_numpy(v).to(dt)
+                               for k, v in self.extras.items()}
+        loss, m = self.port.loss(batch)
         grads = torch.autograd.grad(loss, [params[k] for k in names])
         return (float(loss.detach()), {k: float(v.detach())
                                        for k, v in m.items()},
@@ -239,7 +256,11 @@ def test_loss_and_gradients_match_reference_in_f32(arch):
     (rl, rm, rg), (tl, tm, tg) = _run(arch, True)
     assert abs(tl - rl) <= 1e-5 * abs(rl)
     assert tm["tokens"] == rm["tokens"] == B * (S - 1) - 1
-    assert tm["aux"] == rm["aux"] == 0.0
+    if arch in MOE:         # the Switch aux loss, f32 softmax statistics
+        assert rm["aux"] > 0 and abs(tm["aux"] - rm["aux"]) <= 1e-5 * rm[
+            "aux"]
+    else:
+        assert tm["aux"] == rm["aux"] == 0.0
     assert set(tg) == set(rg)
     for k, g in tg.items():
         assert g.dtype == torch.float32 and g.shape == rg[k].shape, k
@@ -362,6 +383,81 @@ def test_adamw_update_matches_reference_with_stacked_decay():
                               rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "rwkv6_1p6b",
+                                  "gemma2_9b", "mixtral_8x22b",
+                                  "llama4_maverick_400b_a17b",
+                                  "llama3p2_vision_11b", "whisper_large_v3"])
+def test_decay_names_follow_the_reference_leaf_ndim(arch):
+    """``Model.decay_names`` is the set the reference's AdamW decays
+    (``ndim >= 2`` of its leaf), leaf for leaf through ``convert``: a
+    superblock's or an encoder layer's parameter counts the stacking
+    axis, so a 0-d cross-attention gate there is 1-D and does not decay,
+    and the encoder layers' 1-D norm weights do."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import Model as JaxModel
+    cfg = get_config(arch, smoke=True)
+    specs = JaxModel(cfg).param_specs()
+    marks = convert.model_state_dict(jax.tree.map(
+        lambda a: np.full(a.shape, len(a.shape) >= 2), specs), cfg)
+    want = {k for k, v in marks.items() if bool(v.all())}
+    model = Model(torch_config(arch, smoke=True)).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    assert set(marks) == set(dict(model.named_parameters()))
+    assert model.decay_names() == want
+    names = dict(model.named_parameters())
+    gates = [k for k in names if k.endswith("xattn.gate")]
+    assert all(names[k].dim() == 0 and k not in want for k in gates)
+    if arch == "whisper_large_v3":
+        assert "encoder.layers.1.ln1.w" in want and "encoder.pos" in want
+        assert "encoder.final.w" not in want and "pos_embed" in want
+
+
+def test_adamw_update_matches_reference_on_vision_gates():
+    """llama3.2-vision smoke in f32 (so a decay of a gate would show: at
+    0.5 one step moves it by far less than a bf16 step): the reference's
+    AdamW update and the port's with ``decay_names`` agree on every
+    parameter, the gate included, as the stacked-decay test allows; with
+    every superblock parameter decayed (the rule before the gates) the
+    gate would move."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.models import Model as JaxModel
+    from repro.optim import AdamW as JaxAdamW
+    from zoo_pairs import GATE, with_gates
+    cfg = get_config("llama3p2_vision_11b", smoke=True)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), with_gates(
+        JaxModel(cfg).init(jax.random.PRNGKey(1)), GATE))
+    rng = np.random.default_rng(12)
+    grads = _random_like_tree(rng, params, 0.05)
+    state = {"m": _random_like_tree(rng, params, 0.01),
+             "v": _random_like_tree(rng, params, 1e-3, positive=True),
+             "count": jnp.asarray(4, jnp.int32)}
+    kw = dict(lr=3e-3, weight_decay=0.1, grad_clip=1.0)
+    want_p, _ = jax.jit(JaxAdamW(**kw).update)(grads, state, params)
+
+    def port(tree):
+        return convert.model_state_dict(jax.tree.map(np.asarray, tree), cfg)
+    model = Model(torch_config("llama3p2_vision_11b", smoke=True)).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    opt = AdamW(**kw)
+
+    def step(decays):
+        st = {"m": port(state["m"]), "v": port(state["v"]),
+              "count": torch.tensor(4, dtype=torch.int32)}
+        return opt.update(port(grads), st, port(params), decays=decays)[0]
+    decays = model.decay_names()
+    gate = "layers.4.xattn.gate"
+    assert gate not in decays and "layers.4.lnx.w" in decays
+    got = step(decays)
+    # all f32: each element within 2**-20 of its tensor's largest update
+    # (any may differ by the fused multiply-add's ulp)
+    _check_params_close(got, port(want_p), port(params), 1.0)
+    every = decays | {k for k in got if k.startswith("layers.")}
+    assert not torch.equal(step(every)[gate], port(want_p)[gate])
+
+
 def test_cosine_warmup_matches_reference():
     import jax
     import jax.numpy as jnp
@@ -382,10 +478,10 @@ def test_cosine_warmup_matches_reference():
 # -- one microbatched train step --------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def step_pair():
-    """One reference train step (recurrentgemma smoke, accum 2) and the
-    port's from the same converted state and batch."""
+def _one_step(arch: str):
+    """One reference train step (``arch`` smoke, accum 2, its gates at
+    0.5 and seeded bf16 ``extras`` where it reads them) and the port's
+    from the same converted state and batch."""
     import jax
     import jax.numpy as jnp
     from repro.configs import get_config
@@ -395,27 +491,41 @@ def step_pair():
     from repro.optim import cosine_warmup as jax_cosine
     from repro.train import init_train_state as jax_init
     from repro.train import make_train_step as jax_step
-    cfg = get_config("recurrentgemma_9b", smoke=True)
+    from zoo_pairs import GATE, extras_np, with_gates
+    cfg = get_config(arch, smoke=True)
     jm = JaxModel(cfg, kv_chunk=8)
     jopt = JaxAdamW(lr=jax_cosine(3e-3, 3, 20), weight_decay=0.01)
     state = jax_init(jm, jopt, jax.random.PRNGKey(4))
+    state["params"] = with_gates(state["params"], GATE)
     b = DataPipeline(vocab=cfg.vocab, seq_len=S, global_batch=4,
                      seed=2).batch_for(0)
     batch = {k: v.reshape(2, 2, S) for k, v in b.items()}
+    extras = {k: np.stack([v, v[::-1]]) for k, v in
+              (extras_np(cfg) or {}).items()}   # (accum, B, ...): two draws
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if extras:
+        jbatch["extras"] = {k: jnp.asarray(v, jnp.bfloat16)
+                            for k, v in extras.items()}
+        tbatch["extras"] = {k: torch.from_numpy(v).to(torch.bfloat16)
+                            for k, v in extras.items()}
     state_np = jax.tree.map(np.asarray, state)
-    new, metrics = jax.jit(jax_step(jm, jopt))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()})
+    new, metrics = jax.jit(jax_step(jm, jopt))(state, jbatch)
     want = jax.tree.map(np.asarray, new)
     ported = convert.train_state(state_np, cfg)
-    model = Model(torch_config("recurrentgemma_9b", smoke=True),
+    model = Model(torch_config(arch, smoke=True),
                   kv_chunk=8).init(torch.Generator().manual_seed(9),
                                    device="cpu")
     opt = AdamW(lr=cosine_warmup(3e-3, 3, 20), weight_decay=0.01)
-    got, got_m = make_train_step(model, opt)(
-        ported, {k: torch.from_numpy(v) for k, v in batch.items()})
+    got, got_m = make_train_step(model, opt)(ported, tbatch)
     return dict(cfg=cfg, state_np=state_np, ported=ported, want=want,
                 want_m={k: float(v) for k, v in metrics.items()}, got=got,
                 got_m={k: float(v) for k, v in got_m.items()}, model=model)
+
+
+@pytest.fixture(scope="module")
+def step_pair():
+    return _one_step("recurrentgemma_9b")
 
 
 def test_convert_train_state_maps_the_reference_state(step_pair):
@@ -438,6 +548,16 @@ def test_convert_train_state_maps_the_reference_state(step_pair):
 
 
 def test_train_step_matches_reference(step_pair):
+    _check_one_step(step_pair)
+
+
+def test_train_step_with_extras_matches_reference():
+    """whisper smoke: each microbatch's ``extras["frames"]`` reach its
+    loss (the reference scans every leaf of the batch)."""
+    _check_one_step(_one_step("whisper_large_v3"))
+
+
+def _check_one_step(step_pair):
     got, want = step_pair["got"], step_pair["want"]
     gm, wm = step_pair["got_m"], step_pair["want_m"]
     cfg = step_pair["cfg"]

@@ -266,7 +266,26 @@ failure:
     (the replayed steps included), the artifact catalog's usage logged,
     and the first 5 steps run again on the CPU from the same weights
     within 1e-2 of the card's losses;
-16. the rest of the model zoo served (``[zoo-serve]``), one config after
+16. distribution (``[dist]``): (b)'s state (full width, 5 layers) on a
+    1x1 ``DeviceMesh`` of a one-rank NCCL group: 2 steps unsharded from a
+    host copy of the state, then the same 2 steps from the same state
+    laid out by ``state_shardings`` / ``reshard_state`` through
+    ``make_train_step(grad_pspecs=opt_state_pspecs)``, deterministic
+    algorithms on in both: losses and parameters equal bit for bit,
+    exactly 16 forward and 8 gradient ``rglru_scan`` launches a step in
+    the mesh's window; the int8 error-feedback all-reduce over the mesh's
+    "data" axis on one microbatch's f32 gradients (``q`` within [-127,
+    127], the result equal to ``decompress(compress(g))`` bit for bit,
+    ``g_mean + new_err`` within one f32 rounding of each term of ``g +
+    err``; timed, its largest tensor again warm beside its bound); the
+    laid-out state saved by ``CheckpointManager`` and restored with
+    ``shardings=``, every leaf equal bit for bit; and the dry run of
+    recurrentgemma-9b at ``train_4k`` on the 16x16 production mesh, run
+    on the CPU in a process of its own from before the builds (PyTorch's
+    fake process group, fake tensors): its per-device
+    FLOPs, bytes, peak memory, collectives and roofline terms printed
+    beside the card's name as data-sheet estimates;
+17. the rest of the model zoo served (``[zoo-serve]``), one config after
     the other at published widths, parameters drawn on the card from the
     seed, every cross-attention gate set to 1.0 (drawn 0), MoE capacity
     dropless (E / k, as the reference's decode-consistency test): mixtral
@@ -286,7 +305,7 @@ failure:
     (token, head) printed against the bf16 cache's. Each prints decode ms
     a step eager and graphed, prefill seconds, peak memory and parameter
     bytes;
-17. the rest of the model zoo trained (``[zoo-train]``):
+18. the rest of the model zoo trained (``[zoo-train]``):
     ``make_train_step`` with AdamW (lr 3e-4, weight decay 0.01), accum 2,
     the same batch (next-token labels) for 4 steps: whisper-large-v3 at
     its published width and depth, microbatch 2 x 448 tokens with (2,
@@ -304,12 +323,14 @@ this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -4581,8 +4602,11 @@ def train_full_phase(torch, seed, device, results):
     entry.setdefault("launches_by_path", {})[
         f"recurrentgemma-9b training, {steps} steps (forward)"] = \
         counts["rglru_scan"]
-    del out, model, state, step, metrics, prof
+    del out, step, metrics, prof
     torch.cuda.empty_cache()
+    # the [dist] phase goes on from this state (one more step was taken)
+    return dict(cfg=cfg, model=model, state=state, args=args,
+                next_step=steps + 1)
 
 
 def train_restart_phase(torch, seed, device, results):
@@ -4689,11 +4713,332 @@ def train_restart_phase(torch, seed, device, results):
 
 
 def train_phase(torch, seed, device, results, designs=None):
+    """Returns the full-width phase's model and state, for ``dist_phase``."""
     t0 = time.perf_counter()
     train_kernel_phase(torch, seed, device, results, designs)
-    train_full_phase(torch, seed, device, results)
+    trained = train_full_phase(torch, seed, device, results)
     train_restart_phase(torch, seed, device, results)
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    return trained
+
+
+# the [dist] phase: the training phase's recurrentgemma-9b state (full
+# width, 5 layers) on a 1x1 mesh of a one-rank NCCL group; the dry run of
+# recurrentgemma-9b at train_4k on the 16x16 production mesh in a process
+# of its own (PyTorch's fake process group, fake tensors: no card)
+DIST_STEPS = 2
+DRYRUN_ARGV = ["--arch", "recurrentgemma-9b", "--shape", "train_4k"]
+DRYRUN_TIMEOUT = 900
+CHUNK = 1 << 26                 # elements a check takes at once
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_dryrun(out_dir: str):
+    """``launch/dryrun.py`` on the CPU in a process of its own (a process
+    has one default group: the fake one cannot share the NCCL one's)."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV,
+         "--out-dir", out_dir, "--tag", "chip_smoke"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_dryrun(proc, out_dir: str, card: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"[dist] the dry run outlived {DRYRUN_TIMEOUT} s")
+    check(proc.returncode == 0, f"[dist] the dry run failed:\n{out[-2000:]}"
+          f"\n{err[-3000:]}")
+    name = "recurrentgemma_9b__train_4k__16x16__chip_smoke.json"
+    with open(os.path.join(out_dir, name)) as f:
+        rec = json.load(f)
+    check(rec["status"] == "ok" and rec["flops_per_device"] > 0 and
+          rec["devices"] == 256, f"[dist] dry-run record {rec}")
+    colls = {k: {kk: v[kk] for kk in ("count", "bytes", "wire_bytes")}
+             for k, v in rec["collectives"].items()}
+    log(f"[dist] dry run recurrentgemma-9b train_4k on the 16x16 mesh "
+        f"(fake process group, fake tensors; {rec['wall_s']:.1f} s), "
+        f"data-sheet estimate beside {card}: per device "
+        f"{rec['flops_per_device']!r} FLOPs, "
+        f"{rec['bytes_accessed_per_device']!r} B accessed, peak "
+        f"{rec['memory']['peak_estimate_bytes']} B (state shards "
+        f"{rec['memory']['state_bytes']} B); collectives "
+        f"{json.dumps(colls)}; roofline compute {rec['compute_s']!r} s, "
+        f"memory {rec['memory_s']!r} s, collective {rec['collective_s']!r}"
+        f" s, bottleneck {rec['bottleneck']}; model FLOPs a device "
+        f"{rec['model_flops_per_device']!r}")
+    return {k: rec[k] for k in (
+        "flops_per_device", "bytes_accessed_per_device", "memory",
+        "collectives", "compute_s", "memory_s", "collective_s",
+        "bottleneck", "model_flops_per_device", "wall_s", "estimate")}
+
+
+def chunks(t):
+    flat = t.reshape(-1)
+    for i in range(0, flat.numel(), CHUNK):
+        yield flat[i:i + CHUNK]
+
+
+def host_copy(tree):
+    return {k: v.detach().to("cpu", copy=True) for k, v in tree.items()}
+
+
+def stop_dryrun(proc, work: str) -> None:
+    """Leaves no process and no file behind (the phase may have failed)."""
+    import shutil
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def dist_phase(torch, device, results, trained, dry, work):
+    """The training phase's state (recurrentgemma-9b at full width, 5
+    layers) laid out on a 1x1 mesh of a one-rank NCCL group:
+
+    (1) DIST_STEPS unsharded steps (``make_train_step``) from a host copy
+    of the state, then the same steps from the same state through
+    ``state_shardings`` / ``reshard_state`` and ``make_train_step(
+    grad_pspecs=opt_state_pspecs)``: losses and parameters equal bit for
+    bit (deterministic algorithms on in both, so the scatter-adds of the
+    embedding and CE gradients sum in one order), exactly 16 forward and 8
+    gradient ``rglru_scan`` launches a step in the mesh's window; (2) the
+    int8 error-feedback all-reduce over the group's "data" axis on one
+    microbatch's real gradients (f32): ``q`` within [-127, 127], the
+    result equal bit for bit to ``decompress_int8(compress_int8(g))`` (one
+    rank: the shared scale is the local one), ``g_mean + new_err`` within
+    one f32 rounding of each term of ``g + err``; (3) the laid-out state
+    saved by ``CheckpointManager`` and restored with ``shardings=`` onto
+    the 1x1 mesh: every leaf equal bit for bit; (4) the dry run ``dry``
+    (started before the builds, on the CPU in a process of its own,
+    writing into ``work``) read and printed."""
+    t_phase = time.perf_counter()
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import MIX_RGLRU
+    from repro_torch.optim import (AdamW, compress_int8, cosine_warmup,
+                                   init_error_state,
+                                   make_compressed_allreduce)
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.elastic import reshard_state, state_shardings
+    from repro_torch.runtime.sharding import ShardingRules, profile_for
+    from repro_torch.train import make_train_step
+    cfg, model, state, args = (trained[k] for k in ("cfg", "model", "state",
+                                                    "args"))
+    n_rec = sum(s.mix == MIX_RGLRU for s in cfg.layers)
+    pipe = DataPipeline(vocab=cfg.vocab, seq_len=args.seq,
+                        global_batch=args.batch, seed=args.seed)
+    opt = AdamW(lr=cosine_warmup(args.lr, args.steps // 10 + 1, args.steps),
+                weight_decay=0.01)
+    batches = []
+    for i in range(DIST_STEPS):
+        b = pipe.batch_for(trained["next_step"] + i)
+        batches.append({k: torch.from_numpy(v).to(device).reshape(
+            args.accum, args.batch // args.accum, args.seq)
+            for k, v in b.items()})
+    snap = {"params": host_copy(state["params"]),
+            "m": host_copy(state["opt"]["m"]),
+            "v": host_copy(state["opt"]["v"]),
+            "count": state["opt"]["count"].clone(),
+            "step": state["step"].clone()}
+
+    def put_back(st):
+        with torch.no_grad():
+            for part, tree in (("params", st["params"]),
+                               ("m", st["opt"]["m"]),
+                               ("v", st["opt"]["v"])):
+                for k, t in tree.items():
+                    t.copy_(snap[part][k])
+        st["opt"]["count"] = snap["count"].clone()
+        st["step"] = snap["step"].clone()
+        return st
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # (1) unsharded, then the same from the same state on the mesh
+        step = make_train_step(model, opt)
+        plain_losses = []
+        for b in batches:
+            state, m = step(state, b)
+            plain_losses.append(float(m["loss"]))
+        plain_params = host_copy(state["params"])
+        state = put_back(state)
+        torch.cuda.synchronize()
+        dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                f"{free_port()}", rank=0, world_size=1)
+        mesh = make_mesh((1, 1), ("data", "model"), device=device)
+        rules = ShardingRules(cfg, mesh, profile_for(cfg))
+        sh = state_shardings(cfg, mesh, state, rules.profile)
+        laid = reshard_state(state, sh)
+        step = make_train_step(model, opt, grad_pspecs=rules.opt_state_pspecs(
+            laid["params"]))
+        mesh_losses = []
+        t0 = time.perf_counter()
+
+        def run_steps():
+            nonlocal laid
+            for b in batches:
+                laid, m = step(laid, b)
+                mesh_losses.append(float(m["loss"]))
+        _, counts = launch_window(run_steps)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(all(isinstance(t, DTensor) for t in laid["params"].values()),
+          "[dist] the state on the mesh is not DTensors")
+    check(mesh_losses == plain_losses, f"[dist] losses on the 1x1 mesh "
+          f"{mesh_losses} differ from the unsharded steps' {plain_losses}")
+    differ = [k for k, t in laid["params"].items()
+              if not torch.equal(t.full_tensor(),
+                                 plain_params[k].to(device))]
+    check(not differ, f"[dist] parameters on the 1x1 mesh differ from the "
+          f"unsharded steps': {differ[:5]}")
+    want_fwd, want_bwd = n_rec * args.accum * 2, n_rec * args.accum
+    check(counts == only(rglru_scan=want_fwd * DIST_STEPS,
+                         rglru_scan_bwd=want_bwd * DIST_STEPS),
+          f"[dist] the mesh steps launched {counts}, expected {want_fwd} "
+          f"forward and {want_bwd} gradient launches a step")
+    del plain_params, snap
+    log(f"[dist] recurrentgemma-9b full width, {cfg.n_layers} layers, on a "
+        f"1x1 mesh of a one-rank NCCL group {CARD}: {DIST_STEPS} steps "
+        f"through state_shardings / reshard_state and make_train_step("
+        f"grad_pspecs=opt_state_pspecs) in {mesh_s!r} s, losses "
+        f"{mesh_losses} equal to the unsharded steps' bit for bit, every "
+        f"parameter equal bit for bit; launches {json.dumps(counts)} "
+        f"({want_fwd} forward and {want_bwd} gradient a step)")
+
+    # (2) the compressed all-reduce on one microbatch's real gradients
+    params = model.bind_params(laid["params"])
+    names = list(params)
+    loss, _ = model.loss({"tokens": batches[0]["tokens"][0],
+                          "labels": batches[0]["labels"][0]})
+    grads = dict(zip(names, torch.autograd.grad(
+        loss, [params[k] for k in names])))
+    del loss
+    reduce_tree = make_compressed_allreduce(mesh, "data")
+    grads_shape = {k: tuple(g.shape) for k, g in grads.items()}
+    big = max(grads_shape, key=lambda k: math.prod(grads_shape[k]))
+    worst = dict(q=0, sum_err=0.0, elements=0)
+    reduce_ms = 0.0
+    for k in names:
+        g = {k: grads.pop(k).float()}
+        err = init_error_state(g)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        mean, new_err = reduce_tree(g, err)
+        end.record()
+        torch.cuda.synchronize()
+        reduce_ms += start.elapsed_time(end)
+        q, scale = compress_int8(g[k] + err[k])
+        check(bool((q.abs() <= 127).all()), f"[dist] {k}: q out of range")
+        check(torch.equal(mean[k], q.float() * scale / 1),
+              f"[dist] {k}: the one-rank all-reduce differs from "
+              "compress/decompress")
+        for gm, ne, gf in zip(chunks(mean[k]), chunks(new_err[k]),
+                              chunks(g[k] + err[k])):
+            ulps = (torch.abs(gm).nextafter(torch.tensor(
+                float("inf"), device=device)) - torch.abs(gm)) + \
+                (torch.abs(ne).nextafter(torch.tensor(
+                    float("inf"), device=device)) - torch.abs(ne))
+            gap = (gm.double() + ne.double() - gf.double()).abs()
+            check(bool((gap <= ulps.double()).all()), f"[dist] {k}: "
+                  "g_mean + new_err is not g + err within one f32 "
+                  "rounding of each term")
+            worst["sum_err"] = max(worst["sum_err"], float(gap.max()))
+        worst["q"] = max(worst["q"], int(q.abs().max()))
+        worst["elements"] += q.numel()
+        if k == big:                # kept for the warm, profiled call
+            big_g = g
+        del g, err, mean, new_err, q
+    # the largest tensor once more, warm, under the profiler: where the
+    # time goes (the first calls include the allocator's growth)
+    from torch.profiler import ProfilerActivity, profile
+    err = init_error_state(big_g)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        reduce_tree(big_g, err)
+        end.record()
+        torch.cuda.synchronize()
+    big_ms = start.elapsed_time(end)
+    rows = device_rows(prof)
+    big_bound = 16 * big_g[big].numel() / HBM_BYTES_PER_S * 1e3
+    del big_g, err, prof
+    log(f"[dist] compressed all-reduce over the mesh's data axis (NCCL, one "
+        f"rank) {CARD}: {worst['elements']} gradient elements of one "
+        f"microbatch in {len(names)} tensors, {reduce_ms!r} ms on the card "
+        f"(CUDA events, summed over the tensors, first calls); max |q| "
+        f"{worst['q']}; the result equal to decompress(compress(g)) bit for "
+        f"bit; max |g_mean + new_err - (g + err)| {worst['sum_err']!r} "
+        f"(within one f32 rounding of each term); the largest tensor "
+        f"({big}, {math.prod(grads_shape[big])} elements) again, warm: "
+        f"{big_ms!r} ms against {big_bound!r} ms to read g and err and "
+        f"write g_mean and new_err once (16 B an element), "
+        f"{sum(r[1] for r in rows) / 1e3!r}"
+        f" ms of device time in {sum(r[2] for r in rows)} operations, top "
+        f"(us) {json.dumps([[n[:50], us, c] for n, us, c in rows[:6]])}")
+
+    # (3) elastic restore onto the 1x1 mesh
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as ck:
+        cm = CheckpointManager(ck)
+        cm.save(laid, DIST_STEPS)
+        restored, at = cm.restore(like=laid, shardings=state_shardings(
+            cfg, mesh, laid, rules.profile))
+    elastic_s = time.perf_counter() - t0
+    bad = []
+
+    def same(got, want, path=""):
+        if isinstance(want, dict):
+            for k in want:
+                same(got[k], want[k], f"{path}.{k}")
+            return
+        if not (isinstance(got, DTensor) and got.dtype == want.dtype and
+                torch.equal(got.full_tensor(), want.full_tensor())):
+            bad.append(path)
+    same(restored, laid)
+    check(at == DIST_STEPS and not bad, f"[dist] elastic restore: step {at},"
+          f" leaves that differ {bad[:5]}")
+    n_leaves = 2 + 3 * len(names)
+    del restored
+    torch.cuda.empty_cache()
+    log(f"[dist] CheckpointManager.save of the laid-out state and restore("
+        f"shardings=state_shardings(1x1 mesh)): {n_leaves} leaves equal bit "
+        f"for bit, {elastic_s!r} s for both")
+    dist.destroy_process_group()
+
+    # (4) the dry run
+    dry_rec = finish_dryrun(dry, work, CARD)
+    entry = results["rglru_scan"]
+    entry.setdefault("launches_by_path", {})[
+        f"[dist] recurrentgemma-9b on a 1x1 mesh, {DIST_STEPS} steps "
+        "(forward)"] = counts["rglru_scan"]
+    entry["backward"].setdefault("launches_by_path", {})[
+        f"[dist] recurrentgemma-9b on a 1x1 mesh, {DIST_STEPS} steps"] = \
+        counts["rglru_scan_bwd"]
+    log("[dist] " + json.dumps({
+        "card": CARD, "losses": mesh_losses, "steps_s": mesh_s,
+        "launches": counts, "compressed_allreduce_ms": reduce_ms,
+        "compressed_allreduce_warm_ms": {big: big_ms},
+        "max_q": worst["q"], "elastic_s": elastic_s, "dryrun": dry_rec}))
+    del laid, state, model, params, grads
+    torch.cuda.empty_cache()
+    log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s (the dry run "
+        f"started before the builds)")
 
 
 ROUTE_TIE = 2.0 ** -4           # a routing flip's gap: 8 bf16 steps of
@@ -5159,6 +5504,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # the dry run on the CPU from here, beside the builds and the kernel
+    # phases (timed on the card, not by the host's clock), read by [dist];
+    # at exit, whatever the outcome, its process and files go
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dry = start_dryrun(work)
+    atexit.register(stop_dryrun, dry, work)
+
     # 2. build: one nvcc per library, started together
     def timed_build(build):
         t0 = time.perf_counter()
@@ -5181,8 +5533,8 @@ def main() -> None:
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
     # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
     # paged attention and 12. the recurrent kernels at device scale, 13.
-    # paged serving, 14. recurrent-model serving, 15. training, 16. the
-    # rest of the model zoo served, 17. and trained
+    # paged serving, 14. recurrent-model serving, 15. training, 16.
+    # distribution, 17. the rest of the model zoo served, 18. and trained
     results: dict = {}
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
@@ -5202,7 +5554,9 @@ def main() -> None:
     for arch, batch, prompt_len, new, cache_len in RECURRENT_SERVE:
         recurrent_serve_phase(torch, args.seed, device, results, arch, batch,
                               prompt_len, new, cache_len)
-    train_phase(torch, args.seed, device, results, rg_designs)
+    trained = train_phase(torch, args.seed, device, results, rg_designs)
+    dist_phase(torch, device, results, trained, dry, work)
+    del trained
     zoo: dict = {}
     zoo_serve_phase(torch, args.seed, device, zoo)
     zoo_train_phase(torch, args.seed, device, zoo)

@@ -1,3 +1,3 @@
-"""Launch layer: the production training launcher (``train``). The mesh,
-dry-run and roofline modules are not ported yet (ROADMAP.md queue 1
-item 12)."""
+"""Launch layer: the production training launcher (``train``), the
+meshes and their hardware constants (``mesh``), the multi-pod dry run
+(``dryrun``) and its roofline terms (``roofline``)."""

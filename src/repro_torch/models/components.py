@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.rglru_scan import ops as rglru_ops
 from .config import MoeSpec
@@ -205,12 +206,22 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
                 w3: torch.Tensor, w2: torch.Tensor, moe: MoeSpec,
                 shared: Optional[Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]] = None,
-                groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                groups: int = 1, buf_pspec=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity-factor dispatch (tokens over capacity drop).
 
     x: (B, S, D); router_w: (D, E); experts w1/w3: (E, D, F), w2: (E, F, D).
     Returns (out, aux_loss). ``groups``: dispatch groups, each with its own
     capacity (1 unless it divides the B*S tokens).
+
+    ``buf_pspec``: a ``runtime.sharding.NamedSharding`` for the
+    ``(G, E, cap, D)`` dispatch buffer (the reference's ``buf_pspec``, its
+    ``with_sharding_constraint``; the port's carries its mesh). The buffer
+    is laid out as a ``DTensor`` (group dim over the data axes), the expert
+    products run on each rank's groups against the experts replicated, and
+    their output is gathered whole for the combine: the same values, each
+    group's products on one rank. A spec whose sharded dims do not divide
+    leaves the buffer whole, as the sharding rules do.
 
     The top k come from a stable descending sort of the bf16-rounded router
     logits, so ties go to the lower expert index as ``jax.lax.top_k``
@@ -258,9 +269,22 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     buf = torch.zeros((G * E * cap, D), dtype=x.dtype, device=x.device)
     buf = buf.index_add(0, slot, contrib.reshape(-1, D)).reshape(G, E, cap, D)
 
+    if buf_pspec is not None and _divides(buf.shape, buf_pspec):
+        # from whole (replicated) to sharded: a local split forward, a
+        # gather of the buffer's gradient backward (every rank computes
+        # the dispatch whole); the experts' gradients are summed over the
+        # ranks that hold the groups
+        mesh = buf_pspec.mesh
+        rep = [Replicate()] * mesh.ndim
+        buf = DTensor.from_local(buf, mesh, rep, run_check=False
+                                 ).redistribute(mesh, buf_pspec.placements)
+        w1, w3, w2 = (DTensor.from_local(w, mesh, rep, run_check=False)
+                      for w in (w1, w3, w2))
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * \
         torch.einsum("gecd,edf->gecf", buf, w3)
     y = torch.einsum("gecf,efd->gecd", h, w2)              # (G, E, cap, D)
+    if isinstance(y, DTensor):
+        y = y.full_tensor()
 
     gathered = y.reshape(G * E * cap, D)[slot].reshape(G, Tg * k, D)
     wk = (weights.reshape(G, Tg * k, 1) * keep[..., None]).to(x.dtype)
@@ -271,6 +295,16 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
         s1, s3, s2 = shared
         out = out + swiglu(xt, s1, s3, s2)
     return out.reshape(B, S, D), aux
+
+
+def _divides(shape, sharding) -> bool:
+    """Every dim the sharding splits divides by its mesh axes' ranks."""
+    mesh = sharding.mesh
+    n = [1] * len(shape)
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            n[pl.dim] *= mesh.size(i)
+    return all(d % k == 0 for d, k in zip(shape, n))
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from typing import Dict, List, Mapping, Optional, Set, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
@@ -296,7 +297,8 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor
     if spec.ffn == FFN_MOE:
         shared = (p["s1"], p["s3"], p["s2"]) if "s1" in p else None
         return moe_forward(x, p["router"], p["w1"], p["w3"], p["w2"],
-                           cfg.moe, shared, groups=cfg.moe_groups)
+                           cfg.moe, shared, groups=cfg.moe_groups,
+                           buf_pspec=cfg.moe_pspec)
     if cfg.ffn_act == "gelu":
         return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"]), zero
     return swiglu(x, p["w1"], p["w3"], p["w2"]), zero
@@ -614,10 +616,10 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, kv_chunk: int = 1024) -> None:
         super().__init__()
-        if cfg.moe_pspec is not None:
-            raise ValueError("moe_pspec shards the MoE buffer over a mesh; "
-                             "the port runs on one card (ROADMAP.md queue 1 "
-                             "item 12: runtime/sharding.py)")
+        if cfg.moe_pspec is not None and not hasattr(cfg.moe_pspec, "mesh"):
+            raise ValueError("cfg.moe_pspec: a runtime.sharding."
+                             "NamedSharding (the spec on its mesh), not "
+                             f"{cfg.moe_pspec!r}")
         self.cfg = cfg
         self.kv_chunk = kv_chunk
         self.device: Optional[torch.device] = None
@@ -698,14 +700,18 @@ class Model(nn.Module):
                     ) -> Dict[str, nn.Parameter]:
         """The model's own parameters holding ``params``' values: a tensor
         that is not the model's own (a restored checkpoint's, a converted
-        state's) is copied in. Returns :meth:`train_params`."""
+        state's) is copied in, a ``DTensor`` (a state over a mesh) gathered
+        whole first. Returns :meth:`train_params`."""
         own = self.train_params()
         if set(params) != set(own):
             raise ValueError(f"parameter names differ: "
                              f"{sorted(set(params) ^ set(own))[:6]}")
         for name, p in own.items():
-            if params[name] is not p:
-                p.copy_(params[name])
+            src = params[name]
+            if isinstance(src, DTensor):        # gathered whole
+                src = src.full_tensor()
+            if src is not p:
+                p.copy_(src)
         return own
 
     def decay_names(self) -> Set[str]:

@@ -24,6 +24,12 @@ package restores the other's checkpoints. A state is a tree of dicts
 (sorted keys), lists and tuples whose leaves are tensors, numpy arrays or
 numbers (:func:`tree_flatten`); ``restore`` puts each leaf on ``like``'s
 device and dtype and reads bf16 through an int16 view.
+
+A state laid out over a mesh (``DTensor`` leaves, ``runtime/elastic.py``)
+is saved as its logical tensors: every rank gathers each leaf whole (a
+collective, so every rank calls ``save``), rank 0 writes, and the ranks
+meet at a barrier before ``save`` returns. ``restore(shardings=)`` lays
+the logical tensors out on another mesh.
 """
 from __future__ import annotations
 
@@ -35,11 +41,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core.catalog import Catalog
 from ..core.changelog import ChangelogStream
 from ..core.stats import StatsAggregator
 from ..core.types import ChangelogType, Entry, FsType
+from .elastic import reshard_state
+from .sharding import lay_out
 
 PyTree = Any
 
@@ -84,7 +94,10 @@ def tree_unflatten(like: PyTree, leaves: List[Any]) -> PyTree:
 
 
 def _numpy(leaf) -> np.ndarray:
-    """A leaf as a host numpy array; bf16 tensors as their uint16 bits."""
+    """A leaf as a host numpy array; bf16 tensors as their uint16 bits; a
+    ``DTensor`` as its whole tensor (a collective over its mesh)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -97,6 +110,15 @@ def _dtype_name(leaf) -> str:
     if isinstance(leaf, torch.Tensor):
         return str(leaf.dtype).replace("torch.", "")
     return str(np.asarray(leaf).dtype)
+
+
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writes() -> bool:
+    """Rank 0 of the default group (or a lone process) writes."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class ArtifactStore:
@@ -178,16 +200,19 @@ class CheckpointManager:
         """Atomically write a checkpoint; returns its directory."""
         name = self._ckpt_name(step)
         final = os.path.join(self.dir, name)
+        leaves, treedef = tree_flatten(state)
+        # every rank gathers (the DTensor leaves' collectives), rank 0 writes
+        arrays = [(_dtype_name(leaf), _numpy(leaf)) for leaf in leaves]
+        if not _writes():
+            dist.barrier()
+            return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        leaves, treedef = tree_flatten(state)
         manifest = {"step": step, "time": time.time(),
                     "treedef": treedef, "leaves": []}
-        for i, leaf in enumerate(leaves):
-            logical_dtype = _dtype_name(leaf)
-            arr = _numpy(leaf)                 # bf16 as its uint16 bits
+        for i, (logical_dtype, arr) in enumerate(arrays):
             path = os.path.join(tmp, f"shard_{i:05d}.npy")
             np.save(path, arr)
             manifest["leaves"].append({
@@ -203,6 +228,8 @@ class CheckpointManager:
         self.store.record_write(os.path.join(final, "manifest.json"),
                                 kind="manifest")
         self.apply_retention()
+        if _ranks() > 1:
+            dist.barrier()
         return final
 
     # -- enumerate -----------------------------------------------------------
@@ -232,13 +259,15 @@ class CheckpointManager:
         leaf onto its ``like`` leaf's device and dtype (a numpy leaf gives a
         CPU tensor of its dtype, a number a CPU tensor of the stored one).
 
-        ``shardings`` (the reference's elastic restore onto another mesh)
-        waits for ``runtime/elastic.py`` (ROADMAP.md queue 1 item 12): only
-        None is accepted.
+        ``shardings`` (a tree of ``runtime.sharding.NamedSharding`` shaped
+        like the state, ``runtime.elastic.state_shardings``): each leaf is
+        laid out on its sharding's mesh as a ``DTensor``, on the mesh's
+        device type: the reference's elastic restore onto another mesh (a
+        None sharding leaves its leaf as restored, as ``device_put`` to
+        None does).
+        Without it a ``DTensor`` leaf of ``like`` gives a ``DTensor`` with
+        its mesh and placements.
         """
-        if shardings is not None:
-            raise ValueError("elastic restore (shardings=) is not ported "
-                             "yet (ROADMAP.md queue 1 item 12)")
         steps = self.steps(include_cold=True)
         if not steps:
             raise FileNotFoundError("no checkpoints")
@@ -260,10 +289,18 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.astype(ref_leaf.dtype))
             else:
                 t = torch.from_numpy(arr)
-            if isinstance(ref_leaf, torch.Tensor):
+            if isinstance(ref_leaf, DTensor):
+                mesh = ref_leaf.device_mesh
+                t = lay_out(t.to(device=mesh.device_type,
+                                 dtype=ref_leaf.dtype),
+                            mesh, ref_leaf.placements)
+            elif isinstance(ref_leaf, torch.Tensor):
                 t = t.to(device=ref_leaf.device, dtype=ref_leaf.dtype)
             out.append(t)
-        return tree_unflatten(like, out), step
+        state = tree_unflatten(like, out)
+        if shardings is not None:
+            state = reshard_state(state, shardings)
+        return state, step
 
     # -- retention / archive / undelete (the Robinhood policies) ---------------
     def apply_retention(self) -> dict:

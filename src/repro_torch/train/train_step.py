@@ -15,12 +15,27 @@ model's own parameters (:meth:`~repro_torch.models.Model.train_params`),
 which the step updates in place, with the moments; a state whose params
 are other tensors (a restored checkpoint) is copied into the model first
 (:meth:`~repro_torch.models.Model.bind_params`).
+
+**Over a mesh.** A state laid out by ``runtime.elastic`` holds ``DTensor``
+params and moments. The step gathers each parameter whole into the model
+(``bind_params``: the reference's ``fsdp`` all-gather, here once a step)
+and runs every microbatch on every rank, the model's ops on plain tensors
+(so a hand-written kernel never sees a ``DTensor``). The f32 accumulator
+is laid out by ``grad_pspecs`` on the state's mesh, the reference's
+``with_sharding_constraint``: each rank adds only its shard of each
+microbatch's gradient, and the optimizer updates the shards where the
+moments live (``optim/adamw.py``). A layout, the same math: on a 1x1 mesh
+the step is the unsharded one bit for bit, and on a larger mesh it differs
+only by the reduction order of the clip norm.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..runtime.sharding import shard_view, to_placements
 
 TrainState = Dict[str, Any]   # {"params", "opt", "step"}
 
@@ -34,16 +49,36 @@ def init_train_state(model, opt, generator: torch.Generator) -> TrainState:
                                 device=model.device)}
 
 
-def make_train_step(model, opt, grad_pspecs=None):
-    """grad_pspecs: the reference's PartitionSpec tree for the f32 grad
-    accumulator; one card has no mesh, so only None is accepted."""
-    if grad_pspecs is not None:
-        raise ValueError("grad_pspecs shards over a mesh; the port runs on "
-                         "one card (ROADMAP.md queue 1 item 12: "
-                         "runtime/sharding.py)")
+def _mesh_of(params: Mapping[str, Any]):
+    for p in params.values():
+        if isinstance(p, DTensor):
+            return p.device_mesh
+    return None
+
+
+def make_train_step(model, opt, grad_pspecs: Optional[Mapping] = None):
+    """grad_pspecs: a spec (``runtime.sharding.P``) by parameter name for
+    the f32 gradient accumulator (``ShardingRules.opt_state_pspecs``), on
+    the mesh of the state's ``DTensor`` params; None lays it out as each
+    parameter. A state of plain tensors takes None only."""
+
+    def grad_layouts(params) -> Optional[Dict[str, Tuple[Any, tuple]]]:
+        mesh = _mesh_of(params)
+        if mesh is None:
+            if grad_pspecs is not None:
+                raise ValueError("grad_pspecs lays the gradients out on the "
+                                 "state's mesh: the state holds no DTensor "
+                                 "(runtime.elastic.reshard_state)")
+            return None
+        if grad_pspecs is None:
+            return {k: (p.device_mesh, tuple(p.placements))
+                    for k, p in params.items()}
+        return {k: (mesh, to_placements(grad_pspecs[k], mesh))
+                for k in params}
 
     def train_step(state: TrainState, batch: Mapping[str, Any]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        layouts = grad_layouts(state["params"])
         params = model.bind_params(state["params"])
         device = model.device
         tokens, labels = (torch.as_tensor(batch[k], device=device)
@@ -53,8 +88,10 @@ def make_train_step(model, opt, grad_pspecs=None):
         accum = tokens.shape[0]
         names = list(params)
         leaves = [params[k] for k in names]
-        gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
-                for k, p in params.items()}
+        def shard(k, t):        # each rank accumulates its shard only
+            return t if layouts is None else shard_view(t, *layouts[k])
+        gsum = {k: torch.zeros(shard(k, p).shape, dtype=torch.float32,
+                               device=device) for k, p in params.items()}
         losses, ces, auxes = [], [], []
         for i in range(accum):
             mb = {"tokens": tokens[i], "labels": labels[i]}
@@ -63,7 +100,7 @@ def make_train_step(model, opt, grad_pspecs=None):
             loss, metrics = model.loss(mb)
             grads = torch.autograd.grad(loss, leaves)
             for k, g in zip(names, grads):
-                gsum[k].add_(g)
+                gsum[k].add_(shard(k, g))
             del grads
             losses.append(loss.detach())
             ces.append(metrics["ce"].detach())
@@ -71,6 +108,13 @@ def make_train_step(model, opt, grad_pspecs=None):
         # in place: the accumulator's memory goes as each cast is made
         grads = {k: gsum.pop(k).div_(accum).to(torch.bfloat16)
                  for k in names}
+        if layouts is not None:
+            grads = {k: DTensor.from_local(g, *layouts[k], run_check=False,
+                                           shape=params[k].shape,
+                                           stride=params[k].stride())
+                     for k, g in grads.items()}
+            # the state's own (sharded) parameters take the update
+            params = state["params"]
         new_params, new_opt = opt.update(grads, state["opt"], params,
                                          decays=model.decay_names())
         del grads

@@ -167,6 +167,34 @@ assert printed.getvalue().startswith("step     0 loss"), printed.getvalue()
 assert "done: 3 steps, restarts=0" in printed.getvalue()
 assert rg_kernel.rglru_scan_launches == 0
 assert rg_kernel.rglru_scan_bwd_launches == 0
+
+import socket
+import torch.distributed as dist
+from repro_torch.launch import dryrun, roofline
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.optim import init_error_state, make_compressed_allreduce
+from repro_torch.runtime.elastic import reshard_state, state_shardings
+from repro_torch.runtime.sharding import ShardingRules
+with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=0, world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+state = out["state"]
+laid = reshard_state(state, state_shardings(out["model"].cfg, mesh, state))
+with tempfile.TemporaryDirectory() as ck, contextlib.redirect_stdout(
+        io.StringIO()):
+    out2 = launch_train.run(launch_train.parse_args(
+        ["--arch", "recurrentgemma-9b", "--smoke", "--steps", "2",
+         "--batch", "4", "--seq", "16", "--accum", "2", "--device", "cpu",
+         "--ckpt-dir", ck, "--mesh", "1x1x1"]))
+assert len(out2["history"]) == 2
+g = {"w": torch.ones(8)}
+mean, err = make_compressed_allreduce(mesh, "data")(g, init_error_state(g))
+assert torch.equal(mean["w"], g["w"]) and not bool(err["w"].any())
+dist.destroy_process_group()
+assert roofline.roofline_terms(989e12, 0.0, 0.0)["compute_s"] == 1.0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 assert not loaded, loaded
 print("OK", r.matched)
@@ -183,7 +211,10 @@ def test_policy_runs_with_jax_and_repro_blocked():
     prefill and three decode steps of both recurrent smoke models, of
     mixtral smoke (MoE) and of whisper smoke (its encoder's frames), and
     trains recurrentgemma smoke three steps through ``launch.train.main``
-    (a checkpoint saved and restored)."""
+    (a checkpoint saved and restored), then on a 1x1 mesh of a one-rank
+    gloo group lays the state out (``runtime.elastic``), trains two steps
+    through ``launch.train.run --mesh 1x1x1`` and runs the compressed
+    all-reduce, with the dry run and the roofline imported."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], env=env,
@@ -228,6 +259,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
     from repro_torch.launch import train as launch_train
     with pytest.raises(RuntimeError):
         launch_train.main(["--smoke", "--steps", "1"])
+    from repro_torch.launch import mesh as launch_mesh
+    with pytest.raises(RuntimeError):
+        launch_mesh.make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError):
+        launch_mesh.make_production_mesh()
+    with pytest.raises(RuntimeError):
+        launch_mesh.make_shards_mesh(1)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

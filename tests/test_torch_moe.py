@@ -24,6 +24,8 @@ Tolerances, in units of the reference's own scale:
   router, the experts and the shared expert: within ``1e-4 * max|grad|``
   a tensor.
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -223,3 +225,45 @@ def test_capacity_follows_shapes_only(monkeypatch):
                          _inputs(seed, 4, False, skew)), moe)
     cap = max(8, (int(np.ceil(1.25 * B * S * 2 / 4)) + 7) // 8 * 8)
     assert bufs == [(4 * cap, D)] * 2
+
+
+_MOE_ON_MESH = """
+import dataclasses, json
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import Model
+from repro_torch.runtime.sharding import NamedSharding, P
+cfg = dataclasses.replace(get_config("mixtral_8x22b", smoke=True),
+                          moe_groups=4)
+tokens = torch.arange(64).reshape(4, 16) % cfg.vocab
+base = Model(cfg, kv_chunk=8).init(torch.Generator().manual_seed(2), "cpu")
+want, aux0, _ = base.forward(tokens)
+mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+pinned = dataclasses.replace(cfg, moe_pspec=NamedSharding(
+    mesh, P("data", None, None, None)))
+model = Model(pinned, kv_chunk=8).init(torch.Generator().manual_seed(2),
+                                       "cpu")
+got, aux1, _ = model.forward(tokens)
+print(json.dumps({"logits": torch.equal(got, want),
+                  "aux": float(aux1) == float(aux0)}))
+"""
+
+
+def test_moe_pspec_lays_the_dispatch_buffer_out_on_a_mesh():
+    """mixtral smoke with 4 dispatch groups on a 2x2 mesh of 4 gloo
+    ranks: ``cfg.moe_pspec`` (the groups over "data") gives the unsharded
+    run's logits and aux loss bit for bit; a bare spec without its mesh
+    is refused."""
+    import dataclasses
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime.sharding import P
+    from torch_dist import run_ranks
+    for out in run_ranks(_MOE_ON_MESH, 4, timeout=120):
+        assert json.loads(out) == {"logits": True, "aux": True}
+    with pytest.raises(ValueError):
+        Model(dataclasses.replace(get_config("mixtral_8x22b", smoke=True),
+                                  moe_pspec=P("data", None, None, None)))

@@ -320,8 +320,10 @@ def test_restore_puts_leaves_on_like_device_and_dtype(tmp_path):
     cm.save({"x": np.arange(2, dtype=np.float32)}, 4)
     got, _ = cm.restore(like=np_like, step=4)
     assert got["x"].dtype == torch.float64
-    with pytest.raises(ValueError):
-        cm.restore(like=np_like, step=4, shardings={"x": None})
+    # a None sharding leaves the leaf as restored (a mesh's shardings:
+    # test_restore_with_shardings_lays_the_state_out_on_a_mesh)
+    again, _ = cm.restore(like=np_like, step=4, shardings={"x": None})
+    assert torch.equal(again["x"], got["x"])
 
 
 def test_same_saves_give_equal_retention_and_usage(tmp_path, monkeypatch):
@@ -355,3 +357,56 @@ def test_copies_differ_only_in_imports(rel):
     ref = (ROOT / "src" / "repro" / rel).read_text()
     port = (ROOT / "src" / "repro_torch" / rel).read_text()
     assert _without_imports(port) == _without_imports(ref)
+
+
+_RESTORE_ON_MESH = """
+import json
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import Model
+from repro_torch.optim import AdamW
+from repro_torch.runtime.checkpoint import CheckpointManager
+from repro_torch.runtime.elastic import state_shardings
+from repro_torch.runtime.sharding import shard_view, tree_map
+from repro_torch.train import init_train_state
+cfg = get_config("gemma2_9b", smoke=True)
+state = init_train_state(Model(cfg), AdamW(),
+                         torch.Generator().manual_seed(5))
+mesh = make_mesh((2, 1), ("data", "model"), device="cpu")
+sh = state_shardings(cfg, mesh, state)
+restored, step = CheckpointManager(CK).restore(like=state, shardings=sh)
+bad = []
+def one(got, want, s):
+    if not torch.equal(got.full_tensor(), want.detach()):
+        bad.append("value")
+    if not torch.equal(got.to_local(), shard_view(want.detach(), s.mesh,
+                                                  s.placements)):
+        bad.append("shard")
+tree_map(one, restored, state, sh)
+print(json.dumps({"step": step, "bad": bad, "sharded": sum(
+    any(p.is_shard() for p in t.placements)
+    for t in restored["opt"]["m"].values())}))
+"""
+
+
+def test_restore_with_shardings_lays_the_state_out_on_a_mesh(tmp_path):
+    """A checkpoint written by one process (plain tensors) restores onto
+    a 2x1 mesh of 2 gloo ranks through ``restore(shardings=)``: every leaf
+    a ``DTensor`` whose whole tensor is the saved one and whose local
+    shard is the one its placements give (ZeRO-1 moments sharded over
+    data)."""
+    import sys
+    sys.path.insert(0, str(ROOT / "tests"))
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import init_train_state
+    from torch_dist import run_ranks
+    state = init_train_state(Model(get_config("gemma2_9b", smoke=True)),
+                             AdamW(), torch.Generator().manual_seed(5))
+    ck = str(tmp_path / "ck")
+    CheckpointManager(ck).save(state, 3)
+    outs = run_ranks(f"CK = {ck!r}\n" + _RESTORE_ON_MESH, 2, timeout=120)
+    for out in outs:
+        rec = json.loads(out)
+        assert rec["step"] == 3 and rec["bad"] == [] and rec["sharded"] > 0

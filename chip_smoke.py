@@ -4729,6 +4729,8 @@ def train_phase(torch, seed, device, results, designs=None):
 DIST_STEPS = 2
 DRYRUN_ARGV = ["--arch", "recurrentgemma-9b", "--shape", "train_4k"]
 DRYRUN_TIMEOUT = 900
+DRYRUN_MIN_MODEL_FLOPS = 0.4    # model_vs_counted_flops of the partitioned
+DRYRUN_MAX_PEAK = 80e9          # step, and its peak within one card (B)
 CHUNK = 1 << 26                 # elements a check takes at once
 
 
@@ -4763,6 +4765,17 @@ def finish_dryrun(proc, out_dir: str, card: str) -> dict:
         rec = json.load(f)
     check(rec["status"] == "ok" and rec["flops_per_device"] > 0 and
           rec["devices"] == 256, f"[dist] dry-run record {rec}")
+    # the partitioned step: one device's share of the model's FLOPs, and
+    # its peak within one card
+    ratio, peak = rec["model_vs_counted_flops"], \
+        rec["memory"]["peak_estimate_bytes"]
+    check(ratio >= DRYRUN_MIN_MODEL_FLOPS and peak <= DRYRUN_MAX_PEAK,
+          f"[dist] dry run: model_vs_counted_flops {ratio!r} (at least "
+          f"{DRYRUN_MIN_MODEL_FLOPS}), peak_estimate_bytes {peak} (at most "
+          f"{DRYRUN_MAX_PEAK:.0f})")
+    # the step ran with the model's own tensors released (tracked, 0 B)
+    check(rec["memory"]["model_bytes"] == 0, f"[dist] dry run: the model "
+          f"holds {rec['memory']['model_bytes']} B beside the shards")
     colls = {k: {kk: v[kk] for kk in ("count", "bytes", "wire_bytes")}
              for k, v in rec["collectives"].items()}
     log(f"[dist] dry run recurrentgemma-9b train_4k on the 16x16 mesh "
@@ -4771,15 +4784,18 @@ def finish_dryrun(proc, out_dir: str, card: str) -> dict:
         f"{rec['flops_per_device']!r} FLOPs, "
         f"{rec['bytes_accessed_per_device']!r} B accessed, peak "
         f"{rec['memory']['peak_estimate_bytes']} B (state shards "
-        f"{rec['memory']['state_bytes']} B); collectives "
+        f"{rec['memory']['state_bytes']} B, the model's own tensors "
+        f"{rec['memory']['model_bytes']} B); collectives "
         f"{json.dumps(colls)}; roofline compute {rec['compute_s']!r} s, "
         f"memory {rec['memory_s']!r} s, collective {rec['collective_s']!r}"
         f" s, bottleneck {rec['bottleneck']}; model FLOPs a device "
-        f"{rec['model_flops_per_device']!r}")
+        f"{rec['model_flops_per_device']!r}, model_vs_counted_flops "
+        f"{rec['model_vs_counted_flops']!r}")
     return {k: rec[k] for k in (
         "flops_per_device", "bytes_accessed_per_device", "memory",
         "collectives", "compute_s", "memory_s", "collective_s",
-        "bottleneck", "model_flops_per_device", "wall_s", "estimate")}
+        "bottleneck", "model_flops_per_device", "model_vs_counted_flops",
+        "wall_s", "estimate")}
 
 
 def chunks(t):
@@ -4808,10 +4824,14 @@ def dist_phase(torch, device, results, trained, dry, work):
     (1) DIST_STEPS unsharded steps (``make_train_step``) from a host copy
     of the state, then the same steps from the same state through
     ``state_shardings`` / ``reshard_state`` and ``make_train_step(
-    grad_pspecs=opt_state_pspecs)``: losses and parameters equal bit for
-    bit (deterministic algorithms on in both, so the scatter-adds of the
-    embedding and CE gradients sum in one order), exactly 16 forward and 8
-    gradient ``rglru_scan`` launches a step in the mesh's window; (2) the
+    grad_pspecs=opt_state_pspecs)``, the partitioned step (each rank's
+    rows over its shards, the model's own tensors released; on 1x1 every
+    collective skipped): losses and
+    parameters equal bit for bit (deterministic algorithms on in both, so
+    the scatter-adds of the embedding and CE gradients sum in one order),
+    exactly 16 forward and 8 gradient ``rglru_scan`` launches a step in
+    the mesh's window, every ``rglru_scan`` call given plain tensors (no
+    ``DTensor``); (2) the
     int8 error-feedback all-reduce over the group's "data" axis on one
     microbatch's real gradients (f32): ``q`` within [-127, 127], the
     result equal bit for bit to ``decompress_int8(compress_int8(g))`` (one
@@ -4820,11 +4840,14 @@ def dist_phase(torch, device, results, trained, dry, work):
     saved by ``CheckpointManager`` and restored with ``shardings=`` onto
     the 1x1 mesh: every leaf equal bit for bit; (4) the dry run ``dry``
     (started before the builds, on the CPU in a process of its own,
-    writing into ``work``) read and printed."""
+    writing into ``work``) read and printed: the partitioned train step's
+    ``model_vs_counted_flops`` at least DRYRUN_MIN_MODEL_FLOPS and its
+    ``peak_estimate_bytes`` at most DRYRUN_MAX_PEAK."""
     t_phase = time.perf_counter()
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     from repro_torch.data import DataPipeline
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.config import MIX_RGLRU
     from repro_torch.optim import (AdamW, compress_int8, cosine_warmup,
@@ -4881,9 +4904,18 @@ def dist_phase(torch, device, results, trained, dry, work):
         rules = ShardingRules(cfg, mesh, profile_for(cfg))
         sh = state_shardings(cfg, mesh, state, rules.profile)
         laid = reshard_state(state, sh)
+        model.release_params()      # the partitioned step reads the shards
         step = make_train_step(model, opt, grad_pspecs=rules.opt_state_pspecs(
             laid["params"]))
         mesh_losses = []
+        scan_args = []          # (types, shape) of each rglru_scan call
+        plain_scan = rglru_ops.rglru_scan
+
+        def seen_scan(log_a, b, h0=None, use_kernel=None):
+            scan_args.append((sorted({type(t).__name__ for t in (log_a, b, h0)
+                                      if t is not None}),
+                              tuple(log_a.shape)))
+            return plain_scan(log_a, b, h0, use_kernel)
         t0 = time.perf_counter()
 
         def run_steps():
@@ -4891,7 +4923,11 @@ def dist_phase(torch, device, results, trained, dry, work):
             for b in batches:
                 laid, m = step(laid, b)
                 mesh_losses.append(float(m["loss"]))
-        _, counts = launch_window(run_steps)
+        rglru_ops.rglru_scan = seen_scan
+        try:
+            _, counts = launch_window(run_steps)
+        finally:
+            rglru_ops.rglru_scan = plain_scan
         torch.cuda.synchronize()
         mesh_s = time.perf_counter() - t0
     finally:
@@ -4910,17 +4946,26 @@ def dist_phase(torch, device, results, trained, dry, work):
                          rglru_scan_bwd=want_bwd * DIST_STEPS),
           f"[dist] the mesh steps launched {counts}, expected {want_fwd} "
           f"forward and {want_bwd} gradient launches a step")
+    scan_shapes = sorted({shape for _, shape in scan_args})
+    check(len(scan_args) == want_fwd * DIST_STEPS and all(
+        types == ["Tensor"] for types, _ in scan_args),
+          f"[dist] rglru_scan calls on the mesh: {len(scan_args)}, given "
+          f"{sorted({tuple(t) for t, _ in scan_args})}, expected "
+          f"{want_fwd * DIST_STEPS} of plain tensors only")
     del plain_params, snap
     log(f"[dist] recurrentgemma-9b full width, {cfg.n_layers} layers, on a "
         f"1x1 mesh of a one-rank NCCL group {CARD}: {DIST_STEPS} steps "
         f"through state_shardings / reshard_state and make_train_step("
-        f"grad_pspecs=opt_state_pspecs) in {mesh_s!r} s, losses "
-        f"{mesh_losses} equal to the unsharded steps' bit for bit, every "
-        f"parameter equal bit for bit; launches {json.dumps(counts)} "
-        f"({want_fwd} forward and {want_bwd} gradient a step)")
+        f"grad_pspecs=opt_state_pspecs), the partitioned step, in "
+        f"{mesh_s!r} s, losses {mesh_losses} equal to the unsharded steps' "
+        f"bit for bit, every parameter equal bit for bit; launches "
+        f"{json.dumps(counts)} ({want_fwd} forward and {want_bwd} gradient "
+        f"a step); every rglru_scan call given plain tensors, shapes "
+        f"{scan_shapes}")
 
     # (2) the compressed all-reduce on one microbatch's real gradients
-    params = model.bind_params(laid["params"])
+    params = model.bind_params({k: p.to_local()     # held again (copies)
+                                for k, p in laid["params"].items()})
     names = list(params)
     loss, _ = model.loss({"tokens": batches[0]["tokens"][0],
                           "labels": batches[0]["labels"][0]})

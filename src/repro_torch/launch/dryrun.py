@@ -17,20 +17,29 @@ run on the CPU. Per cell:
   CollectiveCounter`), :class:`roofline.BytesMode` and
   ``torch.distributed._tools.mem_tracker.MemTracker``;
 * per-device memory from the local shards' sizes (the state) and the
-  tracker's peak inside the step (the gathered parameters, gradients,
-  activations);
+  tracker's peak inside the step (activations, gradients, parameters
+  gathered over the data axes a remat region at a time, and the model's
+  own tensors: ``model_bytes``, 0 in a train cell, which releases them
+  once the state is laid out, as ``launch/train.py`` does);
 * the roofline terms with NVIDIA H100 SXM5 data-sheet constants: an
   estimate, not a measurement.
 
-What the figures mean for the port: its train step runs the whole batch
-on every rank over parameters gathered whole (``train/train_step.py``),
-so a device's FLOPs and bytes are the whole step's, where the reference's
-are a 256th (GSPMD partitions the computation); the collectives are the
-state's gathers, the sharded optimizer's and the clip norm's reductions.
-The hand-written kernels (``rglru_scan``) cannot run on fake tensors:
-the dry run puts a shape-preserving stand-in of one elementwise
+What the figures mean for the port. A train cell's step is partitioned
+(``train/train_step.py``, ``runtime/partition.py``): rank 0 runs its rows
+of each microbatch over its parameter shards, so its FLOPs, bytes and
+peak are one device's share, as the reference's are; its collectives
+are the step's own (the row-parallel and vocab all-reduces, the
+gathers of split heads and of the RG-LRU input, the gradients'
+reduce-scatters over the data axes, ``fsdp``'s gathers, the sharded
+optimizer's and the clip norm's). They still differ from XLA's: the
+bytes are an unfused count of every operation's operands, and
+``FlopCounterMode`` counts matrix products and attention only. The
+prefill and decode cells are not partitioned yet: they run the whole
+batch on plain parameters, so their figures are the whole step's on one
+device. The hand-written kernels (``rglru_scan``) cannot run on fake
+tensors: the dry run puts a shape-preserving stand-in of one elementwise
 operation in their place (their work is not counted as FLOPs, as it
-would not be on the card either).
+would not be on the card either) and records its calls' shapes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k
@@ -115,19 +124,21 @@ def batch_specs(cfg, shape: ShapeSpec, accum: int,
     return out
 
 
-def _stand_in_scan(log_a, b, h0=None, use_kernel=None):
-    """The ``rglru_scan`` kernel's shapes and dependencies in one
-    elementwise operation (fake tensors cannot reach a ``ctypes``
-    launch)."""
-    return torch.addcmul(b, log_a, torch.zeros((), dtype=b.dtype))
-
-
 @contextlib.contextmanager
 def _stand_ins():
+    """The ``rglru_scan`` op's place taken by its shapes and dependencies
+    in one elementwise operation (fake tensors cannot reach a ``ctypes``
+    launch); yields the shape of each call (each forward launch the step
+    would make, its remat recomputes included)."""
+    calls = []
+
+    def stand_in(log_a, b, h0=None, use_kernel=None):
+        calls.append(tuple(log_a.shape))
+        return torch.addcmul(b, log_a, torch.zeros((), dtype=b.dtype))
     saved = rglru_ops.rglru_scan
-    rglru_ops.rglru_scan = _stand_in_scan
+    rglru_ops.rglru_scan = stand_in
     try:
-        yield
+        yield calls
     finally:
         rglru_ops.rglru_scan = saved
 
@@ -160,7 +171,7 @@ def run_cell(cfg, shape: ShapeSpec, mesh, accum: int = 1,
         cfg = dataclasses.replace(cfg, moe_pspec=NamedSharding(
             mesh, P(dp, None, None, None)))
     rec: Dict[str, Any] = {"profile": rules.profile, "accum": accum}
-    with FakeTensorMode(), _stand_ins():
+    with FakeTensorMode(), _stand_ins() as scans:
         model = Model(cfg, kv_chunk=kv_chunk).init(
             torch.Generator().manual_seed(0), "cpu")
         if shape.kind == "train":
@@ -172,6 +183,7 @@ def run_cell(cfg, shape: ShapeSpec, mesh, accum: int = 1,
             batch = batch_specs(cfg, shape, accum, train=True)
             step = make_train_step(model, opt, grad_pspecs=rules.
                                    opt_state_pspecs(state["params"]))
+            model.release_params()      # as the launcher does
             rec["state_bytes"] = _local_bytes(state)
 
             def run():
@@ -203,16 +215,25 @@ def run_cell(cfg, shape: ShapeSpec, mesh, accum: int = 1,
         with mem, flops, comms, nbytes:
             run()
         rec["step_trace_s"] = time.perf_counter() - t0
+        if scans:
+            rec["rglru_scan_calls"] = {"calls": len(scans),
+                                       "shapes": sorted(set(scans))}
+        # a released model's parameters sit on "meta": no memory
         peak = mem.get_tracker_snapshot("peak")
-        peak = max((v["Total"] for v in peak.values()), default=0)
+        peak = max((v["Total"] for dev, v in peak.items()
+                    if torch.device(dev).type != "meta"), default=0)
+        model_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters() if p.device.type != "meta")
     rec["flops_per_device"] = float(flops.get_total_flops())
     rec["bytes_accessed_per_device"] = float(nbytes.bytes)
     rec["collectives"] = roofline.parse_collectives(comms)
+    rec["collectives_by_axis"] = roofline.collectives_by_axis(comms, mesh)
     rec["collective_tensor_bytes"] = sum(
         d["bytes"] for d in rec["collectives"].values())
     rec["collective_wire_bytes"] = sum(
         d["wire_bytes"] for d in rec["collectives"].values())
     rec["memory"] = {"state_bytes": rec.pop("state_bytes"),
+                     "model_bytes": model_bytes,
                      "step_peak_bytes": peak,
                      "peak_estimate_bytes": 0}
     if "cache_bytes" in rec:

@@ -72,18 +72,24 @@ def _nbytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
-def _group_size(args) -> int:
+def _group(args):
     """The collective's group: a ``ProcessGroup`` argument, or a group
-    name (functional collectives); the default group otherwise."""
+    name (functional collectives); None for the default group."""
     for a in args:
         if isinstance(a, dist.ProcessGroup):
-            return a.size()
+            return a
         if isinstance(a, str) and a:
             try:
-                return dist.distributed_c10d._resolve_process_group(
-                    a).size()
+                return dist.distributed_c10d._resolve_process_group(a)
             except (KeyError, ValueError, RuntimeError):
                 continue
+    return None
+
+
+def _group_size(args) -> int:
+    group = _group(args)
+    if group is not None:
+        return group.size()
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
@@ -97,12 +103,16 @@ def ring_wire_bytes(kind: str, nbytes: float, k: int) -> float:
 
 class CollectiveCounter(CommDebugMode):
     """``CommDebugMode`` that also records each collective's operand bytes
-    (the output for an all-gather, the input otherwise) and group size."""
+    (the output for an all-gather, the input otherwise) and group size,
+    in total (``sizes``) and by group name (``by_group``)."""
 
     def __init__(self) -> None:
         super().__init__()
         self.sizes: Dict[str, Dict[str, float]] = defaultdict(
             lambda: {"count": 0, "bytes": 0.0, "wire_bytes": 0.0})
+        self.by_group: Dict[str, Dict[str, Dict[str, float]]] = defaultdict(
+            lambda: defaultdict(lambda: {"count": 0, "bytes": 0.0,
+                                         "wire_bytes": 0.0}))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = super().__torch_dispatch__(func, types, args, kwargs)
@@ -111,12 +121,15 @@ class CollectiveCounter(CommDebugMode):
             return out
         kind = _KINDS.get(func._overloadpacket.__name__)
         if kind is not None:
-            k = _group_size(list(args) + list((kwargs or {}).values()))
+            given = list(args) + list((kwargs or {}).values())
+            group = _group(given)
+            k = _group_size(given)
             nbytes = _nbytes(out if kind == "all-gather" else args[0])
-            d = self.sizes[kind]
-            d["count"] += 1
-            d["bytes"] += nbytes
-            d["wire_bytes"] += ring_wire_bytes(kind, nbytes, k)
+            name = group.group_name if group is not None else "default"
+            for d in (self.sizes[kind], self.by_group[name][kind]):
+                d["count"] += 1
+                d["bytes"] += nbytes
+                d["wire_bytes"] += ring_wire_bytes(kind, nbytes, k)
         return out
 
 
@@ -125,6 +138,24 @@ def parse_collectives(counter: CollectiveCounter
     """Per-op-type totals: count, tensor bytes, estimated wire bytes (the
     reference's record, from the counter instead of HLO text)."""
     return {k: dict(v) for k, v in counter.sizes.items()}
+
+
+def collectives_by_axis(counter: CollectiveCounter, mesh
+                        ) -> Dict[str, Dict[str, Dict[str, float]]]:
+    """The counter's totals by the mesh axis whose group ran them (a
+    DeviceMesh's dims by name; any other group, such as a ``DTensor``
+    redistribution's over several dims, as "other")."""
+    names = {mesh.get_group(i).group_name: n
+             for i, n in enumerate(mesh.mesh_dim_names)}
+    out: Dict[str, Dict[str, Dict[str, float]]] = {}
+    for group, kinds in counter.by_group.items():
+        axis = out.setdefault(names.get(group, "other"), {})
+        for kind, d in kinds.items():
+            acc = axis.setdefault(kind, {"count": 0, "bytes": 0.0,
+                                         "wire_bytes": 0.0})
+            for key in acc:
+                acc[key] += d[key]
+    return out
 
 
 class BytesMode(TorchDispatchMode):

@@ -17,9 +17,13 @@ joins the default process group from the environment where none exists
 builds the mesh
 (``launch/mesh.py``), the rules with ``profile_for``, and lays the state
 out through ``runtime.elastic.state_shardings``; the step lays its
-gradient accumulator out by ``opt_state_pspecs`` (``train/train_step.py``:
-every rank runs the whole batch on the gathered parameters, so the losses
-are the 1x1 run's, up to the reduction order of the clip norm). Rank 0
+gradient accumulator out by ``opt_state_pspecs`` and partitions its
+compute (``train/train_step.py``): every rank draws the step's batch from
+the reference's stream (one synthetic int32 batch), the step takes its
+rows of each microbatch (``batch_pspecs``) and runs them over its
+parameter shards, so the losses are the 1x1 run's up to the order of the
+partitioned sums. Once the state is laid out the model's own tensors are
+released (``Model.release_params``): a rank holds only its shards. Rank 0
 prints and writes the checkpoints.
 
 ``--device`` defaults to the card; ``--device cpu`` runs the plain
@@ -130,8 +134,10 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
         if step_fn is None:
             step_fn = make_train_step(model, opt, grad_pspecs=rules.
                                       opt_state_pspecs(state["params"]))
-        return reshard_state(state, state_shardings(cfg, mesh, state,
+        laid = reshard_state(state, state_shardings(cfg, mesh, state,
                                                     rules.profile))
+        model.release_params()      # the step reads the shards only
+        return laid
     t_start = time.time()
     tokens_per_step = args.batch * args.seq
     history: List[float] = []

@@ -20,13 +20,14 @@ from the input's), so a CUDA graph can capture a decode step through it.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.rglru_scan import ops as rglru_ops
+from ..runtime.partition import NO_PARTITION, Partition
 from .config import MoeSpec
 
 _NEG_INF = -1e30
@@ -169,9 +170,14 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+             w2: torch.Tensor, b2: torch.Tensor,
+             reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """``reduce``: applied to ``h @ w2`` before the bias (a row-parallel
+    ``w2``'s partial products summed over "model")."""
     h = F.gelu(x @ w1 + b1, approximate="tanh")    # jax.nn.gelu's default
-    return h @ w2 + b2
+    y = h @ w2
+    return (y if reduce is None else reduce(y)) + b2
 
 
 def gelu_ffn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
@@ -206,7 +212,8 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
                 w3: torch.Tensor, w2: torch.Tensor, moe: MoeSpec,
                 shared: Optional[Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]] = None,
-                groups: int = 1, buf_pspec=None
+                groups: int = 1, buf_pspec=None,
+                part: Partition = NO_PARTITION, d_ff: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity-factor dispatch (tokens over capacity drop).
 
@@ -222,6 +229,21 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     their output is gathered whole for the combine: the same values, each
     group's products on one rank. A spec whose sharded dims do not divide
     leaves the buffer whole, as the sharding rules do.
+
+    ``part`` (the partitioned step, ``runtime/partition.py``): ``x`` holds
+    this rank's rows and the experts its shards. The aux statistics are
+    means over the global batch; the groups are the global batch's, so a
+    rank whose rows are whole groups dispatches them alone, and otherwise
+    (one group, or groups across ranks) the routing is gathered over the
+    data ranks, each rank adds its tokens to the whole buffer, and each
+    rank computes the expert products of its chunk of every expert's
+    slots of the buffer summed over them (or of all of them, summed both
+    ways, where the capacity does not divide). Over "model" the experts
+    are split (expert-parallel: this rank's experts of the buffer, their
+    outputs gathered) or each expert's d_ff is (row-parallel ``w2``,
+    summed); ``d_ff``: the unsharded width, to tell the two apart (None:
+    whole).
+    ``buf_pspec`` is the unpartitioned step's; a partition ignores it.
 
     The top k come from a stable descending sort of the bf16-rounded router
     logits, so ties go to the lower expert index as ``jax.lax.top_k``
@@ -245,31 +267,60 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     # load-balancing aux loss (Switch/Mixtral form); the one-hot is a
     # comparison, not F.one_hot (which reads its input's range back)
     probs = torch.softmax(logits, dim=-1)
-    density = probs.mean(dim=0)                            # (E,)
     experts = torch.arange(E, device=x.device)
-    usage = (top_idx[:, :1] == experts).float().mean(dim=0)
+    first = (top_idx[:, :1] == experts).float()
+    if part.rows > 1:                   # means over the global batch
+        n = T * part.rows
+        density = part.dp_sum(probs.sum(dim=0)) / n
+        usage = part.dp_sum(first.sum(dim=0)) / n
+    else:
+        density = probs.mean(dim=0)                        # (E,)
+        usage = first.mean(dim=0)
     aux = E * torch.sum(density * usage)
 
-    G = groups if T % groups == 0 else 1
-    Tg = T // G
+    T_all = T * part.rows
+    G = groups if T_all % groups == 0 else 1
+    Tg = T_all // G
     cap = int(math.ceil(moe.capacity_factor * Tg * k / E))
     cap = max(8, (cap + 7) // 8 * 8)
 
-    flat_e = top_idx.reshape(G, Tg * k)
-    pos = _positions_in_expert(flat_e, E)
+    local = G % part.rows == 0          # this rank's rows: whole groups
+    if local:
+        Gx = Gb = G // part.rows
+        flat_e = top_idx.reshape(Gx, Tg * k)
+        pos = _positions_in_expert(flat_e, E)
+        group = torch.arange(Gx, device=x.device)[:, None]
+    else:                               # the routing of every rank's rows
+        Gx, Gb = 1, G
+        flat_e = part.dp_gather(top_idx).reshape(G, Tg * k)   # no grad
+        pos = _positions_in_expert(flat_e, E)
+        group = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
+        mine = slice(part.dp_rank * T * k, (part.dp_rank + 1) * T * k)
+        flat_e, pos, group = (t.reshape(1, -1)[:, mine]
+                              for t in (flat_e, pos, group))
+    n = flat_e.shape[1]                 # routed tokens a group row
     keep = pos < cap
     pos_c = torch.clamp(pos, max=cap - 1).long()
 
     # token-major, k-minor: each token's row repeated k times
-    xg = xt.reshape(G, Tg, 1, D).expand(G, Tg, k, D).reshape(G, Tg * k, D)
+    xg = xt.reshape(Gx, n // k, 1, D).expand(Gx, n // k, k, D).reshape(
+        Gx, n, D)
     contrib = torch.where(keep[..., None], xg, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
-    slot = ((torch.arange(G, device=x.device)[:, None] * E + flat_e) * cap
-            + pos_c).reshape(-1)                           # (G * Tg * k,)
-    buf = torch.zeros((G * E * cap, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_add(0, slot, contrib.reshape(-1, D)).reshape(G, E, cap, D)
+    slot = ((group * E + flat_e) * cap + pos_c).reshape(-1)
+    buf = torch.zeros((Gb * E * cap, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_add(0, slot, contrib.reshape(-1, D)).reshape(
+        Gb, E, cap, D)
+    # every rank's tokens summed; the slots' expert products split over
+    # the data ranks where the capacity divides
+    split_cap = not local and cap % part.rows == 0
+    if split_cap:
+        buf = part.dp_scatter(buf, 2)
+    elif not local:
+        buf = part.dp_all(buf)
 
-    if buf_pspec is not None and _divides(buf.shape, buf_pspec):
+    if buf_pspec is not None and part.trivial and \
+            _divides(buf.shape, buf_pspec):
         # from whole (replicated) to sharded: a local split forward, a
         # gather of the buffer's gradient backward (every rank computes
         # the dispatch whole); the experts' gradients are summed over the
@@ -280,21 +331,36 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
                                  ).redistribute(mesh, buf_pspec.placements)
         w1, w3, w2 = (DTensor.from_local(w, mesh, rep, run_check=False)
                       for w in (w1, w3, w2))
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * \
-        torch.einsum("gecd,edf->gecf", buf, w3)
-    y = torch.einsum("gecf,efd->gecd", h, w2)              # (G, E, cap, D)
+    if w1.shape[0] != E:                # expert-parallel over "model"
+        y = part.gather(_experts(part.split(buf, 1), w1, w3, w2), 1)
+    else:
+        ff_sh = d_ff is not None and w1.shape[-1] != d_ff
+        y = _experts(part.copy(buf) if ff_sh else buf, w1, w3, w2)
+        y = part.reduce(y) if ff_sh else y             # (G, E, cap, D)
     if isinstance(y, DTensor):
         y = y.full_tensor()
+    if split_cap:
+        y = part.dp_gather(y, 2)
 
-    gathered = y.reshape(G * E * cap, D)[slot].reshape(G, Tg * k, D)
-    wk = (weights.reshape(G, Tg * k, 1) * keep[..., None]).to(x.dtype)
-    out = (gathered * wk).reshape(G, Tg, k, D).sum(dim=2)
+    gathered = y.reshape(-1, D)[slot].reshape(Gx, n, D)
+    wk = (weights.reshape(Gx, n, 1) * keep[..., None]).to(x.dtype)
+    out = (gathered * wk).reshape(Gx, n // k, k, D).sum(dim=2)
 
     out = out.reshape(T, D)
     if shared is not None:
         s1, s3, s2 = shared
-        out = out + swiglu(xt, s1, s3, s2)
+        s_sh = d_ff is not None and s1.shape[-1] != d_ff
+        ys = swiglu(part.copy(xt) if s_sh else xt, s1, s3, s2)
+        out = out + (part.reduce(ys) if s_sh else ys)
     return out.reshape(B, S, D), aux
+
+
+def _experts(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+             w2: torch.Tensor) -> torch.Tensor:
+    """Each expert's swiglu over its slots: (G, E, cap, D) -> same."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * \
+        torch.einsum("gecd,edf->gecf", buf, w3)
+    return torch.einsum("gecf,efd->gecd", h, w2)
 
 
 def _divides(shape, sharding) -> bool:
@@ -314,11 +380,16 @@ def _divides(shape, sharding) -> bool:
 _RGLRU_C = 8.0
 
 
-def _rglru_gates(v: torch.Tensor, p) -> Tuple[torch.Tensor, torch.Tensor]:
-    """log_a (decay, in log space, <= 0) and gated input, both f32."""
+def _rglru_gates(v: torch.Tensor, p, v_all: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """log_a (decay, in log space, <= 0) and gated input, both f32.
+    ``v_all``: ``v`` whole where ``v`` holds this rank's R columns (the
+    gates' products ``w_a``/``w_x`` give this rank's columns of a whole
+    input)."""
     vf = v.float()
-    r = torch.sigmoid(vf @ p["w_a"].float() + p["b_a"])
-    i = torch.sigmoid(vf @ p["w_x"].float() + p["b_x"])
+    va = vf if v_all is None else v_all.float()
+    r = torch.sigmoid(va @ p["w_a"].float() + p["b_a"])
+    i = torch.sigmoid(va @ p["w_x"].float() + p["b_x"])
     log_a = -_RGLRU_C * r * F.softplus(p["lam"])      # (.., R) <= 0
     gated = i * vf
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))

@@ -27,6 +27,17 @@ runs one ``torch.utils.checkpoint`` region a layer when training.
 superblocks and encoder layers carry a stacking axis). ``prefill`` and the
 decode steps run under ``no_grad``.
 
+Over a mesh (the partitioned train step, ``train/train_step.py``):
+``forward``/``loss`` take ``params`` (each name to this rank's shard, a
+plain tensor) and ``part`` (``runtime.partition.Partition``). A layer
+reads how each weight is laid out from its shard's width against the
+config's (a sharded width is a column- or row-parallel product, a whole
+one is computed whole on every rank) and communicates through ``part``
+where the layout asks; local head counts come from the shards' widths.
+Such a step reads the module's own tensors for nothing but their names
+and shapes, so once the state is laid out the caller drops them
+(:meth:`Model.release_params`) and a rank holds only its shards.
+
 ``extras`` (the reference's): ``{"frames": (B, n_frames, D)}`` for an
 encoder model, ``{"img": (B, n_img_tokens, D)}`` for a vision model, both
 bf16 on the model's device; the cross-attention layers read them.
@@ -34,7 +45,8 @@ bf16 on the model's device; the cross-attention layers read them.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Set, Tuple
+from types import SimpleNamespace
+from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +56,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import rwkv6 as rk
-from .components import (_rglru_gates, attention, causal_conv1d, gelu_mlp,
-                         layer_norm, moe_forward, rglru_scan, rglru_step,
-                         rms_norm, rope, softcap, swiglu)
+from ..runtime.partition import NO_PARTITION, Partition
+from .components import (_rglru_gates, attention, causal_conv1d,
+                         gelu_mlp, layer_norm, moe_forward, rglru_scan,
+                         rglru_step, rms_norm, rope, softcap, swiglu)
 from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL, FFN_DENSE,
                      FFN_MOE, MIX_RGLRU, MIX_RWKV6, LayerSpec, ModelConfig)
 
@@ -239,34 +252,112 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, n_q: int, n_kv: int
             v.reshape(B, S, n_kv, hd))
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w
+    return y if b is None else y + b
+
+
+def _col_in(part: Partition, x: torch.Tensor, sharded: bool
+            ) -> torch.Tensor:
+    """``x`` as the input of a product whose weight's columns may be
+    sharded over "model" (then its gradient sums over the ranks)."""
+    return part.copy(x) if sharded else x
+
+
+def _row_out(part: Partition, y: torch.Tensor, sharded: bool
+             ) -> torch.Tensor:
+    """A product whose weight's rows may be sharded over "model": then
+    ``y`` is this rank's partial sum, reduced over the ranks."""
+    return part.reduce(y) if sharded else y
+
+
+def _attn_inputs(cfg: ModelConfig, p, h: torch.Tensor, src: torch.Tensor,
+                 part: Partition):
+    """q from ``h``, k and v from ``src`` (``h`` itself for self
+    attention), as the attention over "model" reads them. Returns (q
+    (B, S, Hq, hd), k, v (B, T, Hk, hd), local): with ``local`` q holds
+    this rank's heads (the projection's columns are sharded and whole
+    heads each); else q and k/v hold every head on every rank. A head
+    split across ranks (columns sharded, the head count not divisible)
+    is gathered before the head reshape; so are K/V whose heads do not
+    divide under local q heads, whose gradient is then a part a rank."""
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q_sh = p["wq"].shape[-1] != H * hd
+    kv_sh = p["wk"].shape[-1] != K * hd
+    local = q_sh and H % part.tp == 0
+    hc = _col_in(part, h, q_sh)
+    sc = (hc if src is h else part.copy(src)) if kv_sh else src
+    bias = "bq" in p
+    q = _proj(hc, p["wq"], p["bq"] if bias else None)
+    k = _proj(sc, p["wk"], p["bk"] if bias else None)
+    v = _proj(sc, p["wv"], p["bv"] if bias else None)
+    if q_sh and not local:
+        q = part.gather(q)
+    if kv_sh and not (local and K % part.tp == 0):
+        k, v = part.gather(k, partial=local), part.gather(v, partial=local)
+    elif local and not kv_sh:
+        k, v = part.copy(k), part.copy(v)
+    B, S, T = h.shape[0], h.shape[1], src.shape[1]
+    return (q.reshape(B, S, -1, hd), k.reshape(B, T, -1, hd),
+            v.reshape(B, T, -1, hd), local)
+
+
+def _kv_for_heads(cfg: ModelConfig, part: Partition, k: torch.Tensor,
+                  v: torch.Tensor, local: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Under local q heads and every K/V head: the K/V head of each local
+    query head (query head h reads KV head h // G, GQA), one a head."""
+    if not local or k.shape[2] != cfg.n_kv or part.tp == 1:
+        return k, v
+    n = cfg.n_heads // part.tp
+    idx = (part.tp_rank * n + torch.arange(n, device=k.device)) // (
+        cfg.n_heads // cfg.n_kv)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_out(part: Partition, out: torch.Tensor, wo: torch.Tensor,
+              local: bool) -> torch.Tensor:
+    """(B, S, Hq, hd) @ wo: row-parallel over local heads; heads that
+    every rank holds feed a row-sharded wo through this rank's columns."""
+    B, S = out.shape[:2]
+    o = out.reshape(B, S, -1)
+    if local:
+        return part.reduce(o @ wo)
+    if wo.shape[0] != o.shape[-1]:
+        return part.reduce(part.split(o) @ wo)
+    return o @ wo
+
+
 def _self_attn_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
-                   positions: torch.Tensor, kv_chunk: int
+                   positions: torch.Tensor, kv_chunk: int,
+                   part: Partition = NO_PARTITION
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Full-sequence self attention; returns (out, kv-for-cache)."""
-    q, k, v = _qkv(cfg, p, x, cfg.n_heads, cfg.n_kv)
+    q, k, v, local = _attn_inputs(cfg, p, x, x, part)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    kq, vq = _kv_for_heads(cfg, part, k, v, local)
     causal = spec.mix != ATTN_NONCAUSAL
     window = cfg.window if spec.mix == ATTN_LOCAL else 0
-    out = attention(q, k, v, q_pos=positions, kv_pos=positions,
+    out = attention(q, kq, vq, q_pos=positions, kv_pos=positions,
                     causal=causal, window=window,
                     logit_softcap=cfg.attn_softcap, kv_chunk=kv_chunk)
-    B, S, _, _ = out.shape
-    return out.reshape(B, S, -1) @ p["wo"], (k, v)
+    return _attn_out(part, out, p["wo"], local), (k, v)
 
 
-def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
-                xv: torch.Tensor, kv_chunk: int) -> torch.Tensor:
-    """Cross attention to precomputed source K/V (no positions, no mask)."""
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    src_len = xk.shape[1]
-    kv_pos = torch.arange(src_len, device=x.device)
+def _cross_core(q: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
+                kv_chunk: int) -> torch.Tensor:
+    """Attention to every source position (no positions, no mask)."""
+    S, src_len = q.shape[1], xk.shape[1]
+    kv_pos = torch.arange(src_len, device=q.device)
     q_pos = torch.full((S,), src_len, dtype=torch.int64,
-                       device=x.device)            # attend to everything
-    out = attention(q, xk, xv, q_pos=q_pos, kv_pos=kv_pos, causal=False,
-                    kv_chunk=kv_chunk)
-    out = out.reshape(B, S, -1) @ p["wo"]
+                       device=q.device)            # attend to everything
+    return attention(q, xk, xv, q_pos=q_pos, kv_pos=kv_pos, causal=False,
+                     kv_chunk=kv_chunk)
+
+
+def _gated(p, out: torch.Tensor) -> torch.Tensor:
     if "gate" in p:
         out = torch.tanh(p["gate"].float()).to(out.dtype) * out
     return out
@@ -274,106 +365,169 @@ def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
 
 def _source_kv(cfg: ModelConfig, p, src: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A cross layer's K/V of the whole source (what prefill caches)."""
     B, T, _ = src.shape
     xk = (src @ p["wk"]).reshape(B, T, cfg.n_kv, cfg.head_dim)
     xv = (src @ p["wv"]).reshape(B, T, cfg.n_kv, cfg.head_dim)
     return xk, xv
 
 
-def _rwkv_channel_mix(p, x: torch.Tensor, xprev: torch.Tensor
+def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
+                xv: torch.Tensor, kv_chunk: int) -> torch.Tensor:
+    """Cross attention to precomputed source K/V (the decode step)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    out = _cross_core(q, xk, xv, kv_chunk)
+    return _gated(p, out.reshape(B, S, -1) @ p["wo"])
+
+
+def _rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
+                      xprev: torch.Tensor, part: Partition = NO_PARTITION
                       ) -> torch.Tensor:
+    """``wk`` shards d_ff, ``wr`` and ``wv`` their d_model columns over
+    "model": ``kk`` is gathered whole for ``wv``, the output gathered."""
     mr = x + p["mu_r"] * (xprev - x)
     mk = x + p["mu_k"] * (xprev - x)
-    kk = torch.square(F.relu(mk @ p["wk"]))
-    return torch.sigmoid(mr @ p["wr"]) * (kk @ p["wv"])
+    f_sh = p["wk"].shape[-1] != cfg.d_ff
+    d_sh = p["wr"].shape[-1] != cfg.d_model
+    kk = torch.square(F.relu(_col_in(part, mk, f_sh) @ p["wk"]))
+    if f_sh:
+        kk = part.gather(kk, partial=d_sh)
+    else:
+        kk = _col_in(part, kk, d_sh)
+    out = torch.sigmoid(_col_in(part, mr, d_sh) @ p["wr"]) * (kk @ p["wv"])
+    return part.gather(out) if d_sh else out
 
 
-def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor
+def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
+               part: Partition = NO_PARTITION
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out, moe_aux_loss)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.mix == MIX_RWKV6:
-        return _rwkv_channel_mix(p, x, rk.token_shift(x)), zero
+        return _rwkv_channel_mix(cfg, p, x, rk.token_shift(x), part), zero
     if spec.ffn == FFN_MOE:
         shared = (p["s1"], p["s3"], p["s2"]) if "s1" in p else None
         return moe_forward(x, p["router"], p["w1"], p["w3"], p["w2"],
                            cfg.moe, shared, groups=cfg.moe_groups,
-                           buf_pspec=cfg.moe_pspec)
+                           buf_pspec=cfg.moe_pspec, part=part,
+                           d_ff=cfg.d_ff)
+    sh = p["w1"].shape[-1] != cfg.d_ff
+    xc = _col_in(part, x, sh)
     if cfg.ffn_act == "gelu":
-        return gelu_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"]), zero
-    return swiglu(x, p["w1"], p["w3"], p["w2"]), zero
+        return gelu_mlp(xc, p["w1"], p["b1"], p["w2"], p["b2"],
+                        lambda y: _row_out(part, y, sh)), zero
+    return _row_out(part, swiglu(xc, p["w1"], p["w3"], p["w2"]), sh), zero
 
 
 def _rwkv_timemix_prep(cfg: ModelConfig, p, x: torch.Tensor,
-                       xprev: torch.Tensor):
-    """Shared r,k,v,g,lw computation for seq and step modes (f32 outputs)."""
+                       xprev: torch.Tensor, part: Partition = NO_PARTITION):
+    """Shared r,k,v,g,lw computation for seq and step modes (f32 outputs).
+
+    Over "model" (d_model sharded): the mixes are made on this rank's
+    d_model columns (``mu``, ``maa_b``) and gathered whole for the
+    column-parallel ``wr wk wv wg``, so r, k, v, g and the decay hold
+    this rank's heads; the LoRA inner dims (``maa_a``, ``wd_a``) are
+    gathered whole where the rules shard them."""
     B, S = x.shape[0], x.shape[1]
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     L = cfg.rwkv_lora_mix
+    d_sh = p["wr"].shape[-1] != cfg.d_model
+    a_sh = p["maa_a"].shape[-1] != 5 * L
+    w_sh = p["wd_a"].shape[-1] != cfg.rwkv_lora_decay
+    if d_sh and cfg.n_heads % part.tp:
+        raise ValueError(f"rwkv6: {cfg.n_heads} heads do not divide over "
+                         f"{part.tp} 'model' ranks")
     dx = xprev - x
-    dyn = torch.tanh(dx @ p["maa_a"])                    # (B,S,5L)
+    dyn = torch.tanh(_col_in(part, dx, a_sh) @ p["maa_a"])   # (B,S,5L)
+    if a_sh:
+        dyn = part.gather(dyn, partial=d_sh)
+    else:
+        dyn = _col_in(part, dyn, d_sh)
     dyn = dyn.reshape(B, S, 5, L)
-    mixes = [x + (p["mu"][i] + dyn[:, :, i] @ p["maa_b"][i]) * dx
+    xl, dxl = (part.split(x), part.split(dx)) if d_sh else (x, dx)
+    mixes = [xl + (p["mu"][i] + dyn[:, :, i] @ p["maa_b"][i]) * dxl
              for i in range(5)]
+    if d_sh:
+        m = part.gather(torch.stack(mixes), partial=w_sh)
+        mc = m if w_sh else part.copy(m)
+        mixes = [mc[0], mc[1], mc[2], mc[3], m[4]]
+    else:
+        mixes[4] = _col_in(part, mixes[4], w_sh)
     mr, mk, mv, mg, mw = mixes
-    r = (mr @ p["wr"]).float().reshape(B, S, H, hd)
-    k = (mk @ p["wk"]).float().reshape(B, S, H, hd)
-    v = (mv @ p["wv"]).float().reshape(B, S, H, hd)
+    r = (mr @ p["wr"]).float().reshape(B, S, -1, hd)
+    k = (mk @ p["wk"]).float().reshape(B, S, -1, hd)
+    v = (mv @ p["wv"]).float().reshape(B, S, -1, hd)
     g = mg @ p["wg"]
-    dd = torch.tanh(mw @ p["wd_a"]) @ p["wd_b"]         # (B,S,D)
+    t = torch.tanh(mw @ p["wd_a"])
+    if w_sh:
+        t = part.gather(t, partial=d_sh)
+    else:
+        t = _col_in(part, t, d_sh)
+    dd = t @ p["wd_b"]                                    # (B,S,D)
     lw = -torch.exp(p["w0"] + dd.float())                # log decay <= 0
-    lw = lw.reshape(B, S, H, hd)
+    lw = lw.reshape(B, S, -1, hd)
     return r, k, v, g, lw
 
 
 def _rwkv_out(cfg: ModelConfig, p, y: torch.Tensor, g: torch.Tensor,
-              B: int, S: int) -> torch.Tensor:
-    """Per-head group-norm + silu gate + output proj."""
-    D = cfg.d_model
-    yf = y.reshape(B, S, cfg.n_heads, cfg.head_dim)
+              B: int, S: int, part: Partition = NO_PARTITION
+              ) -> torch.Tensor:
+    """Per-head group-norm + silu gate + output proj (row-parallel)."""
+    yf = y.reshape(B, S, -1, cfg.head_dim)
     mu = torch.mean(yf, dim=-1, keepdim=True)
     var = torch.var(yf, dim=-1, keepdim=True, correction=0)
     yf = (yf - mu) * torch.rsqrt(var + 1e-5)
-    yf = yf.reshape(B, S, D) * p["gn_w"].float()
-    return (yf.to(g.dtype) * F.silu(g)) @ p["wo"]
+    yf = yf.reshape(B, S, -1) * p["gn_w"].float()
+    out = (yf.to(g.dtype) * F.silu(g)) @ p["wo"]
+    return _row_out(part, out, p["wo"].shape[0] != cfg.d_model)
 
 
 def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                     positions: torch.Tensor, kv_chunk: int = 1024,
                     want_cache: bool = False,
-                    extras: Optional[Dict[str, torch.Tensor]] = None
+                    extras: Optional[Dict[str, torch.Tensor]] = None,
+                    part: Partition = NO_PARTITION
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Dict[str, torch.Tensor]]:
     """One layer over a full sequence. Returns (x, aux_loss, cache_blob).
     A cross-attention layer reads ``extras["src"]`` (B, T, D), the
-    source its K/V come from (:meth:`Model._extras`)."""
+    source its K/V come from (:meth:`Model._extras`). Over a mesh ``p``
+    holds this rank's shards and ``x`` this rank's rows, whole over
+    "model" (``part``; module docstring)."""
     B, S, D = x.shape
     blob: Dict[str, torch.Tensor] = {}
     h = _norm(cfg, p["ln1"], x)
 
     if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
         out, (k, v) = _self_attn_seq(cfg, spec, p["attn"], h, positions,
-                                     kv_chunk)
+                                     kv_chunk, part)
         if want_cache:
             blob["k"], blob["v"] = k, v
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
-        gate = F.gelu(h @ rp["w_gate"], approximate="tanh")
-        vin = h @ rp["w_in"]
+        # R over "model": the gates' products need v whole, the scan runs
+        # on this rank's R columns, w_out is row-parallel
+        r_sh = rp["w_in"].shape[-1] != cfg.rnn_width
+        hc = _col_in(part, h, r_sh)
+        gate = F.gelu(hc @ rp["w_gate"], approximate="tanh")
+        vin = hc @ rp["w_in"]
         vin, conv_state = causal_conv1d(vin, rp["conv_w"])
-        log_a, b = _rglru_gates(vin, rp)
+        v_all = part.gather(vin, partial=True) if r_sh else None
+        log_a, b = _rglru_gates(vin, rp, v_all)
         hseq = rglru_scan(log_a, b)                      # (B,S,R) f32
-        out = (gate * hseq.to(gate.dtype)) @ rp["w_out"]
+        out = _row_out(part, (gate * hseq.to(gate.dtype)) @ rp["w_out"],
+                       r_sh)
         if want_cache:
             blob["h"] = hseq[:, -1, :]
             blob["conv"] = conv_state
     elif spec.mix == MIX_RWKV6:
         rp = p["rwkv"]
         xprev = rk.token_shift(h)
-        r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev)
+        r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev, part)
         chunk = 64 if S % 64 == 0 else (math.gcd(S, 64) or S)
         y, st = rk.wkv_chunked(r, k, v, lw, rp["u"], chunk=chunk)
-        out = _rwkv_out(cfg, rp, y, g, B, S)
+        out = _rwkv_out(cfg, rp, y, g, B, S, part)
         if want_cache:
             blob["s"] = st
             blob["shift_t"] = h[:, -1, :]
@@ -387,16 +541,19 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     if spec.cross_attn:
         if extras is None or "src" not in extras:
             raise ValueError("a cross-attention layer needs extras['src']")
+        xp = p["xattn"]
         hx = _norm(cfg, p["lnx"], x)
-        xk, xv = _source_kv(cfg, p["xattn"], extras["src"])
-        x = x + _cross_attn(cfg, p["xattn"], hx, xk, xv, kv_chunk)
+        q, xk, xv, local = _attn_inputs(cfg, xp, hx, extras["src"], part)
+        kq, vq = _kv_for_heads(cfg, part, xk, xv, local)
+        x = x + _gated(xp, _attn_out(part, _cross_core(q, kq, vq, kv_chunk),
+                                     xp["wo"], local))
         if want_cache:
             blob["xk"], blob["xv"] = xk, xv
 
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6 and want_cache:
         blob["shift_c"] = h2[:, -1, :]
-    out2, aux = _ffn_apply(cfg, spec, p["ffn"], h2)
+    out2, aux = _ffn_apply(cfg, spec, p["ffn"], h2, part)
     if cfg.post_norms:
         out2 = _norm(cfg, p["ln2p"], out2)
     x = x + out2
@@ -550,7 +707,7 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6:
         xprev_c = cache["shift_c"][:, None, :].to(h2.dtype)
-        out2 = _rwkv_channel_mix(p["ffn"], h2, xprev_c)
+        out2 = _rwkv_channel_mix(cfg, p["ffn"], h2, xprev_c)
         cache["shift_c"].copy_(h2[:, 0, :])
     else:
         out2, _ = _ffn_apply(cfg, spec, p["ffn"], h2)
@@ -583,24 +740,34 @@ def apply_layer_step(cfg: ModelConfig, spec: LayerSpec, p,
 # Whisper-style encoder
 # ===========================================================================
 
-def encode(cfg: ModelConfig, enc: _Encoder, frames: torch.Tensor,
-           kv_chunk: int = 1024, remat: bool = False) -> torch.Tensor:
+def encode(cfg: ModelConfig, enc, frames: torch.Tensor,
+           kv_chunk: int = 1024, remat: bool = False,
+           part: Partition = NO_PARTITION,
+           layer: Optional[Callable[[int], Mapping]] = None
+           ) -> torch.Tensor:
     """frames: (B, n_frames, D) stubbed conv-frontend output. With
     ``remat`` each layer is one non-reentrant ``torch.utils.checkpoint``
-    region (the reference's ``jax.checkpoint`` a layer)."""
-    x = frames + enc.pos[None]
+    region (the reference's ``jax.checkpoint`` a layer). ``enc``: the
+    encoder's ``pos`` and ``final`` (an :class:`_Encoder`, or a namespace
+    of this rank's tensors); ``layer(i)``: layer i's parameters, fetched
+    inside its region (default ``enc.layers[i]``)."""
+    pos = enc.pos
+    if pos.shape[-1] != cfg.d_model:
+        pos = part.gather(pos)
+    x = frames + pos[None]
     positions = torch.arange(frames.shape[1], device=frames.device)
 
-    def body(x, lp):
+    def body(x, i):
+        lp = enc.layers[i] if layer is None else layer(i)
         return apply_layer_seq(cfg, _ENCODER_SPEC, lp, x, positions,
-                               kv_chunk)[0]
+                               kv_chunk, part=part)[0]
 
-    for lp in enc.layers:
+    for i in range(cfg.encoder.n_layers):
         if remat:
-            x = checkpoint(body, x, lp, use_reentrant=False,
+            x = checkpoint(body, x, i, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = body(x, lp)
+            x = body(x, i)
     return _norm(cfg, enc.final, x)
 
 
@@ -623,6 +790,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.kv_chunk = kv_chunk
         self.device: Optional[torch.device] = None
+        self._released = False
 
     # -- params ---------------------------------------------------------------
     def init(self, generator: torch.Generator, device=None) -> "Model":
@@ -637,6 +805,7 @@ class Model(nn.Module):
                              f"parameters go to {dev}")
         ini = _Init(generator, dev)
         self.device = dev
+        self._released = False
         self.embed = ini.normal((cfg.vocab, cfg.d_model), 0.02)
         self.final = _norm_params(cfg, ini)
         if not cfg.tie_embeddings:
@@ -650,39 +819,123 @@ class Model(nn.Module):
                 (min(cfg.max_position, 1 << 16), cfg.d_model), 0.01)
         return self
 
-    def _params(self) -> None:
+    def _params(self, own: bool = True) -> None:
+        """Raises unless the parameters were drawn and, where ``own``,
+        are still held (not released)."""
         if self.device is None:
             raise RuntimeError("call init() first: the model holds no "
                                "parameters yet")
+        if own and self._released:
+            raise RuntimeError("the model's parameters were released "
+                               "(release_params): pass params= (a rank's "
+                               "shards) or bind_params() first")
+
+    @torch.no_grad()
+    def release_params(self) -> None:
+        """Drop the module's own tensors, keeping each parameter's name,
+        shape and dtype on the ``meta`` device (no memory). A step over a
+        mesh reads only the state's shards (``params=`` of
+        :meth:`forward`), so a rank need not hold the whole model beside
+        them: the launcher and the dry run release it once the state is
+        laid out. :meth:`bind_params` takes values in again; until then
+        :meth:`forward` without ``params`` and decoding raise."""
+        self._params(own=False)
+        for name, p in list(self.named_parameters()):
+            mod, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(mod), leaf, nn.Parameter(
+                torch.empty_like(p, device="meta"),
+                requires_grad=p.requires_grad))
+        self._released = True
 
     # -- forward ----------------------------------------------------------------
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _param(self, name: str, params: Optional[Mapping[str, torch.Tensor]],
+               part: Partition) -> torch.Tensor:
+        """Parameter ``name``: the module's own, or this rank's from
+        ``params`` (gathered over the data axes where it is sharded there
+        at rest, ``Partition.param``)."""
+        if params is None:
+            return self.get_parameter(name)
+        return part.param(name, params[name])
+
+    def _tree(self, prefix: str, params: Optional[Mapping[str, torch.Tensor]],
+              part: Partition):
+        """The parameters under ``prefix`` as the layers read them: the
+        submodule itself, or a nested dict of :meth:`_param`'s tensors."""
+        mod = self.get_submodule(prefix)
+        if params is None:
+            return mod
+        out: Dict[str, object] = {}
+        for rel, _ in mod.named_parameters():
+            *path, leaf = rel.split(".")
+            node = out
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = self._param(f"{prefix}.{rel}", params, part)
+        return out
+
+    def _embed(self, tokens: torch.Tensor, E: Optional[torch.Tensor] = None,
+               part: Partition = NO_PARTITION) -> torch.Tensor:
+        """The lookup; over "model" a vocab-sharded (tied) table looks up
+        the rank's rows and sums over the ranks, a d_model-sharded one
+        gathers its columns."""
         cfg = self.cfg
-        x = self.embed[tokens.long()]
+        E = self.embed if E is None else E
+        if E.shape[0] != cfg.vocab:
+            n = E.shape[0]
+            t = tokens.long() - part.tp_rank * n
+            mine = (t >= 0) & (t < n)
+            x = E[torch.where(mine, t, 0)]
+            x = part.reduce(torch.where(mine[..., None], x, torch.zeros(
+                (), dtype=x.dtype, device=x.device)))
+        else:
+            x = E[tokens.long()]
+            if E.shape[1] != cfg.d_model:
+                x = part.gather(x)
         if cfg.embed_scale:
             x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
         return x
 
     def _extras(self, extras: Optional[Mapping[str, torch.Tensor]],
-                remat: bool = False) -> Optional[Dict[str, torch.Tensor]]:
+                remat: bool = False,
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                part: Partition = NO_PARTITION
+                ) -> Optional[Dict[str, torch.Tensor]]:
         """The cross-attention source: the encoder's output over
-        ``extras["frames"]``, or ``extras["img"]`` as it is."""
+        ``extras["frames"]``, or ``extras["img"]`` as it is (gathered over
+        "model" where the batch's layout shards its d_model)."""
         cfg = self.cfg
-        if cfg.encoder is not None:
-            if extras is None or "frames" not in extras:
-                raise ValueError(f"{cfg.name} needs extras['frames']")
-            return {"src": encode(cfg, self.encoder, extras["frames"],
-                                  self.kv_chunk, remat)}
-        if cfg.n_img_tokens:
-            if extras is None or "img" not in extras:
-                raise ValueError(f"{cfg.name} needs extras['img']")
-            return {"src": extras["img"]}
-        return None
+        key = "frames" if cfg.encoder is not None else "img"
+        if cfg.encoder is None and not cfg.n_img_tokens:
+            return None
+        if extras is None or key not in extras:
+            raise ValueError(f"{cfg.name} needs extras[{key!r}]")
+        src = extras[key]
+        if src.shape[-1] != cfg.d_model:
+            src = part.gather(src)
+        if cfg.encoder is None:
+            return {"src": src}
+        if params is None:
+            enc, layer = self.encoder, None
+        else:
+            enc = SimpleNamespace(
+                pos=self._param("encoder.pos", params, part),
+                final=self._tree("encoder.final", params, part))
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+            def layer(i):
+                return self._tree(f"encoder.layers.{i}", params, part)
+        return {"src": encode(cfg, enc, src, self.kv_chunk, remat, part,
+                              layer)}
+
+    def _logits(self, x: torch.Tensor,
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                part: Partition = NO_PARTITION) -> torch.Tensor:
+        """f32 logits; over "model" this rank's vocabulary columns where
+        the head is vocab-sharded."""
         cfg = self.cfg
-        x = _norm(cfg, self.final, x)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        x = _norm(cfg, self._tree("final", params, part), x)
+        head = self._param("embed", params, part).T if cfg.tie_embeddings \
+            else self._param("lm_head", params, part)
+        x = _col_in(part, x, head.shape[-1] != cfg.vocab)
         logits = (x @ head).float()
         return softcap(logits, cfg.final_softcap)
 
@@ -700,18 +953,27 @@ class Model(nn.Module):
                     ) -> Dict[str, nn.Parameter]:
         """The model's own parameters holding ``params``' values: a tensor
         that is not the model's own (a restored checkpoint's, a converted
-        state's) is copied in, a ``DTensor`` (a state over a mesh) gathered
-        whole first. Returns :meth:`train_params`."""
-        own = self.train_params()
-        if set(params) != set(own):
+        state's) is copied in. A state over a mesh (``DTensor``\\s) is not
+        bound: its step runs on each rank's shards (``params=`` of
+        :meth:`forward`). A released model (:meth:`release_params`) holds
+        its parameters again. Returns :meth:`train_params`."""
+        self._params(own=False)
+        names = {k for k, _ in self.named_parameters()}
+        if set(params) != names:
             raise ValueError(f"parameter names differ: "
-                             f"{sorted(set(params) ^ set(own))[:6]}")
+                             f"{sorted(set(params) ^ names)[:6]}")
+        for name, src in params.items():
+            if isinstance(src, DTensor):
+                raise TypeError(f"{name}: a DTensor (a state over a mesh) "
+                                "is not bound into the model; "
+                                "train.make_train_step partitions its step")
+        if self._released:
+            self.to_empty(device=self.device)
+            self._released = False
+        own = self.train_params()
         for name, p in own.items():
-            src = params[name]
-            if isinstance(src, DTensor):        # gathered whole
-                src = src.full_tensor()
-            if src is not p:
-                p.copy_(src)
+            if params[name] is not p:
+                p.copy_(params[name])
         return own
 
     def decay_names(self) -> Set[str]:
@@ -720,7 +982,7 @@ class Model(nn.Module):
         encoder layer is a slice of a stacked leaf, one axis more than its
         own; so its 1-D weights decay and its 0-d cross-attention gate
         does not. Elsewhere a parameter decays iff it is 2-D or more."""
-        self._params()
+        self._params(own=False)
         scanned = self.cfg.n_super * len(self.cfg.pattern)
         out = set()
         for name, p in self.named_parameters():
@@ -742,21 +1004,29 @@ class Model(nn.Module):
 
     def _run_block(self, x: torch.Tensor, positions: torch.Tensor,
                    layers: Tuple[int, ...], want_cache: bool = False,
-                   src: Optional[Dict[str, torch.Tensor]] = None
+                   src: Optional[Dict[str, torch.Tensor]] = None,
+                   params: Optional[Mapping[str, torch.Tensor]] = None,
+                   part: Partition = NO_PARTITION
                    ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
+        """One remat region. Its layers' parameters are fetched here, so
+        a parameter sharded over the data axes at rest is gathered at the
+        region's start, again in its recompute, and freed with it."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         blobs: Cache = []
         for n in layers:
-            x, a, blob = apply_layer_seq(self.cfg, self.cfg.layers[n],
-                                         self.layers[n], x, positions,
-                                         self.kv_chunk, want_cache, src)
+            x, a, blob = apply_layer_seq(
+                self.cfg, self.cfg.layers[n],
+                self._tree(f"layers.{n}", params, part), x, positions,
+                self.kv_chunk, want_cache, src, part)
             aux = aux + a
             blobs.append(blob)
         return x, aux, blobs
 
     def forward(self, tokens: torch.Tensor,
                 extras: Optional[Mapping[str, torch.Tensor]] = None,
-                want_cache: bool = False
+                want_cache: bool = False,
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                part: Partition = NO_PARTITION
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
         """Full-sequence forward. Returns (logits, aux_loss, caches), the
         caches one dict a layer. ``extras``: the encoder's frames or the
@@ -767,16 +1037,27 @@ class Model(nn.Module):
         parameters require gradients (:meth:`train_params`); each remat
         region (:meth:`_blocks`) then runs under a non-reentrant
         ``torch.utils.checkpoint`` and is recomputed in the backward, and
-        so does each encoder layer."""
-        self._params()
+        so does each encoder layer.
+
+        ``params``/``part``: the partitioned step over a mesh
+        (``train/train_step.py``): ``params`` maps each name to this
+        rank's at-rest shard (a plain tensor), ``part``
+        (``runtime.partition.Partition``) says how they and this rank's
+        rows of ``tokens`` sit on the mesh; the logits are then this
+        rank's vocabulary columns where the head is vocab-sharded."""
+        self._params(own=params is None)
         B, S = tokens.shape
-        x = self._embed(tokens)
+        x = self._embed(tokens, self._param("embed", params, part), part)
         if _learned_positions(self.cfg):
-            x = x + self.pos_embed[:S][None]
+            pos = self._param("pos_embed", params, part)[:S]
+            if pos.shape[-1] != self.cfg.d_model:
+                pos = part.gather(pos)
+            x = x + pos[None]
         positions = torch.arange(S, device=x.device)
-        remat = torch.is_grad_enabled() and self.embed.requires_grad \
+        lead = self.embed if params is None else params["embed"]
+        remat = torch.is_grad_enabled() and lead.requires_grad \
             and not want_cache
-        src = self._extras(extras, remat)
+        src = self._extras(extras, remat, params, part)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches: Cache = []
         for layers in self._blocks():
@@ -784,38 +1065,61 @@ class Model(nn.Module):
                 # the layers draw no random numbers: no RNG state to keep
                 x, aux, blobs = checkpoint(
                     self._run_block, x, positions, layers, False, src,
-                    use_reentrant=False, preserve_rng_state=False)
+                    params, part, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 x, aux, blobs = self._run_block(x, positions, layers,
-                                                want_cache, src)
+                                                want_cache, src, params,
+                                                part)
             aux_total = aux_total + aux
             caches += blobs
-        return self._logits(x), aux_total, caches
+        return self._logits(x, params, part), aux_total, caches
 
-    def loss(self, batch: Mapping[str, torch.Tensor]
+    def loss(self, batch: Mapping[str, torch.Tensor],
+             params: Optional[Mapping[str, torch.Tensor]] = None,
+             part: Partition = NO_PARTITION
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: tokens (B, S), labels (B, S) with -100 (any negative) =
         ignore, and ``extras`` where the model reads them, on the model's
         device. The reference's mask-sum CE: the label's logit is taken by
         a gather, which picks the same f32 value as its masked sum over the
         vocabulary (every other term is an exact 0) without a (B, S, V)
-        mask. Returns (ce + 0.01 aux, {"ce", "aux", "tokens"})."""
-        logits, aux, _ = self.forward(batch["tokens"], batch.get("extras"))
+        mask. Returns (ce + 0.01 aux, {"ce", "aux", "tokens"}).
+
+        Partitioned (``params``/``part``, :meth:`forward`): the CE is the
+        mean over the global batch (this rank's NLL sum and valid count
+        summed over the data ranks, so every rank's loss is the global
+        one and the sum of their gradients the global gradient), the
+        logsumexp of vocab-sharded logits an all-reduced max and sum, the
+        label's logit taken on the rank that holds it."""
+        logits, aux, _ = self.forward(batch["tokens"], batch.get("extras"),
+                                      params=params, part=part)
         labels = batch["labels"].long()
         valid = labels >= 0
         safe = torch.clamp(labels, min=0)
-        lse = torch.logsumexp(logits, dim=-1)
-        label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+        if logits.shape[-1] != self.cfg.vocab:          # vocab-parallel
+            n = logits.shape[-1]
+            m = part.tp_max(torch.amax(logits.detach(), dim=-1))
+            lse = m + torch.log(part.reduce(
+                torch.exp(logits - m[..., None]).sum(dim=-1)))
+            t = safe - part.tp_rank * n
+            mine = (t >= 0) & (t < n)
+            mine_logit = torch.gather(logits, -1, torch.where(
+                mine, t, 0)[..., None])[..., 0]
+            label_logit = part.reduce(torch.where(mine, mine_logit, 0.0))
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
         nll = lse - label_logit
-        denom = torch.clamp(valid.sum(), min=1)
-        ce = torch.where(valid, nll, 0.0).sum() / denom
+        denom = torch.clamp(part.dp_sum(valid.sum()), min=1)
+        ce = part.dp_sum(torch.where(valid, nll, 0.0).sum()) / denom
         total = ce + _MOE_AUX_COEF * aux
         return total, {"ce": ce, "aux": aux,
                        "tokens": denom.to(torch.float32)}
 
     # -- decode ----------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> Cache:
-        self._params()
+        self._params(own=False)
         return [init_layer_cache(self.cfg, spec, batch, cache_len,
                                  self.device) for spec in self.cfg.layers]
 

@@ -16,26 +16,48 @@ which the step updates in place, with the moments; a state whose params
 are other tensors (a restored checkpoint) is copied into the model first
 (:meth:`~repro_torch.models.Model.bind_params`).
 
-**Over a mesh.** A state laid out by ``runtime.elastic`` holds ``DTensor``
-params and moments. The step gathers each parameter whole into the model
-(``bind_params``: the reference's ``fsdp`` all-gather, here once a step)
-and runs every microbatch on every rank, the model's ops on plain tensors
-(so a hand-written kernel never sees a ``DTensor``). The f32 accumulator
-is laid out by ``grad_pspecs`` on the state's mesh, the reference's
-``with_sharding_constraint``: each rank adds only its shard of each
-microbatch's gradient, and the optimizer updates the shards where the
-moments live (``optim/adamw.py``). A layout, the same math: on a 1x1 mesh
-the step is the unsharded one bit for bit, and on a larger mesh it differs
-only by the reduction order of the clip norm.
+**Over a mesh** (the reference's ``jax.jit(step, in_shardings=...)``,
+partitioned by GSPMD). A state laid out by ``runtime.elastic`` holds
+``DTensor`` params and moments. The step partitions its compute the way
+``runtime.sharding.ShardingRules`` place them (``runtime/partition.py``):
+
+* each rank takes its rows of each microbatch (``batch_pspecs``: the
+  batch over the data axes; ``frames``/``img`` also split on d_model
+  over "model" and gathered by the model). A batch leaf may be a
+  ``DTensor`` already laid out so (each rank drew only its rows) or a
+  whole tensor every rank holds (the step takes its rows);
+* the model runs on each rank's parameter shards as plain tensors
+  (``Model.loss(params=, part=)``): products over "model" as the rules
+  place each weight, parameters sharded over the data axes at rest
+  (``fsdp``) gathered a remat region at a time; so a hand-written kernel
+  only ever sees plain local tensors;
+* the loss is the global batch's on every rank (the CE's sums and the
+  MoE statistics all-reduced over the data axes), and each microbatch's
+  gradient reaches the f32 accumulator's shard (laid out by
+  ``grad_pspecs``, the reference's ``with_sharding_constraint``) by a
+  reduce-scatter or an all-reduce over the data axes, in f32;
+* the optimizer updates the shards where the moments live
+  (``optim/adamw.py``).
+
+On a 1x1 mesh every collective is skipped and the step is the unsharded
+one bit for bit. On a larger mesh the sums over rows and over "model"
+run in another order than one rank's (the CE and the aux statistics,
+the row-parallel products' partial sums, each rank's bf16 gradient of
+its rows before the f32 sum, the clip norm): the losses and parameters
+agree to those roundings. The partitioned step reads the model's own
+parameters for their names and shapes only: a caller may release them
+(``Model.release_params``), and they are not updated over a mesh (the
+state's shards are).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..runtime.sharding import shard_view, to_placements
+from ..runtime.partition import Partition
+from ..runtime.sharding import ShardingRules, shard_view, to_placements
 
 TrainState = Dict[str, Any]   # {"params", "opt", "step"}
 
@@ -56,65 +78,122 @@ def _mesh_of(params: Mapping[str, Any]):
     return None
 
 
+def _local_batch(model, mesh, batch: Mapping[str, Any]
+                 ) -> Tuple[Dict[str, Any], bool]:
+    """This rank's part of ``batch`` by ``ShardingRules.batch_pspecs``,
+    and whether the rows are split over the data axes."""
+    specs = ShardingRules(model.cfg, mesh).batch_pspecs(batch)
+
+    def local(t, spec):
+        pl = to_placements(spec, mesh)
+        if isinstance(t, DTensor):
+            if tuple(t.placements) != pl:
+                raise ValueError(f"a batch leaf laid out as {t.placements},"
+                                 f" the rules place it {pl}")
+            return t.to_local()
+        return shard_view(torch.as_tensor(t, device=model.device), mesh, pl)
+
+    out = {k: local(batch[k], specs[k]) for k in ("tokens", "labels")}
+    extras = batch.get("extras") or {}
+    if extras:
+        out["extras"] = {k: local(v, specs["extras"][k])
+                         for k, v in extras.items()}
+    return out, specs["tokens"][-2] is not None
+
+
+def _microbatches(model, batch: Mapping[str, Any],
+                  params: Mapping[str, torch.Tensor],
+                  part: Optional[Partition],
+                  reduce: Callable[[str, torch.Tensor], torch.Tensor],
+                  acc_shapes: Mapping[str, torch.Size]
+                  ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor],
+                             List[torch.Tensor], List[torch.Tensor]]:
+    """Sums each microbatch's gradients, through ``reduce``, into f32
+    accumulators (this rank's shards, plain tensors); returns them and the
+    losses, CEs and auxes. ``part`` None: the model's own parameters
+    (``params``), unpartitioned."""
+    names = list(params)
+    leaves = [params[k] for k in names]
+    gsum = {k: torch.zeros(acc_shapes[k], dtype=torch.float32,
+                           device=model.device) for k in names}
+    losses, ces, auxes = [], [], []
+    for i in range(batch["tokens"].shape[0]):
+        mb = {"tokens": batch["tokens"][i], "labels": batch["labels"][i]}
+        if batch.get("extras"):
+            mb["extras"] = {k: v[i] for k, v in batch["extras"].items()}
+        loss, metrics = model.loss(mb) if part is None else \
+            model.loss(mb, params=params, part=part)
+        grads = torch.autograd.grad(loss, leaves)
+        for k, g in zip(names, grads):
+            gsum[k].add_(reduce(k, g))
+        del grads
+        losses.append(loss.detach())
+        ces.append(metrics["ce"].detach())
+        auxes.append(metrics["aux"].detach())
+    return gsum, losses, ces, auxes
+
+
 def make_train_step(model, opt, grad_pspecs: Optional[Mapping] = None):
     """grad_pspecs: a spec (``runtime.sharding.P``) by parameter name for
     the f32 gradient accumulator (``ShardingRules.opt_state_pspecs``), on
     the mesh of the state's ``DTensor`` params; None lays it out as each
     parameter. A state of plain tensors takes None only."""
 
-    def grad_layouts(params) -> Optional[Dict[str, Tuple[Any, tuple]]]:
-        mesh = _mesh_of(params)
-        if mesh is None:
-            if grad_pspecs is not None:
-                raise ValueError("grad_pspecs lays the gradients out on the "
-                                 "state's mesh: the state holds no DTensor "
-                                 "(runtime.elastic.reshard_state)")
-            return None
-        if grad_pspecs is None:
-            return {k: (p.device_mesh, tuple(p.placements))
-                    for k, p in params.items()}
-        return {k: (mesh, to_placements(grad_pspecs[k], mesh))
-                for k in params}
+    def unsharded(state, batch):
+        if grad_pspecs is not None:
+            raise ValueError("grad_pspecs lays the gradients out on the "
+                             "state's mesh: the state holds no DTensor "
+                             "(runtime.elastic.reshard_state)")
+        params = model.bind_params(state["params"])
+        device = model.device
+        batch = {k: torch.as_tensor(batch[k], device=device)
+                 for k in ("tokens", "labels")} | (
+            {"extras": {k: torch.as_tensor(v, device=device)
+                        for k, v in batch["extras"].items()}}
+            if batch.get("extras") else {})
+        gsum, *mets = _microbatches(model, batch, params, None,
+                                    lambda k, g: g,
+                                    {k: p.shape for k, p in params.items()})
+        return params, gsum, mets, None
+
+    def partitioned(state, batch, mesh):
+        dparams = state["params"]
+        layouts = {k: to_placements(grad_pspecs[k], mesh)
+                   if grad_pspecs is not None else tuple(p.placements)
+                   for k, p in dparams.items()}
+        local, rows_split = _local_batch(model, mesh, batch)
+        part = Partition(mesh, {k: tuple(p.placements)
+                                for k, p in dparams.items()}, rows_split)
+        # this rank's shards, as the leaves the gradients are taken of
+        params = {k: p.to_local().detach().requires_grad_(True)
+                  for k, p in dparams.items()}
+        shapes = {k: shard_view(torch.empty(p.shape, device="meta"), mesh,
+                                layouts[k]).shape
+                  for k, p in dparams.items()}
+        gsum, *mets = _microbatches(
+            model, local, params, part,
+            lambda k, g: part.grad_shard(k, g, layouts[k]), shapes)
+        return dparams, gsum, mets, (mesh, layouts)
 
     def train_step(state: TrainState, batch: Mapping[str, Any]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        layouts = grad_layouts(state["params"])
-        params = model.bind_params(state["params"])
-        device = model.device
-        tokens, labels = (torch.as_tensor(batch[k], device=device)
-                          for k in ("tokens", "labels"))
-        extras = {k: torch.as_tensor(v, device=device)
-                  for k, v in (batch.get("extras") or {}).items()}
-        accum = tokens.shape[0]
-        names = list(params)
-        leaves = [params[k] for k in names]
-        def shard(k, t):        # each rank accumulates its shard only
-            return t if layouts is None else shard_view(t, *layouts[k])
-        gsum = {k: torch.zeros(shard(k, p).shape, dtype=torch.float32,
-                               device=device) for k, p in params.items()}
-        losses, ces, auxes = [], [], []
-        for i in range(accum):
-            mb = {"tokens": tokens[i], "labels": labels[i]}
-            if extras:
-                mb["extras"] = {k: v[i] for k, v in extras.items()}
-            loss, metrics = model.loss(mb)
-            grads = torch.autograd.grad(loss, leaves)
-            for k, g in zip(names, grads):
-                gsum[k].add_(shard(k, g))
-            del grads
-            losses.append(loss.detach())
-            ces.append(metrics["ce"].detach())
-            auxes.append(metrics["aux"].detach())
+        mesh = _mesh_of(state["params"])
+        if mesh is None:
+            params, gsum, mets, laid = unsharded(state, batch)
+        else:
+            params, gsum, mets, laid = partitioned(state, batch, mesh)
+        losses, ces, auxes = mets
+        accum = len(losses)
         # in place: the accumulator's memory goes as each cast is made
         grads = {k: gsum.pop(k).div_(accum).to(torch.bfloat16)
-                 for k in names}
-        if layouts is not None:
-            grads = {k: DTensor.from_local(g, *layouts[k], run_check=False,
+                 for k in list(params)}
+        if laid is not None:
+            mesh, layouts = laid
+            grads = {k: DTensor.from_local(g, mesh, layouts[k],
+                                           run_check=False,
                                            shape=params[k].shape,
                                            stride=params[k].stride())
                      for k, g in grads.items()}
-            # the state's own (sharded) parameters take the update
-            params = state["params"]
         new_params, new_opt = opt.update(grads, state["opt"], params,
                                          decays=model.decay_names())
         del grads

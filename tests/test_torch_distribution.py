@@ -17,8 +17,11 @@ cases of ``tests/runtime/test_distribution.py`` run on ``repro_torch``.
   has the shape its placements give.
 * The mini dry run: gemma2-9b smoke on a 4x4 fake mesh (16 ranks of
   PyTorch's fake process group in one subprocess), a train, a prefill and
-  a decode step traced: FLOPs > 0, the state's gathers among the
-  collectives; and the dry-run CLI writes an ``ok`` record for a full
+  a decode step traced: FLOPs > 0; the partitioned train step counts at
+  most an eighth of the 1x1 step's FLOPs (the reference's XLA count falls
+  12.4x), its collectives over "model" include the row-parallel and
+  vocab all-reduces; every arch's partitioned train cell traces to an
+  ``ok`` record; and the dry-run CLI writes an ``ok`` record for a full
   gemma2-9b decode cell on the 16x16 production mesh.
 * The roofline's arithmetic: ``model_flops`` and ``roofline_terms`` equal
   the reference's for every arch and shape given the same constants, and
@@ -355,7 +358,11 @@ for shape, accum in ((ShapeSpec("t", 32, 16, "train"), 2),
     rec = run_cell(cfg, shape, mesh, accum=accum, kv_chunk=16)
     out[shape.kind] = {k: rec[k] for k in (
         "flops_per_device", "bytes_accessed_per_device", "collectives",
-        "memory", "compute_s", "memory_s", "collective_s", "bottleneck")}
+        "collectives_by_axis", "memory", "compute_s", "memory_s",
+        "collective_s", "bottleneck")}
+one = make_mesh((1, 1), ("data", "model"), device="cpu")
+out["train_1x1"] = run_cell(cfg, ShapeSpec("t", 32, 16, "train"), one,
+                            accum=2, kv_chunk=16)["flops_per_device"]
 print(json.dumps(out))
 """
 
@@ -375,10 +382,64 @@ def test_mini_dryrun_4x4_fake_mesh():
             rec["memory"]["state_bytes"] > 0
         assert rec["compute_s"] == rec["flops_per_device"] / 989e12
     train = out["train"]["collectives"]
-    # the state's gathers into the model, the clip norm's reductions
+    # the split K/V heads' gathers, the reductions
     assert train["all-gather"]["count"] > 0
     assert train["all-reduce"]["count"] > 0
+    # partitioned: a 16th of the work a rank, at most an 8th counted
+    assert out["train"]["flops_per_device"] <= out["train_1x1"] / 8
+    # over "model": each microbatch's row-parallel sums (wo and w2 of 4
+    # layers, forward and remat recompute) and vocab all-reduces (the
+    # lookup; the CE's max, sum and label logit), 2 microbatches
+    by_axis = out["train"]["collectives_by_axis"]
+    assert by_axis["model"]["all-reduce"]["count"] >= 2 * (4 * 2 * 2 + 4)
+    assert by_axis["data"]["all-reduce"]["count"] > 0   # the gradients
     assert out["decode"]["collectives"] == {}
+    # the train cell releases the model's own tensors (its step reads
+    # the state's shards only); the serve cells run on them
+    assert out["train"]["memory"]["model_bytes"] == 0
+    assert out["decode"]["memory"]["model_bytes"] > 0
+
+
+_ALL_TRAIN_CELLS = """
+import json
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch.dryrun import run_cell, start_fake_world
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import ShapeSpec
+start_fake_world(16)
+mesh = make_mesh((4, 4), ("data", "model"), device="cpu")
+for arch in ARCH_IDS:
+    try:
+        rec = run_cell(get_config(arch, smoke=True),
+                       ShapeSpec("t", 32, 16, "train"), mesh, accum=2,
+                       kv_chunk=16)
+        rec = {"status": "ok", "flops_per_device": rec["flops_per_device"],
+               "collectives": rec["collectives"]}
+    except Exception as e:      # the record says which arch failed how
+        rec = {"status": "fail", "error": f"{type(e).__name__}: {e}"}
+    print(json.dumps({"arch": arch, **rec}), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def all_train_cells():
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=SRC)
+    run = subprocess.run([sys.executable, "-c", _ALL_TRAIN_CELLS], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return {r["arch"]: r for r in map(json.loads,
+                                      run.stdout.strip().splitlines())}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_partitioned_train_cell_traces_for_every_arch(all_train_cells,
+                                                      arch):
+    """Each arch's smoke train cell, partitioned on a fake 4x4 mesh (its
+    profile's rules), traces to an ``ok`` record with collectives."""
+    rec = all_train_cells[arch]
+    assert rec["status"] == "ok", rec
+    assert rec["flops_per_device"] > 0 and rec["collectives"]
 
 
 def test_dryrun_cli_writes_an_ok_record(tmp_path):

@@ -279,12 +279,24 @@ failure:
     ``g_mean + new_err`` within one f32 rounding of each term of ``g +
     err``; timed, its largest tensor again warm beside its bound); the
     laid-out state saved by ``CheckpointManager`` and restored with
-    ``shardings=``, every leaf equal bit for bit; and the dry run of
-    recurrentgemma-9b at ``train_4k`` on the 16x16 production mesh, run
-    on the CPU in a process of its own from before the builds (PyTorch's
-    fake process group, fake tensors): its per-device
-    FLOPs, bytes, peak memory, collectives and roofline terms printed
-    beside the card's name as data-sheet estimates;
+    ``shardings=``, every leaf equal bit for bit; partitioned serving on
+    the same mesh: (b)'s recurrentgemma-9b (parameters laid out by
+    ``param_pspecs``, the model's own tensors released) and rwkv6-1.6b at
+    full width and depth, drawn from the seed, each through the
+    partitioned ``make_prefill`` and 16 graphed steps of the partitioned
+    ``make_serve_step`` against the same steps unpartitioned on the same
+    parameters: logits, tokens and final caches equal bit for bit,
+    exactly one ``rglru_scan`` launch a recurrent layer in the prefill
+    and in each step (``rwkv6_step``: one a layer a step), every kernel
+    call given plain tensors of the unpartitioned shapes; and the dry run
+    of recurrentgemma-9b at ``train_4k`` and ``decode_32k`` on the 16x16
+    production mesh, run on the CPU in a process of its own from before
+    the builds (PyTorch's fake process group, fake tensors): the decode
+    cell partitioned (collectives over "model", the model's own tensors
+    released, the cache one device's shard within 1%, the state the
+    shards ``param_pspecs`` gives rank 0), their per-device FLOPs, bytes,
+    peak memory, collectives and roofline terms printed beside the card's
+    name as data-sheet estimates;
 17. the rest of the model zoo served (``[zoo-serve]``), one config after
     the other at published widths, parameters drawn on the card from the
     seed, every cross-attention gate set to 1.0 (drawn 0), MoE capacity
@@ -4727,7 +4739,19 @@ def train_phase(torch, seed, device, results, designs=None):
 # recurrentgemma-9b at train_4k on the 16x16 production mesh in a process
 # of its own (PyTorch's fake process group, fake tensors: no card)
 DIST_STEPS = 2
-DRYRUN_ARGV = ["--arch", "recurrentgemma-9b", "--shape", "train_4k"]
+DRYRUN_ARGV = ["--arch", "recurrentgemma-9b", "--shape",
+               "train_4k,decode_32k"]
+DRYRUN_CACHE_TOL = 0.01         # decode_32k's cache against a 256th of it
+# the decode_32k cell's FLOPs a device at commit d25180a (the PR 28 tree),
+# whose serving cells ran the whole batch on one device (python -m
+# repro_torch.launch.dryrun --arch recurrentgemma-9b --shape decode_32k;
+# fake tensors on the CPU)
+DRYRUN_WHOLE_DECODE_FLOPS = 2456721293312.0
+# the partitioned serving steps on the 1x1 mesh: arch, prompts, prompt
+# tokens, graphed steps, cache_len (recurrentgemma-9b: the training
+# phase's 5 layers, its 2048-slot ring)
+MESH_SERVE = (("recurrentgemma_9b", 4, 2016, 16, 2048),
+              ("rwkv6_1p6b", 8, 512, 16, 528))
 DRYRUN_TIMEOUT = 900
 DRYRUN_MIN_MODEL_FLOPS = 0.4    # model_vs_counted_flops of the partitioned
 DRYRUN_MAX_PEAK = 80e9          # step, and its peak within one card (B)
@@ -4760,9 +4784,12 @@ def finish_dryrun(proc, out_dir: str, card: str) -> dict:
         fail(f"[dist] the dry run outlived {DRYRUN_TIMEOUT} s")
     check(proc.returncode == 0, f"[dist] the dry run failed:\n{out[-2000:]}"
           f"\n{err[-3000:]}")
-    name = "recurrentgemma_9b__train_4k__16x16__chip_smoke.json"
-    with open(os.path.join(out_dir, name)) as f:
-        rec = json.load(f)
+    recs = {}
+    for shape in ("train_4k", "decode_32k"):
+        name = f"recurrentgemma_9b__{shape}__16x16__chip_smoke.json"
+        with open(os.path.join(out_dir, name)) as f:
+            recs[shape] = json.load(f)
+    rec = recs["train_4k"]
     check(rec["status"] == "ok" and rec["flops_per_device"] > 0 and
           rec["devices"] == 256, f"[dist] dry-run record {rec}")
     # the partitioned step: one device's share of the model's FLOPs, and
@@ -4791,11 +4818,90 @@ def finish_dryrun(proc, out_dir: str, card: str) -> dict:
         f" s, bottleneck {rec['bottleneck']}; model FLOPs a device "
         f"{rec['model_flops_per_device']!r}, model_vs_counted_flops "
         f"{rec['model_vs_counted_flops']!r}")
-    return {k: rec[k] for k in (
-        "flops_per_device", "bytes_accessed_per_device", "memory",
-        "collectives", "compute_s", "memory_s", "collective_s",
-        "bottleneck", "model_flops_per_device", "model_vs_counted_flops",
-        "wall_s", "estimate")}
+    keys = ("flops_per_device", "bytes_accessed_per_device", "memory",
+            "collectives", "compute_s", "memory_s", "collective_s",
+            "bottleneck", "model_flops_per_device", "model_vs_counted_flops",
+            "wall_s", "estimate")
+    return {"train_4k": {k: rec[k] for k in keys},
+            "decode_32k": check_dryrun_decode(recs["decode_32k"], card,
+                                              keys)}
+
+
+def dryrun_decode_want():
+    """What recurrentgemma-9b's decode_32k cell on 16x16 must hold a
+    device, worked out here from the configuration (no dry run): the
+    bytes of the shards ``param_pspecs`` gives rank 0 (the parameters'
+    shapes under ``FakeTensorMode``) and a 256th of the whole cache's
+    bytes (``init_layer_cache`` on the meta device)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.config import DECODE_32K
+    from repro_torch.models.transformer import init_layer_cache
+    from repro_torch.runtime.sharding import ShardingRules, profile_for
+
+    class Mesh16:                   # the rules read names and sizes only
+        axis_names = ("data", "model")
+        shape = {"data": 16, "model": 16}
+    cfg = get_config("recurrentgemma_9b")
+    with FakeTensorMode():
+        params = dict(Model(cfg).init(torch.Generator().manual_seed(0),
+                                      "cpu").named_parameters())
+    specs = ShardingRules(cfg, Mesh16(), profile_for(cfg)).param_pspecs(
+        params)
+    state = 0
+    for k, p in params.items():
+        n = p.numel()
+        for e in specs[k]:
+            for axis in (e if isinstance(e, tuple) else (e,)):
+                n //= Mesh16.shape.get(axis, 1) if axis else 1
+        state += n * p.element_size()
+    meta = torch.device("meta")
+    cache = sum(t.numel() * t.element_size() for spec in cfg.layers
+                for t in init_layer_cache(cfg, spec, DECODE_32K.global_batch,
+                                          DECODE_32K.seq_len, meta).values())
+    return state, cache / 256
+
+
+def check_dryrun_decode(rec: dict, card: str, keys) -> dict:
+    """The partitioned decode_32k cell: collectives over "model", the
+    model's own tensors released, the state and cache one device's
+    shards."""
+    check(rec["status"] == "ok" and rec["flops_per_device"] > 0,
+          f"[dist] dry-run decode record {rec}")
+    model_axis = rec["collectives_by_axis"].get("model", {})
+    check(model_axis.get("all-reduce", {}).get("count", 0) > 0,
+          f"[dist] dry run decode_32k: no all-reduce over 'model' "
+          f"({rec['collectives_by_axis']})")
+    mem = rec["memory"]
+    check(mem["model_bytes"] == 0, f"[dist] dry run decode_32k: the model "
+          f"holds {mem['model_bytes']} B beside the shards")
+    state, cache = dryrun_decode_want()
+    check(mem["state_bytes"] == state, f"[dist] dry run decode_32k: state "
+          f"{mem['state_bytes']} B, param_pspecs gives rank 0 {state} B")
+    check(abs(mem["cache_bytes"] - cache) <= DRYRUN_CACHE_TOL * cache,
+          f"[dist] dry run decode_32k: cache {mem['cache_bytes']} B, a "
+          f"256th of the whole is {cache!r} B")
+    whole = DRYRUN_WHOLE_DECODE_FLOPS
+    log(f"[dist] dry run recurrentgemma-9b decode_32k on the 16x16 mesh, "
+        f"partitioned ({rec['wall_s']:.1f} s), data-sheet estimate beside "
+        f"{card}: per device {rec['flops_per_device']!r} FLOPs against "
+        f"{whole!r} in the PR 28 tree (the whole step on one device; "
+        f"{whole / rec['flops_per_device']!r}x), "
+        f"{rec['bytes_accessed_per_device']!r} B accessed, state "
+        f"{mem['state_bytes']} B (param_pspecs' shards), cache "
+        f"{mem['cache_bytes']} B (a 256th: {cache!r}), peak "
+        f"{mem['peak_estimate_bytes']} B, model's own tensors 0 B; "
+        f"collectives by axis {json.dumps(rec['collectives_by_axis'])}; "
+        f"rglru_scan stand-in calls {json.dumps(rec.get('rglru_scan_calls'))}"
+        f"; roofline compute {rec['compute_s']!r} s, memory "
+        f"{rec['memory_s']!r} s, collective {rec['collective_s']!r} s, "
+        f"bottleneck {rec['bottleneck']}")
+    return {k: rec[k] for k in keys} | {
+        "collectives_by_axis": rec["collectives_by_axis"],
+        "rglru_scan_calls": rec.get("rglru_scan_calls"),
+        "whole_step_flops_pr28": whole}
 
 
 def chunks(t):
@@ -4815,6 +4921,152 @@ def stop_dryrun(proc, work: str) -> None:
         proc.kill()
         proc.communicate()
     shutil.rmtree(work, ignore_errors=True)
+
+
+def mesh_serve(torch, device, mesh, model, batch: int, prompt_len: int,
+               steps: int, cache_len: int, seed: int, results) -> dict:
+    """``model`` (holding its parameters) served unpartitioned, then
+    partitioned on the 1x1 ``mesh`` (parameters laid out by
+    ``param_pspecs``, the model's own tensors released after): each run a
+    ``make_prefill`` of ``batch`` prompts and ``steps`` graphed steps of
+    ``make_serve_step``, the prefill's and the steps' launches read in
+    windows of their own (the graph captured ahead), each kernel call's
+    argument types and shapes recorded. The two runs' logits, tokens and
+    final caches must be equal bit for bit, the launches exact (one
+    ``rglru_scan`` a recurrent layer in the prefill and a step; one
+    ``rwkv6_step`` a layer a step), every call of plain tensors of the
+    unpartitioned shapes."""
+    import repro_torch.kernels.rglru_scan.ops as RGO
+    import repro_torch.kernels.rwkv6_step.ops as RWO
+    from repro_torch.models.config import MIX_RGLRU, MIX_RWKV6
+    from repro_torch.runtime.partition import Partition
+    from repro_torch.runtime.sharding import lay_out_params, profile_for
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.serve.serve_step import GraphedServeStep
+    cfg = model.cfg
+    n_rec = sum(s.mix == MIX_RGLRU for s in cfg.layers)
+    n_rwkv = sum(s.mix == MIX_RWKV6 for s in cfg.layers)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 41)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                           device=device)
+    calls = []                  # (op, first argument's shape)
+    kinds = set()               # the arguments' types
+
+    def seen(name, op):
+        def call(*args, **kw):
+            calls.append((name, tuple(args[0].shape)))
+            kinds.update(type(t) for t in args if t is not None)
+            return op(*args, **kw)
+        return call
+
+    def run(params=None, part=None):
+        prefill = make_prefill(model, cache_len, params, part)
+        step = make_serve_step(model, params, part)
+        check(isinstance(step, GraphedServeStep), f"[dist] {cfg.name}: the "
+              "serving step on the card is not the graphed step")
+        calls.clear()
+        kinds.clear()
+        plain = RGO.rglru_scan, RWO.rwkv6_step
+        RGO.rglru_scan = seen("rglru_scan", plain[0])
+        RWO.rwkv6_step = seen("rwkv6_step", plain[1])
+        try:
+            step.capture(batch, cache_len)      # ahead, as the reference
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (last, cache), pre = launch_window(lambda: prefill(prompt))
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        finally:
+            RGO.rglru_scan, RWO.rwkv6_step = plain
+        tok = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        toks, logits = [], []
+
+        def decode():
+            nonlocal tok, cache
+            for i in range(steps):
+                tok, cache = step(cache, tok, prompt_len + i)
+                toks.append(tok.clone())
+                logits.append(step.logits.clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, dec = launch_window(decode)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / steps * 1e3
+        final = [{k: t.clone() for k, t in cb.items()} for cb in cache]
+        del step, prefill, cache
+        return dict(last=last, toks=toks, logits=logits, cache=final,
+                    pre=pre, dec=dec, calls=list(calls), kinds=set(kinds),
+                    prefill_s=prefill_s, step_ms=step_ms)
+
+    plain = run()
+    params, placements = lay_out_params(
+        cfg, mesh, dict(model.named_parameters()), profile_for(cfg))
+    model.release_params()          # the steps read the shards only
+    part = Partition(mesh, placements, rows_split=True)
+    check(part.trivial, "[dist] the 1x1 partition calls collectives")
+    laid = run(params, part)
+    what = f"[dist] {cfg.name} served on the 1x1 mesh"
+    check(torch.equal(laid["last"], plain["last"]) and all(
+        torch.equal(a, b) for a, b in zip(laid["logits"], plain["logits"])),
+          f"{what}: logits differ from the unpartitioned steps'")
+    check(all(torch.equal(a, b) for a, b in zip(laid["toks"],
+                                                 plain["toks"])),
+          f"{what}: tokens differ from the unpartitioned steps'")
+    differ = [(n, k) for n, (a, b) in enumerate(zip(laid["cache"],
+                                                    plain["cache"]))
+              for k in b if not torch.equal(a[k], b[k])]
+    check(not differ, f"{what}: final caches differ {differ[:5]}")
+    if n_rec:
+        want_pre, want_dec = only(rglru_scan=n_rec), only(
+            rglru_scan=n_rec * steps)
+        want_calls = [("rglru_scan", (batch, prompt_len, cfg.rnn_width))] \
+            * n_rec + [("rglru_scan", (batch, 1, cfg.rnn_width))] * (
+                2 * n_rec)
+    else:
+        want_pre, want_dec = only(), only(rwkv6_step=n_rwkv * steps)
+        want_calls = [("rwkv6_step", (batch, cfg.n_heads, cfg.head_dim))] \
+            * (2 * n_rwkv)
+    for r in (plain, laid):
+        check(r["pre"] == want_pre and r["dec"] == want_dec,
+              f"{what}: launches prefill {r['pre']}, {steps} steps "
+              f"{r['dec']}; expected {want_pre} and {want_dec}")
+        # the capture's warm-up and capture calls, then the prefill's, of
+        # plain tensors (the unpartitioned run's weights are the model's
+        # nn.Parameters; no DTensor)
+        check(sorted(r["calls"]) == sorted(want_calls),
+              f"{what}: kernel calls {sorted(set(r['calls']))}, expected "
+              f"{sorted(set(want_calls))}")
+        check(r["kinds"] <= {torch.Tensor, torch.nn.Parameter},
+              f"{what}: kernel arguments of types {r['kinds']}")
+    name = "rglru_scan" if n_rec else "rwkv6_step"
+    entry = results[name]
+    entry.setdefault("launches_by_path", {})[
+        f"[dist] {cfg.name} partitioned serving on a 1x1 mesh ({batch} x "
+        f"{prompt_len} prefill + {steps} graphed steps)"] = \
+        laid["pre"][name] + laid["dec"][name]
+    log(f"{what} {CARD}: {cfg.n_layers} layers, {batch} x {prompt_len} "
+        f"prompt tokens + {steps} graphed steps through make_prefill / "
+        f"make_serve_step(params=, part=) on param_pspecs' shards (the "
+        f"model's own tensors released), logits, tokens and final caches "
+        f"equal to the unpartitioned steps' bit for bit; launches prefill "
+        f"{laid['pre'][name]}, decode {laid['dec'][name]} "
+        f"({laid['dec'][name] // steps} a step); every {name} call of "
+        f"plain tensors ({sorted(t.__name__ for t in laid['kinds'])}), "
+        f"shapes {sorted({c[1] for c in laid['calls']})}; "
+        f"prefill {laid['prefill_s']!r} s (unpartitioned "
+        f"{plain['prefill_s']!r}), decode {laid['step_ms']!r} ms a step "
+        f"graphed (unpartitioned {plain['step_ms']!r}); tokens of step 16 "
+        f"{laid['toks'][-1][:, 0].tolist()}")
+    out = {"layers": cfg.n_layers, "batch": batch, "prompt": prompt_len,
+           "steps": steps, "launches_prefill": laid["pre"][name],
+           "launches_decode": laid["dec"][name],
+           "prefill_s": laid["prefill_s"], "step_ms": laid["step_ms"],
+           "prefill_s_unpartitioned": plain["prefill_s"],
+           "step_ms_unpartitioned": plain["step_ms"]}
+    del plain, laid, params
+    torch.cuda.empty_cache()
+    return out
 
 
 def dist_phase(torch, device, results, trained, dry, work):
@@ -4838,11 +5090,14 @@ def dist_phase(torch, device, results, trained, dry, work):
     rank: the shared scale is the local one), ``g_mean + new_err`` within
     one f32 rounding of each term of ``g + err``; (3) the laid-out state
     saved by ``CheckpointManager`` and restored with ``shardings=`` onto
-    the 1x1 mesh: every leaf equal bit for bit; (4) the dry run ``dry``
-    (started before the builds, on the CPU in a process of its own,
-    writing into ``work``) read and printed: the partitioned train step's
+    the 1x1 mesh: every leaf equal bit for bit; (4) partitioned serving
+    on the mesh (``mesh_serve``, MESH_SERVE): the trained model, then
+    rwkv6-1.6b drawn from the seed; (5) the dry run ``dry`` (started
+    before the builds, on the CPU in a process of its own, writing into
+    ``work``) read and printed: the partitioned train step's
     ``model_vs_counted_flops`` at least DRYRUN_MIN_MODEL_FLOPS and its
-    ``peak_estimate_bytes`` at most DRYRUN_MAX_PEAK."""
+    ``peak_estimate_bytes`` at most DRYRUN_MAX_PEAK; the partitioned
+    decode_32k cell's checks (``check_dryrun_decode``)."""
     t_phase = time.perf_counter()
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -4853,6 +5108,8 @@ def dist_phase(torch, device, results, trained, dry, work):
     from repro_torch.optim import (AdamW, compress_int8, cosine_warmup,
                                    init_error_state,
                                    make_compressed_allreduce)
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
     from repro_torch.runtime.checkpoint import CheckpointManager
     from repro_torch.runtime.elastic import reshard_state, state_shardings
     from repro_torch.runtime.sharding import ShardingRules, profile_for
@@ -5064,9 +5321,30 @@ def dist_phase(torch, device, results, trained, dry, work):
     log(f"[dist] CheckpointManager.save of the laid-out state and restore("
         f"shardings=state_shardings(1x1 mesh)): {n_leaves} leaves equal bit "
         f"for bit, {elastic_s!r} s for both")
+
+    # (4) partitioned serving on the mesh: the trained model (its
+    # parameters, not the optimizer's moments), then rwkv6-1.6b drawn
+    del laid, state, grads
+    torch.cuda.empty_cache()
+    serving = {}
+    for arch, batch, prompt_len, steps, cache_len in MESH_SERVE:
+        t0 = time.perf_counter()
+        if arch == cfg.name:
+            served = model
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(args.seed)
+            served = Model(get_config(arch)).init(gen, device)
+        serving[arch] = mesh_serve(torch, device, mesh, served, batch,
+                                   prompt_len, steps, cache_len, args.seed,
+                                   results)
+        del served
+        serving[arch]["s"] = time.perf_counter() - t0
+        log(f"[dist] partitioned serving of {arch}: "
+            f"{serving[arch]['s']:.1f} s")
     dist.destroy_process_group()
 
-    # (4) the dry run
+    # (5) the dry run
     dry_rec = finish_dryrun(dry, work, CARD)
     entry = results["rglru_scan"]
     entry.setdefault("launches_by_path", {})[
@@ -5079,8 +5357,9 @@ def dist_phase(torch, device, results, trained, dry, work):
         "card": CARD, "losses": mesh_losses, "steps_s": mesh_s,
         "launches": counts, "compressed_allreduce_ms": reduce_ms,
         "compressed_allreduce_warm_ms": {big: big_ms},
-        "max_q": worst["q"], "elastic_s": elastic_s, "dryrun": dry_rec}))
-    del laid, state, model, params, grads
+        "max_q": worst["q"], "elastic_s": elastic_s, "serving": serving,
+        "dryrun": dry_rec}))
+    del model, params
     torch.cuda.empty_cache()
     log(f"[dist] phase {time.perf_counter() - t_phase:.1f} s (the dry run "
         f"started before the builds)")

@@ -8,38 +8,41 @@ ranks (collectives return at once) under ``FakeTensorMode`` (tensors
 carry shapes and dtypes, no data): no memory is touched, so full configs
 run on the CPU. Per cell:
 
-* the parameters and optimizer moments as ``DTensor``\\s placed by
+* the parameters (and a train cell's optimizer moments) placed by
   ``ShardingRules`` on the production mesh (the reference's
-  ``BF16_MOMENTS`` and ``ACCUM_OVERRIDES`` kept);
-* one train step (``make_train_step`` with ``grad_pspecs``) for a train
-  shape, one prefill or one decode step (``serve``) otherwise, under
-  ``FlopCounterMode``, ``CommDebugMode`` (:class:`roofline.
-  CollectiveCounter`), :class:`roofline.BytesMode` and
-  ``torch.distributed._tools.mem_tracker.MemTracker``;
-* per-device memory from the local shards' sizes (the state) and the
-  tracker's peak inside the step (activations, gradients, parameters
-  gathered over the data axes a remat region at a time, and the model's
-  own tensors: ``model_bytes``, 0 in a train cell, which releases them
-  once the state is laid out, as ``launch/train.py`` does);
+  ``BF16_MOMENTS`` and ``ACCUM_OVERRIDES`` kept), the batch by
+  ``batch_pspecs`` and a decode cell's cache by ``cache_pspecs``, as the
+  reference's ``in_shardings`` place them;
+* one step for rank 0 under ``FlopCounterMode``, ``CommDebugMode``
+  (:class:`roofline.CollectiveCounter`), :class:`roofline.BytesMode` and
+  ``torch.distributed._tools.mem_tracker.MemTracker``: a train step
+  (``make_train_step`` with ``grad_pspecs``), a prefill
+  (``make_prefill``) or a decode step (``make_serve_step``), each
+  partitioned;
+* per-device memory from the local shards' sizes (the state, a decode
+  cell's cache) and the tracker's peak inside the step (activations,
+  gradients, parameters gathered over the data axes, and the model's own
+  tensors: ``model_bytes``, 0 in every cell, which releases them once the
+  state is laid out, as ``launch/train.py`` does);
 * the roofline terms with NVIDIA H100 SXM5 data-sheet constants: an
   estimate, not a measurement.
 
-What the figures mean for the port. A train cell's step is partitioned
-(``train/train_step.py``, ``runtime/partition.py``): rank 0 runs its rows
-of each microbatch over its parameter shards, so its FLOPs, bytes and
-peak are one device's share, as the reference's are; its collectives
-are the step's own (the row-parallel and vocab all-reduces, the
-gathers of split heads and of the RG-LRU input, the gradients'
-reduce-scatters over the data axes, ``fsdp``'s gathers, the sharded
-optimizer's and the clip norm's). They still differ from XLA's: the
-bytes are an unfused count of every operation's operands, and
-``FlopCounterMode`` counts matrix products and attention only. The
-prefill and decode cells are not partitioned yet: they run the whole
-batch on plain parameters, so their figures are the whole step's on one
-device. The hand-written kernels (``rglru_scan``) cannot run on fake
-tensors: the dry run puts a shape-preserving stand-in of one elementwise
-operation in their place (their work is not counted as FLOPs, as it
-would not be on the card either) and records its calls' shapes.
+What the figures mean for the port. Every cell's step is partitioned
+(``runtime/partition.py``): rank 0 runs its rows of the batch over its
+parameter shards (a decode cell over its cache shard too), so its FLOPs,
+bytes and peak are one device's share, as the reference's are; its
+collectives are the step's own (the row-parallel and vocab all-reduces,
+the gathers of split heads and of the RG-LRU input; in training the
+gradients' reduce-scatters over the data axes, ``fsdp``'s gathers, the
+sharded optimizer's and the clip norm's; in decoding the partial
+attention scores of a cache split over head_dim and the vocab-parallel
+argmax). They still differ from XLA's: the bytes are an unfused count of
+every operation's operands, and ``FlopCounterMode`` counts matrix
+products and attention only. The hand-written kernels (``rglru_scan``)
+cannot run on fake tensors: the dry run puts a shape-preserving stand-in
+of one elementwise operation in their place (their work is not counted as
+FLOPs, as it would not be on the card either) and records its calls'
+shapes, each rank's ``(B/dp, S, R/tp)``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k
@@ -68,8 +71,9 @@ from repro_torch.models import Model, shapes_for
 from repro_torch.models.config import ALL_SHAPES, ShapeSpec
 from repro_torch.optim import AdamW
 from repro_torch.runtime.elastic import reshard_state, state_shardings
-from repro_torch.runtime.sharding import (NamedSharding, P, ShardingRules,
-                                          profile_for)
+from repro_torch.runtime.partition import Partition
+from repro_torch.runtime.sharding import (ShardingRules, lay_out_cache,
+                                          lay_out_params, profile_for)
 from repro_torch.serve import make_prefill, make_serve_step
 from repro_torch.train import init_train_state, make_train_step
 
@@ -166,10 +170,6 @@ def run_cell(cfg, shape: ShapeSpec, mesh, accum: int = 1,
     bytes, collectives, memory."""
     from torch.distributed._tools.mem_tracker import MemTracker
     rules = ShardingRules(cfg, mesh, profile or profile_for(cfg))
-    if cfg.moe is not None and cfg.moe_groups > 1 and cfg.moe_pspec is None:
-        dp = rules.axes.dp if len(rules.axes.dp) > 1 else rules.axes.dp[0]
-        cfg = dataclasses.replace(cfg, moe_pspec=NamedSharding(
-            mesh, P(dp, None, None, None)))
     rec: Dict[str, Any] = {"profile": rules.profile, "accum": accum}
     with FakeTensorMode(), _stand_ins() as scans:
         model = Model(cfg, kv_chunk=kv_chunk).init(
@@ -189,20 +189,27 @@ def run_cell(cfg, shape: ShapeSpec, mesh, accum: int = 1,
             def run():
                 step(state, batch)
         else:
-            params = {k: p.detach() for k, p in model.named_parameters()}
+            params, placements = lay_out_params(
+                cfg, mesh, dict(model.named_parameters()), rules.profile)
+            model.release_params()      # the steps read the shards only
             rec["state_bytes"] = _local_bytes(params)
             B = shape.global_batch
+            part = Partition(mesh, placements,
+                             rows_split=rules._dp_if(B) is not None)
             if shape.kind == "prefill":
+                # the whole batch, each rank's rows taken by batch_pspecs
                 batch = batch_specs(cfg, shape, accum=1)
-                prefill = make_prefill(model, cache_len=shape.seq_len)
+                prefill = make_prefill(model, shape.seq_len, params, part)
 
                 def run():
                     prefill(batch["tokens"], batch.get("extras"))
             else:
-                cache = model.init_cache(B, shape.seq_len)
+                cache, _ = lay_out_cache(cfg, mesh, model.init_cache(
+                    B, shape.seq_len))
                 rec["cache_bytes"] = _local_bytes(cache)
-                serve = make_serve_step(model)
-                tok = torch.zeros((B, 1), dtype=torch.int32)
+                serve = make_serve_step(model, params, part)
+                tok = torch.zeros((part.local_rows(B), 1),
+                                  dtype=torch.int32)
 
                 def run():
                     serve(cache, tok, shape.seq_len - 1)
@@ -296,7 +303,8 @@ def iter_cells(archs, shapes, pods):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all")
-    ap.add_argument("--shape", default="all")
+    ap.add_argument("--shape", default="all",
+                    help="a shape, a comma-separated list of them, or all")
     ap.add_argument("--multi-pod", default="single",
                     choices=["single", "multi", "both"])
     ap.add_argument("--accum", type=int, default=0)
@@ -318,7 +326,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if args.arch == "all" else [_canon(args.arch)]
-    shapes = list(ALL_SHAPES) if args.shape == "all" else [args.shape]
+    shapes = list(ALL_SHAPES) if args.shape == "all" else \
+        args.shape.split(",")
     pods = {"single": [False], "multi": [True],
             "both": [False, True]}[args.multi_pod]
 

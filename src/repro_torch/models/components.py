@@ -24,7 +24,6 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.rglru_scan import ops as rglru_ops
 from ..runtime.partition import NO_PARTITION, Partition
@@ -95,7 +94,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_pos: torch.Tensor, kv_pos: torch.Tensor,
               causal: bool = True, window: int = 0,
               logit_softcap: Optional[float] = None,
-              kv_chunk: int = 1024) -> torch.Tensor:
+              kv_chunk: int = 1024, head_dim: Optional[int] = None,
+              scores: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> torch.Tensor:
     """Memory-bounded attention.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H = K * G.
@@ -103,6 +104,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     marks invalid cache slots. Never materializes more than (.., Sq, chunk)
     scores. GQA k/v are repeated to H heads up front, query head h reading
     KV head h // G (``jnp.repeat``'s interleaving).
+
+    ``head_dim``/``scores``: q, k, v hold a chunk of each head's
+    ``head_dim`` dims (the scale is the whole head's), and ``scores``
+    takes each block's partial f32 scores to the whole's (their sum over
+    the chunks' ranks) before the softcap and the mask.
     """
     B, Sq, H, hd = q.shape
     _, Sk, K, _ = k.shape
@@ -110,12 +116,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(head_dim or hd)
     qf = q.float() * scale
 
     def block(kc, kp):
         """Masked scores for one kv chunk: (B, H, Sq, C)."""
         s = torch.einsum("bqhd,bchd->bhqc", qf, kc.float())
+        if scores is not None:
+            s = scores(s)
         if logit_softcap is not None:
             s = logit_softcap * torch.tanh(s / logit_softcap)
         m = kp[None, :] >= 0
@@ -212,23 +220,14 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
                 w3: torch.Tensor, w2: torch.Tensor, moe: MoeSpec,
                 shared: Optional[Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]] = None,
-                groups: int = 1, buf_pspec=None,
-                part: Partition = NO_PARTITION, d_ff: Optional[int] = None
+                groups: int = 1, part: Partition = NO_PARTITION,
+                d_ff: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity-factor dispatch (tokens over capacity drop).
 
     x: (B, S, D); router_w: (D, E); experts w1/w3: (E, D, F), w2: (E, F, D).
     Returns (out, aux_loss). ``groups``: dispatch groups, each with its own
     capacity (1 unless it divides the B*S tokens).
-
-    ``buf_pspec``: a ``runtime.sharding.NamedSharding`` for the
-    ``(G, E, cap, D)`` dispatch buffer (the reference's ``buf_pspec``, its
-    ``with_sharding_constraint``; the port's carries its mesh). The buffer
-    is laid out as a ``DTensor`` (group dim over the data axes), the expert
-    products run on each rank's groups against the experts replicated, and
-    their output is gathered whole for the combine: the same values, each
-    group's products on one rank. A spec whose sharded dims do not divide
-    leaves the buffer whole, as the sharding rules do.
 
     ``part`` (the partitioned step, ``runtime/partition.py``): ``x`` holds
     this rank's rows and the experts its shards. The aux statistics are
@@ -242,8 +241,9 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     are split (expert-parallel: this rank's experts of the buffer, their
     outputs gathered) or each expert's d_ff is (row-parallel ``w2``,
     summed); ``d_ff``: the unsharded width, to tell the two apart (None:
-    whole).
-    ``buf_pspec`` is the unpartitioned step's; a partition ignores it.
+    whole). The reference's ``buf_pspec`` (its ``with_sharding_constraint``
+    on the ``(G, E, cap, D)`` buffer, ``cfg.moe_pspec``) has no
+    counterpart: the partitioned dispatch is where the buffer is split.
 
     The top k come from a stable descending sort of the bf16-rounded router
     logits, so ties go to the lower expert index as ``jax.lax.top_k``
@@ -319,26 +319,12 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     elif not local:
         buf = part.dp_all(buf)
 
-    if buf_pspec is not None and part.trivial and \
-            _divides(buf.shape, buf_pspec):
-        # from whole (replicated) to sharded: a local split forward, a
-        # gather of the buffer's gradient backward (every rank computes
-        # the dispatch whole); the experts' gradients are summed over the
-        # ranks that hold the groups
-        mesh = buf_pspec.mesh
-        rep = [Replicate()] * mesh.ndim
-        buf = DTensor.from_local(buf, mesh, rep, run_check=False
-                                 ).redistribute(mesh, buf_pspec.placements)
-        w1, w3, w2 = (DTensor.from_local(w, mesh, rep, run_check=False)
-                      for w in (w1, w3, w2))
     if w1.shape[0] != E:                # expert-parallel over "model"
         y = part.gather(_experts(part.split(buf, 1), w1, w3, w2), 1)
     else:
         ff_sh = d_ff is not None and w1.shape[-1] != d_ff
         y = _experts(part.copy(buf) if ff_sh else buf, w1, w3, w2)
         y = part.reduce(y) if ff_sh else y             # (G, E, cap, D)
-    if isinstance(y, DTensor):
-        y = y.full_tensor()
     if split_cap:
         y = part.dp_gather(y, 2)
 
@@ -361,16 +347,6 @@ def _experts(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1)) * \
         torch.einsum("gecd,edf->gecf", buf, w3)
     return torch.einsum("gecf,efd->gecd", h, w2)
-
-
-def _divides(shape, sharding) -> bool:
-    """Every dim the sharding splits divides by its mesh axes' ranks."""
-    mesh = sharding.mesh
-    n = [1] * len(shape)
-    for i, pl in enumerate(sharding.placements):
-        if isinstance(pl, Shard):
-            n[pl.dim] *= mesh.size(i)
-    return all(d % k == 0 for d, k in zip(shape, n))
 
 
 # ---------------------------------------------------------------------------

@@ -79,7 +79,9 @@ class ModelConfig:
     # moe
     moe: Optional[MoeSpec] = None
     moe_groups: int = 1           # dispatch groups (set = dp degree; SPerf)
-    moe_pspec: Optional[object] = None   # PartitionSpec for (G,E,cap,D) buf
+    # the reference's PartitionSpec for the (G,E,cap,D) buffer; the port
+    # splits the buffer in its partitioned dispatch and reads it nowhere
+    moe_pspec: Optional[object] = None
     # modality extras
     encoder: Optional[EncoderSpec] = None   # whisper
     n_img_tokens: int = 0                    # vlm cross-attn K/V length

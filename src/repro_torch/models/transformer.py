@@ -37,6 +37,11 @@ where the layout asks; local head counts come from the shards' widths.
 Such a step reads the module's own tensors for nothing but their names
 and shapes, so once the state is laid out the caller drops them
 (:meth:`Model.release_params`) and a rank holds only its shards.
+Serving takes the same arguments (``prefill``, ``decode_step(_)``,
+``init_cache``; ``serve/serve_step.py``): each rank decodes its rows
+against its cache shard (``ShardingRules.cache_pspecs``: the rank's K/V
+heads, or every head's head_dim chunk where the heads do not divide
+"model", the rank's R, RWKV6 heads and d_model columns).
 
 ``extras`` (the reference's): ``{"frames": (B, n_frames, D)}`` for an
 encoder model, ``{"img": (B, n_img_tokens, D)}`` for a vision model, both
@@ -239,19 +244,6 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
-def _qkv(cfg: ModelConfig, p, x: torch.Tensor, n_q: int, n_kv: int
-         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
-    hd = cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, n_q, hd), k.reshape(B, S, n_kv, hd),
-            v.reshape(B, S, n_kv, hd))
-
-
 def _proj(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     y = x @ w
@@ -346,15 +338,43 @@ def _self_attn_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     return _attn_out(part, out, p["wo"], local), (k, v)
 
 
+def _whole(part: Partition, t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with its last dim of ``n`` whole: gathered over "model" where
+    it holds this rank's columns."""
+    return part.gather(t) if t.shape[-1] != n else t
+
+
+def _share(part: Partition, t: torch.Tensor, like: torch.Tensor,
+           dim: int = -1) -> torch.Tensor:
+    """This rank's chunk over "model" of ``t`` along ``dim`` where the
+    shard ``like`` holds a part of it, else ``t``."""
+    return part.split(t, dim) if t.shape[dim] != like.shape[dim] else t
+
+
+def _attend(part: Partition, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, **kw) -> torch.Tensor:
+    """``attention`` of q (B, S, H, hd, every head whole where k holds a
+    head_dim chunk) to a cache shard k, v. Where the shard holds every
+    head's head_dim chunk, the scores over the rank's chunk are summed
+    over "model" in f32 before the softcap and the mask, and each rank's
+    chunk of ``p @ v`` is gathered: the cache is never gathered."""
+    if k.shape[-1] == q.shape[-1]:
+        return attention(q, k, v, **kw)
+    out = attention(part.split(q), k, v, head_dim=q.shape[-1],
+                    scores=part.reduce, **kw)
+    return part.gather(out)
+
+
 def _cross_core(q: torch.Tensor, xk: torch.Tensor, xv: torch.Tensor,
-                kv_chunk: int) -> torch.Tensor:
+                kv_chunk: int, part: Partition = NO_PARTITION
+                ) -> torch.Tensor:
     """Attention to every source position (no positions, no mask)."""
     S, src_len = q.shape[1], xk.shape[1]
     kv_pos = torch.arange(src_len, device=q.device)
     q_pos = torch.full((S,), src_len, dtype=torch.int64,
                        device=q.device)            # attend to everything
-    return attention(q, xk, xv, q_pos=q_pos, kv_pos=kv_pos, causal=False,
-                     kv_chunk=kv_chunk)
+    return _attend(part, q, xk, xv, q_pos=q_pos, kv_pos=kv_pos,
+                   causal=False, kv_chunk=kv_chunk)
 
 
 def _gated(p, out: torch.Tensor) -> torch.Tensor:
@@ -373,12 +393,19 @@ def _source_kv(cfg: ModelConfig, p, src: torch.Tensor
 
 
 def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
-                xv: torch.Tensor, kv_chunk: int) -> torch.Tensor:
-    """Cross attention to precomputed source K/V (the decode step)."""
+                xv: torch.Tensor, kv_chunk: int,
+                part: Partition = NO_PARTITION) -> torch.Tensor:
+    """Cross attention to precomputed source K/V (the decode step), a
+    cache shard over "model": q holds the rank's heads where the shard
+    holds the rank's K/V heads, else every head."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    out = _cross_core(q, xk, xv, kv_chunk)
-    return _gated(p, out.reshape(B, S, -1) @ p["wo"])
+    local = xk.shape[2] != cfg.n_kv
+    q = x @ p["wq"]
+    if not local:
+        q = _whole(part, q, cfg.n_heads * cfg.head_dim)
+    out = _cross_core(q.reshape(B, S, -1, cfg.head_dim), xk, xv, kv_chunk,
+                      part)
+    return _gated(p, _attn_out(part, out, p["wo"], local))
 
 
 def _rwkv_channel_mix(cfg: ModelConfig, p, x: torch.Tensor,
@@ -410,8 +437,7 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
         shared = (p["s1"], p["s3"], p["s2"]) if "s1" in p else None
         return moe_forward(x, p["router"], p["w1"], p["w3"], p["w2"],
                            cfg.moe, shared, groups=cfg.moe_groups,
-                           buf_pspec=cfg.moe_pspec, part=part,
-                           d_ff=cfg.d_ff)
+                           part=part, d_ff=cfg.d_ff)
     sh = p["w1"].shape[-1] != cfg.d_ff
     xc = _col_in(part, x, sh)
     if cfg.ffn_act == "gelu":
@@ -565,48 +591,58 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     cache_len: int, device: torch.device
+                     cache_len: int, device: torch.device,
+                     part: Partition = NO_PARTITION
                      ) -> Dict[str, torch.Tensor]:
     """Cache blob for one layer. cache_len caps local windows. With
     ``cfg.kv_cache_dtype == "int8"`` a full-attention layer keeps int8
     ``k``/``v`` and f32 ``kscale``/``vscale`` (B, L, K, 1); a local layer
-    then raises ``ValueError``, as the reference asserts."""
+    then raises ``ValueError``, as the reference asserts.
+
+    ``part``: this rank's shard, as ``ShardingRules.cache_pspecs`` splits
+    the whole: ``batch`` (the global batch) over the data ranks where the
+    rows split (``part.rows``), over "model" the K/V heads where they
+    divide it and else each head's head_dim, R, the RWKV6 heads and
+    d_model (each where it divides)."""
 
     def mk(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    batch = part.local_rows(batch)
+    share = part.tp_share
+    kv_split = cfg.n_kv % part.tp == 0
+    K = share(cfg.n_kv)
     hd = cfg.head_dim
+    kd = hd if kv_split else share(hd)
     quant = cfg.kv_cache_dtype == "int8"
     kv_dt = torch.int8 if quant else torch.bfloat16
     blob: Dict[str, torch.Tensor] = {}
     if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
-        blob["k"] = mk((batch, cache_len, cfg.n_kv, hd), kv_dt)
-        blob["v"] = mk((batch, cache_len, cfg.n_kv, hd), kv_dt)
+        blob["k"] = mk((batch, cache_len, K, kd), kv_dt)
+        blob["v"] = mk((batch, cache_len, K, kd), kv_dt)
         if quant:
-            blob["kscale"] = mk((batch, cache_len, cfg.n_kv, 1),
-                                torch.float32)
-            blob["vscale"] = mk((batch, cache_len, cfg.n_kv, 1),
-                                torch.float32)
+            blob["kscale"] = mk((batch, cache_len, K, 1), torch.float32)
+            blob["vscale"] = mk((batch, cache_len, K, 1), torch.float32)
     elif spec.mix == ATTN_LOCAL:
         if quant:
             raise ValueError("int8 KV supports full caches only (no rings "
                              "yet)")
         L = min(cache_len, cfg.window)
-        blob["k"] = mk((batch, L, cfg.n_kv, hd), torch.bfloat16)
-        blob["v"] = mk((batch, L, cfg.n_kv, hd), torch.bfloat16)
+        blob["k"] = mk((batch, L, K, kd), torch.bfloat16)
+        blob["v"] = mk((batch, L, K, kd), torch.bfloat16)
     elif spec.mix == MIX_RGLRU:
-        blob["h"] = mk((batch, cfg.rnn_width), torch.float32)
-        blob["conv"] = mk((batch, cfg.conv_width - 1, cfg.rnn_width),
-                          torch.bfloat16)
+        R = share(cfg.rnn_width)
+        blob["h"] = mk((batch, R), torch.float32)
+        blob["conv"] = mk((batch, cfg.conv_width - 1, R), torch.bfloat16)
     elif spec.mix == MIX_RWKV6:
-        blob["s"] = mk((batch, cfg.n_heads, hd, hd), torch.float32)
-        blob["shift_t"] = mk((batch, cfg.d_model), torch.bfloat16)
-        blob["shift_c"] = mk((batch, cfg.d_model), torch.bfloat16)
+        blob["s"] = mk((batch, share(cfg.n_heads), hd, hd), torch.float32)
+        blob["shift_t"] = mk((batch, share(cfg.d_model)), torch.bfloat16)
+        blob["shift_c"] = mk((batch, share(cfg.d_model)), torch.bfloat16)
     if spec.cross_attn:
         src_len = cfg.n_img_tokens or (cfg.encoder.n_frames if cfg.encoder
                                        else 0)
-        blob["xk"] = mk((batch, src_len, cfg.n_kv, hd), torch.bfloat16)
-        blob["xv"] = mk((batch, src_len, cfg.n_kv, hd), torch.bfloat16)
+        blob["xk"] = mk((batch, src_len, K, kd), torch.bfloat16)
+        blob["xv"] = mk((batch, src_len, K, kd), torch.bfloat16)
     return blob
 
 
@@ -625,39 +661,69 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.bfloat16) * scale.to(torch.bfloat16)
 
 
+def _cache_kv(part: Partition, t: torch.Tensor, like: torch.Tensor,
+              quant: bool = False):
+    """K or V ``t`` (B, T, K or K/tp heads, hd) as the cache shard ``like``
+    holds it (the rank's heads, or every head's head_dim chunk); with
+    ``quant`` (int8 values, f32 scales), quantized over whole heads before
+    the head_dim is split."""
+    t = _share(part, t, like, 2)
+    if not quant:
+        return _share(part, t, like)
+    q, sc = _quantize_kv(t)
+    return _share(part, q, like), sc
+
+
 def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
                       cache: Dict[str, torch.Tensor], x: torch.Tensor,
-                      pos_t: torch.Tensor) -> torch.Tensor:
+                      pos_t: torch.Tensor, part: Partition = NO_PARTITION
+                      ) -> torch.Tensor:
     """One decode token, writing ``cache`` in place (the reference's donated
     cache). x: (B,1,D); pos_t: the current position, a 0-d int64 tensor on
     x's device (the reference's traced scalar). Returns the new x.
 
     No Python value is derived from ``pos_t``: the ring slot and the valid
     cache positions are computed on the device, so a CUDA graph can capture
-    the step once and replay it at every position."""
+    the step once and replay it at every position.
+
+    Over a mesh (``part``): ``p`` holds this rank's shards, ``x`` its rows
+    whole over "model", ``cache`` its shard (:func:`init_layer_cache`);
+    the products are column- and row-parallel as in
+    :func:`apply_layer_seq`. Attention works on the rank's K/V heads with
+    its query heads, or, where the shard holds every head's head_dim
+    chunk, on every query head over that chunk (:func:`_attend`)."""
     B = x.shape[0]
     h = _norm(cfg, p["ln1"], x)
 
     if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
         ap = p["attn"]
-        q, k, v = _qkv(cfg, ap, h, cfg.n_heads, cfg.n_kv)
+        H, K, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+        ck, cv = cache["k"], cache["v"]
+        local = ck.shape[2] != K            # the rank's K/V and query heads
+        bias = "bq" in ap
+        q = _proj(h, ap["wq"], ap["bq"] if bias else None)
+        k = _proj(h, ap["wk"], ap["bk"] if bias else None)
+        v = _proj(h, ap["wv"], ap["bv"] if bias else None)
+        if not local:
+            q = _whole(part, q, H * hd)
+            k, v = _whole(part, k, K * hd), _whole(part, v, K * hd)
+        q, k, v = (t.reshape(B, 1, -1, hd) for t in (q, k, v))
         posv = pos_t.reshape(1)
         q = rope(q, posv, cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, posv, cfg.rope_theta, cfg.rope_fraction)
-        ck, cv = cache["k"], cache["v"]
         L = ck.shape[1]
         slot = (torch.remainder(posv, L) if spec.mix == ATTN_LOCAL
                 else torch.clamp(posv, max=L - 1))
         if "kscale" in cache:                 # int8 quantized cache
             for key, t in (("k", k), ("v", v)):
-                tq, sc = _quantize_kv(t)
+                tq, sc = _cache_kv(part, t, cache[key], quant=True)
                 cache[key].index_copy_(1, slot, tq)
                 cache[key + "scale"].index_copy_(1, slot, sc)
             ck = _dequantize_kv(cache["k"], cache["kscale"])
             cv = _dequantize_kv(cache["v"], cache["vscale"])
         else:
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
+            ck.index_copy_(1, slot, _cache_kv(part, k, ck).to(ck.dtype))
+            cv.index_copy_(1, slot, _cache_kv(part, v, cv).to(cv.dtype))
         idx = torch.arange(L, device=x.device)
         if spec.mix == ATTN_LOCAL:
             kv_pos = posv - torch.remainder(posv - idx, L)
@@ -665,33 +731,38 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         else:
             kv_pos = torch.where(idx <= pos_t, idx, -1)
         window = cfg.window if spec.mix == ATTN_LOCAL else 0
-        out = attention(q, ck, cv, q_pos=posv, kv_pos=kv_pos, causal=True,
-                        window=window, logit_softcap=cfg.attn_softcap,
-                        kv_chunk=1024 if L % 1024 == 0 else L)
-        out = out.reshape(B, 1, -1) @ ap["wo"]
+        out = _attend(part, q, ck, cv, q_pos=posv, kv_pos=kv_pos,
+                      causal=True, window=window,
+                      logit_softcap=cfg.attn_softcap,
+                      kv_chunk=1024 if L % 1024 == 0 else L)
+        out = _attn_out(part, out, ap["wo"], local)
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
+        r_sh = rp["w_in"].shape[-1] != cfg.rnn_width
         gate = F.gelu(h @ rp["w_gate"], approximate="tanh")
         vin = h @ rp["w_in"]
         vin2, conv_state = causal_conv1d(vin, rp["conv_w"],
                                          state=cache["conv"])
-        log_a, b = _rglru_gates(vin2[:, 0, :], rp)
-        h_new = rglru_step(log_a, b, cache["h"])
+        v_all = part.gather(vin2[:, 0, :]) if r_sh else None
+        log_a, b = _rglru_gates(vin2[:, 0, :], rp, v_all)
+        h_new = rglru_step(log_a, b, cache["h"])         # (B, R or R/tp)
         cache["h"].copy_(h_new)
         cache["conv"].copy_(conv_state)
-        out = (gate[:, 0] * h_new.to(gate.dtype)) @ rp["w_out"]
+        out = _row_out(part, (gate[:, 0] * h_new.to(gate.dtype))
+                       @ rp["w_out"], r_sh)
         out = out[:, None, :]
     elif spec.mix == MIX_RWKV6:
         rp = p["rwkv"]
-        xprev = cache["shift_t"][:, None, :].to(h.dtype)
-        r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev)
+        xprev = _whole(part, cache["shift_t"], cfg.d_model)[:, None, :].to(
+            h.dtype)
+        r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev, part)
         # the op returns a new state: copied in, never aliased (the kernel's
         # state and state_out are __restrict__)
         y, s_new = rk.wkv_step(r[:, 0], k[:, 0], v[:, 0],
                                torch.exp(lw[:, 0]), rp["u"], cache["s"])
         cache["s"].copy_(s_new)
-        cache["shift_t"].copy_(h[:, 0, :])
-        out = _rwkv_out(cfg, rp, y[:, None], g, B, 1)
+        cache["shift_t"].copy_(_share(part, h[:, 0, :], cache["shift_t"]))
+        out = _rwkv_out(cfg, rp, y[:, None], g, B, 1, part)
     else:
         raise ValueError(spec.mix)
 
@@ -702,15 +773,16 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
     if spec.cross_attn:
         hx = _norm(cfg, p["lnx"], x)
         x = x + _cross_attn(cfg, p["xattn"], hx, cache["xk"], cache["xv"],
-                            kv_chunk=1 << 16)
+                            kv_chunk=1 << 16, part=part)
 
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6:
-        xprev_c = cache["shift_c"][:, None, :].to(h2.dtype)
-        out2 = _rwkv_channel_mix(cfg, p["ffn"], h2, xprev_c)
-        cache["shift_c"].copy_(h2[:, 0, :])
+        xprev_c = _whole(part, cache["shift_c"], cfg.d_model)[:, None, :].to(
+            h2.dtype)
+        out2 = _rwkv_channel_mix(cfg, p["ffn"], h2, xprev_c, part)
+        cache["shift_c"].copy_(_share(part, h2[:, 0, :], cache["shift_c"]))
     else:
-        out2, _ = _ffn_apply(cfg, spec, p["ffn"], h2)
+        out2, _ = _ffn_apply(cfg, spec, p["ffn"], h2, part)
     if cfg.post_norms:
         out2 = _norm(cfg, p["ln2p"], out2)
     return x + out2
@@ -783,10 +855,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, kv_chunk: int = 1024) -> None:
         super().__init__()
-        if cfg.moe_pspec is not None and not hasattr(cfg.moe_pspec, "mesh"):
-            raise ValueError("cfg.moe_pspec: a runtime.sharding."
-                             "NamedSharding (the spec on its mesh), not "
-                             f"{cfg.moe_pspec!r}")
         self.cfg = cfg
         self.kv_chunk = kv_chunk
         self.device: Optional[torch.device] = None
@@ -1118,78 +1186,111 @@ class Model(nn.Module):
                        "tokens": denom.to(torch.float32)}
 
     # -- decode ----------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int) -> Cache:
+    def init_cache(self, batch: int, cache_len: int,
+                   part: Partition = NO_PARTITION) -> Cache:
+        """A zero cache for ``batch`` sequences (the global batch); over a
+        mesh this rank's shard of it (:func:`init_layer_cache`)."""
         self._params(own=False)
         return [init_layer_cache(self.cfg, spec, batch, cache_len,
-                                 self.device) for spec in self.cfg.layers]
+                                 self.device, part)
+                for spec in self.cfg.layers]
 
     @torch.no_grad()
     def decode_step_(self, cache: Cache, tokens: torch.Tensor,
-                     pos_t: torch.Tensor) -> torch.Tensor:
+                     pos_t: torch.Tensor,
+                     params: Optional[Mapping[str, torch.Tensor]] = None,
+                     part: Partition = NO_PARTITION) -> torch.Tensor:
         """One token for every sequence, writing ``cache`` in place.
         tokens: (B, 1) on the model's device; pos_t: the position of that
         token, a 0-d int64 tensor there. Returns the logits (B, 1, V).
         Nothing here reads a value back to the host, so a CUDA graph can
-        capture it (``serve.make_serve_step``)."""
-        self._params()
+        capture it (``serve.make_serve_step``).
+
+        ``params``/``part`` (as :meth:`forward`'s): ``tokens`` are this
+        rank's rows, ``cache`` its shard (:meth:`init_cache`), and the
+        logits this rank's vocabulary columns where the head is
+        vocab-sharded."""
+        self._params(own=params is None)
         cfg = self.cfg
-        x = self._embed(tokens)
+        rows = next(iter(cache[0].values())).shape[0]
+        if tokens.shape[0] != rows:
+            raise ValueError(f"{tokens.shape[0]} rows of tokens for a cache "
+                             f"of {rows} (over a mesh: this rank's rows)")
+        x = self._embed(tokens, self._param("embed", params, part), part)
         if _learned_positions(cfg):
-            L = self.pos_embed.shape[0]
-            at = torch.clamp(pos_t, max=L - 1).reshape(1)
-            x = x + self.pos_embed.index_select(0, at)[None]
-        for spec, lp, cb in zip(cfg.layers, self.layers, cache):
-            x = apply_layer_step_(cfg, spec, lp, cb, x, pos_t)
-        return self._logits(x)
+            pe = self._param("pos_embed", params, part)
+            at = torch.clamp(pos_t, max=pe.shape[0] - 1).reshape(1)
+            x = x + _whole(part, pe.index_select(0, at), cfg.d_model)[None]
+        for n, (spec, cb) in enumerate(zip(cfg.layers, cache)):
+            x = apply_layer_step_(cfg, spec,
+                                  self._tree(f"layers.{n}", params, part),
+                                  cb, x, pos_t, part)
+        return self._logits(x, params, part)
 
     @torch.no_grad()
-    def decode_step(self, cache: Cache, tokens: torch.Tensor, pos
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, pos,
+                    params: Optional[Mapping[str, torch.Tensor]] = None,
+                    part: Partition = NO_PARTITION
                     ) -> Tuple[torch.Tensor, Cache]:
         """One token for every sequence. tokens: (B, 1); pos: the position
         of that token (an int or a 0-d tensor). Returns (logits (B, 1, V),
         new cache); ``cache`` is left as it was: :meth:`decode_step_` on
-        one copy of it."""
-        self._params()
+        one copy of it (``params``/``part`` as there)."""
+        self._params(own=params is None)
         new_cache = [{key: t.clone() for key, t in cb.items()}
                      for cb in cache]
         logits = self.decode_step_(new_cache, tokens,
-                                   _pos_tensor(pos, self.device))
+                                   _pos_tensor(pos, self.device), params,
+                                   part)
         return logits, new_cache
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int,
-                extras: Optional[Mapping[str, torch.Tensor]] = None
+                extras: Optional[Mapping[str, torch.Tensor]] = None,
+                params: Optional[Mapping[str, torch.Tensor]] = None,
+                part: Partition = NO_PARTITION
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process a prompt, building a decode cache. Returns (logits, cache).
 
         Attention K/V computed for the prompt are written into the cache
         (ring-placed for local windows; quantized for an int8 cache), and a
         cross-attention layer's source K/V too.
+
+        ``params``/``part`` (:meth:`forward`'s): ``tokens`` and ``extras``
+        are this rank's rows, the logits as :meth:`forward` gives them,
+        the cache this rank's shard (:meth:`init_cache`): the rank's heads
+        or head_dim chunk of the K/V that ``forward`` computed, its
+        columns of the recurrent states.
         """
         cfg = self.cfg
         B, S = tokens.shape
-        logits, _, blobs = self.forward(tokens, extras, want_cache=True)
-        cache = self.init_cache(B, cache_len)
+        logits, _, blobs = self.forward(tokens, extras, want_cache=True,
+                                        params=params, part=part)
+        cache = self.init_cache(B * part.rows, cache_len, part)
         for spec, blob, slot in zip(cfg.layers, blobs, cache):
             if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
                 take = min(S, slot["k"].shape[1])
                 for key in ("k", "v"):
                     seq = blob[key][:, S - take:]
                     if "kscale" in slot:
-                        q, sc = _quantize_kv(seq)
+                        q, sc = _cache_kv(part, seq, slot[key], quant=True)
                         slot[key][:, :take] = q
                         slot[key + "scale"][:, :take] = sc
                     else:
-                        slot[key][:, :take] = seq
+                        slot[key][:, :take] = _cache_kv(part, seq, slot[key])
             elif spec.mix == ATTN_LOCAL:
                 L = slot["k"].shape[1]
                 take = min(S, L)
                 slots = torch.remainder(
                     torch.arange(S - take, S, device=self.device), L)
                 for key in ("k", "v"):
-                    slot[key][:, slots] = blob[key][:, S - take:].to(
+                    slot[key][:, slots] = _cache_kv(
+                        part, blob[key][:, S - take:], slot[key]).to(
                         slot[key].dtype)
-            for key in ("h", "conv", "s", "shift_t", "shift_c", "xk", "xv"):
+            for key in ("h", "conv", "s", "shift_t", "shift_c"):
+                if key in blob:     # the token shifts: the rank's columns
+                    slot[key].copy_(_share(part, blob[key], slot[key]))
+            for key in ("xk", "xv"):
                 if key in blob:
-                    slot[key].copy_(blob[key])
+                    slot[key].copy_(_cache_kv(part, blob[key], slot[key]))
         return logits, cache

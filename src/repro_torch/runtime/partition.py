@@ -11,13 +11,17 @@ partition where GSPMD would communicate:
 * :meth:`~Partition.copy` before a column-parallel product (identity
   forward, all-reduce of the input's gradient backward);
 * :meth:`~Partition.reduce` after a row-parallel product (the partial
-  products all-reduced in f32 and cast once; identity backward);
+  products all-reduced in f32 and cast once; identity backward), and of
+  a decode step's partial attention scores over a cache's head_dim chunk
+  (f32 already: summed in f32 before the softcap);
 * :meth:`~Partition.gather` of columns over "model" (all-gather forward;
   backward the rank's own chunk, or with ``partial=True``, where the
   gathered tensor feeds rank-specific products, a reduce-scatter);
 * :meth:`~Partition.split` of a replicated tensor into the rank's columns
   (all-gather backward);
-* :meth:`~Partition.tp_max` (no gradient), :meth:`~Partition.dp_sum`
+* :meth:`~Partition.tp_max` (no gradient), :meth:`~Partition.tp_argmax`
+  (the serving steps' argmax over vocab-sharded logits; no gradient),
+  :meth:`~Partition.dp_sum`
   (statistics of the global batch: all-reduce over the data axes forward,
   identity backward), and for a buffer every data rank adds its rows to
   :meth:`~Partition.dp_all` (all-reduce both ways) or
@@ -201,6 +205,7 @@ class Partition:
     def __init__(self, mesh=None,
                  placements: Optional[Mapping[str, tuple]] = None,
                  rows_split: bool = True) -> None:
+        self.mesh = mesh
         self._tp: Tuple[Axis, ...] = ()
         self._dp: Tuple[Axis, ...] = ()
         self._dp_dims: Tuple[int, ...] = ()
@@ -241,7 +246,7 @@ class Partition:
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over "model" of this rank's partial product ``x`` (f32,
-        cast once to ``x``'s dtype)."""
+        cast once to ``x``'s dtype; partial attention scores are f32)."""
         return _Reduce.apply(x, self._tp) if self._tp else x
 
     def gather(self, x: torch.Tensor, dim: int = -1, partial: bool = False
@@ -260,6 +265,28 @@ class Partition:
     def tp_max(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max over "model" (no gradient)."""
         return _all_reduce(x.detach(), self._tp, "max") if self._tp else x
+
+    def tp_argmax(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """``torch.argmax(., dim=-1)`` of the whole of ``x``, whose last
+        dim holds this rank's chunk over "model" of ``n`` columns (or all
+        of them): each rank's max and its first index, the max over
+        "model", and the lowest global index among the ranks that hold
+        it, so a tie breaks to the lower index as ``torch.argmax`` and
+        ``jnp.argmax`` break it. int64, no gradient."""
+        if not self._tp or x.shape[-1] == n:
+            return torch.argmax(x, dim=-1)
+        x = x.detach()
+        w = x.shape[-1]
+        i = torch.argmax(x, dim=-1, keepdim=True)
+        m = torch.gather(x, -1, i)[..., 0]
+        top = _all_reduce(m, self._tp, "max")
+        idx = torch.where(m == top, i[..., 0] + self.tp_rank * w, n)
+        return _all_reduce(idx, self._tp, "min")
+
+    def tp_share(self, n: int) -> int:
+        """This rank's part of a dim of ``n`` that the rules split over
+        "model" where it divides (``ShardingRules._col``), else ``n``."""
+        return n // self.tp if n % self.tp == 0 else n
 
     # -- the data axes -------------------------------------------------------
     def dp_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -289,6 +316,14 @@ class Partition:
         if not x.requires_grad:
             return _all_gather(x, dim, self._dp)
         return _Gather.apply(x, dim, self._dp, True)
+
+    def local_rows(self, batch: int) -> int:
+        """This rank's rows of a global batch of ``batch``."""
+        if batch % self.rows:
+            raise ValueError(f"{batch} rows do not split over {self.rows} "
+                             "data ranks (rows_split: the rules leave such a "
+                             "batch whole)")
+        return batch // self.rows
 
     @property
     def dp_rank(self) -> int:

@@ -322,6 +322,68 @@ def lay_out(t: torch.Tensor, mesh, placements) -> DTensor:
                               shape=t.shape, stride=t.stride())
 
 
+# ---------------------------------------------------------------------------
+# a rank's share of a state, a cache and a batch (the partitioned steps)
+# ---------------------------------------------------------------------------
+
+def _local_tree(laid: PyTree) -> Tuple[PyTree, PyTree]:
+    """A tree of ``DTensor``\\s as (this rank's shards, their placements)."""
+    return (tree_map(lambda t: t.to_local(), laid),
+            tree_map(lambda t: tuple(t.placements), laid))
+
+
+def lay_out_params(cfg, mesh, params: Mapping[str, torch.Tensor],
+                   profile: str = "tp") -> Tuple[Dict[str, torch.Tensor],
+                                                  Dict[str, tuple]]:
+    """A model's parameters (name -> whole tensor, or a ``DTensor``) laid
+    out by ``param_pspecs`` on ``mesh`` (``elastic.reshard_state``): this
+    rank's shard of each, a plain tensor (the tensor itself where the
+    shard is all of it), and each one's placements, for a
+    ``runtime.partition.Partition`` (the serving steps' ``params=`` and
+    ``part=``)."""
+    from .elastic import reshard_state
+    rules = ShardingRules(cfg, mesh, profile)
+    return _local_tree(reshard_state(dict(params), rules.to_shardings(
+        rules.param_pspecs(params))))
+
+
+def lay_out_cache(cfg, mesh, cache: Sequence[Mapping[str, torch.Tensor]]
+                  ) -> Tuple[list, list]:
+    """A decode cache (one dict a layer, whole: ``Model.init_cache`` or
+    ``Model.prefill`` unpartitioned) laid out by ``cache_pspecs``: this
+    rank's shards (the shapes ``Model.init_cache(part=)`` gives) and their
+    placements."""
+    from .elastic import reshard_state
+    rules = ShardingRules(cfg, mesh)
+    return _local_tree(reshard_state(
+        [dict(layer) for layer in cache],
+        rules.to_shardings(rules.cache_pspecs(cache))))
+
+
+def local_batch(cfg, mesh, batch: Mapping[str, Any], device
+                ) -> Tuple[Dict[str, Any], bool]:
+    """This rank's part of ``batch`` by ``batch_pspecs`` (a leaf is a
+    ``DTensor`` laid out so, or a whole tensor every rank holds), and
+    whether the rows are split over the data axes."""
+    specs = ShardingRules(cfg, mesh).batch_pspecs(batch)
+
+    def local(t, spec):
+        pl = to_placements(spec, mesh)
+        if isinstance(t, DTensor):
+            if tuple(t.placements) != pl:
+                raise ValueError(f"a batch leaf laid out as {t.placements},"
+                                 f" the rules place it {pl}")
+            return t.to_local()
+        return shard_view(torch.as_tensor(t, device=device), mesh, pl)
+
+    out = {k: local(v, specs[k]) for k, v in batch.items()
+           if k != "extras"}
+    extras = batch.get("extras") or {}
+    if extras:
+        out["extras"] = {k: local(v, specs["extras"][k])
+                         for k, v in extras.items()}
+    return out, specs["tokens"][-2] is not None
+
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree,
              is_leaf: Optional[Callable[[Any], bool]] = None) -> PyTree:

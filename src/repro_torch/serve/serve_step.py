@@ -1,10 +1,31 @@
 """Serving steps: prefill (prompt -> cache) and decode (one token/step).
 
-The port's :class:`~repro_torch.models.Model` holds its parameters, so the
-steps take no ``params`` argument; otherwise they are the reference's. The
-prefill takes the reference's ``extras`` (encoder frames, image tokens);
-the decode step reads the cross-attention K/V that prefill put in the
-cache.
+The reference's steps take the parameters as an argument; the port's
+:class:`~repro_torch.models.Model` holds its own, so ``params`` is
+optional: without it (and ``part``) the steps run the whole batch on the
+model's own parameters. The prefill takes the reference's ``extras``
+(encoder frames, image tokens); the decode step reads the
+cross-attention K/V that prefill put in the cache.
+
+**Over a mesh** (the reference's ``jax.jit(prefill, in_shardings=(
+param_sh, batch_sh))`` and ``jax.jit(serve_step, in_shardings=(param_sh,
+cache_sh, tok_sh, P()), out_shardings=(tok_sh, cache_sh),
+donate_argnums=1)``, ``launch/dryrun.py``). ``params`` maps each name to
+this rank's shard, a plain tensor, and ``part`` is the
+``runtime.partition.Partition`` of the mesh
+(``runtime.sharding.lay_out_params`` gives both; ``rows_split`` as
+``batch_pspecs`` splits the batch). Each rank then runs its rows of the
+batch on its parameter shards and its cache shard:
+
+* ``prefill(tokens, extras)`` takes the global batch (a whole tensor every
+  rank holds, or a ``DTensor`` laid out by ``batch_pspecs``) and returns
+  the rank's rows of the last-token logits, gathered whole over "model"
+  (the reference's ``P(dp, None)``), and the rank's cache shard
+  (``cache_pspecs``, ``Model.init_cache(part=)``);
+* ``serve_step(cache, tokens, pos)`` takes the rank's cache shard and its
+  rows of the tokens (what the last step returned: the reference's
+  ``tok_sh``), and returns the next tokens of those rows through the
+  vocab-parallel argmax (``Partition.tp_argmax``) and the cache.
 
 The reference compiles its decode step once, ``jax.jit(serve_step,
 donate_argnums=1)``: one program a step, the cache updated in place, the
@@ -12,50 +33,87 @@ position a traced scalar. On the card the port's counterpart is
 :class:`GraphedServeStep`: the step captured once into a CUDA graph over a
 static cache, then replayed, so one host call submits every operation of
 the step, the ``rglru_scan`` / ``rwkv6_step`` launches among them. On the
-CPU the step runs eagerly, as :meth:`Model.decode_step` does.
+CPU the step runs eagerly, as :meth:`Model.decode_step` does. On a
+partition of more than one rank the step is eager on the card too, by
+design: its collectives would have to be captured into the graph, which
+one card cannot test (one NCCL rank a card). A 1x1 partition calls no
+collective, so its step is graphed like the unpartitioned one.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..kernels import _launches
-from ..models.transformer import Cache, init_layer_cache
+from ..models.transformer import Cache, _whole, init_layer_cache
+from ..runtime.partition import NO_PARTITION, Partition
+from ..runtime.sharding import local_batch
+
+Params = Optional[Mapping[str, torch.Tensor]]
 
 
-def make_eager_serve_step(model):
+def _next_tokens(model, logits: torch.Tensor, part: Partition
+                 ) -> torch.Tensor:
+    """(B, 1) int32 argmax of the last position's logits."""
+    return part.tp_argmax(logits[:, -1, :], model.cfg.vocab).to(
+        torch.int32)[:, None]
+
+
+def make_eager_serve_step(model, params: Params = None,
+                          part: Optional[Partition] = None):
     """The eager step: ``model.decode_step`` and the argmax; the returned
     cache is new and ``cache`` is left as it was."""
+    part = part or NO_PARTITION
 
     def serve_step(cache: Cache, tokens: torch.Tensor, pos
                    ) -> Tuple[torch.Tensor, Cache]:
-        logits, new_cache = model.decode_step(cache, tokens, pos)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], new_cache
+        logits, new_cache = model.decode_step(cache, tokens, pos, params,
+                                              part)
+        return _next_tokens(model, logits, part), new_cache
 
     return serve_step
 
 
-def make_serve_step(model):
+def make_serve_step(model, params: Params = None,
+                    part: Optional[Partition] = None):
     """serve_step(cache, tokens (B,1), pos) -> (next (B,1) i32, cache).
 
     On a CUDA model, a :class:`GraphedServeStep` (the returned tokens and
-    cache are overwritten by the next call: see there); on a CPU model the
-    eager step, which leaves ``cache`` as it was."""
-    if model.device is not None and model.device.type == "cuda":
-        return GraphedServeStep(model)
-    return make_eager_serve_step(model)
+    cache are overwritten by the next call: see there), unless ``part``
+    spans more than one rank; otherwise the eager step, which leaves
+    ``cache`` as it was."""
+    part = part or NO_PARTITION
+    if model.device is not None and model.device.type == "cuda" and \
+            part.trivial:
+        return GraphedServeStep(model, params, part)
+    return make_eager_serve_step(model, params, part)
 
 
-def make_prefill(model, cache_len: int):
-    """prefill(tokens, extras=None) -> (last-token logits (B, V), cache)."""
+def make_prefill(model, cache_len: int, params: Params = None,
+                 part: Optional[Partition] = None):
+    """prefill(tokens, extras=None) -> (last-token logits (B, V), cache);
+    over a mesh the rank's rows and cache shard (module docstring)."""
+    part = part or NO_PARTITION
 
     def prefill(tokens: torch.Tensor,
                 extras: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-        logits, cache = model.prefill(tokens, cache_len, extras)
-        return logits[:, -1, :].clone(), cache
+        if part.mesh is not None:
+            batch = {"tokens": tokens} | ({"extras": extras} if extras
+                                          else {})
+            batch, rows_split = local_batch(model.cfg, part.mesh, batch,
+                                            model.device)
+            if rows_split != part.rows_split and part.dp > 1:
+                raise ValueError(
+                    f"the batch's rows {'' if rows_split else 'do not '}"
+                    "split over the data axes (batch_pspecs), the partition"
+                    f" has rows_split={part.rows_split}")
+            tokens, extras = batch["tokens"], batch.get("extras")
+        logits, cache = model.prefill(tokens, cache_len, extras, params,
+                                      part)
+        last = _whole(part, logits[:, -1, :], model.cfg.vocab)
+        return last.clone(), cache
 
     return prefill
 
@@ -99,13 +157,24 @@ class GraphedServeStep:
     or replay that fails raises, and so does a cache or token batch whose
     shapes, dtypes or device differ from what the model's ``init_cache``
     gives.
+
+    ``params``/``part``: the step over a 1x1 mesh (``make_serve_step``):
+    the rank's shards (the whole tensors) in place of the model's own, and
+    the cache checked against ``init_cache(part=)``. A partition of more
+    than one rank is refused: its step is the eager one.
     """
 
-    def __init__(self, model) -> None:
+    def __init__(self, model, params: Params = None,
+                 part: Optional[Partition] = None) -> None:
         if model.device is None or model.device.type != "cuda":
             raise ValueError("GraphedServeStep needs a model on a CUDA device "
                              f"(the model is on {model.device})")
-        self.model = model
+        part = part or NO_PARTITION
+        if not part.trivial:
+            raise ValueError("GraphedServeStep captures no collective: a "
+                             f"partition of {part.dp} x {part.tp} ranks "
+                             "decodes eagerly (make_serve_step)")
+        self.model, self.params, self.part = model, params, part
         index = model.device.index
         self.device = torch.device(
             "cuda", torch.cuda.current_device() if index is None else index)
@@ -127,7 +196,8 @@ class GraphedServeStep:
                      default=1)
         meta = torch.device("meta")
         for n, (spec, cb) in enumerate(zip(cfg.layers, cache)):
-            want = init_layer_cache(cfg, spec, batch, length, meta)
+            want = init_layer_cache(cfg, spec, batch, length, meta,
+                                    self.part)
             got = {key: (tuple(t.shape), t.dtype, t.device)
                    for key, t in cb.items()}
             exp = {key: (tuple(t.shape), t.dtype, self.device)
@@ -152,9 +222,9 @@ class GraphedServeStep:
     # -- capture ------------------------------------------------------------
     def _body(self, cache: Cache, tokens: torch.Tensor, pos: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.model.decode_step_(cache, tokens, pos)[:, -1, :]
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return nxt, logits
+        logits = self.model.decode_step_(cache, tokens, pos, self.params,
+                                         self.part)
+        return _next_tokens(self.model, logits, self.part), logits[:, -1, :]
 
     @torch.no_grad()
     def _capture(self, key: Tuple[int, int], cache: Cache) -> _Graph:
@@ -181,7 +251,7 @@ class GraphedServeStep:
     def capture(self, batch: int, cache_len: int) -> None:
         """Capture the step for ``batch`` sequences and ``cache_len`` (ahead
         of the first call, as the reference lowers and compiles ahead)."""
-        cache = self.model.init_cache(batch, cache_len)
+        cache = self.model.init_cache(batch, cache_len, self.part)
         key = self._key(cache)
         if key not in self._graphs:
             self._capture(key, cache)

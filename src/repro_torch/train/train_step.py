@@ -57,7 +57,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..runtime.partition import Partition
-from ..runtime.sharding import ShardingRules, shard_view, to_placements
+from ..runtime.sharding import local_batch, shard_view, to_placements
 
 TrainState = Dict[str, Any]   # {"params", "opt", "step"}
 
@@ -76,29 +76,6 @@ def _mesh_of(params: Mapping[str, Any]):
         if isinstance(p, DTensor):
             return p.device_mesh
     return None
-
-
-def _local_batch(model, mesh, batch: Mapping[str, Any]
-                 ) -> Tuple[Dict[str, Any], bool]:
-    """This rank's part of ``batch`` by ``ShardingRules.batch_pspecs``,
-    and whether the rows are split over the data axes."""
-    specs = ShardingRules(model.cfg, mesh).batch_pspecs(batch)
-
-    def local(t, spec):
-        pl = to_placements(spec, mesh)
-        if isinstance(t, DTensor):
-            if tuple(t.placements) != pl:
-                raise ValueError(f"a batch leaf laid out as {t.placements},"
-                                 f" the rules place it {pl}")
-            return t.to_local()
-        return shard_view(torch.as_tensor(t, device=model.device), mesh, pl)
-
-    out = {k: local(batch[k], specs[k]) for k in ("tokens", "labels")}
-    extras = batch.get("extras") or {}
-    if extras:
-        out["extras"] = {k: local(v, specs["extras"][k])
-                         for k, v in extras.items()}
-    return out, specs["tokens"][-2] is not None
 
 
 def _microbatches(model, batch: Mapping[str, Any],
@@ -161,7 +138,8 @@ def make_train_step(model, opt, grad_pspecs: Optional[Mapping] = None):
         layouts = {k: to_placements(grad_pspecs[k], mesh)
                    if grad_pspecs is not None else tuple(p.placements)
                    for k, p in dparams.items()}
-        local, rows_split = _local_batch(model, mesh, batch)
+        local, rows_split = local_batch(model.cfg, mesh, batch,
+                                        model.device)
         part = Partition(mesh, {k: tuple(p.placements)
                                 for k, p in dparams.items()}, rows_split)
         # this rank's shards, as the leaves the gradients are taken of

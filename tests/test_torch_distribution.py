@@ -17,12 +17,14 @@ cases of ``tests/runtime/test_distribution.py`` run on ``repro_torch``.
   has the shape its placements give.
 * The mini dry run: gemma2-9b smoke on a 4x4 fake mesh (16 ranks of
   PyTorch's fake process group in one subprocess), a train, a prefill and
-  a decode step traced: FLOPs > 0; the partitioned train step counts at
-  most an eighth of the 1x1 step's FLOPs (the reference's XLA count falls
-  12.4x), its collectives over "model" include the row-parallel and
-  vocab all-reduces; every arch's partitioned train cell traces to an
-  ``ok`` record; and the dry-run CLI writes an ``ok`` record for a full
-  gemma2-9b decode cell on the 16x16 production mesh.
+  a decode step traced: FLOPs > 0; each partitioned step counts at most
+  an eighth of the 1x1 step's FLOPs (the reference's XLA count falls
+  12.4x for the train step, 9.8x for decode), its collectives over
+  "model" include the row-parallel and vocab all-reduces, and the model's
+  own tensors are released; every arch's partitioned train, prefill and
+  decode cells trace to ``ok`` records; and the dry-run CLI writes an
+  ``ok`` record for a full gemma2-9b decode cell on the 16x16 production
+  mesh.
 * The roofline's arithmetic: ``model_flops`` and ``roofline_terms`` equal
   the reference's for every arch and shape given the same constants, and
   the ring factors give the reference's wire bytes for every collective
@@ -363,6 +365,10 @@ for shape, accum in ((ShapeSpec("t", 32, 16, "train"), 2),
 one = make_mesh((1, 1), ("data", "model"), device="cpu")
 out["train_1x1"] = run_cell(cfg, ShapeSpec("t", 32, 16, "train"), one,
                             accum=2, kv_chunk=16)["flops_per_device"]
+for shape in (ShapeSpec("p", 32, 8, "prefill"),
+              ShapeSpec("d", 64, 8, "decode")):
+    out[shape.kind + "_1x1"] = run_cell(cfg, shape, one, accum=1,
+                                        kv_chunk=16)["flops_per_device"]
 print(json.dumps(out))
 """
 
@@ -393,11 +399,24 @@ def test_mini_dryrun_4x4_fake_mesh():
     by_axis = out["train"]["collectives_by_axis"]
     assert by_axis["model"]["all-reduce"]["count"] >= 2 * (4 * 2 * 2 + 4)
     assert by_axis["data"]["all-reduce"]["count"] > 0   # the gradients
-    assert out["decode"]["collectives"] == {}
-    # the train cell releases the model's own tensors (its step reads
-    # the state's shards only); the serve cells run on them
-    assert out["train"]["memory"]["model_bytes"] == 0
-    assert out["decode"]["memory"]["model_bytes"] > 0
+    # the serve cells partitioned too: a 16th of the work a rank (the
+    # reference's XLA count falls 9.8x on its decode cell), their
+    # row-parallel sums and vocab lookups over "model" (gemma2 smoke's 2
+    # K/V heads at tp 4: the decode cache holds head_dim chunks, so its
+    # partial scores are summed too)
+    for kind in ("prefill", "decode"):
+        assert out[kind]["flops_per_device"] <= out[kind + "_1x1"] / 8, kind
+        model = out[kind]["collectives_by_axis"]["model"]
+        assert model["all-reduce"]["count"] >= 2 * 4 + 1, kind
+    # every cell releases the model's own tensors (its step reads the
+    # state's shards only)
+    for kind in ("train", "prefill", "decode"):
+        assert out[kind]["memory"]["model_bytes"] == 0, kind
+    # a decode cell's cache is one device's shard, a 16th at 4x4: whole,
+    # 2 local (32 slots) and 2 full (64) layers' K and V of 8 rows, 2
+    # heads of 16 bf16 dims
+    cache = out["decode"]["memory"]["cache_bytes"]
+    assert cache * 16 == 2 * (32 + 64) * 8 * 2 * 16 * 2 * 2, cache
 
 
 _ALL_TRAIN_CELLS = """
@@ -440,6 +459,62 @@ def test_partitioned_train_cell_traces_for_every_arch(all_train_cells,
     rec = all_train_cells[arch]
     assert rec["status"] == "ok", rec
     assert rec["flops_per_device"] > 0 and rec["collectives"]
+
+
+_ALL_SERVE_CELLS = """
+import json
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.launch.dryrun import run_cell, start_fake_world
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import ShapeSpec
+start_fake_world(16)
+meshes = {n: make_mesh(m, ("data", "model"), device="cpu")
+          for n, m in (("4x4", (4, 4)), ("1x1", (1, 1)))}
+for arch in ARCH_IDS:
+    out = {"arch": arch}
+    for shape in (ShapeSpec("p", 32, 8, "prefill"),
+                  ShapeSpec("d", 64, 8, "decode")):
+        for name, mesh in meshes.items():
+            try:
+                rec = run_cell(get_config(arch, smoke=True), shape, mesh,
+                               accum=1, kv_chunk=16)
+                rec = {"status": "ok", "flops": rec["flops_per_device"],
+                       "model": rec["collectives_by_axis"].get("model", {}),
+                       "model_bytes": rec["memory"]["model_bytes"]}
+            except Exception as e:      # the record says which cell failed
+                rec = {"status": "fail", "error": f"{type(e).__name__}: {e}"}
+            out[f"{shape.kind}_{name}"] = rec
+    print(json.dumps(out), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def all_serve_cells():
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=SRC)
+    run = subprocess.run([sys.executable, "-c", _ALL_SERVE_CELLS], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return {r["arch"]: r for r in map(json.loads,
+                                      run.stdout.strip().splitlines())}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_partitioned_serve_cells_trace_for_every_arch(all_serve_cells,
+                                                      arch):
+    """Each arch's smoke prefill and decode cells, partitioned on a fake
+    4x4 mesh (``tp`` rules: a head_dim-split cache wherever the K/V heads
+    do not divide 4), trace to ``ok`` records with all-reduces over
+    "model", the model's own tensors released, and at most an 8th of the
+    1x1 cell's FLOPs a device (a 16th but for what the rules leave whole:
+    the MoE router)."""
+    rec = all_serve_cells[arch]
+    for kind in ("prefill", "decode"):
+        got, one = rec[f"{kind}_4x4"], rec[f"{kind}_1x1"]
+        assert got["status"] == one["status"] == "ok", (kind, got, one)
+        assert got["model"]["all-reduce"]["count"] > 0, kind
+        assert got["model_bytes"] == one["model_bytes"] == 0, kind
+        assert 0 < got["flops"] <= one["flops"] / 8, (kind, got, one)
 
 
 def test_dryrun_cli_writes_an_ok_record(tmp_path):

@@ -227,43 +227,102 @@ def test_capacity_follows_shapes_only(monkeypatch):
     assert bufs == [(4 * cap, D)] * 2
 
 
-_MOE_ON_MESH = """
+_MOE_SERVE = """
 import dataclasses, json
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import Model
-from repro_torch.runtime.sharding import NamedSharding, P
-cfg = dataclasses.replace(get_config("mixtral_8x22b", smoke=True),
-                          moe_groups=4)
-tokens = torch.arange(64).reshape(4, 16) % cfg.vocab
-base = Model(cfg, kv_chunk=8).init(torch.Generator().manual_seed(2), "cpu")
-want, aux0, _ = base.forward(tokens)
+from repro_torch.models import components
+from repro_torch.runtime.partition import Partition
+from repro_torch.runtime.sharding import lay_out_params
+from repro_torch.serve import make_prefill
 mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
-pinned = dataclasses.replace(cfg, moe_pspec=NamedSharding(
-    mesh, P("data", None, None, None)))
-model = Model(pinned, kv_chunk=8).init(torch.Generator().manual_seed(2),
-                                       "cpu")
-got, aux1, _ = model.forward(tokens)
-print(json.dumps({"logits": torch.equal(got, want),
-                  "aux": float(aux1) == float(aux0)}))
+out = {}
+for groups, B, P in ((4, 4, 16), (1, 32, 4)):
+    cfg = dataclasses.replace(get_config("mixtral_8x22b", smoke=True),
+                              moe_groups=groups)
+    model = Model(cfg, kv_chunk=8).init(torch.Generator().manual_seed(2),
+                                        "cpu")
+    for p in model.parameters():
+        p.data = p.data.float()
+    tokens = torch.arange(B * P).reshape(B, P) % cfg.vocab
+    tok = torch.arange(B).reshape(B, 1) % cfg.vocab
+    want0, cache = make_prefill(model, P + 1)(tokens)
+    want1, _ = model.decode_step(cache, tok, P)
+    params, placements = lay_out_params(cfg, mesh,
+                                        dict(model.named_parameters()))
+    model.release_params()
+    part = Partition(mesh, placements)
+    rows = slice(part.dp_rank * B // 2, (part.dp_rank + 1) * B // 2)
+    bufs = []
+    real = torch.Tensor.index_add
+
+    def spy(self, dim, index, source, **kw):
+        bufs.append(list(self.shape))
+        return real(self, dim, index, source, **kw)
+    torch.Tensor.index_add = spy
+    got0, cache = make_prefill(model, P + 1, params, part)(tokens)
+    got1, _ = model.decode_step(cache, tok[rows], P, params, part)
+    torch.Tensor.index_add = real
+    got1 = part.gather(got1)
+    out[groups] = {
+        "prefill": [float((got0 - want0[rows]).abs().max()),
+                    float(want0.abs().max())],
+        "decode": [float((got1 - want1[rows]).abs().max()),
+                   float(want1.abs().max())],
+        "bufs": bufs, "T": [B * P, B], "E": cfg.moe.num_experts,
+        "layers": sum(spec.ffn == "moe" for spec in cfg.layers),
+        "k": cfg.moe.top_k, "cf": cfg.moe.capacity_factor, "D": cfg.d_model}
+print(json.dumps(out))
 """
 
 
-def test_moe_pspec_lays_the_dispatch_buffer_out_on_a_mesh():
-    """mixtral smoke with 4 dispatch groups on a 2x2 mesh of 4 gloo
-    ranks: ``cfg.moe_pspec`` (the groups over "data") gives the unsharded
-    run's logits and aux loss bit for bit; a bare spec without its mesh
-    is refused."""
-    import dataclasses
+@pytest.fixture(scope="module")
+def moe_serving():
+    """mixtral smoke (f32) served on a 2x2 mesh of 4 gloo ranks, against
+    the unsharded steps: 4 dispatch groups (each data rank's rows whole
+    groups) and 1 (the routing of both data ranks' rows in one group);
+    the dispatch buffers' shapes of the partitioned prefill and step."""
     import os
     import sys
     sys.path.insert(0, os.path.dirname(__file__))
-    from repro_torch.configs import get_config
-    from repro_torch.models import Model
-    from repro_torch.runtime.sharding import P
     from torch_dist import run_ranks
-    for out in run_ranks(_MOE_ON_MESH, 4, timeout=120):
-        assert json.loads(out) == {"logits": True, "aux": True}
-    with pytest.raises(ValueError):
-        Model(dataclasses.replace(get_config("mixtral_8x22b", smoke=True),
-                                  moe_pspec=P("data", None, None, None)))
+    return [json.loads(out.strip().splitlines()[-1])
+            for out in run_ranks(_MOE_SERVE, 4, timeout=120)]
+
+
+def test_partitioned_capacity_follows_the_global_batch(moe_serving):
+    """Over a mesh the capacity comes from the global token count of a
+    group, as the reference's (a rank holds a part of it): one group over
+    2 data ranks of 16 rows, so cap 80 in the prefill (128 tokens) and 24
+    in the step (32), where the rank's own tokens would give 40 and 16."""
+    for out in moe_serving:
+        rec = out["1"]
+        E, k, cf, D = rec["E"], rec["k"], rec["cf"], rec["D"]
+        caps = [max(8, (int(np.ceil(cf * T * k / E)) + 7) // 8 * 8)
+                for T in rec["T"]]
+        assert caps == [80, 24]
+        assert rec["bufs"] == [[E * cap, D] for cap in caps
+                               for _ in range(rec["layers"])]
+
+
+def test_moe_pspec_lays_the_dispatch_buffer_out_on_a_mesh(moe_serving):
+    """mixtral smoke with 4 dispatch groups served on a 2x2 mesh of 4 gloo
+    ranks: the partitioned dispatch lays the groups out over "data" (each
+    rank's rows are whole groups; the reference's ``moe_pspec`` asks the
+    same of its buffer) and the experts over "model"; the partitioned
+    prefill's and step's logits agree with the unsharded ones in f32 to
+    their sums' order (``tests/test_torch_serve_partition.py``'s bounds:
+    2^-14 of the largest logit, 2^-10 once a step reads the bf16 cache),
+    and each rank's buffer holds its own 2 groups."""
+    for out in moe_serving:
+        for groups, rec in out.items():
+            err, scale = rec["prefill"]
+            assert err <= 2.0 ** -14 * scale, (groups, err, scale)
+            err, scale = rec["decode"]
+            assert err <= 2.0 ** -10 * scale, (groups, err, scale)
+        rec = out["4"]
+        E, k, cf, D = rec["E"], rec["k"], rec["cf"], rec["D"]
+        cap = max(8, (int(np.ceil(cf * rec["T"][0] // 4 * k / E)) + 7)
+                  // 8 * 8)
+        assert rec["bufs"][0] == [2 * E * cap, D]

@@ -252,11 +252,16 @@ def test_int8_cache_holds_fewer_bytes():
 
 
 def test_moe_pspec_and_missing_extras_raise():
+    """``cfg.moe_pspec`` (the reference's field) is carried and changes
+    nothing: over a mesh the partition splits the MoE dispatch buffer
+    (``moe_forward(part=)``); missing extras raise."""
     cfg = torch_config("mixtral_8x22b", smoke=True)
-    with pytest.raises(ValueError, match="moe_pspec"):
-        Model(dataclasses.replace(cfg, moe_pspec=("data",)))
-    port = get_pair("llama3p2_vision_11b").port
     toks = torch.zeros((1, 4), dtype=torch.int64)
+    want, got = (Model(c).init(torch.Generator().manual_seed(0), "cpu")(
+        toks)[0] for c in (cfg, dataclasses.replace(cfg,
+                                                    moe_pspec=("data",))))
+    assert torch.equal(got, want)
+    port = get_pair("llama3p2_vision_11b").port
     with pytest.raises(ValueError, match="img"):
         port.loss({"tokens": toks, "labels": toks})
     with pytest.raises(ValueError, match="frames"):

@@ -327,6 +327,31 @@ failure:
     mixtral's aux loss nonzero, no repo kernel launched; step walls,
     tokens/s and peak memory printed.
 
+19. the examples (``[examples]``): each ``examples/torch_*.py`` loaded by
+    path and its ``main(device=...)`` run in this process, once on the
+    card and once on the CPU (the plain versions), stdout captured and the
+    launch counts read around the card run.
+    ``torch_quickstart``, ``torch_lustre_sim_hsm`` and
+    ``torch_fs_profiles`` print on the card what they print on the CPU,
+    line for line (wall times and temporary directory names masked), and
+    launch no repo kernel: ``fs_profiles`` builds its cube with the exact
+    int64 host groupby, as the reference's example does. The example's
+    catalog is then rebuilt into a ``ProfileCube(use_kernel=True)`` on the
+    card: one ``profile_cube`` launch a shard (4), each launch's cube
+    equal to the f64 plain version cast to f32, the counts equal to the
+    host cube's. ``torch_fs_top`` (2 frames) prints what the CPU run
+    prints but for its rates and latencies, and its sweeps match what the
+    CPU's match, with a lean store-form ``policy_scan`` launch a frame at
+    least. ``torch_serve_kv_tiering`` on the card and on the CPU with the
+    card's weights (the two generators draw differently): equal tokens
+    and tier reports, ``paged_attention`` launched n_layers times a
+    token step, the logits' largest difference printed.
+    ``torch_train_lm`` at its 200 steps on the card (20 on the CPU, for
+    the wall): every loss finite, the checkpoints ``--ckpt-interval 50``
+    keeps, the first-10 and last-10 losses printed. One ``[examples]``
+    line: the card, each example's wall on the card and the CPU, the
+    launches; each kernel's entry gains ``examples_launches``.
+
 The zoo phases' records go on a ``[zoo]`` line; the line before the last
 is a JSON object with one entry per kernel; the last line is ``{"ok":
 true, "device": {...}}``. Without CUDA, or without the repository beside
@@ -339,6 +364,7 @@ import atexit
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5792,6 +5818,223 @@ def zoo_train_phase(torch, seed, device, zoo: dict):
     log(f"[zoo-train] phase {time.perf_counter() - t0:.1f} s")
 
 
+EXAMPLES_DIR = os.path.join(ROOT, "examples")
+# what differs between two runs of an example and is not its result: wall
+# times, rates and latencies (fs_top's per-second counters and serve
+# percentiles), the names of temporary directories, and the five paths
+# quickstart's rbh-find lists first: its catalog's fids are the inode
+# numbers the OS gives each run's temporary tree, and they order the hits
+EXAMPLE_MASKS = (
+    (r" *\d+(\.\d+)? ?ms\b", " <ms>"),
+    (r" *\d+(\.\d+)? (ev|rows|store queries)/s", r" <rate> \2/s"),
+    (r"bytes +\S+ \S+/s", "bytes <rate>/s"),
+    (r"rbh_quickstart_\w+", "rbh_quickstart_<tmp>"),
+    (r"(?m)^   \S*/rbh_quickstart_<tmp>/\S+$", "   <find hit>"),
+)
+EXAMPLE_FS_TOP_FRAMES = 2
+EXAMPLE_TRAIN_CPU_STEPS = 20    # the CPU's training run, for its wall only
+
+
+def mask_stdout(text: str) -> str:
+    import re
+    for pattern, repl in EXAMPLE_MASKS:
+        text = re.sub(pattern, repl, text)
+    return text
+
+
+def load_example(name: str, tag: str):
+    """A fresh module of ``examples/<name>.py`` (so a patch made for one
+    run never reaches another)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_{tag}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, **kw):
+    """``mod.main(**kw)`` with stdout captured: (stdout, what main
+    returned, wall seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(**kw)
+    return buf.getvalue(), out, time.perf_counter() - t0
+
+
+def serving_recorder(mod, weights=None):
+    """Swap ``mod.ServingEngine`` for a subclass that loads ``weights``
+    (a state dict) after its own draw and records every step's logits;
+    returns the list the engines it makes are appended to."""
+    made = []
+    base = mod.ServingEngine
+
+    class Recorded(base):
+        def __init__(self, cfg, seed=0, device=None):
+            super().__init__(cfg, seed=seed, device=device)
+            if weights is not None:
+                self.model.load_state_dict(weights)
+            self.seen = []
+            made.append(self)
+
+        def _logits(self, req, token):
+            out = super()._logits(req, token)
+            self.seen.append(out.detach().float().cpu())
+            return out
+
+    mod.ServingEngine = Recorded
+    return made
+
+
+def fs_profiles_kernel_rebuild(torch, device, mod) -> int:
+    """The example's catalog rebuilt into a ``ProfileCube(use_kernel=True)``
+    on the card: each launch's cube equal to the f64 plain version cast to
+    f32 and the counts to the exact host cube's. Returns the launches."""
+    from repro_torch.core import ProfileCube
+    from repro_torch.kernels.profile_cube import ops as PO
+    from repro_torch.kernels.profile_cube import ref as PR
+    cat = mod.build_catalog()
+    now = time.time()
+    calls = []
+    launch = PO.profile_cube_cuda
+
+    def recording(cols, **kw):
+        out = launch(cols, **kw)
+        calls.append((cols, kw, out))
+        return out
+    PO.profile_cube_cuda = recording
+    try:
+        cube = ProfileCube(cat, use_kernel=True, device=device)
+        _, counts = launch_window(lambda: cube.rebuild(now=now))
+    finally:
+        PO.profile_cube_cuda = launch
+    check(counts == only(profile_cube=cat.n_shards), f"[examples] the "
+          f"fs_profiles kernel rebuild launched {counts}, not profile_cube "
+          f"once a shard ({cat.n_shards})")
+    for cols, kw, out in calls:
+        f64 = PR.profile_cube_ref(cols.double(), **kw).float()
+        check(torch.equal(out, f64), "[examples] a profile_cube launch of "
+              "the fs_profiles rebuild differs from the f64 plain version")
+    host = ProfileCube(cat, device="cpu")
+    host.rebuild(now=now)
+    got, want = cube.report_types(), host.report_types()
+    check({k: v["count"] for k, v in got.items()}
+          == {k: v["count"] for k, v in want.items()},
+          "[examples] the kernel-built cube's counts differ from the host "
+          "cube's")
+    return counts["profile_cube"]
+
+
+def examples_phase(torch, device, results):
+    """[examples]: every examples/torch_*.py on the card against the CPU."""
+    walls, launched, notes = {}, {}, {}
+
+    def both_runs(name, cpu_kw=None, **kw):
+        mod = load_example(name, "card")
+        (card, out, secs), counts = launch_window(
+            lambda: run_example(mod, device=device, **kw))
+        cpu_mod = load_example(name, "cpu")
+        cpu, cpu_out, cpu_secs = run_example(cpu_mod, device="cpu",
+                                             **(cpu_kw or kw))
+        walls[name] = {"card_s": secs, "cpu_s": cpu_secs}
+        launched[name] = {k: v for k, v in counts.items() if v}
+        return mod, card, out, counts, cpu_mod, cpu, cpu_out
+
+    for name in ("torch_quickstart", "torch_lustre_sim_hsm",
+                 "torch_fs_profiles"):
+        _, card, _, counts, _, cpu, _ = both_runs(name)
+        check(mask_stdout(card) == mask_stdout(cpu), f"[examples] {name} "
+              "printed on the card what it did not print on the CPU")
+        check(counts == only(), f"[examples] {name} launched {counts}")
+    launched["torch_fs_profiles (kernel rebuild)"] = {
+        "profile_cube": fs_profiles_kernel_rebuild(
+            torch, device, load_example("torch_fs_profiles", "rebuild"))}
+
+    name = "torch_fs_top"
+    _, card, sweeps, counts, _, cpu, cpu_sweeps = both_runs(
+        name, n_frames=EXAMPLE_FS_TOP_FRAMES)
+    check(mask_stdout(card) == mask_stdout(cpu), "[examples] torch_fs_top "
+          "printed on the card what it did not print on the CPU")
+    check([(r.matched, r.matched_volume, r.evaluator) for r in sweeps]
+          == [(r.matched, r.matched_volume, r.evaluator)
+              for r in cpu_sweeps], "[examples] torch_fs_top's sweeps "
+          "matched on the card what they did not match on the CPU")
+    check(all(r.evaluator == "policy_scan_mesh" for r in sweeps),
+          "[examples] a torch_fs_top sweep left the store")
+    check(counts["policy_scan_store_lean"] >= EXAMPLE_FS_TOP_FRAMES,
+          f"[examples] torch_fs_top launched the lean store form "
+          f"{counts['policy_scan_store_lean']} times in "
+          f"{EXAMPLE_FS_TOP_FRAMES} frames")
+    notes[name] = {"matched": [r.matched for r in sweeps]}
+
+    name = "torch_serve_kv_tiering"
+    card_mod = load_example(name, "card")
+    made = serving_recorder(card_mod)
+    (card, _, secs), counts = launch_window(
+        lambda: run_example(card_mod, device=device))
+    (eng,) = made
+    weights = {k: v.cpu() for k, v in eng.model.state_dict().items()}
+    cpu_mod = load_example(name, "cpu")
+    cpu_made = serving_recorder(cpu_mod, weights)
+    cpu, _, cpu_secs = run_example(cpu_mod, device="cpu")
+    walls[name] = {"card_s": secs, "cpu_s": cpu_secs}
+    launched[name] = {k: v for k, v in counts.items() if v}
+    steps = len(eng.seen)
+    logits, cpu_logits = torch.stack(eng.seen), torch.stack(cpu_made[0].seen)
+    if card != cpu:
+        flips = (logits.argmax(-1) != cpu_logits.argmax(-1)).nonzero()
+        gap = (torch.topk(cpu_logits[int(flips[0, 0])], 2).values.tolist()
+               if flips.numel() else "no argmax differs")
+        fail(f"[examples] torch_serve_kv_tiering's tokens or tier reports "
+             f"differ on the card from the CPU's; the CPU's top-2 logits "
+             f"at the first differing step: {gap}")
+    check(counts == only(paged_attention=eng.cfg.n_layers * steps),
+          f"[examples] torch_serve_kv_tiering launched {counts}, not "
+          f"paged_attention {eng.cfg.n_layers} x {steps} token steps")
+    notes[name] = {"token_steps": steps, "logits_max_abs_diff": float(
+        (logits - cpu_logits).abs().max())}
+
+    name = "torch_train_lm"
+    _, _, out, counts, _, _, cpu_out = both_runs(
+        name, cpu_kw={"argv": ["--steps", str(EXAMPLE_TRAIN_CPU_STEPS)]},
+        argv=[])
+    hist = out["history"]
+    steps = len(hist)
+    check(steps == 200 and all(math.isfinite(x) for x in hist),
+          f"[examples] torch_train_lm: {steps} losses, finite: "
+          f"{all(math.isfinite(x) for x in hist)}")
+    check(all(math.isfinite(x) for x in cpu_out["history"]),
+          "[examples] torch_train_lm on the CPU gave a loss that is not "
+          "finite")
+    want = list(range(50, steps + 1, 50))[-out["ckpt"].keep_last:]
+    check(out["ckpt"].steps() == want, f"[examples] torch_train_lm kept "
+          f"checkpoints {out['ckpt'].steps()}, not {want}")
+    check(counts == only(), f"[examples] torch_train_lm launched {counts}")
+    first, last = statistics.fmean(hist[:10]), statistics.fmean(hist[-10:])
+    notes[name] = {"steps": steps, "checkpoints": want,
+                   "first10_loss": first, "last10_loss": last,
+                   "cpu_steps": len(cpu_out["history"])}
+    for o in (out, cpu_out):
+        shutil.rmtree(o["ckpt"].dir, ignore_errors=True)
+
+    totals = {k: 0 for k in TPU_KERNELS}
+    for counts in launched.values():
+        for k, v in counts.items():
+            base = ("policy_scan_batch" if k.startswith("policy_scan_store")
+                    else "profile_cube" if k.startswith("profile_cube")
+                    else "rglru_scan" if k.startswith("rglru_scan") else k)
+            totals[base] += v
+    for k, r in results.items():
+        r["examples_launches"] = totals[k]
+    check(totals["policy_scan_batch"] > 0 and totals["profile_cube"] > 0
+          and totals["paged_attention"] > 0, f"[examples] launches {totals}")
+    log("[examples] " + json.dumps({"card": CARD, "wall_s": walls,
+                                    "launches": launched, **notes}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5884,6 +6127,7 @@ def main() -> None:
     zoo: dict = {}
     zoo_serve_phase(torch, args.seed, device, zoo)
     zoo_train_phase(torch, args.seed, device, zoo)
+    examples_phase(torch, device, results)
     check(sorted(results) == sorted(TPU_KERNELS), f"kernels {sorted(results)}"
           f" are not those of {sorted(TPU_KERNELS)}")
     for r in results.values():

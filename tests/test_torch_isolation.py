@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of ``repro``, no silent CPU.
 
-``repro_torch`` and ``chip_smoke.py`` must import neither ``jax`` nor any
-module of the JAX package; a policy must run (through ``policy_scan`` and,
+``repro_torch``, ``chip_smoke.py`` and ``examples/torch_*.py`` must import
+neither ``jax`` nor any module of the JAX package; a policy must run (through ``policy_scan`` and,
 over a ``DeviceColumnStore``, ``policy_scan_mesh``), a profile cube and its
 reports must build, the paged serving engine must serve requests over
 its tiered KV cache, and the model zoo's recurrent, MoE and encoder-decoder
@@ -327,6 +327,9 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 def test_no_file_of_the_port_imports_jax_or_repro():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 6           # each of examples/*.py, ported
+    files += examples
     assert len(files) > 10 and all(f.exists() for f in files)
     for f in files:
         text = f.read_text()

@@ -211,3 +211,186 @@ def test_subject_scoping_through_grants_matches_jax(subject):
     with pytest.raises(KeyError):
         _grants(T).visible_mask("nobody", {"owner": np.zeros(1),
                                            "group": np.zeros(1)}, None)
+
+
+# -- the plugin, alert and rmdir cases of tests/core/test_reports.py ----------
+# Each runs on both packages over each package's own LustreSim (the
+# plugins act on that file system) and returns what it observed.
+
+def _sim(pkg):
+    from repro_torch.fs import LustreSim as TLustreSim
+    return LustreSim if pkg is J else TLustreSim
+
+
+def _pkg_fs(pkg):
+    """``_fs()``'s tree on ``pkg``'s own simulator: (fs, catalog) scanned."""
+    fs = _sim(pkg)(n_osts=4)
+    fs.define_pool("ssd", (0, 1))
+    fs.define_pool("hdd", (2, 3))
+    proj = fs.mkdir(fs.root_fid(), "proj")
+    logs = fs.mkdir(proj, "logs")
+    for i in range(10):
+        f = fs.create(proj, f"data{i}.tar", owner="foo", pool="ssd")
+        fs.write(f, (i + 1) * 1000)
+    for i in range(5):
+        f = fs.create(logs, f"log{i}.txt", owner="bar", pool="hdd")
+        fs.write(f, 10)
+    return fs
+
+
+def _engine(pkg, cat):
+    return pkg.PolicyEngine(cat, **({"device": "cpu"} if pkg is T else {}))
+
+
+def test_rmdir_empty_batch_matches_scalar_like_jax():
+    """The batched rmdir_empty derives emptiness from the parent_fid
+    groupby column: identical outcomes to the per-entry readdir path,
+    nested empty directories included, for both plan directions."""
+    got = {}
+    for pkg in (J, T):
+        seen = []
+        for sort_desc in (False, True):
+            results = {}
+            for execution in ("scalar", "columnar"):
+                fs = _sim(pkg)(n_osts=2)
+                proj = fs.mkdir(fs.root_fid(), "proj")
+                keep = fs.mkdir(proj, "full")       # has a child file
+                f = fs.create(keep, "data.bin", owner="foo")
+                fs.write(f, 100)
+                for i in range(6):
+                    fs.mkdir(proj, f"empty{i}")     # removable
+                nest = fs.mkdir(proj, "nest")       # nest -> inner
+                fs.mkdir(nest, "inner")
+                cat = pkg.Catalog()
+                pkg.Scanner(fs, cat).scan()
+                eng = _engine(pkg, cat)
+                eng.register(pkg.PolicyDefinition.from_config(
+                    name="rmdir",
+                    action=pkg.PLUGIN_REGISTRY["rmdir_empty"](fs, cat),
+                    scope="type == dir and (name == 'empty*' or name == "
+                          "'full' or name == 'nest' or name == 'inner')",
+                    sort_by="fid", sort_desc=sort_desc))
+                r = eng.run("rmdir", execution=execution)
+                dirs = sorted(e.path for e in cat.entries()
+                              if e.type == pkg.FsType.DIR)
+                results[execution] = (r.succeeded, r.failed, dirs)
+            assert results["scalar"] == results["columnar"], sort_desc
+            succeeded, failed, dirs = results["columnar"]
+            assert (succeeded, failed) == ((8, 1) if sort_desc else (7, 2))
+            assert "/proj/full" in dirs             # never empty
+            assert not any("empty" in d for d in dirs)
+            assert ("/proj/nest" in dirs) == (not sort_desc)
+            seen.append(results["columnar"])
+        got[pkg] = seen
+    assert got[T] == got[J]
+
+
+def test_rmdir_empty_batch_on_parentless_catalog_like_jax():
+    """A catalog where nothing records a parent treats every directory as
+    empty, not crash on the empty groupby."""
+    got = {}
+    for pkg in (J, T):
+        fs = _sim(pkg)(n_osts=2)
+        d1 = fs.mkdir(fs.root_fid(), "d1")
+        d2 = fs.mkdir(fs.root_fid(), "d2")
+        cat = pkg.Catalog()
+        for i, fid in enumerate((d1, d2)):
+            cat.upsert(pkg.Entry(fid=fid, name=f"d{i+1}", path=f"/d{i+1}",
+                                 type=pkg.FsType.DIR))  # parent_fid=-1
+        action = pkg.PLUGIN_REGISTRY["rmdir_empty"](fs, cat)
+        oks = action.action_batch(cat.column_batch([d1, d2]), {})
+        assert oks == [True, True]
+        assert len(cat) == 0
+        got[pkg] = (oks, fs.count())
+    assert got[T] == got[J]
+
+
+def test_checksum_plugin_batch_matches_scalar_like_jax():
+    got = {}
+    for pkg in (J, T):
+        results = {}
+        for execution in ("scalar", "columnar"):
+            fs = _pkg_fs(pkg)
+            cat = pkg.Catalog()
+            pkg.Scanner(fs, cat).scan()
+            # desync one file so a corrupt verdict exists
+            tar0 = _fid_of(cat, "/proj/data0.tar")
+            cat.update_fields(tar0, size=cat.get(tar0).size + 1)
+            eng = _engine(pkg, cat)
+            eng.register(pkg.PolicyDefinition.from_config(
+                name="fsck", action=pkg.PLUGIN_REGISTRY["checksum"](fs, cat),
+                scope="type == file"))
+            r = eng.run("fsck", execution=execution)
+            statuses = sorted((e.path, e.status) for e in cat.entries()
+                              if e.type == 0)
+            results[execution] = (r.succeeded, r.failed, statuses)
+        assert results["scalar"] == results["columnar"]
+        assert results["columnar"][1] == 1      # the desynced file failed
+        assert ("/proj/data0.tar", "corrupt") in results["columnar"][2]
+        got[pkg] = results["columnar"]
+    assert got[T] == got[J]
+
+
+def test_alerts_fire_on_ingest_like_jax():
+    got = {}
+    for pkg in (J, T):
+        cat = pkg.Catalog()
+        am = pkg.AlertManager()
+        am.add_rule(pkg.AlertRule("big_tar",
+                                  "size > 8000 and name == '*.tar'"))
+        cat.add_entry_hook(am.on_entry)
+        pkg.Scanner(_pkg_fs(pkg), cat).scan()
+        paths = sorted(a["path"] for a in am.fired)
+        assert paths == ["/proj/data8.tar", "/proj/data9.tar"]
+        got[pkg] = sorted((a["alert"], a["fid"], a["path"], a["owner"],
+                           a["size"]) for a in am.fired)
+    assert got[T] == got[J]
+
+
+def test_generic_policy_plugins_like_jax():
+    got = {}
+    for pkg in (J, T):
+        fs = _pkg_fs(pkg)
+        cat = pkg.Catalog()
+        pkg.Scanner(fs, cat).scan()
+        eng = _engine(pkg, cat)
+        # generic policy from the plugin registry: tag then purge logs
+        eng.register(pkg.PolicyDefinition.from_config(
+            name="tag_logs", action=pkg.PLUGIN_REGISTRY["tag_status"](fs, cat),
+            scope="type == file",
+            rules=[("logs", "path == '/proj/logs/*'",
+                    {"status": "expired"})]))
+        r = eng.run("tag_logs")
+        assert r.succeeded == 5
+        eng.register(pkg.PolicyDefinition.from_config(
+            name="purge_expired", action=pkg.PLUGIN_REGISTRY["purge"](fs, cat),
+            scope="status == 'expired'"))
+        r2 = eng.run("purge_expired")
+        assert r2.succeeded == 5
+        assert fs.count() == 3 + 10   # root, proj, logs + tars
+        got[pkg] = (r.succeeded, r2.succeeded, r2.volume,
+                    sorted(e.path for e in cat.entries()))
+    assert got[T] == got[J]
+
+
+def test_pool_migration_plugin_like_jax():
+    got = {}
+    for pkg in (J, T):
+        fs = _pkg_fs(pkg)
+        cat = pkg.Catalog()
+        pkg.Scanner(fs, cat).scan()
+        eng = _engine(pkg, cat)
+        eng.register(pkg.PolicyDefinition.from_config(
+            name="ssd_to_hdd",
+            action=pkg.PLUGIN_REGISTRY["migrate_pool"](fs, cat),
+            scope="pool == 'ssd' and size > 7000",
+            rules=[("all", "true", {"pool": "hdd"})]))
+        r = eng.run("ssd_to_hdd")
+        assert r.succeeded == 3       # files of 8000, 9000, 10000 bytes
+        moved = [e for e in cat.entries() if e.pool == "hdd" and e.size > 7000]
+        assert len(moved) == 3
+        for e in moved:
+            assert all(o in (2, 3) for o in e.stripe_osts)
+        got[pkg] = sorted((e.path, e.pool, tuple(e.stripe_osts))
+                          for e in moved)
+    assert got[T] == got[J]

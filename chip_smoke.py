@@ -240,8 +240,8 @@ failure:
     timed (prefill seconds, decode ms a step, tokens/s, each kernel's
     device time against reading the weights once), then 8 eager steps are
     timed, and four graphed and four eager decode steps run under
-    ``torch.profiler`` for the card's busy share and device operations a
-    step, eager and graphed side by side;
+    ``torch.profiler`` for the device operations a step and the largest of
+    them, eager and graphed side by side;
 15. training, three parts, each logged as ``[train]`` lines: (a)
     the ``rglru_scan`` gradient kernel at the training path's shape
     (2, 2560, 4096) and at (8, 4096, 4096), with and without ``h0``:
@@ -4045,8 +4045,8 @@ def recurrent_kernel_phase(torch, seed, device, results, designs=None):
 
 def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
     """``n`` decode steps from ``cache`` under ``torch.profiler``: the wall
-    seconds, the device seconds of every CUDA operation, their count and
-    the five largest by device time."""
+    seconds, the count of CUDA operations and the five largest by device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4057,8 +4057,7 @@ def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = device_rows(prof)
-    return dict(wall_s=wall, device_s=sum(r[1] for r in rows) / 1e6,
-                kernels=sum(r[2] for r in rows),
+    return dict(wall_s=wall, kernels=sum(r[2] for r in rows),
                 top=[[k[:60], us, c] for k, us, c in rows[:5]])
 
 
@@ -4304,31 +4303,17 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
         nxt_e, cache_e = eager(cache_e, nxt_e, pos + 1 + i)
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) / EAGER_STEPS * 1e3
-    # a few more steps of each under the profiler: the card's busy time
+    # a few more steps of each under the profiler: the device operations
     prof = {"graphed": profile_steps(torch, step, b.pop("cache"),
                                      b.pop("next"), pos, PROFILED_STEPS),
             "eager": profile_steps(torch, eager, cache_e, nxt_e,
                                    pos + 1 + EAGER_STEPS, PROFILED_STEPS)}
     del cache_e, nxt_e
-    step_time = {"graphed": decode_ms, "eager": eager_ms}
-    busy = {}
     for kind, pr in prof.items():
-        if pr["device_s"] > 0:
-            busy[kind] = pr["device_s"] / PROFILED_STEPS / (
-                step_time[kind] / 1e3)
-            log(f"[{arch}] profiled {PROFILED_STEPS} {kind} decode steps "
-                f"(torch.profiler): {pr['kernels']} device operations, "
-                f"{pr['device_s'] / PROFILED_STEPS * 1e3!r} ms of device "
-                f"time a step against the {kind} timing's "
-                f"{step_time[kind]!r} ms a step: the card is busy "
-                f"{busy[kind]:.3f} of a step (profiled wall "
-                f"{pr['wall_s'] / PROFILED_STEPS * 1e3!r} ms a step); top by "
-                f"device time (us) {json.dumps(pr['top'])}")
-        else:
-            busy[kind] = None
-            log(f"[{arch}] profiled {PROFILED_STEPS} {kind} decode steps: "
-                "the profiler saw no device time; the busy share is not "
-                "measured")
+        log(f"[{arch}] profiled {PROFILED_STEPS} {kind} decode steps "
+            f"(torch.profiler): {pr['kernels']} device operations (profiled "
+            f"wall {pr['wall_s'] / PROFILED_STEPS * 1e3!r} ms a step); top by "
+            f"device time (us) {json.dumps(pr['top'])}")
     for tag, r in (("checked run (a), eager", a),
                    ("timed run (b), graphed", b)):
         wall = r["prefill_s"] + r["decode_s"]
@@ -4345,11 +4330,11 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
     ops_a_step = {kind: pr["kernels"] / PROFILED_STEPS
                   for kind, pr in prof.items()}
     log(f"[{arch}] decode a step {CARD}: eager {eager_ms!r} ms "
-        f"({EAGER_STEPS} steps after the graphed run), busy "
-        f"{busy['eager']!r}, {ops_a_step['eager']!r} device operations a "
-        f"step; graphed {decode_ms!r} ms ({new - 1} steps of run (b)), busy "
-        f"{busy['graphed']!r}, {ops_a_step['graphed']!r} device operations "
-        f"a step; {eager_ms / decode_ms:.2f}x")
+        f"({EAGER_STEPS} steps after the graphed run), "
+        f"{ops_a_step['eager']!r} device operations a step; graphed "
+        f"{decode_ms!r} ms ({new - 1} steps of run (b)), "
+        f"{ops_a_step['graphed']!r} device operations a step; "
+        f"{eager_ms / decode_ms:.2f}x")
     log(f"[{arch}] checker: {chk.checked} of {chk.calls} {name} calls held to "
         f"the plain version (the first of every layer, then every "
         f"{SERVE_CHECK_EVERY}th), {chk.bit_identical} bit-identical, max abs "
@@ -4391,7 +4376,7 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
                           decode_consistency_err=max(errs),
                           graphed_decode_consistency_err=max(errs_b),
                           decode_consistency_bound=bound,
-                          rounding_floor=floor, device_busy_share=busy,
+                          rounding_floor=floor,
                           device_ops_a_step=ops_a_step,
                           final_cache_bit_equal=states_equal,
                           peak_bytes=b["peak_bytes"])

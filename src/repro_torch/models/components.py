@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rglru_scan import ops as rglru_ops
+from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
 from .config import MoeSpec
 
@@ -250,7 +251,15 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     gives them. A dropped token is written to slot ``cap - 1`` of its
     expert with a zero contribution, as the reference's ``.at[].add``
     does; the scatter adds, so that slot keeps its one kept token exactly.
+
+    With a ``runtime.spans.Timeline`` open: device spans ``.route`` (the
+    router, the top k, the capacity positions and the dispatch into the
+    slots), ``.experts`` and ``.combine`` inside the caller's, and between
+    the first two the device counters ``moe_tokens_kept`` and ``moe_slots``
+    (G·E·cap), this rank's share of each.
     """
+    phase = spans.phases()
+    phase(".route")
     B, S, D = x.shape
     E, k = moe.num_experts, moe.top_k
     T = B * S
@@ -318,7 +327,13 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
         buf = part.dp_scatter(buf, 2)
     elif not local:
         buf = part.dp_all(buf)
+    phase(None)
+    if spans.timeline() is not None:
+        spans.device_counter("moe_tokens_kept", keep.sum())
+        spans.device_counter("moe_slots",
+                             Gb * E * cap // (1 if local else part.rows))
 
+    phase(".experts")
     if w1.shape[0] != E:                # expert-parallel over "model"
         y = part.gather(_experts(part.split(buf, 1), w1, w3, w2), 1)
     else:
@@ -328,6 +343,7 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     if split_cap:
         y = part.dp_gather(y, 2)
 
+    phase(".combine")
     gathered = y.reshape(-1, D)[slot].reshape(Gx, n, D)
     wk = (weights.reshape(Gx, n, 1) * keep[..., None]).to(x.dtype)
     out = (gathered * wk).reshape(Gx, n // k, k, D).sum(dim=2)
@@ -338,6 +354,7 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
         s_sh = d_ff is not None and s1.shape[-1] != d_ff
         ys = swiglu(part.copy(xt) if s_sh else xt, s1, s3, s2)
         out = out + (part.reduce(ys) if s_sh else ys)
+    phase(None)
     return out.reshape(B, S, D), aux
 
 

@@ -61,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import rwkv6 as rk
+from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
 from .components import (_rglru_gates, attention, causal_conv1d,
                          gelu_mlp, layer_norm, moe_forward, rglru_scan,
@@ -520,9 +521,26 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     A cross-attention layer reads ``extras["src"]`` (B, T, D), the
     source its K/V come from (:meth:`Model._extras`). Over a mesh ``p``
     holds this rank's shards and ``x`` this rank's rows, whole over
-    "model" (``part``; module docstring)."""
-    B, S, D = x.shape
+    "model" (``part``; module docstring). Device spans (``runtime.spans``)
+    ``prefill.mix`` and ``prefill.ffn`` around its halves (``forward.*``
+    without the cache)."""
     blob: Dict[str, torch.Tensor] = {}
+    kind = "prefill" if want_cache else "forward"
+    with spans.device_span(f"{kind}.mix"):
+        x = _mix_seq(cfg, spec, p, x, positions, kv_chunk, want_cache,
+                     extras, part, blob)
+    with spans.device_span(f"{kind}.ffn"):
+        x, aux = _ffn_seq(cfg, spec, p, x, want_cache, part, blob)
+    return x, aux, blob
+
+
+def _mix_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
+             positions: torch.Tensor, kv_chunk: int, want_cache: bool,
+             extras: Optional[Dict[str, torch.Tensor]], part: Partition,
+             blob: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The mixing half of :func:`apply_layer_seq`, through the residual add
+    and the cross-attention: the new x; ``blob`` gains its cache entries."""
+    B, S, D = x.shape
     h = _norm(cfg, p["ln1"], x)
 
     if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
@@ -575,7 +593,14 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                                      xp["wo"], local))
         if want_cache:
             blob["xk"], blob["xv"] = xk, xv
+    return x
 
+
+def _ffn_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
+             want_cache: bool, part: Partition,
+             blob: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The feed-forward half of :func:`apply_layer_seq`: (x, aux_loss)."""
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6 and want_cache:
         blob["shift_c"] = h2[:, -1, :]
@@ -583,7 +608,7 @@ def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     if cfg.post_norms:
         out2 = _norm(cfg, p["ln2p"], out2)
     x = x + out2
-    return x, aux, blob
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -691,7 +716,23 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
     the products are column- and row-parallel as in
     :func:`apply_layer_seq`. Attention works on the rank's K/V heads with
     its query heads, or, where the shard holds every head's head_dim
-    chunk, on every query head over that chunk (:func:`_attend`)."""
+    chunk, on every query head over that chunk (:func:`_attend`).
+
+    Device spans (``runtime.spans``) ``decode.mix`` and ``decode.ffn``
+    around its halves."""
+    with spans.device_span("decode.mix"):
+        x = _mix_step_(cfg, spec, p, cache, x, pos_t, part)
+    with spans.device_span("decode.ffn"):
+        return _ffn_step_(cfg, spec, p, cache, x, part)
+
+
+def _mix_step_(cfg: ModelConfig, spec: LayerSpec, p,
+               cache: Dict[str, torch.Tensor], x: torch.Tensor,
+               pos_t: torch.Tensor, part: Partition) -> torch.Tensor:
+    """The mixing half of :func:`apply_layer_step_`, through the residual
+    add and the cross-attention: the new x. Device spans ``.kv_write`` and
+    ``.attend`` (attention) or ``.rwkv6_step`` and ``.state_copy``
+    (RWKV-6) inside the caller's."""
     B = x.shape[0]
     h = _norm(cfg, p["ln1"], x)
 
@@ -714,16 +755,17 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         L = ck.shape[1]
         slot = (torch.remainder(posv, L) if spec.mix == ATTN_LOCAL
                 else torch.clamp(posv, max=L - 1))
-        if "kscale" in cache:                 # int8 quantized cache
-            for key, t in (("k", k), ("v", v)):
-                tq, sc = _cache_kv(part, t, cache[key], quant=True)
-                cache[key].index_copy_(1, slot, tq)
-                cache[key + "scale"].index_copy_(1, slot, sc)
-            ck = _dequantize_kv(cache["k"], cache["kscale"])
-            cv = _dequantize_kv(cache["v"], cache["vscale"])
-        else:
-            ck.index_copy_(1, slot, _cache_kv(part, k, ck).to(ck.dtype))
-            cv.index_copy_(1, slot, _cache_kv(part, v, cv).to(cv.dtype))
+        with spans.device_span(".kv_write"):
+            if "kscale" in cache:             # int8 quantized cache
+                for key, t in (("k", k), ("v", v)):
+                    tq, sc = _cache_kv(part, t, cache[key], quant=True)
+                    cache[key].index_copy_(1, slot, tq)
+                    cache[key + "scale"].index_copy_(1, slot, sc)
+                ck = _dequantize_kv(cache["k"], cache["kscale"])
+                cv = _dequantize_kv(cache["v"], cache["vscale"])
+            else:
+                ck.index_copy_(1, slot, _cache_kv(part, k, ck).to(ck.dtype))
+                cv.index_copy_(1, slot, _cache_kv(part, v, cv).to(cv.dtype))
         idx = torch.arange(L, device=x.device)
         if spec.mix == ATTN_LOCAL:
             kv_pos = posv - torch.remainder(posv - idx, L)
@@ -731,10 +773,11 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         else:
             kv_pos = torch.where(idx <= pos_t, idx, -1)
         window = cfg.window if spec.mix == ATTN_LOCAL else 0
-        out = _attend(part, q, ck, cv, q_pos=posv, kv_pos=kv_pos,
-                      causal=True, window=window,
-                      logit_softcap=cfg.attn_softcap,
-                      kv_chunk=1024 if L % 1024 == 0 else L)
+        with spans.device_span(".attend"):
+            out = _attend(part, q, ck, cv, q_pos=posv, kv_pos=kv_pos,
+                          causal=True, window=window,
+                          logit_softcap=cfg.attn_softcap,
+                          kv_chunk=1024 if L % 1024 == 0 else L)
         out = _attn_out(part, out, ap["wo"], local)
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
@@ -758,9 +801,11 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev, part)
         # the op returns a new state: copied in, never aliased (the kernel's
         # state and state_out are __restrict__)
-        y, s_new = rk.wkv_step(r[:, 0], k[:, 0], v[:, 0],
-                               torch.exp(lw[:, 0]), rp["u"], cache["s"])
-        cache["s"].copy_(s_new)
+        with spans.device_span(".rwkv6_step"):
+            y, s_new = rk.wkv_step(r[:, 0], k[:, 0], v[:, 0],
+                                   torch.exp(lw[:, 0]), rp["u"], cache["s"])
+        with spans.device_span(".state_copy"):
+            cache["s"].copy_(s_new)
         cache["shift_t"].copy_(_share(part, h[:, 0, :], cache["shift_t"]))
         out = _rwkv_out(cfg, rp, y[:, None], g, B, 1, part)
     else:
@@ -774,7 +819,14 @@ def apply_layer_step_(cfg: ModelConfig, spec: LayerSpec, p,
         hx = _norm(cfg, p["lnx"], x)
         x = x + _cross_attn(cfg, p["xattn"], hx, cache["xk"], cache["xv"],
                             kv_chunk=1 << 16, part=part)
+    return x
 
+
+def _ffn_step_(cfg: ModelConfig, spec: LayerSpec, p,
+               cache: Dict[str, torch.Tensor], x: torch.Tensor,
+               part: Partition) -> torch.Tensor:
+    """The feed-forward half of :func:`apply_layer_step_` (RWKV-6's channel
+    mix writes its token shift into ``cache``): the new x."""
     h2 = _norm(cfg, p["ln2"], x)
     if spec.mix == MIX_RWKV6:
         xprev_c = _whole(part, cache["shift_c"], cfg.d_model)[:, None, :].to(
@@ -1204,7 +1256,9 @@ class Model(nn.Module):
         tokens: (B, 1) on the model's device; pos_t: the position of that
         token, a 0-d int64 tensor there. Returns the logits (B, 1, V).
         Nothing here reads a value back to the host, so a CUDA graph can
-        capture it (``serve.make_serve_step``).
+        capture it (``serve.make_serve_step``). Device spans
+        ``decode.embed`` and ``decode.head`` (the final norm and the
+        logits) around the layers' (:func:`apply_layer_step_`).
 
         ``params``/``part`` (as :meth:`forward`'s): ``tokens`` are this
         rank's rows, ``cache`` its shard (:meth:`init_cache`), and the
@@ -1216,16 +1270,27 @@ class Model(nn.Module):
         if tokens.shape[0] != rows:
             raise ValueError(f"{tokens.shape[0]} rows of tokens for a cache "
                              f"of {rows} (over a mesh: this rank's rows)")
+        with spans.device_span("decode.embed"):
+            x = self._embed_at(tokens, pos_t, params, part)
+        for n, (spec, cb) in enumerate(zip(cfg.layers, cache)):
+            x = apply_layer_step_(cfg, spec,
+                                  self._tree(f"layers.{n}", params, part),
+                                  cb, x, pos_t, part)
+        with spans.device_span("decode.head"):
+            return self._logits(x, params, part)
+
+    def _embed_at(self, tokens: torch.Tensor, pos_t: torch.Tensor,
+                  params: Optional[Mapping[str, torch.Tensor]],
+                  part: Partition) -> torch.Tensor:
+        """The decode step's embedding of ``tokens`` at ``pos_t``, learned
+        positions added (:meth:`decode_step_`)."""
+        cfg = self.cfg
         x = self._embed(tokens, self._param("embed", params, part), part)
         if _learned_positions(cfg):
             pe = self._param("pos_embed", params, part)
             at = torch.clamp(pos_t, max=pe.shape[0] - 1).reshape(1)
             x = x + _whole(part, pe.index_select(0, at), cfg.d_model)[None]
-        for n, (spec, cb) in enumerate(zip(cfg.layers, cache)):
-            x = apply_layer_step_(cfg, spec,
-                                  self._tree(f"layers.{n}", params, part),
-                                  cb, x, pos_t, part)
-        return self._logits(x, params, part)
+        return x
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens: torch.Tensor, pos,
@@ -1260,12 +1325,23 @@ class Model(nn.Module):
         are this rank's rows, the logits as :meth:`forward` gives them,
         the cache this rank's shard (:meth:`init_cache`): the rank's heads
         or head_dim chunk of the K/V that ``forward`` computed, its
-        columns of the recurrent states.
+        columns of the recurrent states. Host spans ``prefill.forward``
+        and ``prefill.cache_fill`` (``runtime.spans``).
         """
+        with spans.host_span("prefill.forward"):
+            logits, _, blobs = self.forward(tokens, extras, want_cache=True,
+                                            params=params, part=part)
+        with spans.host_span("prefill.cache_fill"):
+            return logits, self._fill_cache(blobs, tokens.shape, cache_len,
+                                            part)
+
+    def _fill_cache(self, blobs: List[Dict[str, torch.Tensor]],
+                    shape: Tuple[int, int], cache_len: int,
+                    part: Partition) -> Cache:
+        """A decode cache of ``cache_len`` holding what the prompt's forward
+        left in ``blobs`` (:meth:`prefill`; ``shape``: the prompt's)."""
         cfg = self.cfg
-        B, S = tokens.shape
-        logits, _, blobs = self.forward(tokens, extras, want_cache=True,
-                                        params=params, part=part)
+        B, S = shape
         cache = self.init_cache(B * part.rows, cache_len, part)
         for spec, blob, slot in zip(cfg.layers, blobs, cache):
             if spec.mix in (ATTN_FULL, ATTN_NONCAUSAL):
@@ -1293,4 +1369,4 @@ class Model(nn.Module):
             for key in ("xk", "xv"):
                 if key in blob:
                     slot[key].copy_(_cache_kv(part, blob[key], slot[key]))
-        return logits, cache
+        return cache

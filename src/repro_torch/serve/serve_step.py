@@ -38,15 +38,28 @@ partition of more than one rank the step is eager on the card too, by
 design: its collectives would have to be captured into the graph, which
 one card cannot test (one NCCL rank a card). A 1x1 partition calls no
 collective, so its step is graphed like the unpartitioned one.
+
+**Spans** (``runtime/spans.py``), under an ambient trace of a
+``core.telemetry.MetricRegistry``: host spans ``serve.prefill``
+(``prefill.forward``, ``prefill.cache_fill``) and ``serve.step``
+(``step.check``, ``step.cache_copy_in``, ``step.replay``,
+``step.capture``). With a ``spans.Timeline`` open too,
+:class:`GraphedServeStep` times each replay on the device
+(``decode.graph``, events recorded on the stream around it) and, where
+the timeline asks for the layers, replays a graph captured with the
+model's device spans and counters in it, kept beside the plain graph,
+which it never replaces.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..kernels import _launches
 from ..models.transformer import Cache, _whole, init_layer_cache
+from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
 from ..runtime.sharding import local_batch
 
@@ -68,9 +81,10 @@ def make_eager_serve_step(model, params: Params = None,
 
     def serve_step(cache: Cache, tokens: torch.Tensor, pos
                    ) -> Tuple[torch.Tensor, Cache]:
-        logits, new_cache = model.decode_step(cache, tokens, pos, params,
-                                              part)
-        return _next_tokens(model, logits, part), new_cache
+        with spans.host_span("serve.step"):
+            logits, new_cache = model.decode_step(cache, tokens, pos, params,
+                                                  part)
+            return _next_tokens(model, logits, part), new_cache
 
     return serve_step
 
@@ -99,6 +113,10 @@ def make_prefill(model, cache_len: int, params: Params = None,
     def prefill(tokens: torch.Tensor,
                 extras: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Cache]:
+        with spans.host_span("serve.prefill"):
+            return _prefill(tokens, extras)
+
+    def _prefill(tokens, extras):
         if part.mesh is not None:
             batch = {"tokens": tokens} | ({"extras": extras} if extras
                                           else {})
@@ -118,9 +136,16 @@ def make_prefill(model, cache_len: int, params: Params = None,
     return prefill
 
 
-class _Graph:
-    """One decode step captured at one (batch, cache length): its static
-    inputs, cache and outputs, and the kernel launches it replays."""
+def _layers() -> bool:
+    """Whether a replay now is of the graph with the spans inside it."""
+    tl = spans.timeline()
+    return tl is not None and tl.layers
+
+
+class _Static:
+    """The static inputs and cache of one (batch, cache length), shared by
+    its graphs: ``graphs[False]`` the plain one, ``graphs[True]`` the one
+    captured with the device spans and counters in it."""
 
     def __init__(self, cache: Cache, device: torch.device) -> None:
         batch = next(iter(cache[0].values())).shape[0]
@@ -128,10 +153,20 @@ class _Graph:
         self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
                                   device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.graphs: Dict[bool, _Graph] = {}
+        self.last: Optional[torch.Tensor] = None   # the last call's tokens
+
+
+class _Graph:
+    """One decode step captured over a :class:`_Static`: its outputs, the
+    kernel launches it replays and the device spans it records."""
+
+    def __init__(self) -> None:
         self.graph = torch.cuda.CUDAGraph()
         self.next: Optional[torch.Tensor] = None
         self.logits: Optional[torch.Tensor] = None
         self.tally: Dict[Tuple[str, str], int] = {}
+        self.spans: list = []
 
 
 class GraphedServeStep:
@@ -145,6 +180,13 @@ class GraphedServeStep:
     returns it), writes ``pos`` on the device, copies ``tokens`` in unless
     they are the last call's output (the graph writes its argmax into its
     token input), and replays the graph.
+
+    With a ``spans.Timeline`` open (module docstring) the replay is timed
+    by a ``decode.graph`` device span around it and, while the timeline's
+    ``layers`` is set, is that of a second graph of the same static cache
+    and inputs, captured with the device spans and counters in it: the
+    plain and the instrumented graph can take turns within a batch. A
+    capture under such a timeline makes the second one.
 
     Donation, as the reference's ``donate_argnums=1``: the returned cache
     and tokens are the step's static tensors, overwritten by the next call;
@@ -178,7 +220,7 @@ class GraphedServeStep:
         index = model.device.index
         self.device = torch.device(
             "cuda", torch.cuda.current_device() if index is None else index)
-        self._graphs: Dict[Tuple[int, int], _Graph] = {}
+        self._statics: Dict[Tuple[int, int], _Static] = {}
         self.logits: Optional[torch.Tensor] = None
 
     # -- shapes -------------------------------------------------------------
@@ -227,61 +269,94 @@ class GraphedServeStep:
         return _next_tokens(self.model, logits, self.part), logits[:, -1, :]
 
     @torch.no_grad()
-    def _capture(self, key: Tuple[int, int], cache: Cache) -> _Graph:
-        g = _Graph(cache, self.device)
-        # warm up on a throwaway cache, on a side stream: a kernel's first
-        # launch loads its module, which must not happen inside a capture
-        throwaway = [{k: torch.zeros_like(t) for k, t in cb.items()}
-                     for cb in cache]
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._body(throwaway, g.tokens, g.pos)
-        main.wait_stream(side)
-        del throwaway
-        with _launches.capturing() as tally:
-            with torch.cuda.graph(g.graph):
-                g.next, g.logits = self._body(g.cache, g.tokens, g.pos)
-                g.tokens.copy_(g.next)
-        g.tally = dict(tally)
-        self._graphs[key] = g
-        return g
+    def _capture(self, st: _Static, timed: bool) -> _Graph:
+        """Captures the plain graph of ``st``, or with ``timed`` the one
+        with the open timeline's device spans and counters in it."""
+        with spans.host_span("step.capture"), \
+                contextlib.nullcontext() if timed else spans.paused():
+            g = _Graph()
+            # warm up on a throwaway cache, on a side stream: a kernel's
+            # first launch loads its module, which must not happen inside a
+            # capture; its device spans and counts are not the trace's
+            throwaway = [{k: torch.zeros_like(t) for k, t in cb.items()}
+                         for cb in st.cache]
+            main = torch.cuda.current_stream(self.device)
+            with spans.discarded():
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    self._body(throwaway, st.tokens, st.pos)
+                main.wait_stream(side)
+            del throwaway
+            tl = spans.timeline()
+            mark = tl.mark() if tl else 0
+            with _launches.capturing() as tally:
+                with torch.cuda.graph(g.graph):
+                    g.next, g.logits = self._body(st.cache, st.tokens,
+                                                  st.pos)
+                    st.tokens.copy_(g.next)
+            g.tally = dict(tally)
+            g.spans = tl.take(mark) if tl else []
+            st.graphs[timed] = g
+            return g
 
     def capture(self, batch: int, cache_len: int) -> None:
         """Capture the step for ``batch`` sequences and ``cache_len`` (ahead
-        of the first call, as the reference lowers and compiles ahead)."""
+        of the first call, as the reference lowers and compiles ahead); with
+        a ``spans.Timeline`` open that asks for the layers, the instrumented
+        graph."""
         cache = self.model.init_cache(batch, cache_len, self.part)
         key = self._key(cache)
-        if key not in self._graphs:
-            self._capture(key, cache)
+        st = self._statics.get(key)
+        if st is None:
+            st = self._statics[key] = _Static(cache, self.device)
+        timed = _layers()
+        if timed not in st.graphs:
+            self._capture(st, timed)
 
     # -- call ---------------------------------------------------------------
     @torch.no_grad()
     def __call__(self, cache: Cache, tokens: torch.Tensor, pos
                  ) -> Tuple[torch.Tensor, Cache]:
-        g = next((g for g in self._graphs.values() if g.cache is cache),
-                 None)
-        if g is not None:
-            self._check_tokens(tokens, g.tokens.shape[0])
-        else:
-            key = self._key(cache)
-            self._check_tokens(tokens, key[0])
-            g = self._graphs.get(key)
-            if g is None:
-                g = self._capture(key, [{k: torch.zeros_like(t)
-                                         for k, t in cb.items()}
-                                        for cb in cache])
-            for dst, src in zip(g.cache, cache):
-                for k, t in src.items():
-                    dst[k].copy_(t)
-        if isinstance(pos, torch.Tensor):
-            g.pos.copy_(pos.reshape(()))
-        else:
-            g.pos.fill_(int(pos))
-        if tokens is not g.next:
-            g.tokens.copy_(tokens)
-        g.graph.replay()
-        _launches.replayed(g.tally)
+        with spans.host_span("serve.step"):
+            return self._step(cache, tokens, pos)
+
+    def _step(self, cache: Cache, tokens: torch.Tensor, pos
+              ) -> Tuple[torch.Tensor, Cache]:
+        with spans.host_span("step.check"):
+            st = next((s for s in self._statics.values()
+                       if s.cache is cache), None)
+            copy_in = st is None
+            if st is not None:
+                self._check_tokens(tokens, st.tokens.shape[0])
+            else:
+                key = self._key(cache)
+                self._check_tokens(tokens, key[0])
+                st = self._statics.get(key)
+                if st is None:
+                    st = self._statics[key] = _Static(
+                        [{k: torch.zeros_like(t) for k, t in cb.items()}
+                         for cb in cache], self.device)
+        timed = _layers()
+        g = st.graphs.get(timed)
+        if g is None:
+            g = self._capture(st, timed)
+        if copy_in:
+            with spans.host_span("step.cache_copy_in"):
+                for dst, src in zip(st.cache, cache):
+                    for k, t in src.items():
+                        dst[k].copy_(t)
+        with spans.host_span("step.replay"):
+            if isinstance(pos, torch.Tensor):
+                st.pos.copy_(pos.reshape(()))
+            else:
+                st.pos.fill_(int(pos))
+            if tokens is not st.last:
+                st.tokens.copy_(tokens)
+            with spans.device_span("decode.graph"):
+                g.graph.replay()
+            _launches.replayed(g.tally)
+            spans.replayed(g.spans)
+        st.last = g.next
         self.logits = g.logits
-        return g.next, g.cache
+        return g.next, st.cache

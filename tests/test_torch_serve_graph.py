@@ -334,9 +334,9 @@ def test_cuda_capture_failure_raises(cuda_device, monkeypatch):
     step = make_serve_step(model)
     body = model.decode_step_
 
-    def syncing(cache, tokens, pos):
+    def syncing(cache, tokens, pos, *rest):
         float(tokens.float().sum().item())
-        return body(cache, tokens, pos)
+        return body(cache, tokens, pos, *rest)
     monkeypatch.setattr(model, "decode_step_", syncing)
     _, cache = make_prefill(model, P + 8)(prompt)
     with pytest.raises(RuntimeError):

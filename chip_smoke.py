@@ -9,8 +9,8 @@ failure:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
-   ``rglru_scan`` and ``rwkv6_step`` libraries from their ``csrc/``, the
-   first ``policy_scan`` design (``v0`` of
+   ``rglru_scan``, ``rwkv6_step`` and ``decode_attention`` libraries from
+   their ``csrc/``, the first ``policy_scan`` design (``v0`` of
    ``tools/policy_scan_designs.cu``) and the first ``rglru_scan`` design
    (``tools/rglru_scan_designs.cu``, through ``tools/rglru_variants.py``
    with ``-Xptxas -v``: registers, spills, shared memory), one ``nvcc``
@@ -205,7 +205,16 @@ failure:
     single PyTorch call computes either), and at the serving paths' decode
     shapes beside the kernels' own device times and the time of a call
     launched from a CUDA graph (a graph of 64 calls, replayed from an idle
-    card, over 64);
+    card, over 64); then ``decode_attention`` (the port's own kernel, no
+    TPU counterpart) at portbench's mixtral-decode shape (B 64, a 512-slot
+    ring under a 4,096 window, 8 KV heads, G 6, hd 128, bf16) at positions
+    255, 383 and 511, and at one sequence of 8,192 positions (its splits
+    and combine): bit for bit twice, within one bf16 step of the plain
+    version, timed from an idle card with the L2 cache flushed beside its
+    bound (the valid K/V rows read once), its kernels' own device times,
+    the plain version, ``scaled_dot_product_attention(enable_gqa=True)``
+    (the library's yardstick, never called by the port), graph-launched,
+    with its registers and spills;
 13. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
     (28 layers, weights drawn on the card from the seed), 4 requests of 256
     seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
@@ -226,7 +235,9 @@ failure:
     launches: prefill runs the plain chunked form), and recurrentgemma-9b,
     4 prompts of 2016 tokens and 64 new with ``cache_len`` 2080, so the
     2048-slot local-attention ring wraps (exactly 26 x 64 = 1,664
-    ``rglru_scan`` launches: prefill and every step). Run (a) decodes
+    ``rglru_scan`` launches: prefill and every step; and 12 x 63 = 756
+    ``decode_attention`` launches, one a local-attention layer a step).
+    Run (a) decodes
     eagerly (``model.decode_step`` and the argmax) with a checker around
     the op that holds the kernel to its plain version on the first call of
     every layer and every 29th call; its logits must lie within the
@@ -311,9 +322,11 @@ failure:
     run (a) eager, its logits within ``0.05 * scale + 0.05`` of one
     forward over prompt and generated tokens; run (b) the graphed
     ``make_serve_step``, timed: (a)'s tokens, (a)'s final caches bit for
-    bit, its logits within the same bound; neither launches a repo kernel.
-    The int8 cache is also decoded teacher-forced over the bf16 run's
-    tokens, its logits within the bound of that run's, and its K bytes a
+    bit, its logits within the same bound; each launches
+    ``decode_attention`` once an attention layer a decode step (and its
+    combine where the shapes split) and no other repo kernel. The int8
+    cache is also decoded teacher-forced over the bf16 run's tokens, its
+    logits within the bound of that run's, and its K bytes a
     (token, head) printed against the bf16 cache's. Each prints decode ms
     a step eager and graphed, prefill seconds, peak memory and parameter
     bytes;
@@ -454,6 +467,16 @@ SERVE_PROMPT = 256
 SERVE_NEW = 32
 SERVE_CHECK_EVERY = 29          # the checker's sampling stride
 RG_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu"
+DA_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
+             "decode_attention.cu")
+# decode_attention at portbench's mixtral-decode shape (mixtral-8x22b-8L
+# under batch-b64-p256-g256): 64 sequences, a 512-slot ring under a 4,096
+# window, 8 KV heads, G 6, head_dim 128, bf16, at positions a batch's decode
+# reaches; then one sequence of 8,192 positions (the splits and the combine)
+DA_SHAPE = (64, 512, 8, 6, 128)          # B, L, K, G, hd
+DA_POSITIONS = (255, 383, 511)
+DA_WINDOW = 4096
+DA_LONG = (1, 8192, 8, 6, 128)
 RW_SOURCE = "src/repro_torch/kernels/rwkv6_step/csrc/rwkv6_step.cu"
 # recurrent kernels: rglru_scan (B, S, R) at recurrentgemma-9b's d_rnn and
 # the ragged shapes (a decode step, its prefill length, an odd width);
@@ -1468,12 +1491,13 @@ class Recorder:
 def launch_window(fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts it left, read just after."""
+    from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.policy_scan import kernel as K
     from repro_torch.kernels.profile_cube import kernel as PK
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rwkv6_step import kernel as RWK
-    for mod in (K, PK, AK, RGK, RWK):
+    for mod in (K, PK, AK, RGK, RWK, DK):
         mod.reset_counters()
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
@@ -1489,7 +1513,10 @@ def launch_window(fn):
                  "paged_attention": AK.paged_attention_launches,
                  "rglru_scan": RGK.rglru_scan_launches,
                  "rglru_scan_bwd": RGK.rglru_scan_bwd_launches,
-                 "rwkv6_step": RWK.rwkv6_step_launches}
+                 "rwkv6_step": RWK.rwkv6_step_launches,
+                 "decode_attention": DK.decode_attention_launches,
+                 "decode_attention_combine":
+                     DK.decode_attention_combine_launches}
 
 
 def only(**launches) -> dict:
@@ -1497,13 +1524,36 @@ def only(**launches) -> dict:
     other kernel never (``policy_scan_store`` counts the store form with
     aggregates, ``policy_scan_store_lean`` the lean form, the ``_scoped``
     counts their scoped forms, ``profile_cube_scoped`` the scoped cube,
-    ``rglru_scan_bwd`` the gradient of ``rglru_scan``)."""
+    ``rglru_scan_bwd`` the gradient of ``rglru_scan``,
+    ``decode_attention_combine`` the combine of ``decode_attention``)."""
     want = dict.fromkeys(list(TPU_KERNELS) + [
         "policy_scan_store", "policy_scan_store_lean",
         "policy_scan_store_scoped", "policy_scan_store_scoped_lean",
-        "profile_cube_scoped", "rglru_scan_bwd"], 0)
+        "profile_cube_scoped", "rglru_scan_bwd", "decode_attention",
+        "decode_attention_combine"], 0)
     want.update(launches)
     return want
+
+
+def decode_attn_want(torch, cfg, cache, steps: int) -> dict:
+    """The ``decode_attention`` launches of ``steps`` decode steps over
+    ``cache`` (a layer's blob holds ``k`` for self-attention, ``xk`` for
+    cross-attention, int8 ones dequantized to bf16 first): one a layer a
+    step, and a combine a step where the layer's shapes split the
+    positions."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    n = combines = 0
+    for blob in cache:
+        for key in ("k", "xk"):
+            if key in blob:
+                B, L, K, hd = blob[key].shape
+                dtype = (torch.bfloat16 if blob[key].dtype == torch.int8
+                         else blob[key].dtype)
+                n += 1
+                combines += DK.splits(B, K, cfg.n_heads // K, L, hd,
+                                      dtype) > 1
+    return dict(decode_attention=n * steps,
+                decode_attention_combine=combines * steps)
 
 
 def agg_close(got: dict, want: dict) -> bool:
@@ -4043,6 +4093,131 @@ def recurrent_kernel_phase(torch, seed, device, results, designs=None):
         "configs": configs, "decode_shape": path}
 
 
+def decode_attn_bound_ms(B: int, K: int, G: int, hd: int, L: int,
+                         rows: int, elt: int = 2):
+    """The valid K and V rows read once, q, kv_pos and q_pos read once and
+    the output written once, over the memory rate; or 4 * hd f32
+    operations (two products, two sums) a valid position and query head
+    over the f32 peak. Returns (ms, by, bytes, ops)."""
+    nbytes = (2 * B * rows * K * hd * elt + 2 * B * K * G * hd * elt
+              + 8 * (L + 1))
+    ops = 4 * B * rows * K * G * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def decode_attn_case(torch, shape, pos: int, seed: int, device,
+                     flush) -> dict:
+    """The kernel at ``shape`` = (B, L, K, G, hd), bf16, the ring's
+    positions at ``pos`` under DA_WINDOW: equal to itself bit for bit on a
+    second call and to the plain version within one bf16 step (the card
+    test's tolerance), then timed from an idle card with the L2 cache
+    flushed (CUDA events, median of REPS) beside its kernels' own device
+    times, its bound, the plain version and
+    ``scaled_dot_product_attention(enable_gqa=True)`` (the library's
+    yardstick, which the port never calls); graph-launched too."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    B, L, K, G, hd = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + pos)
+    q = torch.randn((B, 1, K * G, hd), generator=g, device=device).to(
+        torch.bfloat16)
+    k = torch.randn((B, L, K, hd), generator=g, device=device).to(
+        torch.bfloat16)
+    v = torch.randn((B, L, K, hd), generator=g, device=device).to(
+        torch.bfloat16)
+    q_pos = torch.tensor([pos], device=device)
+    idx = torch.arange(L, device=device)
+    kv_pos = q_pos - torch.remainder(q_pos - idx, L)
+    kv_pos = torch.where(kv_pos >= 0, kv_pos, -1)
+    kw = dict(causal=True, window=DA_WINDOW)
+
+    def call():
+        return DK.decode_attention_cuda(q, k, v, q_pos, kv_pos, **kw)
+    out, again = call(), call()
+    want = DR.decode_attention_ref(q, k, v, q_pos, kv_pos, **kw)
+    torch.cuda.synchronize()
+    name = f"B{B} L{L} K{K} G{G} hd{hd} pos {pos}"
+    check(torch.equal(out, again), f"decode_attention {name}: the kernel "
+          "differs from run to run")
+    o, w = out.float(), want.float()
+    err = float((o - w).abs().max().item())
+    check(bool(((o - w).abs() <= 2.0 ** -7 * torch.maximum(o.abs(), w.abs())
+                + 1e-6).all()), f"decode_attention {name}: the kernel "
+          f"differs from the plain version by up to {err!r}")
+    mask = (kv_pos >= 0) & (kv_pos <= pos) & (kv_pos > pos - DA_WINDOW)
+    rows = int(mask.sum().item())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[None, None, None, :], enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float() - w).abs().max()
+                    .item())
+    ms, times = cuda_times_ms(call, REPS, flush=flush)
+    plain_ms, _ = cuda_times_ms(
+        lambda: DR.decode_attention_ref(q, k, v, q_pos, kv_pos, **kw), REPS,
+        flush=flush)
+    lib_ms, _ = cuda_times_ms(library, REPS, flush=flush)
+    kern = {k2: v2 for k2, v2 in kernel_device_ms(
+        torch, call, REPS, flush=flush).items() if "decode_attention::" in k2}
+    check(len(kern) == (2 if DK.splits(B, K, G, L, hd, torch.bfloat16) > 1
+                        else 1), f"decode_attention {name}: the profile "
+          f"shows the kernels {sorted(kern)}")
+    dev = sum(t * n for t, n in kern.values())
+    graph_ms, _ = graph_call_ms(torch, call)
+    bound, by, nbytes, ops = decode_attn_bound_ms(B, K, G, hd, L, rows)
+    shape_info = DK.launch_shape(B, K, G, L, hd, torch.bfloat16)
+    entry = dict(shape=list(shape), pos=pos, rows=rows, ms=ms,
+                 device_ms=dev, kernels={k2: list(v2) for k2, v2 in
+                                         kern.items()},
+                 graph_call_ms=graph_ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, library_max_abs_err=lib_err,
+                 bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                 max_abs_err=err, launch_shape=shape_info)
+    log(f"[decode_attention] {name} bf16 {CARD}: kernel {ms!r} ms from an "
+        f"idle card, L2 flushed (median of {len(times)}, min {min(times)!r},"
+        f" max {max(times)!r}); own device time {dev!r} ms "
+        f"({json.dumps(entry['kernels'])}; torch.profiler); graph-launched "
+        f"{graph_ms!r} ms a call; bound {bound!r} ms by {by} ({nbytes} B: "
+        f"{rows} valid positions, {ops} f32 ops): {bound / ms:.3f} of it by "
+        f"the call, {bound / dev:.3f} by the device time; plain "
+        f"{plain_ms!r} ms; scaled_dot_product_attention(enable_gqa=True) "
+        f"{lib_ms!r} ms (max abs err {lib_err!r}, not held); max abs err "
+        f"{err!r} against the plain version, bit for bit twice; launch "
+        f"{json.dumps(shape_info)}")
+    return entry
+
+
+def decode_attn_phase(torch, seed, device, own: dict) -> None:
+    """``decode_attention`` (a kernel of the port's own: it counterparts no
+    TPU kernel) at mixtral-decode's shape at each of DA_POSITIONS, then at
+    DA_LONG's last position; recorded in ``own``."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    cases = {f"pos {pos}": decode_attn_case(torch, DA_SHAPE, pos, seed,
+                                            device, flush)
+             for pos in DA_POSITIONS}
+    cases["long"] = decode_attn_case(torch, DA_LONG, DA_LONG[1] - 1, seed,
+                                     device, flush)
+    del flush
+    main = cases[f"pos {DA_POSITIONS[1]}"]
+    own["decode_attention"] = {
+        "name": "decode_attention", "route": "cuda", "source": DA_SOURCE,
+        "replaces": None, "launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "scaled_dot_product_attention(enable_gqa=True) with a "
+                   "boolean mask over the cache as it lies",
+        "error_against": "the plain version on the same tensors",
+        "configs": cases}
+
+
 def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
     """``n`` decode steps from ``cache`` under ``torch.profiler``: the wall
     seconds, the count of CUDA operations and the five largest by device
@@ -4217,9 +4392,11 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
                     _, counts = launch_window(run)
             finally:
                 setattr(mod, name, op)
-        check(counts == only(**{name: want_launches}),
-              f"{arch} serving ({'graphed' if graphed else 'eager'}) "
-              f"launched {counts}, expected {want_launches} {name}")
+        want = only(**{name: want_launches}, **decode_attn_want(
+            torch, cfg, times["cache"], new - 1))
+        check(counts == want, f"{arch} serving ("
+              f"{'graphed' if graphed else 'eager'}) launched {counts}, "
+              f"expected {want}")
         check(toks.shape == (batch, new) and bool(
             ((toks >= 0) & (toks < cfg.vocab)).all()),
               f"{arch} serving: tokens outside [0, vocab) or of shape "
@@ -5028,14 +5205,15 @@ def mesh_serve(torch, device, mesh, model, batch: int, prompt_len: int,
                                                     plain["cache"]))
               for k in b if not torch.equal(a[k], b[k])]
     check(not differ, f"{what}: final caches differ {differ[:5]}")
+    attn = decode_attn_want(torch, cfg, plain["cache"], steps)
     if n_rec:
         want_pre, want_dec = only(rglru_scan=n_rec), only(
-            rglru_scan=n_rec * steps)
+            rglru_scan=n_rec * steps, **attn)
         want_calls = [("rglru_scan", (batch, prompt_len, cfg.rnn_width))] \
             * n_rec + [("rglru_scan", (batch, 1, cfg.rnn_width))] * (
                 2 * n_rec)
     else:
-        want_pre, want_dec = only(), only(rwkv6_step=n_rwkv * steps)
+        want_pre, want_dec = only(), only(rwkv6_step=n_rwkv * steps, **attn)
         want_calls = [("rwkv6_step", (batch, cfg.n_heads, cfg.head_dim))] \
             * (2 * n_rwkv)
     for r in (plain, laid):
@@ -5480,9 +5658,10 @@ def zoo_serve_arch(torch, seed, device, arch, layers, batch, prompt_len,
     held to one forward over prompt and generated tokens within the
     decode-consistency bound; run (b) the graphed ``make_serve_step``,
     timed: (a)'s tokens, (a)'s final caches bit for bit, its logits within
-    the bound; neither launches a repo kernel. With ``bf16_run`` (the bf16
-    row's result) the int8 cache is also driven teacher-forced over that
-    run's tokens and its logits held to that run's within the bound."""
+    the bound; each launches ``decode_attention`` alone
+    (``decode_attn_want``). With ``bf16_run`` (the bf16 row's result) the
+    int8 cache is also driven teacher-forced over that run's tokens and its
+    logits held to that run's within the bound."""
     from repro_torch.models import Model
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.serve.serve_step import (GraphedServeStep,
@@ -5548,8 +5727,9 @@ def zoo_serve_arch(torch, seed, device, arch, layers, batch, prompt_len,
                 cache, counts = launch_window(run)
             for i, lg in enumerate(rec.logits[1:]):
                 logits[i + 1].copy_(lg)
-        check(counts == only(), f"[zoo-serve] {tag}: the run launched "
-              f"{counts}; the model zoo's path has no repo kernel")
+        want = only(**decode_attn_want(torch, cfg, cache, new - 1))
+        check(counts == want, f"[zoo-serve] {tag}: the run launched "
+              f"{counts}; the model zoo's decode steps launch {want}")
         check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
               f"[zoo-serve] {tag}: tokens outside [0, vocab)")
         return toks, logits, cache, times
@@ -5682,8 +5862,8 @@ def zoo_serve_arch(torch, seed, device, arch, layers, batch, prompt_len,
            f"steps {sorted(flips)} (layer, row, forward gap, decode gap, "
            f"|k-th logit|: {json.dumps(flips)}; their errs "
            f"{[errs[i] for i in sorted(flips)]}, not held)" if n_moe else "")
-        + "; tokens equal, final caches equal bit for bit; no repo kernel "
-        "launched" + (f"; KV {kv_bytes} B a (token, head) for k"
+        + "; tokens equal, final caches equal bit for bit; decode_attention "
+        "alone launched" + (f"; KV {kv_bytes} B a (token, head) for k"
                       if kv_bytes else "") + (
             f"; teacher-forced over the bf16 run's tokens the int8 cache's "
             f"logits within {max(tf)!r} < {ref_bound!r} of the bf16 "
@@ -6039,6 +6219,7 @@ def main() -> None:
     from repro_torch.kernels.profile_cube import kernel as PK
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rwkv6_step import kernel as RWK
+    from repro_torch.kernels.decode_attention import kernel as DK
     global CARD
 
     # 1. environment
@@ -6071,7 +6252,8 @@ def main() -> None:
         first_fut = pool.submit(timed_build, build_first_scan)
         rg_fut = pool.submit(timed_build, build_first_rglru)
         builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
-                                             RGK.build, RWK.build)))
+                                             RGK.build, RWK.build,
+                                             DK.build)))
         (first, first_ptxas), first_secs = first_fut.result()
         rg_first, rg_secs = rg_fut.result()
     for lib, secs in builds:
@@ -6084,14 +6266,17 @@ def main() -> None:
 
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
     # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
-    # paged attention and 12. the recurrent kernels at device scale, 13.
+    # paged attention and 12. the recurrent kernels and decode_attention at
+    # device scale, 13.
     # paged serving, 14. recurrent-model serving, 15. training, 16.
     # distribution, 17. the rest of the model zoo served, 18. and trained
     results: dict = {}
+    own: dict = {}              # kernels that counterpart no TPU kernel
     kernel_phase(torch, args.seed, device, results, first)
     cube_phase(torch, args.seed, device, results)
     attn_phase(torch, args.seed, device, results)
     recurrent_kernel_phase(torch, args.seed, device, results, rg_designs)
+    decode_attn_phase(torch, args.seed, device, own)
     t0 = time.perf_counter()
     cat = build_catalog(ENTRIES, args.seed)
     log(f"[engine] catalog of {len(cat)} entries built in "
@@ -6131,7 +6316,8 @@ def main() -> None:
     log(f"[total] {card}: every phase held, "
         f"{time.perf_counter() - t_start:.1f} s")
     log("[zoo] " + json.dumps({"card": card, **zoo}))
-    log(json.dumps({"card": card, "kernels": list(results.values())}))
+    log(json.dumps({"card": card, "kernels": list(results.values()),
+                    "own_kernels": list(own.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

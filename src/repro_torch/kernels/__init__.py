@@ -24,5 +24,8 @@ Kernels:
   serving engine's hot spot);
 * ``rglru_scan`` — the RG-LRU diagonal linear recurrence of
   recurrentgemma's recurrent layers (prefill and every decode step);
-* ``rwkv6_step`` — RWKV6's decode-step state update and readout.
+* ``rwkv6_step`` — RWKV6's decode-step state update and readout;
+* ``decode_attention`` — the decode step's grouped-query attention over a
+  contiguous K/V cache, each cached row read once for its query heads (no
+  TPU counterpart: the reference's attention is plain JAX).
 """

@@ -3,7 +3,10 @@
 Numerics policy, as in the reference: parameters and activations are bf16;
 softmax, norms and recurrences accumulate in f32. Attention is a chunked
 online softmax (flash-style) in plain PyTorch, as the reference's is plain
-JAX. The RG-LRU recurrence runs through the port's ``rglru_scan`` op: the
+JAX; one query position on the card (the decode step) goes to the port's
+``decode_attention`` kernel, which reads each cached K/V row once for all
+its query heads where the plain path repeats the cache to every head. The
+RG-LRU recurrence runs through the port's ``rglru_scan`` op: the
 hand-written CUDA kernel on the card, its plain version on the CPU; under
 autograd its gradient is the hand-written gradient kernel (its plain
 version on the CPU), where the reference differentiates its own scan. The
@@ -25,6 +28,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.rglru_scan import ops as rglru_ops
 from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
@@ -110,8 +114,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``head_dim`` dims (the scale is the whole head's), and ``scores``
     takes each block's partial f32 scores to the whole's (their sum over
     the chunks' ranks) before the softcap and the mask.
+
+    One query position without ``scores``, on CUDA tensors the kernel
+    takes (``decode_attention.ops.takes``: f32 or bf16, head_dim a
+    multiple of 8 up to 256), runs the ``decode_attention`` kernel: the
+    direct path's arithmetic with an online softmax, the cache never
+    repeated or widened in memory.
     """
     B, Sq, H, hd = q.shape
+    if Sq == 1 and scores is None and decode_ops.takes(q, k, v):
+        return decode_ops.decode_attention(
+            q, k, v, q_pos, kv_pos, causal=causal, window=window,
+            logit_softcap=logit_softcap,
+            scale=1.0 / math.sqrt(head_dim or hd))
     _, Sk, K, _ = k.shape
     G = H // K
     if G > 1:

@@ -19,6 +19,10 @@ The MoE dispatch (``moe_forward``) is the reference's capacity dispatch in
 plain PyTorch, as the reference's is plain JAX: the expert products are
 ``torch.einsum``. It reads nothing back to the host (every shape follows
 from the input's), so a CUDA graph can capture a decode step through it.
+``moe_held_forward`` is DeepSeek-V3's router over a chip's share of the
+experts, dropless; it reads its rows' counts back in a prefill only.
+Latent attention's products (``matmul_f32``) keep bf16 operands on the
+tensor cores with f32 results.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from ..kernels.decode_attention import ops as decode_ops
 from ..kernels.rglru_scan import ops as rglru_ops
 from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
-from .config import MoeSpec
+from .config import MoeSpec, YarnSpec
 
 _NEG_INF = -1e30
 
@@ -69,8 +73,11 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
-         fraction: float = 1.0) -> torch.Tensor:
-    """Rotary embedding. x: (B, S, H, hd); positions: (S,) or (B, S)."""
+         fraction: float = 1.0, inv_freq: Optional[torch.Tensor] = None
+         ) -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, hd); positions: (S,) or (B, S).
+    ``inv_freq``: the rotated half's frequencies (``yarn_inv_freq``) in
+    place of ``theta``'s."""
     hd = x.shape[-1]
     rot = int(hd * fraction)
     rot -= rot % 2
@@ -79,7 +86,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     half = rot // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+                                    device=x.device) / half) \
+        if inv_freq is None else inv_freq.to(x.device)
     if positions.dim() == 1:
         ang = positions.float()[None, :, None] * freqs[None, None, :]
     else:
@@ -89,6 +97,36 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
     x1, x2 = x_rot[..., :half].float(), x_rot[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+def _yarn_dim(rotations: float, dim: int, theta: float, original: int
+              ) -> float:
+    """The rotary dimension whose wavelength turns ``rotations`` times over
+    the ``original`` context (YaRN's correction dimension)."""
+    return dim * math.log(original / (rotations * 2 * math.pi)) \
+        / (2 * math.log(theta))
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn: YarnSpec) -> torch.Tensor:
+    """YaRN's frequencies for a rotary head of ``dim`` (f32, dim // 2):
+    ``theta``'s own below the correction range, divided by ``factor``
+    above it, a linear ramp between (DeepSeek-V3's ``inv_freq``)."""
+    low = max(math.floor(_yarn_dim(yarn.beta_fast, dim, theta,
+                                   yarn.original_max_position)), 0)
+    high = min(math.ceil(_yarn_dim(yarn.beta_slow, dim, theta,
+                                   yarn.original_max_position)), dim - 1)
+    if low == high:
+        high += 0.001
+    extra = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32)
+                            / dim)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32) - low)
+                       / (high - low), 0, 1)
+    return extra / yarn.factor * ramp + extra * (1 - ramp)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale ``0.1 m ln(factor) + 1`` (1 without scaling)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +219,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_run = m_new
     out = acc / l_run.clamp(min=1e-20)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or batched 3-D) into f32. bf16 operands on the card
+    multiply on the tensor cores and accumulate into an f32 result
+    (``out_dtype``): the f32 products of their values, summed in another
+    order. Elsewhere the operands are cast to f32 first."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def causal_attention_blocks(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float, block: int = 512
+                            ) -> torch.Tensor:
+    """Causal attention of one sequence, a block of queries at a time,
+    each over the keys up to its last position: q, k (H, S, dq), v (H, S,
+    dv) -> (S, H, dv) in q's dtype. The scale is folded into q (one
+    rounding in q's dtype); scores and softmax are f32
+    (:func:`matmul_f32`), so a block holds (H, block, S) f32 scores at
+    most, masked on its diagonal square alone; the probabilities are cast
+    to v's dtype for ``p v``. q and k may be wider than v (latent
+    attention's expanded form)."""
+    H, S, _ = q.shape
+    qs = (q.float() * scale).to(q.dtype)
+    out = torch.empty((S, H, v.shape[-1]), dtype=q.dtype, device=q.device)
+    pos = torch.arange(block, device=q.device)
+    above = pos[None, :] > pos[:, None]
+    for a in range(0, S, block):
+        e = min(a + block, S)
+        s = matmul_f32(qs[:, a:e], k[:, :e].transpose(1, 2))   # (H, q, k)
+        s[..., a:].masked_fill_(above[:e - a, :e - a], float("-inf"))
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        out[a:e] = matmul_f32(p, v[:, :e]).transpose(0, 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +445,93 @@ def moe_forward(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
         out = out + (part.reduce(ys) if s_sh else ys)
     phase(None)
     return out.reshape(B, S, D), aux
+
+
+def moe_held_forward(x: torch.Tensor, router_w: torch.Tensor,
+                     router_bias: torch.Tensor, w1: torch.Tensor,
+                     w3: torch.Tensor, w2: torch.Tensor, moe: MoeSpec,
+                     shared: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's routed experts over the ``moe.held`` experts this
+    chip holds (``MoeSpec``), dropping no token. Returns (out, aux), aux 0
+    (``noaux_tc`` balances through the bias, not a loss).
+
+    x: (B, S, D); router_w: (D, E) over all E experts; router_bias: (E,);
+    w1/w3: (held, D, F), w2: (held, F, D). The router runs in f32: the top
+    k of ``sigmoid(x R) + bias``, each weighted by its sigmoid score over
+    the chosen k's sum, times ``moe.routed_scale``. The layer returns the
+    held experts' weighted outputs plus the shared expert's; a token's
+    absent experts add nothing here (their chips add it). The weighted
+    sum is f32, cast to x's dtype once.
+
+    A decode step (S = 1) gives each held expert a slot for every token
+    (a token reaches an expert at most once): static shapes, so a CUDA
+    graph captures it, and nothing drops. A longer input (the prefill) is
+    dispatched grouped: the routed rows sorted by held expert, each
+    expert's rows multiplied as one block, their counts read back to the
+    host once.
+
+    With a ``runtime.spans.Timeline`` open: device spans ``.route``,
+    ``.experts``, ``.shared``, ``.combine`` inside the caller's, and the
+    counters ``moe_tokens_kept`` (rows computed for held experts) and
+    ``moe_slots`` (rows the experts were given: held x tokens in a step,
+    the kept rows in the grouped dispatch)."""
+    phase = spans.phases()
+    phase(".route")
+    B, S, D = x.shape
+    T, k, held = B * S, moe.top_k, moe.n_held
+    xt = x.reshape(T, D)
+    scores = torch.sigmoid(matmul_f32(xt, router_w))           # (T, E)
+    idx = torch.topk(scores + router_bias.float(), k, dim=-1).indices
+    weights = scores.gather(-1, idx)
+    weights = weights / weights.sum(dim=-1, keepdim=True) * moe.routed_scale
+    local = idx - moe.held_first                               # (T, k)
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    if S == 1:
+        hit = local[:, :, None] == torch.arange(held, device=x.device)
+        gate = (weights[:, :, None] * hit).sum(dim=1).T        # (held, T)
+        reached = hit.any(dim=1).T                             # (held, T)
+        buf = torch.where(reached[..., None], xt[None], torch.zeros(
+            (), dtype=x.dtype, device=x.device))               # (held, T, D)
+        slots = held * T
+    else:
+        mine = (local >= 0) & (local < held)
+        expert = local[mine]
+        order = torch.argsort(expert, stable=True)
+        rows = torch.arange(T, device=x.device)[:, None].expand(T, k)[
+            mine][order]
+        gate = weights[mine][order]
+        counts = torch.bincount(expert, minlength=held).tolist()
+        slots = sum(counts)
+    phase(None)
+    if spans.timeline() is not None:
+        spans.device_counter("moe_tokens_kept",
+                             reached.sum() if S == 1 else slots)
+        spans.device_counter("moe_slots", slots)
+
+    phase(".experts")
+    if S == 1:
+        y = _experts(buf[None], w1, w3, w2)[0]                 # (held, T, D)
+    else:
+        xs = xt[rows]
+        y = torch.empty_like(xs)
+        at = 0
+        for e, n in enumerate(counts):
+            if n:
+                y[at:at + n] = swiglu(xs[at:at + n], w1[e], w3[e], w2[e])
+            at += n
+    if shared is not None:
+        phase(".shared")
+        out += swiglu(xt, *shared).float()
+    phase(".combine")
+    if S == 1:
+        out += (y.float() * gate[..., None]).sum(dim=0)
+    else:
+        out.index_add_(0, rows, y.float() * gate[:, None])
+    phase(None)
+    return out.to(x.dtype).reshape(B, S, D), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _experts(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,

@@ -17,6 +17,7 @@ ATTN_LOCAL = "local"      # sliding-window attention
 ATTN_NONCAUSAL = "bidir"  # encoder self-attention
 MIX_RGLRU = "rglru"       # RecurrentGemma recurrent block
 MIX_RWKV6 = "rwkv6"       # RWKV-6 time-mix
+ATTN_MLA = "mla"          # multi-head latent attention (DeepSeek-V2/V3)
 
 # ffn kinds
 FFN_DENSE = "dense"       # swiglu (or gelu for whisper)
@@ -32,11 +33,64 @@ class LayerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class MoeSpec:
+    """``num_experts`` is the router's width. The defaults are the capacity
+    dispatch of every expert (mixtral, llama4). ``scoring="sigmoid"`` is
+    DeepSeek-V3's router (``noaux_tc``, one group): the top k of
+    ``sigmoid(x R) + bias``, weighted by their sigmoid scores over the
+    chosen k's sum, times ``routed_scale``; that router runs the dropless
+    dispatch over the ``held`` experts ``held_first`` .. ``held_first +
+    held - 1`` (0: every expert) that this chip holds of each layer, the
+    others' part of the result left to the chips that hold them."""
+
     num_experts: int
     top_k: int
     shared_expert: bool = False   # llama4-style always-on expert
     capacity_factor: float = 1.25
     router_jitter: bool = False
+    scoring: str = "softmax"      # "softmax" (k = 1: sigmoid) | "sigmoid"
+    routed_scale: float = 1.0     # sigmoid scoring: the chosen weights' scale
+    d_expert: int = 0             # an expert's width, shared one too (0: d_ff)
+    held: int = 0                 # experts held here (0: all of them)
+    held_first: int = 0           # the first held expert's index
+
+    @property
+    def n_held(self) -> int:
+        return self.held or self.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaSpec:
+    """Multi-head latent attention's widths (DeepSeek-V2,
+    arXiv:2405.04434): queries through a rank-``q_lora_rank`` bottleneck,
+    keys and values from a ``kv_lora_rank`` latent shared by every head,
+    plus a ``qk_rope_head_dim`` rotary key shared by every head."""
+
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent(self) -> int:
+        """A cached position's width: the latent and the rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnSpec:
+    """YaRN's RoPE scaling (arXiv:2309.00071, as DeepSeek-V3 has it)."""
+
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +113,7 @@ class ModelConfig:
     d_ff: int
     vocab: int
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    lead: Tuple[LayerSpec, ...] = ()   # layers before the pattern repeats
     # attention details
     window: int = 4096            # for ATTN_LOCAL layers
     rope_theta: float = 10000.0
@@ -76,6 +131,9 @@ class ModelConfig:
     conv_width: int = 4           # rglru temporal conv taps
     rwkv_lora_mix: int = 32
     rwkv_lora_decay: int = 64
+    # latent attention (ATTN_MLA layers) and YaRN RoPE
+    mla: Optional[MlaSpec] = None
+    yarn: Optional[YarnSpec] = None
     # moe
     moe: Optional[MoeSpec] = None
     moe_groups: int = 1           # dispatch groups (set = dp degree; SPerf)
@@ -96,20 +154,23 @@ class ModelConfig:
 
     @property
     def layers(self) -> Tuple[LayerSpec, ...]:
-        """The full resolved per-layer spec list (pattern + tail)."""
-        p = len(self.pattern)
-        reps, rem = divmod(self.n_layers, p)
-        return self.pattern * reps + self.pattern[:rem]
+        """The full resolved per-layer spec list (lead + pattern + tail)."""
+        reps, rem = divmod(self.n_layers - len(self.lead), len(self.pattern))
+        return self.lead + self.pattern * reps + self.pattern[:rem]
 
     @property
     def n_super(self) -> int:
         """Number of complete pattern repetitions (scanned)."""
-        return self.n_layers // len(self.pattern)
+        return (self.n_layers - len(self.lead)) // len(self.pattern)
 
     @property
     def tail_specs(self) -> Tuple[LayerSpec, ...]:
-        rem = self.n_layers % len(self.pattern)
+        rem = (self.n_layers - len(self.lead)) % len(self.pattern)
         return self.pattern[:rem]
+
+    @property
+    def expert_width(self) -> int:
+        return self.moe.d_expert or self.d_ff
 
     def param_count(self) -> int:
         """Approximate total parameter count (for MODEL_FLOPS, reporting)."""
@@ -121,6 +182,13 @@ class ModelConfig:
             n = 2 * D                           # norms
             if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
                 n += D * qk + 2 * D * kv + qk * D
+            elif spec.mix == ATTN_MLA:
+                m, H = self.mla, self.n_heads
+                n += D * m.q_lora_rank + m.q_lora_rank \
+                    + m.q_lora_rank * H * m.qk_head_dim \
+                    + D * m.latent + m.kv_lora_rank \
+                    + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim) \
+                    + H * m.v_head_dim * D
             elif spec.mix == MIX_RGLRU:
                 R = self.rnn_width
                 n += 2 * D * R + 2 * R * R + R * D + R * self.conv_width + 2 * R
@@ -131,9 +199,11 @@ class ModelConfig:
                 n += D * qk + 2 * D * kv + qk * D + D
             if spec.ffn == FFN_MOE and self.moe is not None:
                 e = self.moe.num_experts
-                n += D * e + e * 3 * D * F
+                n += D * e + self.moe.n_held * 3 * D * self.expert_width
+                if self.moe.scoring == "sigmoid":
+                    n += e                          # the selection bias
                 if self.moe.shared_expert:
-                    n += 3 * D * F
+                    n += 3 * D * self.expert_width
             elif spec.mix == MIX_RWKV6:
                 n += 2 * D * F                      # rwkv channel-mix (no gate)
             else:
@@ -145,16 +215,17 @@ class ModelConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: top_k + shared instead of all)."""
+        """Active params per token (MoE: top_k + shared instead of all; of
+        a share of the experts, the held ones' expected k * held / E)."""
         if self.moe is None:
             return self.param_count()
-        D, F = self.d_model, self.d_ff
-        e, k = self.moe.num_experts, self.moe.top_k
+        D, F = self.d_model, self.expert_width
+        e, k, held = self.moe.num_experts, self.moe.top_k, self.moe.n_held
         inactive = 0
         for spec in self.layers:
             if spec.ffn == FFN_MOE:
-                inactive += (e - k) * 3 * D * F
-        return self.param_count() - inactive
+                inactive += (held * e - k * held) * 3 * D * F
+        return self.param_count() - inactive // e
 
 
 # ---------------------------------------------------------------------------

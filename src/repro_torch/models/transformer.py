@@ -5,7 +5,9 @@ One implementation covers all 10 architectures of
 :class:`~repro_torch.models.config.ModelConfig`: full, local (sliding
 window, ring-buffer decode cache) and bidirectional attention, RG-LRU and
 RWKV6 sequence mixing, swiglu and gelu FFNs, top-k MoE FFNs with a shared
-expert, gated cross-attention to image tokens or to the whisper encoder's
+expert, and beside them DeepSeek-V3's block (Kimi-K2): multi-head latent
+attention over a latent decode cache, and sigmoid-routed experts of which
+a chip holds a share; gated cross-attention to image tokens or to the whisper encoder's
 output, RMS and layer norms, learned positions and the int8 KV cache,
 with the reference's dtypes (bf16 weights and activations, f32 norms and
 recurrences). The reference
@@ -49,6 +51,7 @@ bf16 on the model's device; the cross-attention layers read them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
 from typing import Callable, Dict, List, Mapping, Optional, Set, Tuple
@@ -63,11 +66,14 @@ from ..device import resolve_device
 from . import rwkv6 as rk
 from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
-from .components import (_rglru_gates, attention, causal_conv1d,
-                         gelu_mlp, layer_norm, moe_forward, rglru_scan,
-                         rglru_step, rms_norm, rope, softcap, swiglu)
-from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL, FFN_DENSE,
-                     FFN_MOE, MIX_RGLRU, MIX_RWKV6, LayerSpec, ModelConfig)
+from .components import (_rglru_gates, attention, matmul_f32,
+                         causal_attention_blocks, causal_conv1d, gelu_mlp,
+                         layer_norm, moe_forward, moe_held_forward,
+                         rglru_scan, rglru_step, rms_norm, rope, softcap,
+                         swiglu, yarn_inv_freq, yarn_mscale)
+from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_NONCAUSAL,
+                     FFN_DENSE, FFN_MOE, MIX_RGLRU, MIX_RWKV6, LayerSpec,
+                     ModelConfig)
 
 Cache = List[Dict[str, torch.Tensor]]
 _MOE_AUX_COEF = 0.01
@@ -143,15 +149,17 @@ def _ffn_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
                                  "wv": ini.dense((F_, D))})
     if spec.ffn == FFN_MOE:
         # the reference's scales: _Init.dense would take them from E
-        E = cfg.moe.num_experts
+        E, n, Fe = cfg.moe.num_experts, cfg.moe.n_held, cfg.expert_width
         p = {"router": ini.dense((D, E), scale=0.02),
-             "w1": ini.dense((E, D, F_), scale=1.0 / math.sqrt(D)),
-             "w3": ini.dense((E, D, F_), scale=1.0 / math.sqrt(D)),
-             "w2": ini.dense((E, F_, D), scale=1.0 / math.sqrt(F_))}
+             "w1": ini.dense((n, D, Fe), scale=1.0 / math.sqrt(D)),
+             "w3": ini.dense((n, D, Fe), scale=1.0 / math.sqrt(D)),
+             "w2": ini.dense((n, Fe, D), scale=1.0 / math.sqrt(Fe))}
+        if cfg.moe.scoring == "sigmoid":
+            p["router_bias"] = ini.full((E,), 0.0, torch.float32)
         if cfg.moe.shared_expert:
-            p["s1"] = ini.dense((D, F_))
-            p["s3"] = ini.dense((D, F_))
-            p["s2"] = ini.dense((F_, D))
+            p["s1"] = ini.dense((D, Fe))
+            p["s3"] = ini.dense((D, Fe))
+            p["s2"] = ini.dense((Fe, D))
         return nn.ParameterDict(p)
     if cfg.ffn_act == "gelu":
         return nn.ParameterDict({"w1": ini.dense((D, F_)),
@@ -161,6 +169,21 @@ def _ffn_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
     return nn.ParameterDict({"w1": ini.dense((D, F_)),
                              "w3": ini.dense((D, F_)),
                              "w2": ini.dense((F_, D))})
+
+
+def _mla_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    """Latent attention's products, (in, out), and its two norms."""
+    D, H, m = cfg.d_model, cfg.n_heads, cfg.mla
+    return nn.ParameterDict({
+        "q_a": ini.dense((D, m.q_lora_rank)),
+        "q_norm": ini.full((m.q_lora_rank,), 0.0),
+        "q_b": ini.dense((m.q_lora_rank, H * m.qk_head_dim)),
+        "kv_a": ini.dense((D, m.latent)),
+        "kv_norm": ini.full((m.kv_lora_rank,), 0.0),
+        "kv_b": ini.dense((m.kv_lora_rank,
+                           H * (m.qk_nope_head_dim + m.v_head_dim))),
+        "wo": ini.dense((H * m.v_head_dim, D)),
+    })
 
 
 def _rglru_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
@@ -210,6 +233,8 @@ def _layer_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
         p["ln2p"] = _norm_params(cfg, ini)
     if spec.mix in (ATTN_FULL, ATTN_LOCAL, ATTN_NONCAUSAL):
         p["attn"] = _attn_params(cfg, ini)
+    elif spec.mix == ATTN_MLA:
+        p["mla"] = _mla_params(cfg, ini)
     elif spec.mix == MIX_RGLRU:
         p["rglru"] = _rglru_params(cfg, ini)
     elif spec.mix == MIX_RWKV6:
@@ -436,6 +461,11 @@ def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
         return _rwkv_channel_mix(cfg, p, x, rk.token_shift(x), part), zero
     if spec.ffn == FFN_MOE:
         shared = (p["s1"], p["s3"], p["s2"]) if "s1" in p else None
+        if cfg.moe.scoring == "sigmoid":
+            _one_rank(part, "sigmoid-routed experts")
+            return moe_held_forward(x, p["router"], p["router_bias"],
+                                    p["w1"], p["w3"], p["w2"], cfg.moe,
+                                    shared)
         return moe_forward(x, p["router"], p["w1"], p["w3"], p["w2"],
                            cfg.moe, shared, groups=cfg.moe_groups,
                            part=part, d_ff=cfg.d_ff)
@@ -510,6 +540,121 @@ def _rwkv_out(cfg: ModelConfig, p, y: torch.Tensor, g: torch.Tensor,
     return _row_out(part, out, p["wo"].shape[0] != cfg.d_model)
 
 
+def _one_rank(part: Partition, what: str) -> None:
+    """Raises for a partition of more than one rank (``what`` runs on the
+    rank's own share only: no collective is written for it)."""
+    if not part.trivial:
+        raise ValueError(f"{what} run on one rank: no partitioned form")
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_rope(cfg: ModelConfig, device: torch.device
+              ) -> Tuple[torch.Tensor, float]:
+    """Latent attention's rotary frequencies on ``device`` (YaRN's where
+    ``cfg.yarn``) and its softmax scale, ``qk_head_dim^-0.5`` times YaRN's
+    ``mscale(factor, mscale_all_dim)^2`` (DeepSeek-V3's)."""
+    m, y = cfg.mla, cfg.yarn
+    d = m.qk_rope_head_dim
+    if y is None:
+        freq = cfg.rope_theta ** (-torch.arange(0, d // 2,
+                                                dtype=torch.float32) / (d // 2))
+        return freq.to(device), m.qk_head_dim ** -0.5
+    scale = m.qk_head_dim ** -0.5
+    if y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return yarn_inv_freq(d, cfg.rope_theta, y).to(device), scale
+
+
+def _mla_q(cfg: ModelConfig, p, h: torch.Tensor, positions: torch.Tensor
+           ) -> torch.Tensor:
+    """Queries (B, S, H, qk_head_dim): through the q bottleneck and its
+    norm, the rotary part turned (RoPE halves rotated)."""
+    m = cfg.mla
+    B, S, _ = h.shape
+    freq, _ = _mla_rope(cfg, h.device)
+    cq = rms_norm(h @ p["q_a"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["q_b"]).reshape(B, S, cfg.n_heads, m.qk_head_dim)
+    nope = m.qk_nope_head_dim
+    q[..., nope:] = rope(q[..., nope:], positions, inv_freq=freq)
+    return q
+
+
+def _mla_latent(cfg: ModelConfig, p, h: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """What the cache holds of each position (B, S, latent): the normed
+    ``c_kv`` and the rotary key ``k_pe``, shared by every head."""
+    R = cfg.mla.kv_lora_rank
+    freq, _ = _mla_rope(cfg, h.device)
+    kv = h @ p["kv_a"]
+    c = rms_norm(kv[..., :R], p["kv_norm"], cfg.norm_eps)
+    k_pe = rope(kv[..., None, R:], positions, inv_freq=freq)[..., 0, :]
+    return torch.cat([c, k_pe], dim=-1)
+
+
+def _mla_seq(cfg: ModelConfig, p, h: torch.Tensor, positions: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Latent attention over a whole sequence, in the expanded form: each
+    sequence's latent up-projected to every head's keys and values, laid
+    out a head at a time, then causal attention a block of queries at a
+    time (f32 scores bounded by the block). Returns (out, latent for the
+    cache)."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = h.shape
+    R, nope = m.kv_lora_rank, m.qk_nope_head_dim
+    _, scale = _mla_rope(cfg, h.device)
+    q = _mla_q(cfg, p, h, positions)
+    latent = _mla_latent(cfg, p, h, positions)
+    out = torch.empty((B, S, H, m.v_head_dim), dtype=h.dtype,
+                      device=h.device)
+    for b in range(B):
+        kv = (latent[b, :, :R] @ p["kv_b"]).reshape(S, H, -1)
+        k = torch.empty((H, S, m.qk_head_dim), dtype=h.dtype,
+                        device=h.device)
+        k[..., :nope] = kv[..., :nope].transpose(0, 1)
+        k[..., nope:] = latent[b, None, :, R:]
+        out[b] = causal_attention_blocks(
+            q[b].transpose(0, 1).contiguous(), k,
+            kv[..., nope:].transpose(0, 1).contiguous(), scale)
+    return out.reshape(B, S, -1) @ p["wo"], latent
+
+
+def _mla_step_(cfg: ModelConfig, p, cache: Dict[str, torch.Tensor],
+               h: torch.Tensor, pos_t: torch.Tensor) -> torch.Tensor:
+    """One decode position of latent attention in the absorbed form,
+    writing its latent into ``cache["latent"]``: ``q_nope`` taken into the
+    latent space through ``kv_b``'s key half, scores ``q_lat . c_kv +
+    q_pe . k_pe`` and ``p . c_kv`` as batched products over the latent
+    cache (bf16 operands, f32 scores and softmax), then out through
+    ``kv_b``'s value half and ``wo``. Device spans ``.q``, ``.kv_write``,
+    ``.attend`` and ``.out``."""
+    m, H = cfg.mla, cfg.n_heads
+    B = h.shape[0]
+    R, nope = m.kv_lora_rank, m.qk_nope_head_dim
+    _, scale = _mla_rope(cfg, h.device)
+    posv = pos_t.reshape(1)
+    lat = cache["latent"]
+    L = lat.shape[1]
+    with spans.device_span(".q"):
+        q = _mla_q(cfg, p, h, posv)[:, 0]                   # (B, H, dq)
+    with spans.device_span(".kv_write"):
+        lat.index_copy_(1, torch.clamp(posv, max=L - 1),
+                        _mla_latent(cfg, p, h, posv).to(lat.dtype))
+    wkv = p["kv_b"].reshape(R, H, -1)
+    with spans.device_span(".attend"):
+        q_lat = torch.bmm(q[..., :nope].transpose(0, 1),
+                          wkv[..., :nope].permute(1, 2, 0))  # (H, B, R)
+        qf = torch.cat([q_lat.transpose(0, 1), q[..., nope:]], dim=-1)
+        s = matmul_f32(qf, lat.transpose(1, 2)) * scale     # (B, H, L)
+        idx = torch.arange(L, device=h.device)
+        s = s.masked_fill(idx > pos_t, float("-inf"))
+        o_lat = torch.bmm(torch.softmax(s, dim=-1).to(lat.dtype),
+                          lat[..., :R])                     # (B, H, R)
+    with spans.device_span(".out"):
+        o = torch.bmm(o_lat.transpose(0, 1),
+                      wkv[..., nope:].permute(1, 0, 2))     # (H, B, dv)
+        return (o.transpose(0, 1).reshape(B, 1, -1) @ p["wo"])
+
+
 def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                     positions: torch.Tensor, kv_chunk: int = 1024,
                     want_cache: bool = False,
@@ -548,6 +693,11 @@ def _mix_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                                      kv_chunk, part)
         if want_cache:
             blob["k"], blob["v"] = k, v
+    elif spec.mix == ATTN_MLA:
+        _one_rank(part, "latent attention")
+        out, latent = _mla_seq(cfg, p["mla"], h, positions)
+        if want_cache:
+            blob["latent"] = latent
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
         # R over "model": the gates' products need v whole, the scan runs
@@ -622,7 +772,9 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     """Cache blob for one layer. cache_len caps local windows. With
     ``cfg.kv_cache_dtype == "int8"`` a full-attention layer keeps int8
     ``k``/``v`` and f32 ``kscale``/``vscale`` (B, L, K, 1); a local layer
-    then raises ``ValueError``, as the reference asserts.
+    then raises ``ValueError``, as the reference asserts. A latent
+    attention layer keeps one bf16 ``latent`` (B, L, kv_lora_rank +
+    qk_rope_head_dim).
 
     ``part``: this rank's shard, as ``ShardingRules.cache_pspecs`` splits
     the whole: ``batch`` (the global batch) over the data ranks where the
@@ -655,6 +807,9 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
         L = min(cache_len, cfg.window)
         blob["k"] = mk((batch, L, K, kd), torch.bfloat16)
         blob["v"] = mk((batch, L, K, kd), torch.bfloat16)
+    elif spec.mix == ATTN_MLA:
+        blob["latent"] = mk((batch, cache_len, cfg.mla.latent),
+                            torch.bfloat16)
     elif spec.mix == MIX_RGLRU:
         R = share(cfg.rnn_width)
         blob["h"] = mk((batch, R), torch.float32)
@@ -731,8 +886,8 @@ def _mix_step_(cfg: ModelConfig, spec: LayerSpec, p,
                pos_t: torch.Tensor, part: Partition) -> torch.Tensor:
     """The mixing half of :func:`apply_layer_step_`, through the residual
     add and the cross-attention: the new x. Device spans ``.kv_write`` and
-    ``.attend`` (attention) or ``.rwkv6_step`` and ``.state_copy``
-    (RWKV-6) inside the caller's."""
+    ``.attend`` (attention; latent attention ``.q`` and ``.out`` too) or
+    ``.rwkv6_step`` and ``.state_copy`` (RWKV-6) inside the caller's."""
     B = x.shape[0]
     h = _norm(cfg, p["ln1"], x)
 
@@ -779,6 +934,9 @@ def _mix_step_(cfg: ModelConfig, spec: LayerSpec, p,
                           logit_softcap=cfg.attn_softcap,
                           kv_chunk=1024 if L % 1024 == 0 else L)
         out = _attn_out(part, out, ap["wo"], local)
+    elif spec.mix == ATTN_MLA:
+        _one_rank(part, "latent attention")
+        out = _mla_step_(cfg, p["mla"], cache, h, pos_t)
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
         r_sh = rp["w_in"].shape[-1] != cfg.rnn_width
@@ -1103,24 +1261,29 @@ class Model(nn.Module):
         own; so its 1-D weights decay and its 0-d cross-attention gate
         does not. Elsewhere a parameter decays iff it is 2-D or more."""
         self._params(own=False)
-        scanned = self.cfg.n_super * len(self.cfg.pattern)
+        lead = len(self.cfg.lead)
+        scanned = lead + self.cfg.n_super * len(self.cfg.pattern)
         out = set()
         for name, p in self.named_parameters():
             parts = name.split(".")
-            stacked = (parts[0] == "layers" and int(parts[1]) < scanned) \
+            stacked = (parts[0] == "layers"
+                       and lead <= int(parts[1]) < scanned) \
                 or parts[:2] == ["encoder", "layers"]
             if p.dim() + stacked >= 2:
                 out.add(name)
         return out
 
     def _blocks(self) -> List[Tuple[int, ...]]:
-        """The reference's remat regions as layer indices: one superblock
-        of ``cfg.pattern`` layers each, then one tail layer each."""
+        """The reference's remat regions as layer indices: one leading
+        layer each, one superblock of ``cfg.pattern`` layers each, then one
+        tail layer each."""
         cfg = self.cfg
-        period = len(cfg.pattern)
-        return ([tuple(range(i * period, (i + 1) * period))
-                 for i in range(cfg.n_super)]
-                + [(n,) for n in range(cfg.n_super * period, cfg.n_layers)])
+        period, lead = len(cfg.pattern), len(cfg.lead)
+        end = lead + cfg.n_super * period
+        return ([(n,) for n in range(lead)]
+                + [tuple(range(lead + i * period, lead + (i + 1) * period))
+                   for i in range(cfg.n_super)]
+                + [(n,) for n in range(end, cfg.n_layers)])
 
     def _run_block(self, x: torch.Tensor, positions: torch.Tensor,
                    layers: Tuple[int, ...], want_cache: bool = False,
@@ -1146,12 +1309,13 @@ class Model(nn.Module):
                 extras: Optional[Mapping[str, torch.Tensor]] = None,
                 want_cache: bool = False,
                 params: Optional[Mapping[str, torch.Tensor]] = None,
-                part: Partition = NO_PARTITION
+                part: Partition = NO_PARTITION, last: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Cache]:
         """Full-sequence forward. Returns (logits, aux_loss, caches), the
         caches one dict a layer. ``extras``: the encoder's frames or the
         image tokens (module docstring); the reference's ``positions``
-        argument is not taken (its default, ``arange(S)``, is).
+        argument is not taken (its default, ``arange(S)``, is). ``last``:
+        the logits of the last position alone, (B, 1, V).
 
         It records autograd when the caller's grad mode is on and the
         parameters require gradients (:meth:`train_params`); each remat
@@ -1193,6 +1357,8 @@ class Model(nn.Module):
                                                 part)
             aux_total = aux_total + aux
             caches += blobs
+        if last:
+            x = x[:, -1:]
         return self._logits(x, params, part), aux_total, caches
 
     def loss(self, batch: Mapping[str, torch.Tensor],
@@ -1313,9 +1479,12 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor, cache_len: int,
                 extras: Optional[Mapping[str, torch.Tensor]] = None,
                 params: Optional[Mapping[str, torch.Tensor]] = None,
-                part: Partition = NO_PARTITION
+                part: Partition = NO_PARTITION, last: bool = False
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Process a prompt, building a decode cache. Returns (logits, cache).
+        """Process a prompt, building a decode cache. Returns (logits, cache);
+        with ``last`` the last position's logits alone (what a server
+        serves: at Kimi-K2's vocabulary a 32 x 4,096 prompt's every logit
+        would be 80 GiB in f32).
 
         Attention K/V computed for the prompt are written into the cache
         (ring-placed for local windows; quantized for an int8 cache), and a
@@ -1330,7 +1499,8 @@ class Model(nn.Module):
         """
         with spans.host_span("prefill.forward"):
             logits, _, blobs = self.forward(tokens, extras, want_cache=True,
-                                            params=params, part=part)
+                                            params=params, part=part,
+                                            last=last)
         with spans.host_span("prefill.cache_fill"):
             return logits, self._fill_cache(blobs, tokens.shape, cache_len,
                                             part)
@@ -1363,6 +1533,9 @@ class Model(nn.Module):
                     slot[key][:, slots] = _cache_kv(
                         part, blob[key][:, S - take:], slot[key]).to(
                         slot[key].dtype)
+            if spec.mix == ATTN_MLA:
+                take = min(S, slot["latent"].shape[1])
+                slot["latent"][:, :take] = blob["latent"][:, S - take:]
             for key in ("h", "conv", "s", "shift_t", "shift_c"):
                 if key in blob:     # the token shifts: the rank's columns
                     slot[key].copy_(_share(part, blob[key], slot[key]))

@@ -107,7 +107,8 @@ def make_serve_step(model, params: Params = None,
 def make_prefill(model, cache_len: int, params: Params = None,
                  part: Optional[Partition] = None):
     """prefill(tokens, extras=None) -> (last-token logits (B, V), cache);
-    over a mesh the rank's rows and cache shard (module docstring)."""
+    over a mesh the rank's rows and cache shard (module docstring). The
+    head runs at the last position alone."""
     part = part or NO_PARTITION
 
     def prefill(tokens: torch.Tensor,
@@ -129,7 +130,7 @@ def make_prefill(model, cache_len: int, params: Params = None,
                     f" has rows_split={part.rows_split}")
             tokens, extras = batch["tokens"], batch.get("extras")
         logits, cache = model.prefill(tokens, cache_len, extras, params,
-                                      part)
+                                      part, last=True)
         last = _whole(part, logits[:, -1, :], model.cfg.vocab)
         return last.clone(), cache
 
@@ -233,9 +234,10 @@ class GraphedServeStep:
             raise ValueError(f"the cache must be a list of {len(cfg.layers)} "
                              f"layer dicts, got {type(cache).__name__}")
         batch = next(iter(cache[0].values())).shape[0]
-        # full-attention rings hold the cache length, local ones at most it
-        length = max((cb["k"].shape[1] for cb in cache if "k" in cb),
-                     default=1)
+        # full-attention rings and latent caches hold the cache length,
+        # local ones at most it
+        length = max((cb[key].shape[1] for cb in cache
+                      for key in ("k", "latent") if key in cb), default=1)
         meta = torch.device("meta")
         for n, (spec, cb) in enumerate(zip(cfg.layers, cache)):
             want = init_layer_cache(cfg, spec, batch, length, meta,

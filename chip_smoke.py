@@ -9,7 +9,8 @@ failure:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
-   ``rglru_scan``, ``rwkv6_step`` and ``decode_attention`` libraries from
+   ``rglru_scan``, ``rwkv6_step``, ``decode_attention`` and ``mla_decode``
+   libraries from
    their ``csrc/``, the first ``policy_scan`` design (``v0`` of
    ``tools/policy_scan_designs.cu``) and the first ``rglru_scan`` design
    (``tools/rglru_scan_designs.cu``, through ``tools/rglru_variants.py``
@@ -214,7 +215,13 @@ failure:
     bound (the valid K/V rows read once), its kernels' own device times,
     the plain version, ``scaled_dot_product_attention(enable_gqa=True)``
     (the library's yardstick, never called by the port), graph-launched,
-    with its registers and spills;
+    with its registers and spills; then ``mla_decode`` (the port's own, no
+    TPU counterpart) at portbench's kimi-k2-decode shape (B 32, 64 heads, a
+    4,608-position latent cache 576 wide) at positions 4,095, 4,351 and
+    4,607: bit for bit twice, within 2^-7 of a row's largest output of an
+    exact f64 softmax, timed from an idle card with the L2 cache flushed
+    beside its bound (the latent rows read once), its kernels' own device
+    times, the plain chain, graph-launched, with its registers and spills;
 13. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
     (28 layers, weights drawn on the card from the seed), 4 requests of 256
     seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
@@ -477,6 +484,14 @@ DA_SHAPE = (64, 512, 8, 6, 128)          # B, L, K, G, hd
 DA_POSITIONS = (255, 383, 511)
 DA_WINDOW = 4096
 DA_LONG = (1, 8192, 8, 6, 128)
+MLA_SOURCE = "src/repro_torch/kernels/mla_decode/csrc/mla_decode.cu"
+# mla_decode at portbench's kimi-k2-decode shape (kimi-k2-13L-ep48 under
+# longctx-b32-p4096-g512): 32 sequences, 64 heads, a 4,608-position latent
+# cache 576 wide (rank 512, rotary 64), at positions a batch's decode
+# reaches
+MLA_SHAPE = (32, 64, 4608)               # B, H, L
+MLA_POSITIONS = (4095, 4351, 4607)
+MLA_SCALE = 192 ** -0.5
 RW_SOURCE = "src/repro_torch/kernels/rwkv6_step/csrc/rwkv6_step.cu"
 # recurrent kernels: rglru_scan (B, S, R) at recurrentgemma-9b's d_rnn and
 # the ragged shapes (a decode step, its prefill length, an odd width);
@@ -1492,12 +1507,13 @@ def launch_window(fn):
     """``fn()`` with every launch count set to 0 just before it; returns
     its result and the counts it left, read just after."""
     from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.mla_decode import kernel as MK
     from repro_torch.kernels.paged_attention import kernel as AK
     from repro_torch.kernels.policy_scan import kernel as K
     from repro_torch.kernels.profile_cube import kernel as PK
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rwkv6_step import kernel as RWK
-    for mod in (K, PK, AK, RGK, RWK, DK):
+    for mod in (K, PK, AK, RGK, RWK, DK, MK):
         mod.reset_counters()
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
@@ -1516,7 +1532,9 @@ def launch_window(fn):
                  "rwkv6_step": RWK.rwkv6_step_launches,
                  "decode_attention": DK.decode_attention_launches,
                  "decode_attention_combine":
-                     DK.decode_attention_combine_launches}
+                     DK.decode_attention_combine_launches,
+                 "mla_decode": MK.mla_decode_launches,
+                 "mla_decode_combine": MK.mla_decode_combine_launches}
 
 
 def only(**launches) -> dict:
@@ -1525,12 +1543,13 @@ def only(**launches) -> dict:
     aggregates, ``policy_scan_store_lean`` the lean form, the ``_scoped``
     counts their scoped forms, ``profile_cube_scoped`` the scoped cube,
     ``rglru_scan_bwd`` the gradient of ``rglru_scan``,
-    ``decode_attention_combine`` the combine of ``decode_attention``)."""
+    ``decode_attention_combine`` the combine of ``decode_attention``,
+    ``mla_decode_combine`` that of ``mla_decode``)."""
     want = dict.fromkeys(list(TPU_KERNELS) + [
         "policy_scan_store", "policy_scan_store_lean",
         "policy_scan_store_scoped", "policy_scan_store_scoped_lean",
         "profile_cube_scoped", "rglru_scan_bwd", "decode_attention",
-        "decode_attention_combine"], 0)
+        "decode_attention_combine", "mla_decode", "mla_decode_combine"], 0)
     want.update(launches)
     return want
 
@@ -4218,6 +4237,117 @@ def decode_attn_phase(torch, seed, device, own: dict) -> None:
         "configs": cases}
 
 
+def mla_bound_ms(B: int, H: int, pos: int):
+    """The latent rows of positions 0..pos read once
+    (``portbench/count/mla_moe.latent_bytes`` of one layer), qf read and
+    the output written once, over the memory rate. Returns (ms, bytes)."""
+    from portbench.count.mla_moe import latent_bytes
+    nbytes = latent_bytes({"num_hidden_layers": 1, "kv_lora_rank": 512,
+                           "qk_rope_head_dim": 64}, B, pos + 1) \
+        + B * H * (576 + 512) * 2
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def mla_decode_case(torch, shape, pos: int, seed: int, device,
+                    flush) -> dict:
+    """The kernel at ``shape`` = (B, H, L) at position ``pos``: equal to
+    itself bit for bit on a second call, within 2^-7 of a row's largest
+    output of an exact f64 softmax (the card test's tolerance; the plain
+    chain's error beside it), then timed from an idle card with the L2
+    cache flushed (CUDA events, median of REPS) beside its kernels' own
+    device times, graph-launched, its bound and the plain chain."""
+    from repro_torch.kernels.mla_decode import kernel as MK
+    from repro_torch.kernels.mla_decode import ref as MR
+    B, H, L = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + pos)
+    qf = torch.randn((B, H, 576), generator=g, device=device).to(
+        torch.bfloat16)
+    lat = torch.randn((B, L, 576), generator=g, device=device).to(
+        torch.bfloat16)
+    pos_t = torch.tensor(pos, device=device)
+
+    def call():
+        return MK.mla_decode_cuda(qf, lat, pos_t, MLA_SCALE, 512)
+
+    def plain():
+        return MR.mla_decode_ref(qf, lat, pos_t, MLA_SCALE, 512)
+    out, again = call(), call()
+    want = plain()
+    torch.cuda.synchronize()
+    name = f"B{B} H{H} L{L} pos {pos}"
+    check(torch.equal(out, again), f"mla_decode {name}: the kernel differs "
+          "from run to run")
+    exact = torch.zeros((B, H, 512), dtype=torch.float64, device=device)
+    for b in range(B):
+        s = (qf[b].double() @ lat[b, :pos + 1].double().T) * MLA_SCALE
+        exact[b] = torch.softmax(s, dim=-1) @ lat[b, :pos + 1, :512].double()
+    top = exact.abs().amax(dim=-1)
+
+    def rel(t):
+        return float(((t.double() - exact).abs().amax(dim=-1) / top).max()
+                     .item())
+    err, plain_err = rel(out), rel(want)
+    del exact, top
+    check(err <= 2.0 ** -7, f"mla_decode {name}: the kernel is {err!r} of a "
+          f"row's largest output from the exact softmax (plain chain "
+          f"{plain_err!r})")
+    ms, times = cuda_times_ms(call, REPS, flush=flush)
+    plain_ms, _ = cuda_times_ms(plain, REPS, flush=flush)
+    kern = {k2: v2 for k2, v2 in kernel_device_ms(
+        torch, call, REPS, flush=flush).items() if "mla_decode::" in k2}
+    check(len(kern) == 2, f"mla_decode {name}: the profile shows the "
+          f"kernels {sorted(kern)}")
+    dev = sum(t * n for t, n in kern.values())
+    split_dev = sum(t * n for k2, (t, n) in kern.items()
+                    if "split_kernel" in k2)
+    graph_ms, _ = graph_call_ms(torch, call)
+    bound, nbytes = mla_bound_ms(B, H, pos)
+    shape_info = MK.launch_shape(B, H, L)
+    entry = dict(shape=list(shape), pos=pos, ms=ms, device_ms=dev,
+                 split_device_ms=split_dev,
+                 kernels={k2: list(v2) for k2, v2 in kern.items()},
+                 graph_call_ms=graph_ms, plain_ms=plain_ms, library_ms=None,
+                 bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                 max_rel_err=err, plain_max_rel_err=plain_err,
+                 max_abs_err=float((out.float() - want.float()).abs().max()
+                                   .item()),
+                 launch_shape=shape_info)
+    log(f"[mla_decode] {name} bf16 {CARD}: kernel {ms!r} ms from an idle "
+        f"card, L2 flushed (median of {len(times)}, min {min(times)!r}, max "
+        f"{max(times)!r}); own device time {dev!r} ms (split {split_dev!r};"
+        f" {json.dumps(entry['kernels'])}; torch.profiler); graph-launched "
+        f"{graph_ms!r} ms a call; bound {bound!r} ms by bytes ({nbytes} B): "
+        f"{bound / ms:.3f} of it by the call, {bound / dev:.3f} by the "
+        f"device time, {bound / graph_ms:.3f} graph-launched; plain "
+        f"{plain_ms!r} ms; error {err!r} of a row's largest output from "
+        f"the exact softmax (plain chain {plain_err!r}), bit for bit twice; "
+        f"launch {json.dumps(shape_info)}")
+    return entry
+
+
+def mla_decode_phase(torch, seed, device, own: dict) -> None:
+    """``mla_decode`` (a kernel of the port's own: it counterparts no TPU
+    kernel) at kimi-k2-decode's shape at each of MLA_POSITIONS; recorded in
+    ``own``."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    cases = {f"pos {pos}": mla_decode_case(torch, MLA_SHAPE, pos, seed,
+                                           device, flush)
+             for pos in MLA_POSITIONS}
+    del flush
+    main = cases[f"pos {MLA_POSITIONS[1]}"]
+    own["mla_decode"] = {
+        "name": "mla_decode", "route": "cuda", "source": MLA_SOURCE,
+        "replaces": None, "launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "error_against": "the plain chain on the same tensors",
+        "configs": cases}
+
+
 def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
     """``n`` decode steps from ``cache`` under ``torch.profiler``: the wall
     seconds, the count of CUDA operations and the five largest by device
@@ -6220,6 +6350,7 @@ def main() -> None:
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rwkv6_step import kernel as RWK
     from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.mla_decode import kernel as MK
     global CARD
 
     # 1. environment
@@ -6253,7 +6384,7 @@ def main() -> None:
         rg_fut = pool.submit(timed_build, build_first_rglru)
         builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
                                              RGK.build, RWK.build,
-                                             DK.build)))
+                                             DK.build, MK.build)))
         (first, first_ptxas), first_secs = first_fut.result()
         rg_first, rg_secs = rg_fut.result()
     for lib, secs in builds:
@@ -6277,6 +6408,7 @@ def main() -> None:
     attn_phase(torch, args.seed, device, results)
     recurrent_kernel_phase(torch, args.seed, device, results, rg_designs)
     decode_attn_phase(torch, args.seed, device, own)
+    mla_decode_phase(torch, args.seed, device, own)
     t0 = time.perf_counter()
     cat = build_catalog(ENTRIES, args.seed)
     log(f"[engine] catalog of {len(cat)} entries built in "

@@ -63,10 +63,12 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels.mla_decode import ops as mla_ops
+from ..kernels.mla_decode import ref as mla_ref
 from . import rwkv6 as rk
 from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
-from .components import (_rglru_gates, attention, matmul_f32,
+from .components import (_rglru_gates, attention,
                          causal_attention_blocks, causal_conv1d, gelu_mlp,
                          layer_norm, moe_forward, moe_held_forward,
                          rglru_scan, rglru_step, rms_norm, rope, softcap,
@@ -623,10 +625,13 @@ def _mla_step_(cfg: ModelConfig, p, cache: Dict[str, torch.Tensor],
     """One decode position of latent attention in the absorbed form,
     writing its latent into ``cache["latent"]``: ``q_nope`` taken into the
     latent space through ``kv_b``'s key half, scores ``q_lat . c_kv +
-    q_pe . k_pe`` and ``p . c_kv`` as batched products over the latent
-    cache (bf16 operands, f32 scores and softmax), then out through
-    ``kv_b``'s value half and ``wo``. Device spans ``.q``, ``.kv_write``,
-    ``.attend`` and ``.out``."""
+    q_pe . k_pe`` and ``p . c_kv`` over the latent cache (bf16 operands,
+    f32 scores and softmax), then out through ``kv_b``'s value half and
+    ``wo``. The scores through ``p . c_kv`` run in the ``mla_decode``
+    kernel where it takes the tensors (``mla_decode.ops.takes``: CUDA, a
+    bf16 cache of rank 512, heads a multiple of 64), else as the plain
+    chain of batched products (``mla_decode.ref``). Device spans ``.q``,
+    ``.kv_write``, ``.attend`` and ``.out``."""
     m, H = cfg.mla, cfg.n_heads
     B = h.shape[0]
     R, nope = m.kv_lora_rank, m.qk_nope_head_dim
@@ -644,11 +649,9 @@ def _mla_step_(cfg: ModelConfig, p, cache: Dict[str, torch.Tensor],
         q_lat = torch.bmm(q[..., :nope].transpose(0, 1),
                           wkv[..., :nope].permute(1, 2, 0))  # (H, B, R)
         qf = torch.cat([q_lat.transpose(0, 1), q[..., nope:]], dim=-1)
-        s = matmul_f32(qf, lat.transpose(1, 2)) * scale     # (B, H, L)
-        idx = torch.arange(L, device=h.device)
-        s = s.masked_fill(idx > pos_t, float("-inf"))
-        o_lat = torch.bmm(torch.softmax(s, dim=-1).to(lat.dtype),
-                          lat[..., :R])                     # (B, H, R)
+        attend = (mla_ops.mla_decode if mla_ops.takes(qf, lat, R)
+                  else mla_ref.mla_decode_ref)
+        o_lat = attend(qf, lat, pos_t, scale, R)            # (B, H, R)
     with spans.device_span(".out"):
         o = torch.bmm(o_lat.transpose(0, 1),
                       wkv[..., nope:].permute(1, 0, 2))     # (H, B, dv)

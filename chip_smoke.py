@@ -10,12 +10,8 @@ failure:
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
    ``rglru_scan``, ``rwkv6_step``, ``decode_attention`` and ``mla_decode``
-   libraries from
-   their ``csrc/``, the first ``policy_scan`` design (``v0`` of
-   ``tools/policy_scan_designs.cu``) and the first ``rglru_scan`` design
-   (``tools/rglru_scan_designs.cu``, through ``tools/rglru_variants.py``
-   with ``-Xptxas -v``: registers, spills, shared memory), one ``nvcc``
-   each, started together, with each build time;
+   libraries from their ``csrc/``, one ``nvcc`` each, started together,
+   with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
@@ -25,9 +21,9 @@ failure:
    program's aggregates must equal the batch's program 0 bit for bit;
    each is timed with CUDA events (median after a warm-up) beside the
    least time the card could take, its scan and reduce kernels' own
-   device times (``torch.profiler``), its grid and ring stages, and the
-   first design in turns (first, this, this, first; an older ``csrc/`` is
-   compared with ``tools/scan_variants.py --parent``); then a batch of
+   device times (``torch.profiler``), its grid and ring stages (an older
+   ``csrc/`` is compared with ``tools/scan_variants.py --parent``); then a
+   batch of
    ``BATCH_CRITERIA`` and ``WIDE_CRITERIA`` (programs that read all 16
    kernel columns, so the kernel stages half tiles) is held to the plain
    version the same way and timed;
@@ -196,9 +192,8 @@ failure:
     1.6 GB), at S 1, S 2016, R 100 and the training path's (2, 2560,
     4096), each with and without ``h0``, equal to its plain version bit for
     bit (``torch.equal``), and at (2, 2560, 4096), (4, 2016, 4096) and
-    (8, 4096, 4096) timed in turns with the first design (both launched
-    through their C entry points, each equal to the plain version), its
-    decode step too, graph-launched; ``rwkv6_step`` at
+    (8, 4096, 4096) timed beside its bound, with its own device time;
+    ``rwkv6_step`` at
     rwkv6-1.6b's heads (B 256, H 32, hd 64: a 134 MB state), at hd 16 and
     at B 1, y within rtol 1e-5 and atol 1e-5 sum_i |r_i| (|S_ij| +
     |u_i k_i v_j|), the state within ``rtol=atol=1e-6``; both must repeat
@@ -266,7 +261,7 @@ failure:
     dlog_a, db and dh0 equal to ``rglru_bwd_ref`` on the card
     (``torch.equal``) on two calls, the forward at the same shapes equal
     to ``rglru_ref``, timed from an idle card beside its bound and the
-    plain version, and in turns with the first design; (b)
+    plain version; (b)
     recurrentgemma-9b at its published widths cut to 5 layers (one (rec,
     rec, local) superblock and 2 tail recurrent layers, 2.17 B
     parameters) trained 8 steps through ``launch.train.run``
@@ -499,9 +494,9 @@ RW_SOURCE = "src/repro_torch/kernels/rwkv6_step/csrc/rwkv6_step.cu"
 RG_SHAPE = (8, 4096, 4096)
 RG_RAGGED = ((8, 1, 4096), (4, 2016, 4096), (8, 4096, 100))
 RG_TRAIN = (2, 2560, 4096)      # the training path's forward and gradient
-# forward shapes timed in turns with the first design: training, serving
-# prefill, the kernel phase's
-RG_TURN_SHAPES = (RG_TRAIN, (4, 2016, 4096), RG_SHAPE)
+# forward shapes timed beside their bound: training, serving prefill, the
+# kernel phase's
+RG_TIMED_SHAPES = (RG_TRAIN, (4, 2016, 4096), RG_SHAPE)
 RW_SHAPE = (256, 32, 64)
 RW_RAGGED = ((256, 32, 16), (1, 32, 64))
 # the serving paths' shapes: a recurrentgemma-9b decode step (4 prompts)
@@ -666,78 +661,7 @@ def make_columns(torch, n: int, seed: int, device):
     return cols
 
 
-def scan_variants():
-    """``tools/scan_variants.py`` as a module."""
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import scan_variants as sv
-    return sv
-
-
-def build_first_scan():
-    """The first ``policy_scan`` design (``v0`` of
-    ``tools/policy_scan_designs.cu``), built under ``build/``."""
-    sv = scan_variants()
-    built = sv.build("first", sv.sources(["v0"])["v0"],
-                     os.path.join(ROOT, "build", "scan_variants"))
-    return sv.Variant("first", built["lib"]), built["ptxas"]
-
-
-def rglru_variants():
-    """``tools/rglru_variants.py`` as a module."""
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import rglru_variants as rv
-    return rv
-
-
-def build_first_rglru() -> dict:
-    """The first ``rglru_scan`` design (``tools/rglru_scan_designs.cu``)
-    built by ``tools/rglru_variants.py`` with ``-Xptxas -v`` under
-    ``build/``: its library and ptxas report."""
-    return rglru_variants().build("first", os.path.join(ROOT, "build",
-                                                        "rglru_variants"))
-
-
-def rglru_designs(first=None) -> dict:
-    """The first design (built first unless ``first`` holds it) and the
-    package's own library as ``kernel._lib()`` loaded it ("current"), each
-    launched through its C entry points: name ->
-    (``rglru_variants.Variant``, the first's ptxas report or None; the
-    package's registers and spills are in ``kernel.ring_shape``)."""
-    from repro_torch.kernels.rglru_scan import kernel as RGK
-    rv = rglru_variants()
-    first = first or build_first_rglru()
-    return {"first": (rv.Variant("first", first["lib"]), first["ptxas"]),
-            "current": (rv.Variant("current", RGK._lib()), None)}
-
-
-def rglru_design_calls(torch, designs: dict, what: str, want, launch):
-    """For each design, ``launch(variant, outs)`` into new outputs shaped
-    as ``want`` (a tensor, or a tuple of them), which must then equal
-    ``want`` bit for bit: name -> that call, with no arguments, for
-    timing."""
-    want = want if isinstance(want, tuple) else (want,)
-    calls = {}
-    for s, (v, _) in designs.items():
-        outs = tuple(torch.empty_like(w) for w in want)
-        launch(v, outs)
-        torch.cuda.synchronize()
-        check(all(torch.equal(o, w) for o, w in zip(outs, want)),
-              f"rglru_scan design {s!r} {what}: differs from the plain "
-              "version")
-        calls[s] = lambda v=v, outs=outs: launch(v, outs)
-    return calls
-
-
-def rglru_turns(designs: dict, calls: dict) -> dict:
-    """Each design's call timed in turns, first, current, current, first,
-    ``REPS // 2`` calls from an idle card each time (CUDA events): name ->
-    (median of the ``REPS`` times, the times)."""
-    times = rglru_variants().in_turns(
-        calls, 2, REPS // 2, lambda fn, n: cuda_times_ms(fn, n)[1])
-    return {s: (statistics.median(t), t) for s, t in times.items()}
-
-
-def kernel_phase(torch, seed, device, results, first=None):
+def kernel_phase(torch, seed, device, results):
     from repro_torch.core.catalog import StringTable
     from repro_torch.core.policy import (KERNEL_COLUMNS, compile_programs,
                                          parse_expr)
@@ -831,13 +755,12 @@ def kernel_phase(torch, seed, device, results, first=None):
             single_err, single_rel),
     }
     calls = {"policy_scan_batch": (
-                 lambda: K.policy_scan_batch_cuda(cols, *prog, **kw),
-                 prog, True),
+                 lambda: K.policy_scan_batch_cuda(cols, *prog, **kw), prog),
              "policy_scan": (lambda: K.policy_scan_cuda(cols, *p0, **kw),
-                             [p[None] for p in p0], False)}
+                             [p[None] for p in p0])}
     for name, ((ms, times), (plain_ms, _), (bms, by, nbytes, nops), err,
                rel) in timings.items():
-        call, pr, with_rule = calls[name]
+        call, pr = calls[name]
         shape = K.launch_shape(cols, pr[0], pr[1], **kw)
         ring = shape["passes"][0]
         kern = kernel_device_ms(torch, call, REPS)
@@ -857,19 +780,6 @@ def kernel_phase(torch, seed, device, results, first=None):
                 ops.shape[0] if name == "policy_scan_batch" else 1),
             "device_ms": dev_ms, "grid": shape["grid"],
             "stages": ring["stages"], "stage_rows": ring["stage_rows"]}
-        if first is not None:
-            # the first design beside this one in turns on this card:
-            # first, this, this, first (CUDA events, medians of REPS)
-            first_call = (lambda: first(cols, *pr, with_rule, kw))
-            turns = {"first": [], "this": []}
-            for who in ("first", "this", "this", "first"):
-                turns[who].append(cuda_times_ms(
-                    first_call if who == "first" else call, REPS)[0])
-            log(f"[kernels] {name} in turns (ms, first design/this): "
-                f"{json.dumps(turns)}")
-            results[name]["first_design_ms"] = statistics.median(
-                turns["first"])
-            results[name]["turns_ms"] = statistics.median(turns["this"])
     wide_phase(torch, K, R, cols, st, kw, results)
     store_kernel_phase(torch, K, R, cols, prog, ops, colidx, kw, results)
     del cols
@@ -3941,47 +3851,48 @@ def path_shape_times(torch, name: str, shape, call) -> dict:
                 graph_call_ms=graph_ms)
 
 
-def rglru_fwd_turns(torch, designs, name, shape, la, b, h0) -> dict:
-    """The forward at ``shape`` (with h0) through each design's C entry
-    point: equal to ``rglru_ref`` bit for bit, then timed in turns
-    (``rglru_turns``) beside its bound, with the package kernel's own
-    device time (``torch.profiler``)."""
+def rglru_fwd_times(torch, name, shape, la, b, h0, want) -> dict:
+    """The forward at ``shape`` (with h0) through the library's C entry
+    point into a ready output, which must equal ``want`` (the op's result)
+    bit for bit, then timed from an idle card (CUDA events, median of
+    REPS) beside its bound, with the kernel's own device time
+    (``torch.profiler``)."""
+    from repro_torch.kernels import _launches
     from repro_torch.kernels.rglru_scan import kernel as RGK
-    from repro_torch.kernels.rglru_scan import ref as RGR
-    turns = rglru_turns(designs, rglru_design_calls(
-        torch, designs, name, RGR.rglru_ref(la, b, h0),
-        lambda v, o: v.fwd(la, b, h0, *o)))
+    idx, lib, out = la.device.index, RGK._lib(la.device.index), \
+        torch.empty_like(la)
+
+    def call():
+        RGK.LIBRARY.check(_launches.launch(
+            lib.rglru_scan_launch, idx, la.data_ptr(), b.data_ptr(),
+            h0.data_ptr(), out.data_ptr(), *shape), "launch")
+    call()
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), f"rglru_scan {name}: the C entry point "
+          "differs from rglru_scan_cuda")
+    ms, times = cuda_times_ms(call, REPS)
     part = ("rglru_ring_kernel" if RGK.uses_ring(shape[1], shape[2])
             else "rglru_scan_kernel")
-    dev = one_kernel_ms(kernel_device_ms(
-        torch, lambda: RGK.rglru_scan_cuda(la, b, h0), REPS), part,
-        f"rglru_scan {name}")
+    dev = one_kernel_ms(kernel_device_ms(torch, call, REPS), part,
+                        f"rglru_scan {name}")
     bound, by, nbytes, ops = rglru_bound_ms(shape, True)
-    out = dict(turns={s: dict(ms=ms, times=t) for s, (ms, t) in
-                      turns.items()},
-               device_ms=dev, bound_ms=bound, bound_by=by, bytes=nbytes,
-               ops=ops)
-    log(f"[recurrent] rglru_scan {name} {CARD}, in turns (first, current, "
-        f"current, first; C entry point, median of {REPS} each): "
-        + "; ".join(f"{s} {ms!r} ms ({bound / ms:.3f} of the bound, min "
-                    f"{min(t)!r}, max {max(t)!r})"
-                    for s, (ms, t) in turns.items())
-        + f"; bound {bound!r} ms by {by} ({nbytes} B, {ops} f32 ops); the "
-        f"package kernel's own device time {dev!r} ms (torch.profiler, mean "
-        f"of {REPS}); every design equal to rglru_ref bit for bit")
-    return out
+    log(f"[recurrent] rglru_scan {name} {CARD}: kernel {ms!r} ms (C entry "
+        f"point, median of {len(times)}, min {min(times)!r}, max "
+        f"{max(times)!r}; {bound / ms:.3f} of the bound); bound {bound!r} ms "
+        f"by {by} ({nbytes} B, {ops} f32 ops); its own device time {dev!r} "
+        f"ms (torch.profiler, mean of {REPS}); equal to the plain version "
+        "bit for bit, twice")
+    return dict(ms=ms, times=times, device_ms=dev, bound_ms=bound,
+                bound_by=by, bytes=nbytes, ops=ops)
 
 
-def recurrent_kernel_phase(torch, seed, device, results, designs=None):
+def recurrent_kernel_phase(torch, seed, device, results):
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rglru_scan import ref as RGR
     from repro_torch.kernels.rwkv6_step import kernel as RWK
     from repro_torch.kernels.rwkv6_step import ref as RWR
-    designs = designs or rglru_designs()
     rings = {"forward": RGK.ring_shape(False),
              "gradient": RGK.ring_shape(True)}
-    log(f"[recurrent] rglru_scan first design (-Xptxas -v; its kernels are "
-        f"the package's direct kernels line for line): {json.dumps(designs['first'][1])}")
     log(f"[recurrent] rglru_scan ring kernels on {CARD} (registers and "
         f"local bytes a thread from cudaFuncGetAttributes): "
         f"{json.dumps(rings)}")
@@ -4007,40 +3918,30 @@ def recurrent_kernel_phase(torch, seed, device, results, designs=None):
                   f"plain version: max abs err {err!r}")
             entry = dict(max_abs_err=err, bit_identical=same,
                          ring=RGK.uses_ring(shape[1], shape[2]))
-            if shape == RG_SHAPE and with_h0:
-                entry["ms"], times = cuda_times_ms(
-                    lambda: RGK.rglru_scan_cuda(*args), REPS)
-                entry["plain_ms"], _ = cuda_times_ms(
-                    lambda: RGR.rglru_ref(la, b, h0), REPS)
-                log(f"[recurrent] rglru_scan {name} {CARD}: kernel "
-                    f"{entry['ms']!r} ms through rglru_scan_cuda (median of "
-                    f"{len(times)}, min {min(times)!r}, max {max(times)!r}); "
-                    f"plain {entry['plain_ms']!r} ms")
-            if shape in RG_TURN_SHAPES and with_h0:
-                entry.update(rglru_fwd_turns(torch, designs, name, shape, la,
-                                             b, h0))
+            if shape in RG_TIMED_SHAPES and with_h0:
+                entry.update(rglru_fwd_times(torch, name, shape, la, b, h0,
+                                             got))
             else:
                 log(f"[recurrent] rglru_scan {name}: equal to the plain "
                     f"version bit for bit, twice (ring kernel: "
                     f"{entry['ring']})")
+            if shape == RG_SHAPE and with_h0:
+                entry["plain_ms"], _ = cuda_times_ms(
+                    lambda: RGR.rglru_ref(la, b, h0), REPS)
+                log(f"[recurrent] rglru_scan {name} {CARD}: plain "
+                    f"{entry['plain_ms']!r} ms")
             configs[name] = entry
             del got, again
         del la, b, h0
         torch.cuda.empty_cache()
     main = configs[f"B{RG_SHAPE[0]} S{RG_SHAPE[1]} R{RG_SHAPE[2]} h0"]
     la, b, h0 = rglru_inputs(torch, RG_PATH, seed + 25, device)
+    check(torch.equal(RGK.rglru_scan_cuda(la, b, h0),
+                      RGR.rglru_ref(la, b, h0)),
+          f"rglru_scan decode step {RG_PATH}: the kernel differs from the "
+          "plain version")
     path = path_shape_times(torch, "rglru_scan", RG_PATH,
                             lambda: RGK.rglru_scan_cuda(la, b, h0))
-    # the decode step graph-launched, the first design and csrc/ in turns
-    graphed = rglru_variants().in_turns(rglru_design_calls(
-        torch, designs, f"decode step {RG_PATH}", RGR.rglru_ref(la, b, h0),
-        lambda v, o: v.fwd(la, b, h0, *o)), 2, 1,
-        lambda fn, _: [graph_call_ms(torch, fn)[0]])
-    path["graph_turns"] = {s: dict(ms=statistics.median(t), each_turn=t)
-                           for s, t in graphed.items()}
-    log(f"[recurrent] rglru_scan decode {RG_PATH} {CARD}, in turns (first, "
-        f"current, current, first), graph-launched ms a call: "
-        f"{json.dumps(path['graph_turns'])}")
     del la, b, h0
     results["rglru_scan"] = {
         "name": "rglru_scan", "route": "cuda", "source": RG_SOURCE,
@@ -4052,7 +3953,7 @@ def recurrent_kernel_phase(torch, seed, device, results, designs=None):
         "library": "none: no single PyTorch call computes it",
         "error_against": "the plain version on the same tensors "
                          "(torch.equal)",
-        "first_design": designs["first"][1], "rings": rings,
+        "rings": rings,
         "configs": configs, "decode_shape": path}
 
     # rwkv6_step at rwkv6-1.6b's heads, then hd 16 and B = 1
@@ -4722,16 +4623,14 @@ def rglru_bwd_bound_ms(shape, with_h0: bool):
             else "operations", nbytes, ops)
 
 
-def train_kernel_phase(torch, seed, device, results, designs=None):
+def train_kernel_phase(torch, seed, device, results):
     """The gradient kernel at RG_BWD_SHAPES, with and without h0: dlog_a,
     db and dh0 equal to ``rglru_bwd_ref`` on the card (``torch.equal``) and
     again on a second call; the forward at the same shape equal to
     ``rglru_ref`` too; timed from an idle card beside its bound and the
-    plain version, and in turns with the first design (``rglru_turns``,
-    each design's C entry point, each equal to ``rglru_bwd_ref``)."""
+    plain version."""
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rglru_scan import ref as RGR
-    designs = designs or rglru_designs()
     configs = {}
     for i, shape in enumerate(RG_BWD_SHAPES):
         la, b, h0 = rglru_inputs(torch, shape, seed + 50 + i, device)
@@ -4769,17 +4668,6 @@ def train_kernel_phase(torch, seed, device, results, designs=None):
                     lambda: RGR.rglru_bwd_ref(la, h, gh, h0), 3, warmup=1)
                 (entry["bound_ms"], entry["bound_by"], entry["bytes"],
                  entry["ops"]) = rglru_bwd_bound_ms(shape, True)
-                turns = rglru_turns(designs, rglru_design_calls(
-                    torch, designs, f"backward {name}", tuple(want),
-                    lambda v, o: v.bwd(la, h, gh, h0, *o)))
-                entry["turns"] = {s: dict(ms=ms, times=t)
-                                  for s, (ms, t) in turns.items()}
-                log(f"[train] rglru_scan backward {name} {CARD}, in turns "
-                    f"(first, current, current, first; C entry point, "
-                    f"median of {REPS} each): " + "; ".join(
-                        f"{s} {ms!r} ms ({entry['bound_ms'] / ms:.3f} of the "
-                        f"bound, min {min(t)!r}, max {max(t)!r})"
-                        for s, (ms, t) in turns.items()))
                 log(f"[train] rglru_scan backward {name} {CARD}: kernel "
                     f"{entry['ms']!r} ms (median of {len(times)}, min "
                     f"{min(times)!r}, max {max(times)!r}); plain "
@@ -5042,10 +4930,10 @@ def train_restart_phase(torch, seed, device, results):
         cpu_losses=cpu["losses"], max_cpu_diff=max(diffs))
 
 
-def train_phase(torch, seed, device, results, designs=None):
+def train_phase(torch, seed, device, results):
     """Returns the full-width phase's model and state, for ``dist_phase``."""
     t0 = time.perf_counter()
-    train_kernel_phase(torch, seed, device, results, designs)
+    train_kernel_phase(torch, seed, device, results)
     trained = train_full_phase(torch, seed, device, results)
     train_restart_phase(torch, seed, device, results)
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
@@ -6379,21 +6267,11 @@ def main() -> None:
     def timed_build(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        first_fut = pool.submit(timed_build, build_first_scan)
-        rg_fut = pool.submit(timed_build, build_first_rglru)
-        builds = list(pool.map(timed_build, (K.build, PK.build, AK.build,
-                                             RGK.build, RWK.build,
-                                             DK.build, MK.build)))
-        (first, first_ptxas), first_secs = first_fut.result()
-        rg_first, rg_secs = rg_fut.result()
+    with ThreadPoolExecutor(max_workers=7) as pool:
+        builds = list(pool.map(timed_build, (
+            M.LIBRARY.build for M in (K, PK, AK, RGK, RWK, DK, MK))))
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
-    log(f"[build] the first policy_scan design (tools/policy_scan_designs.cu"
-        f" v0) in {first_secs:.2f} s: {json.dumps(first_ptxas)}")
-    log(f"[build] the first rglru_scan design (tools/rglru_scan_designs.cu)"
-        f" in {rg_secs:.2f} s")
-    rg_designs = rglru_designs(rg_first)
 
     # 3.-5. kernels at device scale, 6. the engine's main path, 7. the
     # store engine, 8. the store's reports, 9. collect, 10. reports, 11.
@@ -6403,10 +6281,10 @@ def main() -> None:
     # distribution, 17. the rest of the model zoo served, 18. and trained
     results: dict = {}
     own: dict = {}              # kernels that counterpart no TPU kernel
-    kernel_phase(torch, args.seed, device, results, first)
+    kernel_phase(torch, args.seed, device, results)
     cube_phase(torch, args.seed, device, results)
     attn_phase(torch, args.seed, device, results)
-    recurrent_kernel_phase(torch, args.seed, device, results, rg_designs)
+    recurrent_kernel_phase(torch, args.seed, device, results)
     decode_attn_phase(torch, args.seed, device, own)
     mla_decode_phase(torch, args.seed, device, own)
     t0 = time.perf_counter()
@@ -6423,7 +6301,7 @@ def main() -> None:
     for arch, batch, prompt_len, new, cache_len in RECURRENT_SERVE:
         recurrent_serve_phase(torch, args.seed, device, results, arch, batch,
                               prompt_len, new, cache_len)
-    trained = train_phase(torch, args.seed, device, results, rg_designs)
+    trained = train_phase(torch, args.seed, device, results)
     dist_phase(torch, device, results, trained, dry, work)
     del trained
     zoo: dict = {}

@@ -5,11 +5,16 @@ Each kernel directory ships:
 * ``ref.py``    — the plain PyTorch version (any device; the CPU tests and
   the on-card comparisons use it);
 * ``csrc/``     — the CUDA C++ sources, compiled for ``sm_90a`` at first use;
-* ``kernel.py`` — the build, the ctypes bindings and the launch counters;
+* ``kernel.py`` — its ``_build.Library`` (the argtypes its ``bind`` sets),
+  the argument checks, the launches and the launch counters;
 * ``ops.py``    — the public ops: the kernel for CUDA tensors, the plain
   version for CPU tensors, nothing else.
 
-``_build.py`` compiles every package's ``csrc/`` with ``nvcc``.
+``_build.py`` holds the binding every package shares: ``Library`` compiles
+a package's ``csrc/`` with ``nvcc``, loads it once, binds it and turns the
+CUDA error codes of its functions into exceptions. ``_launches.py`` holds
+the launch counters' reset and capture, the launch on the current stream,
+and ``kernel_for``, the ``use_kernel``-versus-device rule of every op.
 
 Kernels:
 
@@ -27,5 +32,9 @@ Kernels:
 * ``rwkv6_step`` — RWKV6's decode-step state update and readout;
 * ``decode_attention`` — the decode step's grouped-query attention over a
   contiguous K/V cache, each cached row read once for its query heads (no
-  TPU counterpart: the reference's attention is plain JAX).
+  TPU counterpart: the reference's attention is plain JAX);
+* ``mla_decode`` — the absorbed decode step's multi-head latent attention
+  over the latent cache, each 576-wide latent row read once for all 64
+  query heads of a block, the products on the tensor cores (no TPU
+  counterpart: the reference's latent attention is plain JAX).
 """

@@ -8,16 +8,22 @@ repository root (or in ``$REPRO_TORCH_BUILD_DIR``), named by a hash of its
 sources and the flags, so a changed source is rebuilt and never confused
 with an old build. Two packages may build at the same time: each ``nvcc``
 writes a temporary file that is renamed into place.
+
+Each package's ``kernel.py`` holds one :class:`Library`: the build, the
+load (once, whichever threads ask first), the bindings its ``bind`` sets,
+and the library's own text for a CUDA error code its functions return.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -49,30 +55,68 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def library_path(name: str, csrc: Path, files: Sequence[str]) -> Path:
-    """``lib<name>_<hash>.so`` in :func:`build_dir`, the hash taken over
-    the flags and every file of ``files`` (sources and headers)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in files:
-        h.update((csrc / f).read_bytes())
-    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+class Library:
+    """The shared library ``lib<name>_<hash>.so`` of ``sources`` in
+    ``csrc`` (``headers`` are hashed, not compiled). ``bind(lib)`` sets the
+    argtypes and restypes of its functions once it is loaded;
+    ``<name>_error_string`` is bound here."""
 
+    def __init__(self, name: str, csrc: Path, sources: Sequence[str],
+                 bind: Callable[[ctypes.CDLL], None],
+                 headers: Sequence[str] = ()):
+        self.name, self.csrc, self.bind = name, csrc, bind
+        self.sources, self.headers = tuple(sources), tuple(headers)
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
 
-def build(name: str, csrc: Path, sources: Sequence[str],
-          headers: Sequence[str] = ()) -> Path:
-    """Compile ``sources`` of ``csrc`` into ``lib<name>_<hash>.so`` unless
-    it already exists. Returns its path."""
-    out = library_path(name, csrc, tuple(sources) + tuple(headers))
-    if out.exists():
+    def path(self) -> Path:
+        """Where the library lies in :func:`build_dir`, the hash taken over
+        the flags and every source and header."""
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for f in self.sources + self.headers:
+            h.update((self.csrc / f).read_bytes())
+        return build_dir() / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the sources unless the library already exists. Returns
+        its path."""
+        out = self.path()
+        if out.exists():
+            return out
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *(str(self.csrc / s) for s in self.sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {self.name} "
+                               f"({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)         # atomic: concurrent builds race safely
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(csrc / s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)             # atomic: concurrent builds race safely
-    return out
+
+    def get(self) -> ctypes.CDLL:
+        """The library, built if need be, loaded and bound once however
+        many threads ask at first."""
+        lib = self._lib
+        if lib is not None:
+            return lib
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.build()))
+                self.bind(lib)
+                err = getattr(lib, f"{self.name}_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._lib = lib
+            return self._lib
+
+    def check(self, err: int, what: str) -> None:
+        """Raises ``RuntimeError`` with the library's own text for ``err``,
+        a CUDA error code one of its functions returned, unless it is 0."""
+        if err != 0:
+            text = getattr(self.get(), f"{self.name}_error_string")(err)
+            raise RuntimeError(f"{self.name} {what} failed: "
+                               f"{text.decode()}")

@@ -8,19 +8,22 @@ recorded into the tally of the capture that is open (:func:`capturing`)
 instead. The owner of the graph keeps that tally and hands it to
 :func:`replayed` after each replay, which adds it to the module counters,
 so a window of launches reads the same whether its kernels ran eagerly or
-from a graph.
+from a graph. :func:`reset` zeroes a module's counters.
 
 :func:`launch` calls a library's C launch function on the current stream
 of the tensors' device, entering that device's context only when it is
 not the current one already. These run on CUDA tensors only: on a build
 of PyTorch without CUDA the ``torch.cuda`` calls here raise.
+
+:func:`kernel_for` is the rule every public op follows on whether its
+kernel runs: the device decides.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import sys
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -39,6 +42,15 @@ def count(module: str, counter: str) -> None:
     else:
         mod = sys.modules[module]
         setattr(mod, counter, getattr(mod, counter) + 1)
+
+
+def reset(module: str) -> None:
+    """Zeroes every launch counter of ``module``: each int on it whose name
+    ends in ``_launches`` (what the benchmark harness reads)."""
+    mod = sys.modules[module]
+    for name, value in list(vars(mod).items()):
+        if name.endswith("_launches") and isinstance(value, int):
+            setattr(mod, name, 0)
 
 
 @contextlib.contextmanager
@@ -74,3 +86,23 @@ def launch(fn: Callable[..., int], index: int, *args) -> int:
         return fn(*args, raw_stream(index))
     with torch.cuda.device(index):
         return fn(*args, raw_stream(index))
+
+
+def kernel_for(device: torch.device, use_kernel: Optional[bool], kernel: str,
+               ref: str) -> bool:
+    """Whether an op runs ``kernel`` on ``device``: ``use_kernel=None``
+    follows the device (the kernel on CUDA, the plain version elsewhere);
+    ``True`` off CUDA raises, there being no kernel to run there, and so
+    does ``False`` on CUDA, the plain version serving CPU tensors only
+    (``ref`` names what to call to run it on the card)."""
+    on_card = device.type == "cuda"
+    if use_kernel is None:
+        return on_card
+    if use_kernel and not on_card:
+        raise ValueError("use_kernel=True needs CUDA tensors: the "
+                         f"{kernel} kernel does not run on {device}")
+    if not use_kernel and on_card:
+        raise ValueError("use_kernel=False on CUDA tensors: the plain "
+                         f"version serves CPU tensors only (call {ref} "
+                         "directly to run it on the card)")
+    return bool(use_kernel)

@@ -3,7 +3,7 @@ kernels.
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 :func:`decode_attention_cuda` replaces no TPU kernel (the reference's
 attention is plain JAX): it is the decode step's attention of one query
@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -40,44 +39,27 @@ _ALIGN = 16                     # bytes: the kernel's bulk copies of rows
 decode_attention_launches = 0
 decode_attention_combine_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_counters() -> None:
-    global decode_attention_launches, decode_attention_combine_launches
-    decode_attention_launches = 0
-    decode_attention_combine_launches = 0
+    _launches.reset(__name__)
 
 
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("decode_attention", CSRC, SOURCES)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    lib.decode_attention_launch.argtypes = [
+        p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+        ll, ll, ll, ll, ll, ll, i, ll, f, f, p]
+    lib.decode_attention_launch.restype = i
+    lib.decode_attention_splits.argtypes = [i, i, i, i, i, i]
+    lib.decode_attention_splits.restype = i
+    lib.decode_attention_launch_shape.argtypes = [
+        i, i, i, i, i, i, ctypes.POINTER(i)]
+    lib.decode_attention_launch_shape.restype = i
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            f = ctypes.c_float
-            lib.decode_attention_launch.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                ll, ll, ll, ll, ll, ll, i, ll, f, f, p]
-            lib.decode_attention_launch.restype = i
-            lib.decode_attention_splits.argtypes = [i, i, i, i, i, i]
-            lib.decode_attention_splits.restype = i
-            lib.decode_attention_launch_shape.argtypes = [
-                i, i, i, i, i, i, ctypes.POINTER(i)]
-            lib.decode_attention_launch_shape.restype = i
-            lib.decode_attention_error_string.argtypes = [i]
-            lib.decode_attention_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+LIBRARY = _build.Library("decode_attention", CSRC, SOURCES, _bind)
+_lib = LIBRARY.get
 
 
 def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -154,13 +136,9 @@ def launch_shape(B: int, K: int, G: int, L: int, hd: int,
     K/V rows a tile, ring stages, splits, blocks, threads a block, dynamic
     shared bytes a block, resident blocks an SM, registers a thread and
     local (spilled) bytes a thread."""
-    lib = _lib()
     out = (ctypes.c_int * len(SHAPE_FIELDS))()
-    err = lib.decode_attention_launch_shape(DTYPES[kv_dtype], B, K, G, L,
-                                            hd, out)
-    if err != 0:
-        raise RuntimeError("decode_attention_launch_shape failed: "
-                           f"{lib.decode_attention_error_string(err).decode()}")
+    LIBRARY.check(_lib().decode_attention_launch_shape(
+        DTYPES[kv_dtype], B, K, G, L, hd, out), "launch_shape")
     return dict(zip(SHAPE_FIELDS, out))
 
 
@@ -197,9 +175,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         DTYPES[q.dtype], DTYPES[k.dtype], B, H, K, L, hd, *k.stride()[:3],
         *v.stride()[:3], int(causal), int(window), scale,
         logit_softcap or 0.0)
-    if err != 0:
-        raise RuntimeError("decode_attention launch failed: "
-                           f"{lib.decode_attention_error_string(err).decode()}")
+    LIBRARY.check(err, "launch")
     _launches.count(__name__, "decode_attention_launches")
     if n > 1:
         _launches.count(__name__, "decode_attention_combine_launches")

@@ -2,7 +2,7 @@
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 :func:`mla_decode_cuda` replaces no TPU kernel (the reference's latent
 attention is plain JAX): it is the absorbed decode step's attention of one
@@ -19,7 +19,6 @@ here. The plain version lives in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -39,42 +38,24 @@ _ALIGN = 16                     # bytes: TMA's addresses and strides
 mla_decode_launches = 0
 mla_decode_combine_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_counters() -> None:
-    global mla_decode_launches, mla_decode_combine_launches
-    mla_decode_launches = 0
-    mla_decode_combine_launches = 0
+    _launches.reset(__name__)
 
 
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("mla_decode", CSRC, SOURCES)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mla_decode_launch.argtypes = [
+        p, p, p, p, p, p, i, i, i, ll, ll, ctypes.c_float, p]
+    lib.mla_decode_launch.restype = i
+    lib.mla_decode_splits.argtypes = [i, i, i]
+    lib.mla_decode_splits.restype = i
+    lib.mla_decode_launch_shape.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.mla_decode_launch_shape.restype = i
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.mla_decode_launch.argtypes = [
-                p, p, p, p, p, p, i, i, i, ll, ll, ctypes.c_float, p]
-            lib.mla_decode_launch.restype = i
-            lib.mla_decode_splits.argtypes = [i, i, i]
-            lib.mla_decode_splits.restype = i
-            lib.mla_decode_launch_shape.argtypes = [i, i, i,
-                                                    ctypes.POINTER(i)]
-            lib.mla_decode_launch_shape.restype = i
-            lib.mla_decode_error_string.argtypes = [i]
-            lib.mla_decode_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+LIBRARY = _build.Library("mla_decode", CSRC, SOURCES, _bind)
+_lib = LIBRARY.get
 
 
 def refusal(qf: torch.Tensor, latent: torch.Tensor, rank: int
@@ -141,12 +122,9 @@ def launch_shape(B: int, H: int, L: int) -> Dict[str, int]:
     positions a tile, ring stages, splits, blocks, threads a block, dynamic
     shared bytes a block, resident blocks an SM, registers a thread and
     local (spilled) bytes a thread."""
-    lib = _lib()
     out = (ctypes.c_int * len(SHAPE_FIELDS))()
-    err = lib.mla_decode_launch_shape(B, H, L, out)
-    if err != 0:
-        raise RuntimeError("mla_decode_launch_shape failed: "
-                           f"{lib.mla_decode_error_string(err).decode()}")
+    LIBRARY.check(_lib().mla_decode_launch_shape(B, H, L, out),
+                  "launch_shape")
     return dict(zip(SHAPE_FIELDS, out))
 
 
@@ -173,9 +151,7 @@ def mla_decode_cuda(qf: torch.Tensor, latent: torch.Tensor,
         latent.data_ptr(), pos_t.data_ptr(), part.data_ptr(), ml.data_ptr(),
         out.data_ptr(), B, H, L, latent.stride(0), latent.stride(1),
         float(scale))
-    if err != 0:
-        raise RuntimeError("mla_decode launch failed: "
-                           f"{lib.mla_decode_error_string(err).decode()}")
+    LIBRARY.check(err, "launch")
     _launches.count(__name__, "mla_decode_launches")
     _launches.count(__name__, "mla_decode_combine_launches")
     return out

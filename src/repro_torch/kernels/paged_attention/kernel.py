@@ -2,7 +2,7 @@
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 :func:`paged_attention_cuda` replaces the Pallas ``paged_attention``: one
 query token per sequence attends over its K/V pages through the page
@@ -19,9 +19,7 @@ on anything else: there is no fallback here. The plain version lives in
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Optional
 
 import torch
 
@@ -40,14 +38,29 @@ DESIGNS = {torch.float32: "split f32 CUDA cores",
 paged_attention_launches = 0
 paged_attention_combine_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_counters() -> None:
-    global paged_attention_launches, paged_attention_combine_launches
-    paged_attention_launches = 0
-    paged_attention_combine_launches = 0
+    _launches.reset(__name__)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_attention_split_launch.argtypes = [
+        p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.paged_attention_split_launch.restype = i
+    lib.paged_attention_combine_launch.argtypes = [p, p, i, i, i, i, i, p]
+    lib.paged_attention_combine_launch.restype = i
+    lib.paged_attention_pages_per_split.restype = i
+    lib.paged_attention_blocks_per_sm.argtypes = [i, i, i, i, i]
+    lib.paged_attention_blocks_per_sm.restype = i
+    lib.paged_attention_threads.argtypes = [i, i, i]
+    lib.paged_attention_threads.restype = i
+    lib.paged_attention_shared_bytes.argtypes = [i, i, i, i, i]
+    lib.paged_attention_shared_bytes.restype = ctypes.c_longlong
+
+
+LIBRARY = _build.Library("paged_attention", CSRC, SOURCES, _bind)
+_lib = LIBRARY.get
 
 
 def pages_per_split() -> int:
@@ -62,51 +75,6 @@ def n_splits(max_pages: int) -> int:
     return max(1, -(-max_pages // pages_per_split()))
 
 
-def library_path() -> Path:
-    return _build.library_path("paged_attention", CSRC, SOURCES)
-
-
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("paged_attention", CSRC, SOURCES)
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.paged_attention_split_launch.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
-            lib.paged_attention_split_launch.restype = i
-            lib.paged_attention_combine_launch.argtypes = [
-                p, p, i, i, i, i, i, p]
-            lib.paged_attention_combine_launch.restype = i
-            lib.paged_attention_pages_per_split.restype = i
-            lib.paged_attention_blocks_per_sm.argtypes = [i, i, i, i, i]
-            lib.paged_attention_blocks_per_sm.restype = i
-            lib.paged_attention_threads.argtypes = [i, i, i]
-            lib.paged_attention_threads.restype = i
-            lib.paged_attention_shared_bytes.argtypes = [i, i, i, i, i]
-            lib.paged_attention_shared_bytes.restype = ctypes.c_longlong
-            lib.paged_attention_error_string.argtypes = [i]
-            lib.paged_attention_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
-
-
-def _error(lib: ctypes.CDLL, code: int) -> str:
-    return lib.paged_attention_error_string(code).decode()
-
-
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"paged_attention {what} launch failed: "
-                           f"{_error(lib, err)}")
-
-
 def occupancy(dtype: torch.dtype, n_heads: int, n_kv: int, head_dim: int,
               page_size: int, device=None) -> dict:
     """The split kernel's launch shape for these widths on ``device`` (the
@@ -118,8 +86,7 @@ def occupancy(dtype: torch.dtype, n_heads: int, n_kv: int, head_dim: int,
         per_sm = lib.paged_attention_blocks_per_sm(
             code, n_heads, n_kv, head_dim, page_size)
     if per_sm < 0:
-        raise RuntimeError(f"paged_attention occupancy query failed: "
-                           f"{_error(lib, -per_sm)}")
+        LIBRARY.check(-per_sm, "occupancy query")
     return {"design": DESIGNS[dtype],
             "threads": lib.paged_attention_threads(code, n_heads, n_kv),
             "shared_bytes": lib.paged_attention_shared_bytes(
@@ -189,15 +156,15 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     code = DTYPES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _check(lib, lib.paged_attention_split_launch(
+        LIBRARY.check(lib.paged_attention_split_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(), code, B, H, K, hd, P,
-            n_pages, page_table.shape[1], stream), "split")
+            n_pages, page_table.shape[1], stream), "split launch")
         _launches.count(__name__, "paged_attention_launches")
         if work is not None:
-            _check(lib, lib.paged_attention_combine_launch(
+            LIBRARY.check(lib.paged_attention_combine_launch(
                 work.data_ptr(), out.data_ptr(), code, B, H, hd, splits,
-                stream), "combine")
+                stream), "combine launch")
             _launches.count(__name__, "paged_attention_combine_launches")
     return out

@@ -20,25 +20,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._launches import kernel_for
 from .kernel import paged_attention_cuda
 from .ref import paged_attention_ref
 
 __all__ = ["paged_attention"]
-
-
-def _kernel_for(q: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    on_card = q.device.type == "cuda"
-    if use_kernel is None:
-        return on_card
-    if use_kernel and not on_card:
-        raise ValueError("use_kernel=True needs CUDA tensors: the "
-                         f"paged_attention kernel does not run on {q.device}")
-    if not use_kernel and on_card:
-        raise ValueError("use_kernel=False on CUDA tensors: the plain "
-                         "version serves CPU tensors only (call "
-                         "ref.paged_attention_ref directly to run it on the "
-                         "card)")
-    return bool(use_kernel)
 
 
 def _host(x, name: str) -> np.ndarray:
@@ -82,7 +68,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     dtype. Page ids below -1 or at or above n_pages raise (a table already
     on the card is checked there, which waits for it).
     """
-    kernel = _kernel_for(q, use_kernel)
+    kernel = kernel_for(q.device, use_kernel, "paged_attention",
+                        "ref.paged_attention_ref")
     page_table, lengths = _tables(page_table, lengths, k_pages.shape[0],
                                   q.device)
     if kernel:

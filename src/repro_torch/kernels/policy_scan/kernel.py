@@ -2,7 +2,7 @@
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 Three wrappers, each counting its launches in a plain integer:
 
@@ -24,7 +24,6 @@ fallback here. The plain version lives in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -51,64 +50,36 @@ policy_scan_store_lean_launches = 0
 policy_scan_store_scoped_launches = 0
 policy_scan_store_scoped_lean_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_counters() -> None:
-    global policy_scan_launches, policy_scan_batch_launches
-    global policy_scan_store_launches, policy_scan_store_lean_launches
-    global policy_scan_store_scoped_launches
-    global policy_scan_store_scoped_lean_launches
-    policy_scan_launches = 0
-    policy_scan_batch_launches = 0
-    policy_scan_store_launches = 0
-    policy_scan_store_lean_launches = 0
-    policy_scan_store_scoped_launches = 0
-    policy_scan_store_scoped_lean_launches = 0
+    _launches.reset(__name__)
 
 
-def library_path() -> Path:
-    return _build.library_path("policy_scan", CSRC, SOURCES + HEADERS)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.policy_scan_launch.argtypes = [
+        p, ll, i, p, p, p, i, i, i, i, i, p, p, p, p, i, p]
+    lib.policy_scan_launch.restype = i
+    lib.policy_scan_grid.argtypes = [ll, i]
+    lib.policy_scan_grid.restype = i
+    lib.policy_scan_plan.argtypes = [p, p, i, i, i, i, i, i, p, p, p]
+    lib.policy_scan_plan.restype = i
+    lib.policy_scan_occupancy.argtypes = [i, i]
+    lib.policy_scan_occupancy.restype = i
+    lib.policy_scan_store_launch.argtypes = [
+        p, ll, ll, i, p, p, p, i, i, i, i, i, i, p, p, p, p, p, ll, ll, i, p]
+    lib.policy_scan_store_launch.restype = i
+    lib.policy_scan_store_grid.argtypes = [ll, ll, i]
+    lib.policy_scan_store_grid.restype = i
+    lib.policy_scan_store_occupancy.argtypes = [i, i, i, i]
+    lib.policy_scan_store_occupancy.restype = i
+    for name in ("policy_scan_tile_rows", "policy_scan_max_cols"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
 
 
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("policy_scan", CSRC, SOURCES, HEADERS)
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.policy_scan_launch.argtypes = [
-                p, ll, i, p, p, p, i, i, i, i, i, p, p, p, p, i, p]
-            lib.policy_scan_launch.restype = i
-            lib.policy_scan_grid.argtypes = [ll, i]
-            lib.policy_scan_grid.restype = i
-            lib.policy_scan_plan.argtypes = [p, p, i, i, i, i, i, i, p, p,
-                                             p]
-            lib.policy_scan_plan.restype = i
-            lib.policy_scan_occupancy.argtypes = [i, i]
-            lib.policy_scan_occupancy.restype = i
-            lib.policy_scan_store_launch.argtypes = [
-                p, ll, ll, i, p, p, p, i, i, i, i, i, i, p, p, p, p, p, ll,
-                ll, i, p]
-            lib.policy_scan_store_launch.restype = i
-            lib.policy_scan_store_grid.argtypes = [ll, ll, i]
-            lib.policy_scan_store_grid.restype = i
-            lib.policy_scan_store_occupancy.argtypes = [i, i, i, i]
-            lib.policy_scan_store_occupancy.restype = i
-            for name in ("policy_scan_tile_rows", "policy_scan_max_cols"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = i
-            lib.policy_scan_error_string.argtypes = [i]
-            lib.policy_scan_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+LIBRARY = _build.Library("policy_scan", CSRC, SOURCES, _bind, HEADERS)
+library_path, _lib = LIBRARY.path, LIBRARY.get
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -228,9 +199,7 @@ def _launch(cols: torch.Tensor, ops: torch.Tensor, colidx: torch.Tensor,
         valid_col, masks.data_ptr(),
         rule.data_ptr() if rule is not None else None, partials.data_ptr(),
         agg.data_ptr(), grid, stream)
-    if err != 0:
-        raise RuntimeError("policy_scan launch failed: "
-                           f"{lib.policy_scan_error_string(err).decode()}")
+    LIBRARY.check(err, "launch")
     return masks, rule, agg
 
 
@@ -342,9 +311,7 @@ def policy_scan_store_cuda(cols: torch.Tensor, ops: torch.Tensor,
         perm.data_ptr() if scoped else None,
         perm.shape[1] if scoped else 0, int(sid) if scoped else 0, grid,
         stream)
-    if err != 0:
-        raise RuntimeError("policy_scan store launch failed: "
-                           f"{lib.policy_scan_error_string(err).decode()}")
+    LIBRARY.check(err, "store launch")
     _launches.count(__name__, "policy_scan_store_"
                     + ("scoped_" if scoped else "")
                     + ("launches" if with_agg else "lean_launches"))

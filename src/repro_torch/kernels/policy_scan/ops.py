@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from .._launches import kernel_for
 from .kernel import (policy_scan_batch_cuda, policy_scan_cuda,
                      policy_scan_store_cuda)
 from .ref import (N_AGG, OP_AND, OP_NOP, OP_NOT, OP_OR, aggregate_multi,
@@ -51,20 +52,6 @@ from .ref import (N_AGG, OP_AND, OP_NOP, OP_NOT, OP_OR, aggregate_multi,
                   policy_scan_multi_ref, policy_scan_ref)
 # one subject's (..., W * 32) bool rows of a packed (..., Sp, W) plane
 from .ref import subject_bits as _subject_bits
-
-
-def _kernel_for(cols: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    on_card = cols.device.type == "cuda"
-    if use_kernel is None:
-        return on_card
-    if use_kernel and not on_card:
-        raise ValueError("use_kernel=True needs CUDA tensors: the "
-                         f"policy_scan kernels do not run on {cols.device}")
-    if not use_kernel and on_card:
-        raise ValueError("use_kernel=False on CUDA tensors: the plain "
-                         "version serves CPU tensors only (call ref.* "
-                         "directly to run it on the card)")
-    return bool(use_kernel)
 
 
 def _prepare(cols, ops, colidx, operands, size_col, blocks_col, valid_col):
@@ -89,7 +76,7 @@ def policy_scan(cols: torch.Tensor, ops: torch.Tensor, colidx: torch.Tensor,
     cols: (n_cols, N) f32. Returns (mask (N,) f32, agg (N_AGG,) f32). Every
     row is valid when ``valid_col`` < 0.
     """
-    kernel = _kernel_for(cols, use_kernel)
+    kernel = kernel_for(cols.device, use_kernel, "policy_scan", "ref.*")
     n = cols.shape[1]
     dev = cols.device
     if n == 0:            # zero-row table: nothing to scan
@@ -116,7 +103,7 @@ def policy_scan_batch(cols: torch.Tensor, ops: torch.Tensor,
     program masks, fused first-match-wins attribution, and per-program
     size/blocks reductions — one kernel launch instead of R.
     """
-    kernel = _kernel_for(cols, use_kernel)
+    kernel = kernel_for(cols.device, use_kernel, "policy_scan", "ref.*")
     n = cols.shape[1]
     dev = cols.device
     if n == 0:            # zero-row table: nothing to scan
@@ -305,7 +292,8 @@ def mesh_policy_scan_batch(global_cols: torch.Tensor,
     bits, the rule set to -1 where a bit is 0, and the aggregates taken
     after, as the reference does off the TPU.
     """
-    kernel = _kernel_for(global_cols, use_kernel)
+    kernel = kernel_for(global_cols.device, use_kernel, "policy_scan",
+                        "ref.*")
     dev = global_cols.device
     if kernel:
         ops, colidx = _program_tensors(ops_t, colidx_t, dev)

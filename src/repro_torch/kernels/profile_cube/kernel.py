@@ -2,7 +2,7 @@
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 :func:`profile_cube_cuda` replaces ``profile_cube_pallas``: it bucketizes
 size and age (or takes precomputed bucket rows) and sums the valid-weighted
@@ -17,7 +17,6 @@ The plain version lives in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 from typing import Optional
 
@@ -44,54 +43,31 @@ KERNEL_MAX_GROUPS = 1 << 24
 profile_cube_launches = 0
 profile_cube_scoped_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_counters() -> None:
-    global profile_cube_launches, profile_cube_scoped_launches
-    profile_cube_launches = 0
-    profile_cube_scoped_launches = 0
+    _launches.reset(__name__)
 
 
-def library_path() -> Path:
-    return _build.library_path("profile_cube", CSRC, SOURCES)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.profile_cube_launch, lib.profile_cube_launch_f64):
+        fn.argtypes = [p, ll, i, i, i, i, i, i, i, i, p, p, i, p]
+        fn.restype = i
+    lib.profile_cube_launch_scoped.argtypes = [
+        p, ll, i, i, i, i, i, i, i, i, p, ll, ll, ll, i, p, p, i, p]
+    lib.profile_cube_launch_scoped.restype = i
+    lib.profile_cube_design.argtypes = [i]
+    lib.profile_cube_design.restype = i
+    lib.profile_cube_band_groups.argtypes = []
+    lib.profile_cube_band_groups.restype = i
+    lib.profile_cube_max_groups.argtypes = []
+    lib.profile_cube_max_groups.restype = i
+    lib.profile_cube_work_bytes.argtypes = [ll, i]
+    lib.profile_cube_work_bytes.restype = ll
 
 
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("profile_cube", CSRC, SOURCES)
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for fn in (lib.profile_cube_launch, lib.profile_cube_launch_f64):
-                fn.argtypes = [p, ll, i, i, i, i, i, i, i, i, p, p, i, p]
-                fn.restype = i
-            lib.profile_cube_launch_scoped.argtypes = [
-                p, ll, i, i, i, i, i, i, i, i, p, ll, ll, ll, i, p, p, i, p]
-            lib.profile_cube_launch_scoped.restype = i
-            lib.profile_cube_design.argtypes = [i]
-            lib.profile_cube_design.restype = i
-            lib.profile_cube_band_groups.argtypes = []
-            lib.profile_cube_band_groups.restype = i
-            lib.profile_cube_max_groups.argtypes = []
-            lib.profile_cube_max_groups.restype = i
-            lib.profile_cube_work_bytes.argtypes = [ll, i]
-            lib.profile_cube_work_bytes.restype = ll
-            lib.profile_cube_error_string.argtypes = [i]
-            lib.profile_cube_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
-
-
-def _error(lib: ctypes.CDLL, code: int) -> str:
-    return lib.profile_cube_error_string(code).decode()
+LIBRARY = _build.Library("profile_cube", CSRC, SOURCES, _bind)
+library_path, _lib = LIBRARY.path, LIBRARY.get
 
 
 DESIGNS = ("global", "shared")
@@ -119,8 +95,7 @@ def design(n_groups: int, device=None) -> str:
     with torch.cuda.device(device):
         code = lib.profile_cube_design(int(n_groups))
     if code < 0:
-        raise RuntimeError(f"profile_cube design query failed: "
-                           f"{_error(lib, -code)}")
+        LIBRARY.check(-code, "design query")
     return DESIGNS[code]
 
 
@@ -208,8 +183,7 @@ def profile_cube_cuda(cols: torch.Tensor, *, n_groups: int, gid_col: int,
             launch = lib.profile_cube_launch \
                 if out_dtype == torch.float32 else lib.profile_cube_launch_f64
             err = launch(*args, work.data_ptr(), out.data_ptr(), sms, stream)
-    if err != 0:
-        raise RuntimeError(f"profile_cube launch failed: {_error(lib, err)}")
+    LIBRARY.check(err, "launch")
     _launches.count(__name__, "profile_cube_scoped_launches" if scoped
                     else "profile_cube_launches")
     return out

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from .._launches import kernel_for
 from ..policy_scan.ops import _check_plane
 from ..policy_scan.ref import subject_bits
 from .kernel import profile_cube_cuda
@@ -40,21 +41,6 @@ __all__ = ["MAX_GROUPS", "mesh_cube_combine", "mesh_profile_cube",
 # core.profiles). The kernel itself takes up to kernel.KERNEL_MAX_GROUPS,
 # which the store's cube plane (mesh_profile_cube) reaches.
 MAX_GROUPS = 4096
-
-
-def _kernel_for(dev: torch.device, use_kernel: Optional[bool]) -> bool:
-    on_card = dev.type == "cuda"
-    if use_kernel is None:
-        return on_card
-    if use_kernel and not on_card:
-        raise ValueError("use_kernel=True needs a CUDA device: the "
-                         f"profile_cube kernel does not run on {dev}")
-    if not use_kernel and on_card:
-        raise ValueError("use_kernel=False on a CUDA device: the plain "
-                         "version serves the CPU only (call "
-                         "ref.profile_cube_ref directly to run it on the "
-                         "card)")
-    return bool(use_kernel)
 
 
 def profile_cube(gid, size, blocks, age, n_groups: int, valid=None,
@@ -81,7 +67,8 @@ def profile_cube(gid, size, blocks, age, n_groups: int, valid=None,
         raise ValueError(f"n_groups={n_groups} exceeds the on-device cap "
                          f"{MAX_GROUPS}; use the host groupby path")
     dev = resolve_device(device)
-    kernel = _kernel_for(dev, use_kernel)
+    kernel = kernel_for(dev, use_kernel, "profile_cube",
+                        "ref.profile_cube_ref")
     n = len(np.asarray(gid))
     if n_groups <= 0 or n == 0:
         return np.zeros((N_MEASURES, max(n_groups, 0), S_BUCKETS, A_BUCKETS),
@@ -131,7 +118,8 @@ def mesh_profile_cube(global_cols: torch.Tensor, *, n_groups: int,
     keeps the rounding of its first size). ``use_kernel`` as
     :func:`profile_cube`.
     """
-    kernel = _kernel_for(global_cols.device, use_kernel)
+    kernel = kernel_for(global_cols.device, use_kernel, "profile_cube",
+                        "ref.profile_cube_ref")
     kw = dict(n_groups=n_groups, gid_col=gid_col, size_col=size_col,
               blocks_col=blocks_col, age_col=size_col, valid_col=valid_col,
               sb_col=sb_col, ab_col=ab_col)
@@ -166,7 +154,8 @@ def mesh_scoped_cube(global_cols: torch.Tensor, perm: torch.Tensor,
     validity row masked by the subject's bits, as the reference does. Both
     are exact below 2**53. ``use_kernel`` as :func:`profile_cube`.
     """
-    kernel = _kernel_for(global_cols.device, use_kernel)
+    kernel = kernel_for(global_cols.device, use_kernel, "profile_cube",
+                        "ref.profile_cube_ref")
     _check_plane(global_cols, perm, subject)
     kw = dict(n_groups=n_groups, gid_col=gid_col, size_col=size_col,
               blocks_col=blocks_col, age_col=size_col, valid_col=valid_col,

@@ -2,7 +2,7 @@
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 :func:`rglru_scan_cuda` replaces the Pallas ``rglru_pallas``: the RG-LRU
 recurrence ``h_t = exp(log_a_t) h_{t-1} + b_t`` over (B, S, R) f32. The
@@ -37,65 +37,47 @@ MAX_BATCH = 65535                   # the grid's y extent
 rglru_scan_launches = 0
 rglru_scan_bwd_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
 _PREPARED: Set[int] = set()         # devices whose ring kernels are set up
+_PREPARE_LOCK = threading.Lock()
 
 
 def reset_counters() -> None:
-    global rglru_scan_launches, rglru_scan_bwd_launches
-    rglru_scan_launches = 0
-    rglru_scan_bwd_launches = 0
+    _launches.reset(__name__)
 
 
-def library_path() -> Path:
-    return _build.library_path("rglru_scan", CSRC, SOURCES)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, p]
+    lib.rglru_scan_launch.restype = i
+    lib.rglru_scan_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    lib.rglru_scan_bwd_launch.restype = i
+    lib.rglru_scan_prepare.argtypes = []
+    lib.rglru_scan_prepare.restype = i
+    lib.rglru_scan_uses_ring.argtypes = [i, i]
+    lib.rglru_scan_uses_ring.restype = i
+    lib.rglru_scan_ring_shape.argtypes = [i, ctypes.POINTER(i)]
+    lib.rglru_scan_ring_shape.restype = i
 
 
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("rglru_scan", CSRC, SOURCES)
+LIBRARY = _build.Library("rglru_scan", CSRC, SOURCES, _bind)
 
 
 def _lib(index: Optional[int] = None) -> ctypes.CDLL:
-    """The library, loaded once, with its ring kernels prepared (their
-    dynamic shared memory allowed) on device ``index``, the current one
-    by default: once a device, at its first use, so never while a graph
-    is being captured (a capture follows an eager warm-up)."""
-    global _LIB
-    if _LIB is None:
-        with _LIB_LOCK:
-            if _LIB is None:
-                lib = ctypes.CDLL(str(build()))
-                p, i = ctypes.c_void_p, ctypes.c_int
-                lib.rglru_scan_launch.argtypes = [p, p, p, p, i, i, i, p]
-                lib.rglru_scan_launch.restype = i
-                lib.rglru_scan_bwd_launch.argtypes = [p, p, p, p, p, p, p,
-                                                      i, i, i, p]
-                lib.rglru_scan_bwd_launch.restype = i
-                lib.rglru_scan_prepare.argtypes = []
-                lib.rglru_scan_prepare.restype = i
-                lib.rglru_scan_uses_ring.argtypes = [i, i]
-                lib.rglru_scan_uses_ring.restype = i
-                lib.rglru_scan_ring_shape.argtypes = [i, ctypes.POINTER(i)]
-                lib.rglru_scan_ring_shape.restype = i
-                lib.rglru_scan_error_string.argtypes = [i]
-                lib.rglru_scan_error_string.restype = ctypes.c_char_p
-                _LIB = lib
+    """The library, with its ring kernels prepared (their dynamic shared
+    memory allowed) on device ``index``, the current one by default: once
+    a device, at its first use, so never while a graph is being captured
+    (a capture follows an eager warm-up)."""
+    lib = LIBRARY.get()
     if index is None:
         index = torch.cuda.current_device()
     if index not in _PREPARED:
-        with _LIB_LOCK:
+        with _PREPARE_LOCK:
             if index not in _PREPARED:
                 with torch.cuda.device(index):
-                    err = _LIB.rglru_scan_prepare()
-                if err != 0:
-                    raise RuntimeError(
-                        "rglru_scan: setting up the ring kernels failed: "
-                        f"{_LIB.rglru_scan_error_string(err).decode()}")
+                    LIBRARY.check(lib.rglru_scan_prepare(),
+                                  "ring kernels' set-up")
                 _PREPARED.add(index)
-    return _LIB
+    return lib
 
 
 def uses_ring(S: int, R: int) -> bool:
@@ -115,10 +97,8 @@ def ring_shape(backward: bool = False) -> Dict[str, int]:
     and local (spilled) bytes a thread."""
     lib = _lib()
     out = (ctypes.c_int * len(RING_FIELDS))()
-    err = lib.rglru_scan_ring_shape(int(backward), out)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan_ring_shape failed: "
-                           f"{lib.rglru_scan_error_string(err).decode()}")
+    LIBRARY.check(lib.rglru_scan_ring_shape(int(backward), out),
+                  "ring_shape")
     return dict(zip(RING_FIELDS, out))
 
 
@@ -174,9 +154,7 @@ def rglru_scan_cuda(log_a: torch.Tensor, b: torch.Tensor,
         lib.rglru_scan_launch, log_a.device.index, log_a.data_ptr(),
         b.data_ptr(), None if h0 is None else h0.data_ptr(), out.data_ptr(),
         B, S, R)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan launch failed: "
-                           f"{lib.rglru_scan_error_string(err).decode()}")
+    LIBRARY.check(err, "launch")
     _launches.count(__name__, "rglru_scan_launches")
     return out
 
@@ -207,8 +185,6 @@ def rglru_scan_bwd_cuda(log_a: torch.Tensor, h: torch.Tensor,
         h.data_ptr(), gh.data_ptr(), None if h0 is None else h0.data_ptr(),
         dlog_a.data_ptr(), db.data_ptr(),
         None if dh0 is None else dh0.data_ptr(), B, S, R)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan backward launch failed: "
-                           f"{lib.rglru_scan_error_string(err).decode()}")
+    LIBRARY.check(err, "backward launch")
     _launches.count(__name__, "rglru_scan_bwd_launches")
     return dlog_a, db, dh0

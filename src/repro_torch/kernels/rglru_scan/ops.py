@@ -18,24 +18,11 @@ from typing import Optional
 
 import torch
 
+from .._launches import kernel_for
 from .kernel import rglru_scan_bwd_cuda, rglru_scan_cuda
 from .ref import rglru_bwd_ref, rglru_ref
 
 __all__ = ["rglru_scan", "RGLRUScan"]
-
-
-def _kernel_for(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    on_card = x.device.type == "cuda"
-    if use_kernel is None:
-        return on_card
-    if use_kernel and not on_card:
-        raise ValueError("use_kernel=True needs CUDA tensors: the "
-                         f"rglru_scan kernel does not run on {x.device}")
-    if not use_kernel and on_card:
-        raise ValueError("use_kernel=False on CUDA tensors: the plain "
-                         "version serves CPU tensors only (call "
-                         "ref.rglru_ref directly to run it on the card)")
-    return bool(use_kernel)
 
 
 def _forward(log_a: torch.Tensor, b: torch.Tensor,
@@ -81,7 +68,8 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
                use_kernel: Optional[bool] = None) -> torch.Tensor:
     """h_t = exp(log_a_t) * h_{t-1} + b_t over (B, S, R) f32, from ``h0``
     (B, R), zeros when None. Returns h: (B, S, R) f32."""
-    kernel = _kernel_for(log_a, use_kernel)
+    kernel = kernel_for(log_a.device, use_kernel, "rglru_scan",
+                        "ref.rglru_ref")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (log_a, b, h0)):
         return RGLRUScan.apply(log_a, b, h0, kernel)

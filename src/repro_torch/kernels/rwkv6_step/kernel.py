@@ -2,7 +2,7 @@
 
 The source in ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes`` (see :mod:`repro_torch.kernels._build`).
+``ctypes`` (see :class:`repro_torch.kernels._build.Library`).
 
 :func:`rwkv6_step_cuda` replaces the Pallas ``rwkv6_step_pallas``: one
 RWKV6 decode token, ``y = r (S + u k v^T)`` and ``S' = diag(w) S + k v^T``
@@ -17,9 +17,8 @@ in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -33,40 +32,19 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launch counter: +1 per kernel launch, nowhere else
 rwkv6_step_launches = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_counters() -> None:
-    global rwkv6_step_launches
-    rwkv6_step_launches = 0
+    _launches.reset(__name__)
 
 
-def library_path() -> Path:
-    return _build.library_path("rwkv6_step", CSRC, SOURCES)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv6_step_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.rwkv6_step_launch.restype = i
 
 
-def build() -> Path:
-    """Compile ``csrc/`` into the shared library unless it already exists.
-    Returns its path."""
-    return _build.build("rwkv6_step", CSRC, SOURCES)
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.rwkv6_step_launch.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                              i, i, p]
-            lib.rwkv6_step_launch.restype = i
-            lib.rwkv6_step_error_string.argtypes = [i]
-            lib.rwkv6_step_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
+LIBRARY = _build.Library("rwkv6_step", CSRC, SOURCES, _bind)
+_lib = LIBRARY.get
 
 
 def _check(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,8 +106,6 @@ def rwkv6_step_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lib.rwkv6_step_launch, r.device.index, r.data_ptr(), k.data_ptr(),
         v.data_ptr(), w.data_ptr(), u.data_ptr(), state.data_ptr(),
         y.data_ptr(), new_state.data_ptr(), DTYPES[r.dtype], B, H, hd)
-    if err != 0:
-        raise RuntimeError(f"rwkv6_step launch failed: "
-                           f"{lib.rwkv6_step_error_string(err).decode()}")
+    LIBRARY.check(err, "launch")
     _launches.count(__name__, "rwkv6_step_launches")
     return y, new_state

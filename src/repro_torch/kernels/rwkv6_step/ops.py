@@ -12,25 +12,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from .._launches import kernel_for
 from .kernel import rwkv6_step_cuda
 from .ref import rwkv6_step_ref
 
 __all__ = ["rwkv6_step"]
-
-
-def _kernel_for(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
-    on_card = x.device.type == "cuda"
-    if use_kernel is None:
-        return on_card
-    if use_kernel and not on_card:
-        raise ValueError("use_kernel=True needs CUDA tensors: the "
-                         f"rwkv6_step kernel does not run on {x.device}")
-    if not use_kernel and on_card:
-        raise ValueError("use_kernel=False on CUDA tensors: the plain "
-                         "version serves CPU tensors only (call "
-                         "ref.rwkv6_step_ref directly to run it on the "
-                         "card)")
-    return bool(use_kernel)
 
 
 def rwkv6_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,7 +25,7 @@ def rwkv6_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One token. r,k,v,w: (B,H,hd); u: (H,hd); state: (B,H,hd,hd) f32.
     Returns (y (B,H,hd) in r's dtype, new state (B,H,hd,hd) f32)."""
-    if _kernel_for(r, use_kernel):
+    if kernel_for(r.device, use_kernel, "rwkv6_step", "ref.rwkv6_step_ref"):
         return rwkv6_step_cuda(*(t.contiguous() for t in (r, k, v, w, u,
                                                           state)))
     return rwkv6_step_ref(r, k, v, w, u, state)

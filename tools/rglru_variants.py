@@ -2,20 +2,17 @@
 """Build designs of the ``rglru_scan`` kernels, read what the compiler made
 of them, check them bit for bit and time them in turns on one card.
 
-    python3 tools/rglru_variants.py [--variants current,first,...]
+    python3 tools/rglru_variants.py [--variants current,bulk,...]
         [--turns 2] [--reps 5] [--seed S]
 
-A variant is ``csrc/rglru_scan.cu`` as it stands ("current"), the first
-design, one thread per (batch, channel) in blocks of 128
-(``tools/rglru_scan_designs.cu``, "first"), or the ring design with one
-bulk copy a row for a producer (``tools/rglru_scan_bulk.cu``, "bulk"),
-each with ``constexpr int`` constants set: ``current:GROUP=64+FWD_STAGES=8``
-or ``first:BWD_UNROLL=8``.
+A variant is ``csrc/rglru_scan.cu`` as it stands ("current") or the ring
+design with one bulk copy a row for a producer
+(``tools/rglru_scan_bulk.cu``, "bulk"), each with ``constexpr int``
+constants set: ``current:GROUP=64+FWD_STAGES=8``.
 Each is written to a temporary directory (the checkout is never changed)
 and built with ``nvcc -Xptxas -v``, one process each, started together:
-registers, spills and static shared memory of every kernel; a variant
-with ring kernels also reports their dynamic shared memory and resident
-blocks an SM.
+registers, spills and static shared memory of every kernel, and the ring
+kernels' dynamic shared memory and resident blocks an SM.
 
 Then, with ``chip_smoke.py``'s inputs (decays as recurrentgemma-9b draws
 them, b, h0 and gh standard normal, from the seed), every variant's
@@ -53,7 +50,6 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "rglru_scan",
                     "csrc", "rglru_scan.cu")
 BASES = {"current": CSRC,
-         "first": os.path.join(ROOT, "tools", "rglru_scan_designs.cu"),
          "bulk": os.path.join(ROOT, "tools", "rglru_scan_bulk.cu")}
 FWD_SHAPES = ((2, 2560, 4096), (4, 2016, 4096), (8, 4096, 4096))
 BWD_SHAPES = ((2, 2560, 4096), (8, 4096, 4096))
@@ -113,22 +109,16 @@ class Variant:
         lib.rglru_scan_launch.restype = i
         lib.rglru_scan_bwd_launch.argtypes = [p] * 7 + [i, i, i, p]
         lib.rglru_scan_bwd_launch.restype = i
-        self.ring = hasattr(lib, "rglru_scan_ring_shape")
-        if self.ring:
-            lib.rglru_scan_ring_shape.argtypes = [i, ctypes.POINTER(i)]
-            lib.rglru_scan_ring_shape.restype = i
-            lib.rglru_scan_prepare.restype = i
-            err = lib.rglru_scan_prepare()
-            if err != 0:
-                raise RuntimeError(f"{name}: rglru_scan_prepare failed "
-                                   f"({err})")
+        lib.rglru_scan_ring_shape.argtypes = [i, ctypes.POINTER(i)]
+        lib.rglru_scan_ring_shape.restype = i
+        lib.rglru_scan_prepare.restype = i
+        err = lib.rglru_scan_prepare()
+        if err != 0:
+            raise RuntimeError(f"{name}: rglru_scan_prepare failed ({err})")
         self.lib = lib
 
     def ring_shape(self, backward: bool):
-        """The ring kernel's launch shape (``kernel.RING_FIELDS``), or None
-        for a design without one."""
-        if not self.ring:
-            return None
+        """The ring kernel's launch shape (``kernel.RING_FIELDS``)."""
         from repro_torch.kernels.rglru_scan.kernel import RING_FIELDS
         out = (ctypes.c_int * len(RING_FIELDS))()
         err = self.lib.rglru_scan_ring_shape(int(backward), out)
@@ -212,7 +202,7 @@ def bwd_equal(torch, variant, la, h, gh, h0) -> bool:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default="first,current")
+    ap.add_argument("--variants", default="current,bulk")
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)

@@ -1,23 +1,20 @@
 #!/usr/bin/env python3
-"""Build variants of the ``policy_scan`` CUDA kernel, read what the
-compiler made of them, and time them in turns on one card.
+"""Build the ``policy_scan`` CUDA kernel as it stands and as older
+checkouts had it, read what the compiler made of each, and time them in
+turns on one card.
 
-    python3 tools/scan_variants.py [--variants NAME,...] [--parent DIR,...]
+    python3 tools/scan_variants.py [--parent DIR,...]
         [--programs batch,single,wide,allcols] [--rows N] [--turns N]
         [--seed S]
 
-A variant is ``csrc/`` as it stands ("current") or a design of
-``tools/policy_scan_designs.cu`` (the first kernel, with its ``VARIANT``
-constant set): "v0" as it was, "v1" without the aggregate code, "v2"
-with each row's referenced columns loaded once before the program loop,
-"v3" a copy kernel that reads the same columns and writes R + 1 words a
-row. Each is written to a temporary directory, so the checkout is never
-changed; ``--parent DIR,...`` adds older ``csrc/`` directories
-(``policy_scan.cu`` and its header, e.g. ``git archive <commit>`` of
+A variant is ``csrc/`` as it stands ("current") or an older ``csrc/``
+directory given with ``--parent DIR,...`` (``policy_scan.cu`` and its
+header, e.g. ``git archive <commit>`` of
 ``src/repro_torch/kernels/policy_scan/csrc`` unpacked under ``build/``),
-each named by its directory. Every variant is built with ``nvcc -Xptxas
--v`` at once, one process each (registers, spills and shared memory of
-each kernel), and its resident blocks an SM come from
+each named by its directory. Each is written to a temporary directory,
+so the checkout is never changed. Every variant is built with ``nvcc
+-Xptxas -v`` at once, one process each (registers, spills and shared
+memory of each kernel), and its resident blocks an SM come from
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.
 
 Then ``chip_smoke.py``'s 2^27 rows are generated from the seed and each
@@ -25,10 +22,10 @@ variant runs ``BATCH_CRITERIA`` (R = 4, "batch"), its first program (R =
 1, "single"), those and 4 more rules (R = 8, "wide") or those and
 ``chip_smoke.WIDE_CRITERIA``'s 2 rules that read every kernel column (R
 = 6, "allcols", half-tile stages): masks and rule index must equal the
-plain version's, aggregates lie within ``TOL`` and repeat bit for bit
-(v1's aggregates and all of v3's outputs are not checked). All are timed
-in turns (v0 .. vk vk .. v0, ``--turns`` times; CUDA events, median of
-10 from an idle card, as ``chip_smoke.py`` times), with the scan and
+plain version's, aggregates lie within ``TOL`` and repeat bit for bit.
+All are timed in turns (first to last, then back, ``--turns`` times;
+CUDA events, median of 10 from an idle card, as ``chip_smoke.py`` times),
+with the scan and
 reduce kernels' own device times from ``torch.profiler`` and the bound
 from the same run.
 
@@ -56,35 +53,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "policy_scan",
                     "csrc")
-DESIGNS = os.path.join(ROOT, "tools", "policy_scan_designs.cu")
-FIRST = "constexpr int VARIANT = 0;"
-# variant -> (source: "csrc" or DESIGNS, [(old text, new text) edits of the
-# .cu])
-VARIANTS = {
-    "current": ("csrc", []),
-    "v0": (DESIGNS, []),
-    "v1": (DESIGNS, [(FIRST, "constexpr int VARIANT = 1;")]),
-    "v2": (DESIGNS, [(FIRST, "constexpr int VARIANT = 2;")]),
-    "v3": (DESIGNS, [(FIRST, "constexpr int VARIANT = 3;")]),
-}
-UNCHECKED_AGG = ("v1", "v3")
-UNCHECKED = ("v3",)
-# appended to a source without policy_scan_occupancy (the first kernel's csrc/)
-OCCUPANCY_OF_FIRST = r"""
-extern "C" int policy_scan_occupancy(int n_progs, int n_instr) {
-  using namespace policy_scan;
-  const size_t smem = sizeof(float) * (3 * (size_t)n_progs * n_instr +
-                                       WARPS * N_AGG +
-                                       (size_t)n_progs * N_AGG);
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, scan_kernel,
-                                                    THREADS, smem) !=
-      cudaSuccess)
-    return -1;
-  return blocks;
-}
-"""
-FIRST_BLOCKS_PER_SM = 8        # the first kernel's grid: 8 blocks an SM
+FILES = ("policy_scan.cu", "policy_scan.cuh")
 WIDE_RULES = ["last_access > 90d", "nlink == 2 or ost_idx == 3",
               "mode >= 256 and not (dirty == 1)", "group == 1 and pool != 2"]
 
@@ -137,35 +106,18 @@ def ptxas_info(stderr: str) -> dict:
     return dict(zip(demangle(names), out.values()))
 
 
-def sources(names, parents=()) -> dict:
-    """variant -> {file name: text}, the edits applied."""
-    def read(path):
-        with open(path) as f:
-            return f.read()
+def sources(parents=()) -> dict:
+    """variant -> {file name: text}: each of ``parents``, named by its
+    directory, then "current"."""
+    dirs = {os.path.basename(os.path.normpath(d)): d for d in parents}
+    dirs["current"] = CSRC
     out = {}
-    for parent in parents:
-        files = {f: read(os.path.join(parent, f))
-                 for f in ("policy_scan.cu", "policy_scan.cuh")
-                 if os.path.exists(os.path.join(parent, f))}
-        out[os.path.basename(os.path.normpath(parent))] = files
-    for name in names:
-        src, edits = VARIANTS[name]
-        if src == "csrc":
-            files = {f: read(os.path.join(CSRC, f))
-                     for f in ("policy_scan.cu", "policy_scan.cuh")}
-        else:
-            files = {"policy_scan.cu": read(src)}
-        text = files["policy_scan.cu"]
-        for old, new in edits:
-            if text.count(old) != 1:
-                sys.exit(f"scan_variants: variant {name!r}: {old!r} occurs "
-                         f"{text.count(old)} times in the source")
-            text = text.replace(old, new)
-        files["policy_scan.cu"] = text
-        out[name] = files
-    for files in out.values():
-        if "policy_scan_occupancy" not in files["policy_scan.cu"]:
-            files["policy_scan.cu"] += OCCUPANCY_OF_FIRST
+    for name, d in dirs.items():
+        out[name] = {}
+        for f in FILES:
+            if os.path.exists(os.path.join(d, f)):
+                with open(os.path.join(d, f)) as fh:
+                    out[name][f] = fh.read()
     return out
 
 
@@ -188,32 +140,24 @@ def build(name: str, files: dict, workdir: str) -> dict:
 
 
 class Variant:
-    """One built library, launched as ``kernel.py`` launches its own: the
-    redesign's grid (``policy_scan_grid``) or the first kernel's (8 blocks
-    an SM); both take the first kernel's ``policy_scan_launch``
-    arguments."""
+    """One built library, launched as ``kernel.py`` launches its own, on
+    the grid its ``policy_scan_grid`` picks."""
 
     def __init__(self, name: str, lib_path: str):
         self.name = name
         lib = ctypes.CDLL(lib_path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self.persistent = hasattr(lib, "policy_scan_grid")
         lib.policy_scan_launch.argtypes = [p, ll, i, p, p, p, i, i, i, i, i,
                                            p, p, p, p, i, p]
         lib.policy_scan_launch.restype = i
-        lib.policy_scan_tile_rows.restype = i
-        if self.persistent:
-            lib.policy_scan_grid.argtypes = [ll, i]
-            lib.policy_scan_grid.restype = i
+        lib.policy_scan_grid.argtypes = [ll, i]
+        lib.policy_scan_grid.restype = i
         lib.policy_scan_occupancy.argtypes = [i, i]
         lib.policy_scan_occupancy.restype = i
         self.lib = lib
 
     def grid(self, n: int, sms: int) -> int:
-        if self.persistent:
-            return self.lib.policy_scan_grid(n, sms)
-        tile = self.lib.policy_scan_tile_rows()
-        return max(1, min(-(-n // tile), sms * FIRST_BLOCKS_PER_SM))
+        return self.lib.policy_scan_grid(n, sms)
 
     def shape(self, n: int, sms: int, prog) -> dict:
         """Grid and resident blocks an SM of one launch."""
@@ -278,7 +222,8 @@ def program_sets(torch, cs, names, device):
 
 
 def turns(variants, call, n_turns: int, reps: int, cs) -> dict:
-    """variant -> CUDA-event medians, in turns v0 .. vk vk .. v0."""
+    """variant -> CUDA-event medians, in turns first to last, then
+    back."""
     order = variants + variants[::-1]
     times = {v.name: [] for v in variants}
     for _ in range(n_turns):
@@ -289,11 +234,8 @@ def turns(variants, call, n_turns: int, reps: int, cs) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", default="v0,v1,v2,v3",
-                    help="comma-separated names of VARIANTS")
     ap.add_argument("--parent", default="", help="older csrc/ directories "
-                    "(comma-separated) to time "
-                    "beside them")
+                    "(comma-separated) to time beside the current one")
     ap.add_argument("--programs", default="batch,single")
     ap.add_argument("--rows", type=int, default=None,
                     help="rows (default chip_smoke.ROWS, 2^27)")
@@ -317,8 +259,7 @@ def main() -> None:
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "ncu": shutil.which("ncu") is not None}), flush=True)
 
-    names = [v for v in args.variants.split(",") if v]
-    srcs = sources(names, [d for d in args.parent.split(",") if d])
+    srcs = sources([d for d in args.parent.split(",") if d])
     with tempfile.TemporaryDirectory() as work:
         with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
             futs = {n: pool.submit(build, n, f, work)
@@ -352,17 +293,12 @@ def main() -> None:
                 got = v(cols, *prog, with_rule, kw)
                 again = v(cols, *prog, with_rule, kw)
                 torch.cuda.synchronize()
-                if v.name in UNCHECKED:
-                    res["checks"][v.name] = "not checked"
-                    continue
                 ok = torch.equal(got[0], want[0]) and (
-                    not with_rule or torch.equal(got[1], want[1]))
-                if v.name not in UNCHECKED_AGG:
-                    ok = ok and torch.allclose(got[2], want[2], **cs.TOL) \
-                        and torch.equal(got[2], again[2])
-                    res["agg_err"][v.name] = (got[2].double()
-                                              - want[2].double()
-                                              ).abs().max().item()
+                    not with_rule or torch.equal(got[1], want[1])) \
+                    and torch.allclose(got[2], want[2], **cs.TOL) \
+                    and torch.equal(got[2], again[2])
+                res["agg_err"][v.name] = (got[2].double() - want[2].double()
+                                          ).abs().max().item()
                 res["checks"][v.name] = ok
                 if not ok:
                     failed.append(f"{v.name} {pname}")

@@ -9,9 +9,9 @@ failure:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions;
 2. build: the ``policy_scan``, ``profile_cube``, ``paged_attention``,
-   ``rglru_scan``, ``rwkv6_step``, ``decode_attention`` and ``mla_decode``
-   libraries from their ``csrc/``, one ``nvcc`` each, started together,
-   with each build time;
+   ``rglru_scan``, ``rwkv6_step``, ``decode_attention``, ``mla_decode`` and
+   ``wkv_chunked`` libraries from their ``csrc/``, one ``nvcc`` each,
+   started together, with each build time;
 3. kernels at device scale: 2^27 rows of the 16 kernel columns plus a
    validity row, generated on the card from a seed with f32-exact values;
    ``policy_scan_batch`` and ``policy_scan`` are held to their plain
@@ -217,6 +217,13 @@ failure:
     exact f64 softmax, timed from an idle card with the L2 cache flushed
     beside its bound (the latent rows read once), its kernels' own device
     times, the plain chain, graph-launched, with its registers and spills;
+    then ``wkv_chunked`` (the port's own, no TPU counterpart) at portbench's
+    rwkv6 cells' prefill shapes (B 8 x S 4,096 and B 256 x S 128, 32 heads
+    of 64, f32, from a nonzero state): bit for bit twice, within
+    ``rtol=atol=1e-4`` of the plain chain, timed from an idle card with the
+    L2 cache flushed beside its own device time, its bound (the bytes of
+    r, k, v, lw and y), the time of its intra-chunk exponentials on the
+    SFUs, the plain chain, its registers, spills and blocks an SM;
 13. paged serving: ``ServingEngine`` at chatglm3-6b's full width and depth
     (28 layers, weights drawn on the card from the seed), 4 requests of 256
     seeded prompt tokens and 32 new tokens over a 16-page hot pool a layer,
@@ -234,7 +241,8 @@ failure:
     full width and depth with parameters drawn on the card from the seed,
     through ``make_prefill`` and a decode step: rwkv6-1.6b, 8 prompts of
     512 seeded tokens and 64 new (exactly 24 x 63 = 1,512 ``rwkv6_step``
-    launches: prefill runs the plain chunked form), and recurrentgemma-9b,
+    launches, and 24 ``wkv_chunked``, one a layer in the prefill), and
+    recurrentgemma-9b,
     4 prompts of 2016 tokens and 64 new with ``cache_len`` 2080, so the
     2048-slot local-attention ring wraps (exactly 26 x 64 = 1,664
     ``rglru_scan`` launches: prefill and every step; and 12 x 63 = 756
@@ -300,7 +308,8 @@ failure:
     ``make_serve_step`` against the same steps unpartitioned on the same
     parameters: logits, tokens and final caches equal bit for bit,
     exactly one ``rglru_scan`` launch a recurrent layer in the prefill
-    and in each step (``rwkv6_step``: one a layer a step), every kernel
+    and in each step (``rwkv6_step``: one a layer a step, ``wkv_chunked``
+    one a layer in the prefill), every kernel
     call given plain tensors of the unpartitioned shapes; and the dry run
     of recurrentgemma-9b at ``train_4k`` and ``decode_32k`` on the 16x16
     production mesh, run on the CPU in a process of its own from before
@@ -488,6 +497,15 @@ MLA_SHAPE = (32, 64, 4608)               # B, H, L
 MLA_POSITIONS = (4095, 4351, 4607)
 MLA_SCALE = 192 ** -0.5
 RW_SOURCE = "src/repro_torch/kernels/rwkv6_step/csrc/rwkv6_step.cu"
+WKV_SOURCE = "src/repro_torch/kernels/wkv_chunked/csrc/wkv_chunked.cu"
+# wkv_chunked (B, S, H, hd) at portbench's rwkv6 cells' prefills: 8 prompts
+# of 4,096 (rwkv6-prefill) and 256 of 128 (rwkv6-decode), rwkv6-1.6b's 32
+# heads of 64 in each of its 24 layers
+WKV_SHAPES = (("rwkv6-prefill", (8, 4096, 32, 64)),
+              ("rwkv6-decode prefill", (256, 128, 32, 64)))
+WKV_LAYERS = 24
+WKV_CHUNK = 64                  # the kernel's tokens a chunk
+SFU_EXP_PER_S = 132 * 16 * 1.98e9   # H100 SXM: 16 ex2 an SM a clock, boost
 # recurrent kernels: rglru_scan (B, S, R) at recurrentgemma-9b's d_rnn and
 # the ragged shapes (a decode step, its prefill length, an odd width);
 # rwkv6_step (B, H, hd) at rwkv6-1.6b's heads, hd 16 and B = 1
@@ -1423,7 +1441,8 @@ def launch_window(fn):
     from repro_torch.kernels.profile_cube import kernel as PK
     from repro_torch.kernels.rglru_scan import kernel as RGK
     from repro_torch.kernels.rwkv6_step import kernel as RWK
-    for mod in (K, PK, AK, RGK, RWK, DK, MK):
+    from repro_torch.kernels.wkv_chunked import kernel as WK
+    for mod in (K, PK, AK, RGK, RWK, DK, MK, WK):
         mod.reset_counters()
     out = fn()
     return out, {"policy_scan": K.policy_scan_launches,
@@ -1444,7 +1463,8 @@ def launch_window(fn):
                  "decode_attention_combine":
                      DK.decode_attention_combine_launches,
                  "mla_decode": MK.mla_decode_launches,
-                 "mla_decode_combine": MK.mla_decode_combine_launches}
+                 "mla_decode_combine": MK.mla_decode_combine_launches,
+                 "wkv_chunked": WK.wkv_chunked_launches}
 
 
 def only(**launches) -> dict:
@@ -1454,12 +1474,14 @@ def only(**launches) -> dict:
     counts their scoped forms, ``profile_cube_scoped`` the scoped cube,
     ``rglru_scan_bwd`` the gradient of ``rglru_scan``,
     ``decode_attention_combine`` the combine of ``decode_attention``,
-    ``mla_decode_combine`` that of ``mla_decode``)."""
+    ``mla_decode_combine`` that of ``mla_decode``, ``wkv_chunked`` the
+    prefill's recurrence of RWKV6)."""
     want = dict.fromkeys(list(TPU_KERNELS) + [
         "policy_scan_store", "policy_scan_store_lean",
         "policy_scan_store_scoped", "policy_scan_store_scoped_lean",
         "profile_cube_scoped", "rglru_scan_bwd", "decode_attention",
-        "decode_attention_combine", "mla_decode", "mla_decode_combine"], 0)
+        "decode_attention_combine", "mla_decode", "mla_decode_combine",
+        "wkv_chunked"], 0)
     want.update(launches)
     return want
 
@@ -4249,6 +4271,112 @@ def mla_decode_phase(torch, seed, device, own: dict) -> None:
         "configs": cases}
 
 
+def wkv_inputs(torch, shape, seed: int, device):
+    """r, k, v, lw (B, S, H, hd), u (H, hd) and a start state (B, H, hd, hd)
+    f32 on the card: the log-decay as the model draws it (lw =
+    -exp(-3.9 + x/2), a decay of about 0.98), u 0.5 N(0, 1), the rest
+    standard normal."""
+    B, S, H, hd = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r, k, v = (torch.randn(shape, generator=g, device=device)
+               for _ in range(3))
+    lw = -torch.exp(-3.9 + 0.5 * torch.randn(shape, generator=g,
+                                             device=device))
+    u = 0.5 * torch.randn((H, hd), generator=g, device=device)
+    state = torch.randn((B, H, hd, hd), generator=g, device=device)
+    return r, k, v, lw, u, state
+
+
+def wkv_bounds_ms(shape):
+    """The function's least time, r, k, v, lw read and y written once (with
+    u and the state in and out) over the memory rate; and, as a cost of
+    this design rather than a floor of the function, the time of its
+    intra-chunk exponentials, C (C - 1) / 2 * hd a chunk of C = 64 and a
+    head, one each on the SFUs. Returns (bytes ms, bytes, exponentials ms,
+    exponentials)."""
+    B, S, H, hd = shape
+    nbytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+    chunks = -(-S // WKV_CHUNK)
+    exps = B * H * chunks * WKV_CHUNK * (WKV_CHUNK - 1) // 2 * hd
+    return (nbytes / HBM_BYTES_PER_S * 1e3, nbytes,
+            exps / SFU_EXP_PER_S * 1e3, exps)
+
+
+def wkv_chunked_case(torch, name: str, shape, seed: int, device,
+                     flush) -> dict:
+    """The kernel at ``shape``: equal to itself bit for bit on a second
+    call, within ``rtol=atol=1e-4`` of the plain chain (the card tests'
+    tolerance), then timed from an idle card with the L2 cache flushed
+    (CUDA events, median of REPS) beside its own device time
+    (``torch.profiler``), its byte bound, its exponentials' time, the plain
+    chain and its launch shape (registers, spills, blocks an SM)."""
+    from repro_torch.kernels.wkv_chunked import kernel as WK
+    from repro_torch.kernels.wkv_chunked import ref as WR
+    args = wkv_inputs(torch, shape, seed, device)
+
+    def call():
+        return WK.wkv_chunked_cuda(*args)
+
+    def plain():
+        return WR.wkv_chunked_ref(*args)
+    (y, s), (y2, s2) = call(), call()
+    yc, sc = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(s, s2), f"wkv_chunked {name}: "
+          "the kernel differs from run to run")
+    err_y = float((y - yc).abs().max().item())
+    err_s = float((s - sc).abs().max().item())
+    check(bool(torch.allclose(y, yc, rtol=1e-4, atol=1e-4)) and bool(
+        torch.allclose(s, sc, rtol=1e-4, atol=1e-4)), f"wkv_chunked {name}: "
+        f"the kernel differs from the plain chain: max abs err y {err_y!r}, "
+        f"state {err_s!r}")
+    del y, s, y2, s2, yc, sc
+    ms, times = cuda_times_ms(call, REPS, flush=flush)
+    dev = one_kernel_ms(kernel_device_ms(torch, call, REPS, flush=flush),
+                        "wkv_chunked_kernel", f"wkv_chunked {name}")
+    plain_ms, _ = cuda_times_ms(plain, REPS, flush=flush)
+    b_ms, nbytes, e_ms, exps = wkv_bounds_ms(shape)
+    launch = WK.launch_shape(shape[3])
+    entry = dict(shape=list(shape), ms=ms, device_ms=dev, plain_ms=plain_ms,
+                 library_ms=None, bound_ms=b_ms, bound_by="bytes",
+                 bytes=nbytes, exp_ms=e_ms, exps=exps, launch_shape=launch,
+                 max_abs_err=err_y, max_abs_err_state=err_s)
+    log(f"[wkv_chunked] {name} {tuple(shape)} f32 {CARD}: kernel {ms!r} ms "
+        f"from an idle card, L2 flushed (median of {len(times)}, min "
+        f"{min(times)!r}, max {max(times)!r}); own device time {dev!r} ms "
+        f"(torch.profiler); x {WKV_LAYERS} layers {WKV_LAYERS * dev!r} ms a "
+        f"prefill; bound {b_ms!r} ms by bytes ({nbytes} B): "
+        f"{b_ms / dev:.3f} of it by the device time; this design's "
+        f"exponentials ({exps} at {SFU_EXP_PER_S:.4g}/s) {e_ms!r} ms; "
+        f"plain chain {plain_ms!r} ms ({plain_ms / dev:.1f}x); "
+        f"launch {json.dumps(launch)}; max abs err against the plain chain "
+        f"y {err_y!r}, state {err_s!r}; bit for bit twice")
+    return entry
+
+
+def wkv_chunked_phase(torch, seed, device, own: dict) -> None:
+    """``wkv_chunked`` (a kernel of the port's own: it counterparts no TPU
+    kernel) at both rwkv6 cells' prefill shapes; recorded in ``own``."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    cases = {name: wkv_chunked_case(torch, name, shape, seed + 50 + i,
+                                    device, flush)
+             for i, (name, shape) in enumerate(WKV_SHAPES)}
+    del flush
+    torch.cuda.empty_cache()
+    main = cases[WKV_SHAPES[0][0]]
+    own["wkv_chunked"] = {
+        "name": "wkv_chunked", "route": "cuda", "source": WKV_SOURCE,
+        "replaces": None, "launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "error_against": "the plain chain on the same tensors",
+        "configs": cases}
+
+
 def profile_steps(torch, step, cache, nxt, pos: int, n: int) -> dict:
     """``n`` decode steps from ``cache`` under ``torch.profiler``: the wall
     seconds, the count of CUDA operations and the five largest by device
@@ -4350,11 +4478,13 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
                                       rwkv_agrees)
         n_kind = sum(s.mix == MIX_RWKV6 for s in cfg.layers)
         want_launches = n_kind * (new - 1)     # decode steps only
+        prefill_launches = {"wkv_chunked": n_kind}     # one a layer
     else:
         name, mod, cuda_op, agrees = ("rglru_scan", RGO, RGK.rglru_scan_cuda,
                                       rglru_agrees)
         n_kind = sum(s.mix == MIX_RGLRU for s in cfg.layers)
         want_launches = n_kind * new           # prefill and decode steps
+        prefill_launches = {}
     op = getattr(mod, name)
     g = torch.Generator(device=device)
     g.manual_seed(seed + 40)
@@ -4424,7 +4554,7 @@ def recurrent_serve_phase(torch, seed, device, results, arch: str,
             finally:
                 setattr(mod, name, op)
         want = only(**{name: want_launches}, **decode_attn_want(
-            torch, cfg, times["cache"], new - 1))
+            torch, cfg, times["cache"], new - 1), **prefill_launches)
         check(counts == want, f"{arch} serving ("
               f"{'graphed' if graphed else 'eager'}) launched {counts}, "
               f"expected {want}")
@@ -5231,7 +5361,8 @@ def mesh_serve(torch, device, mesh, model, batch: int, prompt_len: int,
             * n_rec + [("rglru_scan", (batch, 1, cfg.rnn_width))] * (
                 2 * n_rec)
     else:
-        want_pre, want_dec = only(), only(rwkv6_step=n_rwkv * steps, **attn)
+        want_pre, want_dec = only(wkv_chunked=n_rwkv), only(
+            rwkv6_step=n_rwkv * steps, **attn)
         want_calls = [("rwkv6_step", (batch, cfg.n_heads, cfg.head_dim))] \
             * (2 * n_rwkv)
     for r in (plain, laid):
@@ -6239,6 +6370,7 @@ def main() -> None:
     from repro_torch.kernels.rwkv6_step import kernel as RWK
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.mla_decode import kernel as MK
+    from repro_torch.kernels.wkv_chunked import kernel as WK
     global CARD
 
     # 1. environment
@@ -6267,9 +6399,9 @@ def main() -> None:
     def timed_build(build):
         t0 = time.perf_counter()
         return build(), time.perf_counter() - t0
-    with ThreadPoolExecutor(max_workers=7) as pool:
+    with ThreadPoolExecutor(max_workers=8) as pool:
         builds = list(pool.map(timed_build, (
-            M.LIBRARY.build for M in (K, PK, AK, RGK, RWK, DK, MK))))
+            M.LIBRARY.build for M in (K, PK, AK, RGK, RWK, DK, MK, WK))))
     for lib, secs in builds:
         log(f"[build] {os.path.relpath(lib, ROOT)} in {secs:.2f} s")
 
@@ -6287,6 +6419,7 @@ def main() -> None:
     recurrent_kernel_phase(torch, args.seed, device, results)
     decode_attn_phase(torch, args.seed, device, own)
     mla_decode_phase(torch, args.seed, device, own)
+    wkv_chunked_phase(torch, args.seed, device, own)
     t0 = time.perf_counter()
     cat = build_catalog(ENTRIES, args.seed)
     log(f"[engine] catalog of {len(cat)} entries built in "

@@ -36,5 +36,9 @@ Kernels:
 * ``mla_decode`` — the absorbed decode step's multi-head latent attention
   over the latent cache, each 576-wide latent row read once for all 64
   query heads of a block, the products on the tensor cores (no TPU
-  counterpart: the reference's latent attention is plain JAX).
+  counterpart: the reference's latent attention is plain JAX);
+* ``wkv_chunked`` — RWKV6's chunked sequence form (the prefill's
+  recurrence) in one launch a layer, a block walking a (batch, head)'s
+  chunks with the state and the intra-chunk scores in shared memory (no
+  TPU counterpart: the reference's sequence form is plain JAX).
 """

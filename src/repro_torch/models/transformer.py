@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels.mla_decode import ops as mla_ops
 from ..kernels.mla_decode import ref as mla_ref
+from ..kernels.wkv_chunked import ops as wkv_ops
 from . import rwkv6 as rk
 from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
@@ -722,8 +723,7 @@ def _mix_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
         rp = p["rwkv"]
         xprev = rk.token_shift(h)
         r, k, v, g, lw = _rwkv_timemix_prep(cfg, rp, h, xprev, part)
-        chunk = 64 if S % 64 == 0 else (math.gcd(S, 64) or S)
-        y, st = rk.wkv_chunked(r, k, v, lw, rp["u"], chunk=chunk)
+        y, st = wkv_ops.wkv_chunked(r, k, v, lw, rp["u"])
         out = _rwkv_out(cfg, rp, y, g, B, S, part)
         if want_cache:
             blob["s"] = st

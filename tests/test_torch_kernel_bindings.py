@@ -22,7 +22,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build, _launches
 
 KERNELS = ("decode_attention", "mla_decode", "paged_attention",
-           "policy_scan", "profile_cube", "rglru_scan", "rwkv6_step")
+           "policy_scan", "profile_cube", "rglru_scan", "rwkv6_step",
+           "wkv_chunked")
 
 
 def _module(name):
@@ -174,6 +175,7 @@ def _cpu_calls():
                                                       profile_cube)
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.rwkv6_step.ops import rwkv6_step
+    from repro_torch.kernels.wkv_chunked.ops import wkv_chunked
     z = torch.zeros
     prog = (z((1, 2), dtype=torch.int32), z((1, 2), dtype=torch.int32),
             z((1, 2)))
@@ -183,6 +185,9 @@ def _cpu_calls():
         "rwkv6_step": lambda: rwkv6_step(
             z(1, 1, 4), z(1, 1, 4), z(1, 1, 4), z(1, 1, 4), z(1, 4),
             z(1, 1, 4, 4), use_kernel=True),
+        "wkv_chunked": lambda: wkv_chunked(
+            z(1, 2, 1, 16), z(1, 2, 1, 16), z(1, 2, 1, 16), z(1, 2, 1, 16),
+            z(1, 16), use_kernel=True),
         "paged_attention": lambda: paged_attention(
             z(1, 1, 4), z(1, 2, 1, 4), z(1, 2, 1, 4),
             z((1, 1), dtype=torch.int32), z((1,), dtype=torch.int32),
@@ -205,7 +210,8 @@ def _cpu_calls():
 @pytest.mark.parametrize("op", ["rwkv6_step", "paged_attention",
                                 "rglru_scan", "policy_scan",
                                 "policy_scan batch", "policy_scan store",
-                                "profile_cube", "profile_cube store"])
+                                "profile_cube", "profile_cube store",
+                                "wkv_chunked"])
 def test_every_op_refuses_use_kernel_true_on_the_cpu(op):
     kernel = op.split()[0]
     with pytest.raises(ValueError, match=f"use_kernel=True needs CUDA "

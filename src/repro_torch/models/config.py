@@ -4,7 +4,9 @@ A model is a stack of layers drawn from a repeating ``pattern`` of
 :class:`LayerSpec`s (periods 1-5 cover every assigned arch). Layers inside
 full pattern repetitions are executed with ``jax.lax.scan`` over stacked
 parameters (compile time independent of depth); remainder layers (e.g.
-recurrentgemma's 38 = 12x3 + 2) are unrolled as a tail.
+recurrentgemma's 38 = 12x3 + 2) are unrolled as a tail. A model whose
+layers follow no period (Kimi Linear's last layer breaks its 3:1 pattern)
+states every layer in ``lead`` and leaves ``pattern`` empty.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ ATTN_NONCAUSAL = "bidir"  # encoder self-attention
 MIX_RGLRU = "rglru"       # RecurrentGemma recurrent block
 MIX_RWKV6 = "rwkv6"       # RWKV-6 time-mix
 ATTN_MLA = "mla"          # multi-head latent attention (DeepSeek-V2/V3)
+MIX_KDA = "kda"           # Kimi Delta Attention (gated delta rule)
 
 # ffn kinds
 FFN_DENSE = "dense"       # swiglu (or gelu for whisper)
@@ -61,15 +64,19 @@ class MoeSpec:
 @dataclasses.dataclass(frozen=True)
 class MlaSpec:
     """Multi-head latent attention's widths (DeepSeek-V2,
-    arXiv:2405.04434): queries through a rank-``q_lora_rank`` bottleneck,
-    keys and values from a ``kv_lora_rank`` latent shared by every head,
-    plus a ``qk_rope_head_dim`` rotary key shared by every head."""
+    arXiv:2405.04434): queries through a rank-``q_lora_rank`` bottleneck
+    (0: projected directly, as Kimi Linear's), keys and values from a
+    ``kv_lora_rank`` latent shared by every head, plus a
+    ``qk_rope_head_dim`` rotary key shared by every head. ``rope=False``
+    (Kimi Linear's ``mla_use_nope``): no rotation anywhere, that part of
+    the key cached and dotted as it is."""
 
     q_lora_rank: int
     kv_lora_rank: int
     qk_nope_head_dim: int
     qk_rope_head_dim: int
     v_head_dim: int
+    rope: bool = True
 
     @property
     def qk_head_dim(self) -> int:
@@ -79,6 +86,24 @@ class MlaSpec:
     def latent(self) -> int:
         """A cached position's width: the latent and the rotary key."""
         return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class KdaSpec:
+    """Kimi Delta Attention's widths (Moonshot AI's Kimi Linear report,
+    2025): ``num_heads`` heads of ``head_dim`` keys and values each, q, k
+    and v each through a depthwise causal convolution of the model's
+    ``conv_width`` taps, and the decay and output gates through
+    rank-``head_dim`` products. A head keeps an f32 ``head_dim`` x
+    ``head_dim`` state."""
+
+    num_heads: int
+    head_dim: int
+
+    @property
+    def width(self) -> int:
+        """q, k and v's width each: every head's."""
+        return self.num_heads * self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,12 +153,14 @@ class ModelConfig:
     tie_embeddings: bool = False
     # recurrent details
     d_rnn: int = 0                # rglru width (0 -> d_model)
-    conv_width: int = 4           # rglru temporal conv taps
+    conv_width: int = 4           # rglru / kda temporal conv taps
     rwkv_lora_mix: int = 32
     rwkv_lora_decay: int = 64
     # latent attention (ATTN_MLA layers) and YaRN RoPE
     mla: Optional[MlaSpec] = None
     yarn: Optional[YarnSpec] = None
+    # Kimi Delta Attention (MIX_KDA layers)
+    kda: Optional[KdaSpec] = None
     # moe
     moe: Optional[MoeSpec] = None
     moe_groups: int = 1           # dispatch groups (set = dp degree; SPerf)
@@ -155,16 +182,22 @@ class ModelConfig:
     @property
     def layers(self) -> Tuple[LayerSpec, ...]:
         """The full resolved per-layer spec list (lead + pattern + tail)."""
+        if not self.pattern:
+            return self.lead
         reps, rem = divmod(self.n_layers - len(self.lead), len(self.pattern))
         return self.lead + self.pattern * reps + self.pattern[:rem]
 
     @property
     def n_super(self) -> int:
         """Number of complete pattern repetitions (scanned)."""
+        if not self.pattern:
+            return 0
         return (self.n_layers - len(self.lead)) // len(self.pattern)
 
     @property
     def tail_specs(self) -> Tuple[LayerSpec, ...]:
+        if not self.pattern:
+            return ()
         rem = (self.n_layers - len(self.lead)) % len(self.pattern)
         return self.pattern[:rem]
 
@@ -184,11 +217,18 @@ class ModelConfig:
                 n += D * qk + 2 * D * kv + qk * D
             elif spec.mix == ATTN_MLA:
                 m, H = self.mla, self.n_heads
-                n += D * m.q_lora_rank + m.q_lora_rank \
-                    + m.q_lora_rank * H * m.qk_head_dim \
+                q = H * m.qk_head_dim
+                n += (D * m.q_lora_rank + m.q_lora_rank + m.q_lora_rank * q
+                      if m.q_lora_rank else D * q) \
                     + D * m.latent + m.kv_lora_rank \
                     + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim) \
                     + H * m.v_head_dim * D
+            elif spec.mix == MIX_KDA:
+                k = self.kda
+                W, r = k.width, k.head_dim          # the gates' rank
+                n += 4 * D * W + 3 * self.conv_width * W \
+                    + 2 * (D * r + r * W) + D * k.num_heads \
+                    + k.num_heads + W + k.head_dim  # A_log, dt_bias, norm
             elif spec.mix == MIX_RGLRU:
                 R = self.rnn_width
                 n += 2 * D * R + 2 * R * R + R * D + R * self.conv_width + 2 * R
@@ -259,5 +299,5 @@ def shapes_for(cfg: ModelConfig) -> Tuple[ShapeSpec, ...]:
 
 def is_subquadratic(cfg: ModelConfig) -> bool:
     """True if decode state is bounded (no full-attention layer)."""
-    return all(s.mix in (MIX_RGLRU, MIX_RWKV6, ATTN_LOCAL) and not s.cross_attn
-               for s in cfg.layers)
+    return all(s.mix in (MIX_RGLRU, MIX_RWKV6, MIX_KDA, ATTN_LOCAL)
+               and not s.cross_attn for s in cfg.layers)

@@ -7,7 +7,9 @@ window, ring-buffer decode cache) and bidirectional attention, RG-LRU and
 RWKV6 sequence mixing, swiglu and gelu FFNs, top-k MoE FFNs with a shared
 expert, and beside them DeepSeek-V3's block (Kimi-K2): multi-head latent
 attention over a latent decode cache, and sigmoid-routed experts of which
-a chip holds a share; gated cross-attention to image tokens or to the whisper encoder's
+a chip holds a share; Kimi Linear's Kimi Delta Attention (a gated delta
+rule over an f32 state a head, ``models/kda.py``) beside latent attention
+without RoPE; gated cross-attention to image tokens or to the whisper encoder's
 output, RMS and layer norms, learned positions and the int8 KV cache,
 with the reference's dtypes (bf16 weights and activations, f32 norms and
 recurrences). The reference
@@ -66,6 +68,7 @@ from ..device import resolve_device
 from ..kernels.mla_decode import ops as mla_ops
 from ..kernels.mla_decode import ref as mla_ref
 from ..kernels.wkv_chunked import ops as wkv_ops
+from . import kda as kd
 from . import rwkv6 as rk
 from ..runtime import spans
 from ..runtime.partition import NO_PARTITION, Partition
@@ -75,11 +78,12 @@ from .components import (_rglru_gates, attention,
                          rglru_scan, rglru_step, rms_norm, rope, softcap,
                          swiglu, yarn_inv_freq, yarn_mscale)
 from .config import (ATTN_FULL, ATTN_LOCAL, ATTN_MLA, ATTN_NONCAUSAL,
-                     FFN_DENSE, FFN_MOE, MIX_RGLRU, MIX_RWKV6, LayerSpec,
-                     ModelConfig)
+                     FFN_DENSE, FFN_MOE, MIX_KDA, MIX_RGLRU, MIX_RWKV6,
+                     LayerSpec, ModelConfig)
 
 Cache = List[Dict[str, torch.Tensor]]
 _MOE_AUX_COEF = 0.01
+_KDA_TOKENS = 1 << 14     # prompt tokens a Kimi Delta Attention pass takes
 _ENCODER_SPEC = LayerSpec(mix=ATTN_NONCAUSAL, ffn=FFN_DENSE)
 
 
@@ -175,17 +179,47 @@ def _ffn_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
 
 
 def _mla_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
-    """Latent attention's products, (in, out), and its two norms."""
+    """Latent attention's products, (in, out), and its norms: the query's
+    bottleneck ``q_a``, ``q_norm``, ``q_b``, or without one ``wq``."""
     D, H, m = cfg.d_model, cfg.n_heads, cfg.mla
+    q = {"q_a": ini.dense((D, m.q_lora_rank)),
+         "q_norm": ini.full((m.q_lora_rank,), 0.0),
+         "q_b": ini.dense((m.q_lora_rank, H * m.qk_head_dim))} \
+        if m.q_lora_rank else {"wq": ini.dense((D, H * m.qk_head_dim))}
     return nn.ParameterDict({
-        "q_a": ini.dense((D, m.q_lora_rank)),
-        "q_norm": ini.full((m.q_lora_rank,), 0.0),
-        "q_b": ini.dense((m.q_lora_rank, H * m.qk_head_dim)),
+        **q,
         "kv_a": ini.dense((D, m.latent)),
         "kv_norm": ini.full((m.kv_lora_rank,), 0.0),
         "kv_b": ini.dense((m.kv_lora_rank,
                            H * (m.qk_nope_head_dim + m.v_head_dim))),
         "wo": ini.dense((H * m.v_head_dim, D)),
+    })
+
+
+def _kda_params(cfg: ModelConfig, ini: _Init) -> nn.ParameterDict:
+    """Kimi Delta Attention's products (in, out), its convolutions' taps
+    (width, q/k/v width), the gates' rank-``head_dim`` products, the f32
+    ``A_log`` (a head) and ``dt_bias`` (a channel), and the output norm's
+    weight, one for every head."""
+    D, k = cfg.d_model, cfg.kda
+    W, r = k.width, k.head_dim
+    f32 = torch.float32
+    return nn.ParameterDict({
+        "wq": ini.dense((D, W)),
+        "wk": ini.dense((D, W)),
+        "wv": ini.dense((D, W)),
+        "q_conv": ini.dense((cfg.conv_width, W), scale=0.3),
+        "k_conv": ini.dense((cfg.conv_width, W), scale=0.3),
+        "v_conv": ini.dense((cfg.conv_width, W), scale=0.3),
+        "f_a": ini.dense((D, r)),
+        "f_b": ini.dense((r, W)),
+        "b": ini.dense((D, k.num_heads)),
+        "g_a": ini.dense((D, r)),
+        "g_b": ini.dense((r, W)),
+        "A_log": ini.full((k.num_heads,), 0.0, f32),
+        "dt_bias": ini.full((W,), -4.0, f32),      # a decay ~0.98 a token
+        "o_norm": ini.full((k.head_dim,), 0.0),
+        "wo": ini.dense((W, D)),
     })
 
 
@@ -238,6 +272,8 @@ def _layer_params(cfg: ModelConfig, spec: LayerSpec, ini: _Init
         p["attn"] = _attn_params(cfg, ini)
     elif spec.mix == ATTN_MLA:
         p["mla"] = _mla_params(cfg, ini)
+    elif spec.mix == MIX_KDA:
+        p["kda"] = _kda_params(cfg, ini)
     elif spec.mix == MIX_RGLRU:
         p["rglru"] = _rglru_params(cfg, ini)
     elif spec.mix == MIX_RWKV6:
@@ -552,12 +588,15 @@ def _one_rank(part: Partition, what: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def _mla_rope(cfg: ModelConfig, device: torch.device
-              ) -> Tuple[torch.Tensor, float]:
+              ) -> Tuple[Optional[torch.Tensor], float]:
     """Latent attention's rotary frequencies on ``device`` (YaRN's where
-    ``cfg.yarn``) and its softmax scale, ``qk_head_dim^-0.5`` times YaRN's
-    ``mscale(factor, mscale_all_dim)^2`` (DeepSeek-V3's)."""
+    ``cfg.yarn``; None without RoPE) and its softmax scale,
+    ``qk_head_dim^-0.5`` times YaRN's ``mscale(factor, mscale_all_dim)^2``
+    (DeepSeek-V3's)."""
     m, y = cfg.mla, cfg.yarn
     d = m.qk_rope_head_dim
+    if not m.rope:
+        return None, m.qk_head_dim ** -0.5
     if y is None:
         freq = cfg.rope_theta ** (-torch.arange(0, d // 2,
                                                 dtype=torch.float32) / (d // 2))
@@ -571,26 +610,33 @@ def _mla_rope(cfg: ModelConfig, device: torch.device
 def _mla_q(cfg: ModelConfig, p, h: torch.Tensor, positions: torch.Tensor
            ) -> torch.Tensor:
     """Queries (B, S, H, qk_head_dim): through the q bottleneck and its
-    norm, the rotary part turned (RoPE halves rotated)."""
+    norm (or ``wq`` where there is none), the rotary part turned (RoPE
+    halves rotated) where the model has RoPE."""
     m = cfg.mla
     B, S, _ = h.shape
     freq, _ = _mla_rope(cfg, h.device)
-    cq = rms_norm(h @ p["q_a"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["q_b"]).reshape(B, S, cfg.n_heads, m.qk_head_dim)
-    nope = m.qk_nope_head_dim
-    q[..., nope:] = rope(q[..., nope:], positions, inv_freq=freq)
+    if m.q_lora_rank:
+        q = rms_norm(h @ p["q_a"], p["q_norm"], cfg.norm_eps) @ p["q_b"]
+    else:
+        q = h @ p["wq"]
+    q = q.reshape(B, S, cfg.n_heads, m.qk_head_dim)
+    if freq is not None:
+        nope = m.qk_nope_head_dim
+        q[..., nope:] = rope(q[..., nope:], positions, inv_freq=freq)
     return q
 
 
 def _mla_latent(cfg: ModelConfig, p, h: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """What the cache holds of each position (B, S, latent): the normed
-    ``c_kv`` and the rotary key ``k_pe``, shared by every head."""
+    ``c_kv`` and the rotary key ``k_pe`` (unrotated without RoPE), shared
+    by every head."""
     R = cfg.mla.kv_lora_rank
     freq, _ = _mla_rope(cfg, h.device)
     kv = h @ p["kv_a"]
     c = rms_norm(kv[..., :R], p["kv_norm"], cfg.norm_eps)
-    k_pe = rope(kv[..., None, R:], positions, inv_freq=freq)[..., 0, :]
+    k_pe = kv[..., R:] if freq is None else rope(
+        kv[..., None, R:], positions, inv_freq=freq)[..., 0, :]
     return torch.cat([c, k_pe], dim=-1)
 
 
@@ -659,6 +705,80 @@ def _mla_step_(cfg: ModelConfig, p, cache: Dict[str, torch.Tensor],
         return (o.transpose(0, 1).reshape(B, 1, -1) @ p["wo"])
 
 
+def _kda_in(cfg: ModelConfig, p, h: torch.Tensor,
+            conv: Optional[torch.Tensor] = None):
+    """Kimi Delta Attention's inputs from ``h`` (B, S, D), after the
+    convolution's last inputs ``conv`` (B, conv_width - 1, 3 x H x K;
+    zeros where None): q, k (L2-normed a head, q times K^-0.5) and v, each
+    through its depthwise causal convolution and SiLU, (B, S, H, K); the
+    decay ``g = -exp(A_log) softplus(x f_a f_b + dt_bias)`` (B, S, H, K);
+    ``beta = sigmoid(x b)`` (B, S, H); all f32; the output gate's logits
+    (B, S, H x K) and the convolution's new last inputs, in h's dtype."""
+    kc = cfg.kda
+    B, S, _ = h.shape
+    H, K = kc.num_heads, kc.head_dim
+    x = torch.cat([h @ p["wq"], h @ p["wk"], h @ p["wv"]], dim=-1)
+    w = torch.cat([p["q_conv"], p["k_conv"], p["v_conv"]], dim=-1)
+    y, tail = causal_conv1d(x.float(), w.float(),
+                            None if conv is None else conv.float())
+    q, k, v = F.silu(y).reshape(B, S, 3, H, K).unbind(2)
+    q = q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-6) * K ** -0.5
+    k = k * torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-6)
+    f = ((h @ p["f_a"]) @ p["f_b"]).float() + p["dt_bias"]
+    g = -torch.exp(p["A_log"])[:, None] * F.softplus(f.reshape(B, S, H, K))
+    beta = torch.sigmoid((h @ p["b"]).float())
+    gate = (h @ p["g_a"]) @ p["g_b"]
+    return q, k, v, g, beta, gate, tail.to(h.dtype)
+
+
+def _kda_out(cfg: ModelConfig, p, o: torch.Tensor, gate: torch.Tensor
+             ) -> torch.Tensor:
+    """o (B, S, H, V) f32 through the norm a head (one weight for every
+    head), times ``sigmoid(gate)``, then ``wo``."""
+    B, S = o.shape[:2]
+    o = rms_norm(o, p["o_norm"], cfg.norm_eps) * torch.sigmoid(
+        gate.float()).reshape(o.shape)
+    return o.to(gate.dtype).reshape(B, S, -1) @ p["wo"]
+
+
+def _kda_seq(cfg: ModelConfig, p, h: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kimi Delta Attention over whole sequences, the chunked form
+    (``kda.kda_chunked``), as many sequences at a time as hold
+    ``_KDA_TOKENS`` tokens (the f32 intermediates of a pass are a few
+    times its q). Returns (out, the final states (B, H, K, V), the
+    convolution's last inputs); device span ``.kda_chunk`` around each
+    pass's recurrence."""
+    rows = max(1, _KDA_TOKENS // h.shape[1])
+    outs, states, tails = [], [], []
+    for b in range(0, h.shape[0], rows):
+        hb = h[b:b + rows]
+        q, k, v, g, beta, gate, tail = _kda_in(cfg, p, hb)
+        with spans.device_span(".kda_chunk"):
+            o, s = kd.kda_chunked(q, k, v, g, beta)
+        del q, k, v, g, beta
+        outs.append(_kda_out(cfg, p, o, gate))
+        states.append(s)
+        tails.append(tail)
+    return torch.cat(outs), torch.cat(states), torch.cat(tails)
+
+
+def _kda_step_(cfg: ModelConfig, p, cache: Dict[str, torch.Tensor],
+               h: torch.Tensor) -> torch.Tensor:
+    """One decode position of Kimi Delta Attention: the state
+    ``cache["s"]`` and the convolution's last inputs ``cache["conv"]``
+    written in place. Device spans ``.kda_in`` (projections, convolution,
+    norms, gates), ``.kda_state`` (the recurrence) and ``.kda_out``."""
+    with spans.device_span(".kda_in"):
+        q, k, v, g, beta, gate, tail = _kda_in(cfg, p, h, cache["conv"])
+        cache["conv"].copy_(tail)
+    with spans.device_span(".kda_state"):
+        o = kd.kda_step_(cache["s"], q[:, 0], k[:, 0], v[:, 0], g[:, 0],
+                         beta[:, 0])
+    with spans.device_span(".kda_out"):
+        return _kda_out(cfg, p, o[:, None], gate)
+
+
 def apply_layer_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                     positions: torch.Tensor, kv_chunk: int = 1024,
                     want_cache: bool = False,
@@ -702,6 +822,11 @@ def _mix_seq(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
         out, latent = _mla_seq(cfg, p["mla"], h, positions)
         if want_cache:
             blob["latent"] = latent
+    elif spec.mix == MIX_KDA:
+        _one_rank(part, "Kimi Delta Attention")
+        out, state, tail = _kda_seq(cfg, p["kda"], h)
+        if want_cache:
+            blob["s"], blob["conv"] = state, tail
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
         # R over "model": the gates' products need v whole, the scan runs
@@ -777,7 +902,9 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     ``k``/``v`` and f32 ``kscale``/``vscale`` (B, L, K, 1); a local layer
     then raises ``ValueError``, as the reference asserts. A latent
     attention layer keeps one bf16 ``latent`` (B, L, kv_lora_rank +
-    qk_rope_head_dim).
+    qk_rope_head_dim). A Kimi Delta Attention layer keeps its f32 state
+    ``s`` (B, H, K, K) and its convolution's last inputs ``conv`` (B,
+    width - 1, 3 x H x K), q's, k's and v's side by side.
 
     ``part``: this rank's shard, as ``ShardingRules.cache_pspecs`` splits
     the whole: ``batch`` (the global batch) over the data ranks where the
@@ -813,6 +940,12 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     elif spec.mix == ATTN_MLA:
         blob["latent"] = mk((batch, cache_len, cfg.mla.latent),
                             torch.bfloat16)
+    elif spec.mix == MIX_KDA:
+        kc = cfg.kda
+        blob["s"] = mk((batch, kc.num_heads, kc.head_dim, kc.head_dim),
+                       torch.float32)
+        blob["conv"] = mk((batch, cfg.conv_width - 1, 3 * kc.width),
+                          torch.bfloat16)
     elif spec.mix == MIX_RGLRU:
         R = share(cfg.rnn_width)
         blob["h"] = mk((batch, R), torch.float32)
@@ -889,8 +1022,10 @@ def _mix_step_(cfg: ModelConfig, spec: LayerSpec, p,
                pos_t: torch.Tensor, part: Partition) -> torch.Tensor:
     """The mixing half of :func:`apply_layer_step_`, through the residual
     add and the cross-attention: the new x. Device spans ``.kv_write`` and
-    ``.attend`` (attention; latent attention ``.q`` and ``.out`` too) or
-    ``.rwkv6_step`` and ``.state_copy`` (RWKV-6) inside the caller's."""
+    ``.attend`` (attention; latent attention ``.q`` and ``.out`` too),
+    ``.rwkv6_step`` and ``.state_copy`` (RWKV-6) or ``.kda_in``,
+    ``.kda_state`` and ``.kda_out`` (Kimi Delta Attention) inside the
+    caller's."""
     B = x.shape[0]
     h = _norm(cfg, p["ln1"], x)
 
@@ -940,6 +1075,9 @@ def _mix_step_(cfg: ModelConfig, spec: LayerSpec, p,
     elif spec.mix == ATTN_MLA:
         _one_rank(part, "latent attention")
         out = _mla_step_(cfg, p["mla"], cache, h, pos_t)
+    elif spec.mix == MIX_KDA:
+        _one_rank(part, "Kimi Delta Attention")
+        out = _kda_step_(cfg, p["kda"], cache, h)
     elif spec.mix == MIX_RGLRU:
         rp = p["rglru"]
         r_sh = rp["w_in"].shape[-1] != cfg.rnn_width
